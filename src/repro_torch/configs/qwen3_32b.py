@@ -1,0 +1,25 @@
+"""qwen3-32b — dense GQA transformer with qk_norm.
+
+[hf:Qwen/Qwen3-8B (family); hf]
+64L d_model=5120 64H (GQA kv=8) d_ff=25600 vocab=151936 — qk_norm, GQA
+"""
+
+from repro_torch.configs.base import ArchConfig, register_arch
+
+CONFIG = register_arch(
+    ArchConfig(
+        name="qwen3-32b",
+        family="dense",
+        source="hf:Qwen/Qwen3-8B; hf",
+        n_layers=64,
+        d_model=5120,
+        n_heads=64,
+        n_kv_heads=8,
+        d_head=128,
+        d_ff=25600,
+        vocab_size=151936,
+        qk_norm=True,
+        rope_theta=1_000_000.0,
+        norm_eps=1e-6,
+    )
+)
