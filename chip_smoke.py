@@ -6,20 +6,32 @@
 Phases (each raises on failure, so the script exits non-zero):
 
 0. device — fail without CUDA; print the card's name and power limit.
-1. build — compile the three hand-written CUDA kernels from ``csrc/``.
-2. kernels — each kernel against its plain PyTorch version on the card, at
-   the serving path's shapes (codeqwen1.5-7b: KV=32, G=1, d=128, 4 slots x
-   1024 positions; a 64-token ragged pack; 64- and 37-token prefill), plus
-   the GQA shape KV=8, G=8, a sliding window, f32 and bf16. Times each
-   kernel, its plain version and a one-call PyTorch yardstick with CUDA
+1. build — compile the hand-written CUDA kernels from ``csrc/`` (four
+   sources, seven kernel bodies: decode, ragged and paged attention over a
+   plain or a quantized store, and GQA flash attention).
+2. kernels — each kernel body against its plain PyTorch version on the card,
+   at the serving path's shapes (codeqwen1.5-7b: KV=32, G=1, d=128, 4 slots
+   x 1024 positions; a 64-token ragged pack; 64- and 37-token prefill; an
+   8-sequence paged decode over a fragmented pool with a shared prefix,
+   block sizes 16 and 32), plus the GQA shape KV=8, G=8, a sliding window,
+   f32 and bf16 queries, int8 and fp8 stores. Times each kernel, its plain
+   version and a one-call PyTorch yardstick (where one exists) with CUDA
    events, and computes its bound at the card's published peaks.
 3. kernel path vs plain path — a small f32 model served greedily through
-   ServeEngine on the card and on the CPU; the token streams must be equal.
+   ServeEngine on the card and on the CPU, dense, paged with prefix reuse,
+   and over int8 and fp8 caches; the token streams must be equal.
 4. full width — codeqwen1.5-7b, 32 layers, bf16, random weights from a seed,
    4 slots x 1024 positions; about 12 greedy requests whose prompts straddle
    the prefill budget, so fused admissions, ragged packs and decode chunks
-   all run; each kernel's launch count over this run must be > 0.
-5. a ``{"kernels": [...]}`` JSON line, then the result line.
+   all run; each PR-11 kernel's launch count over this run must be > 0.
+5. full width, paged and quantized — the same weights behind (a) a paged
+   engine with prefix reuse serving a shared 512-token system prompt, (b)
+   the same traffic over an int8 pool of (a)'s bytes, (c) phase 4's traffic
+   over a dense int8 cache; in each run the counts are set to 0 just before
+   the measured requests and read just after, the kernels that run drives
+   must have launched, the prefix cache must hit, and each run's stream must
+   agree with ``LM.prefill`` teacher-forced.
+6. a ``{"kernels": [...]}`` JSON line, then the result line.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -44,11 +56,22 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # bf16 tensor core, f32 CUD
 # summation order; at bf16 both compute in f32 from the same bf16 inputs and
 # round the output once, so they differ by at most ~2 bf16 steps at |x| <= 1
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
-# teacher-forced top-1 agreement floor of phase 4: a random-weight bf16 model
-# over a 92k vocab has top-2 logit gaps of ~0.2 while bf16 logits near 4 are
-# spaced 0.03 apart, so near-ties flip between two matmul/attention orders;
-# a wrong kernel agrees on ~1/92416 of the positions
+# teacher-forced top-1 agreement floor of phases 4 and 5: a random-weight
+# bf16 model over a 92k vocab has top-2 logit gaps of ~0.2 while bf16 logits
+# near 4 are spaced 0.03 apart, so near-ties flip between two matmul/attention
+# orders; an int8 or fp8 KV cache adds a relative row error of ~0.4% (int8)
+# to ~6% (fp8) to every key and value, which flips more near-ties. A wrong
+# kernel (wrong rows, wrong scales, wrong table) agrees on ~1/92416 of the
+# positions, so 0.5 still separates right from wrong with a wide margin
 AGREE_FLOOR = 0.5
+# phase 2's dense-cache shapes (also timed by scripts/torch_attention_ab.py):
+# 4 slots x 1024 positions; decode at an empty prefix, a non-tile multiple
+# and a full slot; a 64-token pack of 40 prompt tokens of slot 1, 16 of slot
+# 3 and 8 padding tokens (tok_pos = S_MAX) riding slot 1
+SLOTS, S_MAX = 4, 1024
+DECODE_POS = [0, 333, 700, S_MAX - 1]
+PACK_SLOTS = [1] * 40 + [3] * 16 + [1] * 8
+PACK_POS = list(range(0, 40)) + list(range(600, 616)) + [S_MAX] * 8
 
 
 def phase(name: str) -> None:
@@ -107,8 +130,7 @@ def check_kernels(dev):
             results[name] = dict(timed, max_abs_err=err, tol=tol)
 
     bf16, f32 = torch.bfloat16, torch.float32
-    B, S = 4, 1024
-    cur = [0, 333, 700, S - 1]  # empty prefix, non-tile multiple, full slot
+    B, S, cur = SLOTS, S_MAX, DECODE_POS
 
     # ---- decode attention
     for kv, g, dtype, window, main in [
@@ -138,17 +160,12 @@ def check_kernels(dev):
         report("decode_attention", f"B={B} S={S} KV={kv} G={g} {dtype} win={window}", dtype, err, timed)
 
     # ---- ragged attention: a 64-token pack over 2 slots, as the engine builds it
-    def pack(s_max):
-        slots = [1] * 40 + [3] * 16 + [1] * 8  # 8 padding tokens ride pack_slots[0]
-        poss = list(range(0, 40)) + list(range(600, 616)) + [s_max] * 8
-        return (torch.tensor(slots, dtype=torch.int32, device=dev),
-                torch.tensor(poss, dtype=torch.int32, device=dev))
-
+    ts = torch.tensor(PACK_SLOTS, dtype=torch.int32, device=dev)
+    tp = torch.tensor(PACK_POS, dtype=torch.int32, device=dev)
     for kv, g, dtype, window, main in [
         (32, 1, bf16, 0, True), (32, 1, f32, 0, False), (8, 8, bf16, 0, False),
         (8, 8, f32, 0, False), (32, 1, bf16, 100, False), (8, 8, f32, 24, False),
     ]:
-        ts, tp = pack(S)
         T = ts.numel()
         q, k, v = randn(T, kv, g, 128, dtype=dtype), randn(B, S, kv, 128, dtype=dtype), \
             randn(B, S, kv, 128, dtype=dtype)
@@ -208,6 +225,206 @@ def check_kernels(dev):
     return results
 
 
+def check_paged_and_quant_kernels(dev):
+    """Phase 2 for the paged kernel and the quantized-store bodies of the
+    decode, ragged and paged kernels. Every case is checked and timed; the
+    main case of each body (phase 5's shape, bf16 queries) is returned."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.dist.compression import quantize_rows
+    from repro_torch.kernels import decode_attention as dk
+    from repro_torch.kernels import paged_attention as pk
+    from repro_torch.kernels import ragged_attention as rk
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    rs = np.random.default_rng(1)
+    results = {}
+    bf16, f32 = torch.bfloat16, torch.float32
+    stores = {"int8": torch.int8, "fp8": torch.float8_e4m3fn}
+    no_library = "none: no single PyTorch call attends over int8/fp8 rows with row scales"
+    S, D = S_MAX, 128
+
+    def randn(*shape, dtype=f32):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    def store_kv(shape, store, qdtype):
+        """K/V in the model dtype, or quantized rows with their scales."""
+        k, v = randn(*shape), randn(*shape)
+        if store is None:
+            return k.to(qdtype), v.to(qdtype), {}
+        k, ks = quantize_rows(k, stores[store])
+        v, vs = quantize_rows(v, stores[store])
+        return k, v, dict(k_scale=ks, v_scale=vs)
+
+    def key_span(pos, window):
+        """The valid key positions of a real token at pos."""
+        return range(max(0, pos - window + 1) if window else 0, min(pos, S - 1) + 1)
+
+    def measure(name, case, qdtype, got, want, real, kernel, plain, rows, ops_, row_bytes,
+                extra_bytes, library=None, main=False):
+        """Check one case against its plain version, time it, print both."""
+        tol = TOL[str(qdtype).split(".")[-1]]
+        err = (got[real].float() - want[real].float()).abs().max().item()
+        if got[~real].any():
+            raise AssertionError(f"{name} {case}: padding rows are not zero")
+        timed = dict(ms=time_ms(kernel), plain_ms=time_ms(plain), library_ms=None,
+                     library=no_library)
+        if library is not None:
+            timed["library_ms"], timed["library"] = time_ms(library[0]), library[1]
+        timed["bound_ms"], timed["bound_by"] = bound(rows * row_bytes + extra_bytes, ops_, qdtype)
+        lib = f"{timed['library_ms']:.4f}" if timed["library_ms"] is not None else "none"
+        print(f"  {name:20s} {case:52s} err={err:.2e} tol={tol:g} ms={timed['ms']:.4f} "
+              f"plain={timed['plain_ms']:.3f} bound={timed['bound_ms']:.5f} library={lib}",
+              flush=True)
+        if not err <= tol:
+            raise AssertionError(f"{name} {case}: max_abs_err {err} above {tol}")
+        if main:
+            results[name] = dict(timed, max_abs_err=err, tol=tol)
+
+    def kv_row_bytes(k, kv, scaled):
+        return kv * (D * k.element_size() + (4 if scaled else 0)) * 2  # K and V
+
+    # ---- paged: an 8-sequence decode over a fragmented pool whose first four
+    # sequences share a 512-token prefix (phase 5's traffic), and 64-token packs
+    cur = [540, 560, 580, 600, 5, 300, 700, S - 1]
+
+    def pool_tables(bs):
+        """(num_blocks, tables): each sequence's blocks drawn from a shuffled
+        pool, the shared prefix's blocks named by sequences 0-3; unallocated
+        entries hold the sentinel num_blocks (the pool's scratch block)."""
+        maxb = S // bs
+        nb = len(cur) * maxb
+        free = list(rs.permutation(nb))
+        shared = [int(free.pop()) for _ in range(512 // bs)]
+        tab = np.full((len(cur), maxb), nb, np.int32)
+        for i, c in enumerate(cur):
+            n = min(c, S - 1) // bs + 1
+            own = shared if i < 4 else []
+            tab[i, :n] = (own + [int(free.pop()) for _ in range(n - len(own))])[:n]
+        return nb, tab
+
+    def paged_sdpa(q, k, v, seqs, poss, tab, nb, bs, window):
+        """SDPA over the whole pool, each token masked to its sequence's
+        valid rows (softmax ignores key order): one call; the mask is set-up."""
+        rowpos = np.full((len(seqs), (nb + 1) * bs), -1, np.int64)
+        for t, (sq, ps) in enumerate(zip(seqs, poss)):
+            for j, blk in enumerate(tab[sq]):
+                if blk < nb:
+                    rowpos[t, blk * bs:(blk + 1) * bs] = j * bs + np.arange(bs)
+        lo = np.asarray([min(key_span(p_, window), default=S) for p_ in poss])[:, None]
+        hi = np.asarray([max(key_span(p_, window), default=-1) for p_ in poss])[:, None]
+        mask = torch.from_numpy((rowpos >= lo) & (rowpos <= hi) & (rowpos >= 0)).to(dev)
+        mask = mask[:, None, None, :]
+        kv = k.shape[2]
+        kf = k.reshape((nb + 1) * bs, kv, D).permute(1, 0, 2)[None].expand(len(seqs), -1, -1, -1)
+        vf = v.reshape((nb + 1) * bs, kv, D).permute(1, 0, 2)[None].expand(len(seqs), -1, -1, -1)
+        return (lambda: F.scaled_dot_product_attention(q, kf, vf, attn_mask=mask),
+                "SDPA over the whole pool, masked")
+
+    for name, store, cases in [
+        ("paged_attention", None, [
+            (32, 1, 32, bf16, 0, "decode", True), (32, 1, 16, f32, 0, "decode", False),
+            (8, 8, 16, bf16, 0, "decode", False), (8, 8, 32, f32, 0, "decode", False),
+            (32, 1, 32, bf16, 0, "pack", False), (32, 1, 16, bf16, 100, "pack", False),
+        ]),
+        ("paged_attention_q8", "int8", [
+            (32, 1, 32, bf16, 0, "decode", True), (32, 1, 16, f32, 0, "decode", False),
+            (8, 8, 16, bf16, 0, "decode", False), (32, 1, 32, bf16, 0, "pack", False),
+            (8, 8, 32, f32, 77, "pack", False),
+        ]),
+        ("paged_attention_q8", "fp8", [
+            (32, 1, 32, bf16, 0, "decode", False), (8, 8, 16, f32, 0, "decode", False),
+            (32, 1, 16, bf16, 100, "pack", False),
+        ]),
+    ]:
+        for kv, g, bs, dtype, window, kind, main in cases:
+            nb, tab_h = pool_tables(bs)
+            tab = torch.from_numpy(tab_h).to(dev)
+            k, v, scales = store_kv((nb + 1, bs, kv, D), store, dtype)
+            if kind == "decode":
+                seqs, poss = list(range(len(cur))), cur
+            else:  # 40 prompt tokens of seq 6, 16 of seq 1, 8 padding tokens
+                seqs = [6] * 40 + [1] * 16 + [6] * 8
+                poss = list(range(600, 640)) + list(range(545, 561)) + [S] * 8
+            ts = torch.tensor(seqs, dtype=torch.int32, device=dev)
+            tp = torch.tensor(poss, dtype=torch.int32, device=dev)
+            q = randn(len(seqs), kv, g, D, dtype=dtype)
+            counter = "launches_q8" if scales else "launches"
+            n0 = getattr(pk, counter)
+            got = pk.paged_attention(q, k, v, ts, tp, tab, window=window, **scales)
+            if getattr(pk, counter) != n0 + 1:
+                raise AssertionError(f"{name}: the wrapper did not count its launch")
+            want = ref.paged_ragged_attention(q, k, v, ts, tp, tab, window=window, **scales)
+            real = tp < S  # padding rows: zeros from the kernel, never read
+            # the bound reads each pool row (and its block's table entry) once
+            # however many tokens attend it: the shared prefix counts once
+            spans = [(sq, key_span(p_, window)) for sq, p_ in zip(seqs, poss) if p_ < S]
+            rows = {(int(tab_h[sq, p_ // bs]), p_ % bs) for sq, sp in spans for p_ in sp}
+            n_keys = sum(len(sp) for _, sp in spans)
+            extra = nbytes(q, q, ts, tp) + len({blk for blk, _ in rows}) * 4
+            plain = (
+                (lambda: ref.paged_decode_attention(q, k, v, tp, tab, window=window, **scales))
+                if kind == "decode" else
+                (lambda: ref.paged_ragged_attention(q, k, v, ts, tp, tab, window=window,
+                                                    **scales))
+            )
+            library = None if scales else paged_sdpa(q, k, v, seqs, poss, tab_h, nb, bs, window)
+            measure(name, f"{kind} T={len(seqs)} KV={kv} G={g} bs={bs} {store or dtype} "
+                    f"q={str(dtype)[6:]} win={window}", dtype, got, want, real,
+                    lambda: pk.paged_attention(q, k, v, ts, tp, tab, window=window, **scales),
+                    plain, len(rows), n_keys * kv * g * D * 4, kv_row_bytes(k, kv, bool(scales)),
+                    extra, library, main)
+
+    # ---- decode and ragged over a quantized dense cache (phase 5 (c))
+    B, dcur = SLOTS, DECODE_POS
+    for store, kv, g, dtype, window, main in [
+        ("int8", 32, 1, bf16, 0, True), ("int8", 32, 1, f32, 0, False),
+        ("fp8", 32, 1, bf16, 0, False), ("int8", 8, 8, bf16, 0, False),
+        ("fp8", 8, 8, f32, 0, False), ("int8", 32, 1, bf16, 100, False),
+    ]:
+        q = randn(B, kv, g, D, dtype=dtype)
+        k, v, scales = store_kv((B, S, kv, D), store, dtype)
+        cl = torch.tensor(dcur, dtype=torch.int32, device=dev)
+        got = dk.decode_attention(q, k, v, cl, window=window, **scales)
+        want = ref.decode_attention(q, k, v, cl, window=window, **scales)
+        n_rows = sum(len(key_span(c, window)) for c in dcur)
+        measure("decode_attention_q8", f"B={B} S={S} KV={kv} G={g} {store} "
+                f"q={str(dtype)[6:]} win={window}", dtype, got, want,
+                torch.ones(B, dtype=torch.bool, device=dev),
+                lambda: dk.decode_attention(q, k, v, cl, window=window, **scales),
+                lambda: ref.decode_attention(q, k, v, cl, window=window, **scales),
+                n_rows, n_rows * kv * g * D * 4, kv_row_bytes(k, kv, True), nbytes(q, q, cl),
+                main=main)
+
+    slots, poss = PACK_SLOTS, PACK_POS
+    ts = torch.tensor(slots, dtype=torch.int32, device=dev)
+    tp = torch.tensor(poss, dtype=torch.int32, device=dev)
+    for store, kv, g, dtype, window, main in [
+        ("int8", 32, 1, bf16, 0, True), ("int8", 32, 1, f32, 0, False),
+        ("fp8", 32, 1, bf16, 0, False), ("int8", 8, 8, bf16, 0, False),
+        ("fp8", 8, 8, f32, 24, False),
+    ]:
+        q = randn(len(slots), kv, g, D, dtype=dtype)
+        k, v, scales = store_kv((B, S, kv, D), store, dtype)
+        got = rk.ragged_attention(q, k, v, ts, tp, window=window, **scales)
+        want = ref.ragged_attention(q, k, v, ts, tp, window=window, **scales)
+        real = [(s_, p_) for s_, p_ in zip(slots, poss) if p_ < S]
+        rows = {(s_, r) for s_, p_ in real for r in key_span(p_, window)}
+        n_keys = sum(len(key_span(p_, window)) for _, p_ in real)
+        valid = ref.ragged_valid_mask(ts, tp, B, S, window)
+        measure("ragged_attention_q8", f"T={len(slots)} S={S} KV={kv} G={g} {store} "
+                f"q={str(dtype)[6:]} win={window}", dtype, got, want, tp < S,
+                lambda: rk.ragged_attention(q, k, v, ts, tp, window=window, **scales),
+                lambda: ref.ragged_attention(q, k, v, ts, tp, window=window, valid=valid,
+                                             **scales),
+                len(rows), n_keys * kv * g * D * 4, kv_row_bytes(k, kv, True),
+                nbytes(q, q, ts, tp), main=main)
+    torch.cuda.synchronize()
+    return results
+
+
 # ----------------------------------------------------------------- phase 3
 
 
@@ -225,24 +442,43 @@ def small_model_streams(dev):
     cpu_model = LM(cfg, device="cpu")
     params_cpu = cpu_model.init(torch.Generator().manual_seed(0))
     params_dev = _tree_to(params_cpu, dev)
+    dev_model = LM(cfg, device=dev)
     rng = np.random.default_rng(1)
     lens = (5, 9, 16, 17, 23, 41, 12, 50, 3, 33)  # straddle prefill_budget=16
     prompts = [rng.integers(0, cfg.vocab_size, size=s).astype(np.int32) for s in lens]
+    # a 40-token system prompt ahead of short tails: the prefix lane's traffic
+    system = rng.integers(0, cfg.vocab_size, size=40).astype(np.int32)
+    shared = [np.concatenate([system, p_[:8]]) for p_ in prompts[:6]]
+    lanes = [
+        ("dense", prompts, {}),
+        ("paged + prefix, bs=16", shared + prompts[6:], dict(kv_block_size=16, prefix_cache=True)),
+        ("int8 dense", prompts, dict(kv_dtype="int8")),
+        ("fp8 paged, bs=16", prompts, dict(kv_dtype="fp8", kv_block_size=16)),
+    ]
 
-    def serve(model, params, device):
+    def serve(model, params, device, reqs, kw):
         eng = ServeEngine(model, params, batch_slots=4, max_len=128, prefill_budget=16,
-                          device=device)
-        for i, pr in enumerate(prompts):
+                          device=device, **kw)
+        for i, pr in enumerate(reqs):
             eng.submit(Request(rid=i, prompt=pr, params=SamplingParams(max_new=10)))
         eng.run()
-        return {r.rid: r.generated for r in eng.finished}
+        if eng.paged and eng.prefix is None and eng.pool.free != eng.num_blocks:
+            raise AssertionError("blocks leaked")
+        hits = eng.prefix.stats().hit_tokens if eng.prefix is not None else None
+        return {r.rid: r.generated for r in eng.finished}, hits
 
-    on_cpu = serve(cpu_model, params_cpu, "cpu")
-    on_dev = serve(LM(cfg, device=dev), params_dev, dev)
-    if on_dev != on_cpu:
-        diff = [rid for rid in on_cpu if on_cpu[rid] != on_dev.get(rid)]
-        raise AssertionError(f"kernel path and plain path streams differ for rids {diff}")
-    print(f"  {len(on_cpu)} greedy streams identical on the card (kernels) and the CPU (plain)")
+    for lane, reqs, kw in lanes:
+        on_cpu, hits_cpu = serve(cpu_model, params_cpu, "cpu", reqs, kw)
+        on_dev, hits_dev = serve(dev_model, params_dev, dev, reqs, kw)
+        if on_dev != on_cpu:
+            diff = [rid for rid in on_cpu if on_cpu[rid] != on_dev.get(rid)]
+            raise AssertionError(f"{lane}: kernel path and plain path streams differ for rids "
+                                 f"{diff}")
+        if hits_dev != hits_cpu or hits_dev == 0:
+            raise AssertionError(f"{lane}: prefix hits {hits_dev} on the card, {hits_cpu} on CPU")
+        extra = f", {hits_dev} prefix hit tokens" if hits_dev is not None else ""
+        print(f"  {lane}: {len(on_cpu)} greedy streams identical on the card (kernels) and the "
+              f"CPU (plain){extra}", flush=True)
 
 
 def _tree_to(tree, dev):
@@ -252,6 +488,60 @@ def _tree_to(tree, dev):
 
 
 # ----------------------------------------------------------------- phase 4
+
+
+def reset_counts(counters) -> None:
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+
+
+def read_counts(counters, run: str, expect=None) -> dict:
+    """Each counter's launches since reset_counts; raises if a kernel the run
+    drives (``expect``, default all) was launched no time."""
+    launches = {name: getattr(mod, attr) for name, (mod, attr) in counters.items()}
+    print(f"  launches during {run}: {launches}")
+    for name in expect if expect is not None else launches:
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} was never launched in {run}")
+    return launches
+
+
+def teacher_forced(model, params, req, dev, label: str) -> float:
+    """LM.prefill (flash kernel, unquantized bf16 cache) over prompt +
+    generated must predict the engine's stream; returns the agreement."""
+    import torch
+
+    seq = np.concatenate([req.prompt, np.asarray(req.generated, np.int32)])
+    with torch.no_grad():
+        logits, _ = model.prefill(params, {"tokens": torch.from_numpy(seq[None]).to(dev)},
+                                  len(seq))
+    rows = logits[0, len(req.prompt) - 1: len(seq) - 1].float()
+    pred = rows.argmax(-1).cpu().numpy()
+    top2 = rows.topk(2, dim=-1).values
+    margin = (top2[:, 0] - top2[:, 1]).cpu().numpy()
+    agree = pred == np.asarray(req.generated)
+    print(f"  {label}: teacher-forced top-1 agreement {agree.mean():.3f} over {len(agree)} "
+          f"positions (floor {AGREE_FLOOR}); top-2 margins at disagreements: "
+          f"{np.round(margin[~agree], 3).tolist()}")
+    if agree.mean() < AGREE_FLOOR:
+        raise AssertionError(f"{label}: teacher-forced agreement below the floor")
+    return float(agree.mean())
+
+
+def check_finished(reqs, max_new, vocab) -> None:
+    for r in reqs:
+        if r.finish_reason != "length" or len(r.generated) != max_new:
+            raise AssertionError(f"rid {r.rid}: {r.finish_reason}, {len(r.generated)} tokens")
+        if not all(0 <= t < vocab for t in r.generated):
+            raise AssertionError(f"rid {r.rid}: token out of range")
+
+
+def print_stats(stats, extra: str = "") -> None:
+    print(f"  {stats.total_requests} requests, {stats.total_tokens} decode tokens in "
+          f"{stats.wall_seconds:.3f} s: {stats.tokens_per_sec:.1f} tok/s; TTFT p50 "
+          f"{stats.ttft_p50 * 1e3:.1f} ms p99 {stats.ttft_p99 * 1e3:.1f} ms; TPOT p50 "
+          f"{stats.tpot_p50 * 1e3:.2f} ms; peak residents {stats.peak_residents}{extra}",
+          flush=True)
 
 
 def full_width(dev, counters):
@@ -270,69 +560,159 @@ def full_width(dev, counters):
           f"{cfg.num_params() / 1e9:.2f}B params, init {time.perf_counter() - t0:.1f} s")
     eng = ServeEngine(model, params, batch_slots=4, max_len=1024, prefill_budget=64)
     eng.prewarm()
-    rng = np.random.default_rng(2)
-    lens = (5, 700, 37, 130, 64, 300, 12, 513, 65, 200, 48, 90)  # 7 of 12 above the budget
     max_new = 32
     reqs = [
-        Request(rid=i, prompt=rng.integers(0, cfg.vocab_size, size=s).astype(np.int32),
-                params=SamplingParams(max_new=max_new))
-        for i, s in enumerate(lens)
+        Request(rid=i, prompt=p_, params=SamplingParams(max_new=max_new))
+        for i, p_ in enumerate(phase4_prompts(cfg))
     ]
     torch.cuda.reset_peak_memory_stats()
-    for mod in counters.values():
-        mod.launches = 0
+    reset_counts(counters)
     for r in reqs:
         eng.submit(r)
     stats = eng.run()
-    launches = {name: mod.launches for name, mod in counters.items()}
-    print(f"  launches during the run: {launches}")
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"{name} was never launched on the main path")
-    for r in reqs:
-        if r.finish_reason != "length" or len(r.generated) != max_new:
-            raise AssertionError(f"rid {r.rid}: {r.finish_reason}, {len(r.generated)} tokens")
-        if not all(0 <= t < cfg.vocab_size for t in r.generated):
-            raise AssertionError(f"rid {r.rid}: token out of range")
+    launches = read_counts(counters, "phase 4")
+    check_finished(reqs, max_new, cfg.vocab_size)
     peak = torch.cuda.max_memory_allocated()
-    print(f"  {stats.total_requests} requests, {stats.total_tokens} decode tokens in "
-          f"{stats.wall_seconds:.3f} s: {stats.tokens_per_sec:.1f} tok/s; TTFT p50 "
-          f"{stats.ttft_p50 * 1e3:.1f} ms p99 {stats.ttft_p99 * 1e3:.1f} ms; TPOT p50 "
-          f"{stats.tpot_p50 * 1e3:.2f} ms; peak memory {peak / 2**30:.2f} GiB")
-
-    # teacher-forced check: LM.prefill (flash kernel) over prompt + generated
-    # must predict the engine's stream (packs + decode kernel)
-    r = reqs[5]
-    seq = np.concatenate([r.prompt, np.asarray(r.generated, np.int32)])
-    with torch.no_grad():
-        logits, _ = model.prefill(params, {"tokens": torch.from_numpy(seq[None]).to(dev)},
-                                  len(seq))
-    rows = logits[0, len(r.prompt) - 1: len(seq) - 1].float()
-    pred = rows.argmax(-1).cpu().numpy()
-    top2 = rows.topk(2, dim=-1).values
-    margin = (top2[:, 0] - top2[:, 1]).cpu().numpy()
-    agree = pred == np.asarray(r.generated)
-    print(f"  teacher-forced top-1 agreement {agree.mean():.3f} over {len(agree)} positions "
-          f"(floor {AGREE_FLOOR}); top-2 margins at disagreements: "
-          f"{np.round(margin[~agree], 3).tolist()}")
-    if agree.mean() < AGREE_FLOOR:
-        raise AssertionError("teacher-forced agreement below the floor")
-
+    print_stats(stats, f"; peak memory {peak / 2**30:.2f} GiB")
+    teacher_forced(model, params, reqs[5], dev, "dense bf16")
     decode_step_profile(eng, cfg, dev)
-    return launches, stats, peak
+    return launches, model, params
 
 
-def decode_step_profile(eng, cfg, dev, steps: int = 8) -> None:
-    """Where a decode step (all 4 slots decoding) goes: wall time per step
-    of an 8-step chunk, the device's busy time per step from the profiler,
-    and the kernels that take it."""
+def phase4_prompts(cfg):
+    rng = np.random.default_rng(2)
+    lens = (5, 700, 37, 130, 64, 300, 12, 513, 65, 200, 48, 90)  # 7 of 12 above the budget
+    return [rng.integers(0, cfg.vocab_size, size=s).astype(np.int32) for s in lens]
+
+
+# ----------------------------------------------------------------- phase 5
+
+
+def paged_and_quantized(dev, model, params, counters):
+    """Full-width serving on the paged pool with prefix reuse, then the same
+    traffic over an int8 pool of the same bytes, then phase 4's traffic over
+    a dense int8 cache. Returns each kernel's launches summed over the three
+    measured runs (counts set to 0 just before each, read just after it) and
+    the end-to-end readings."""
+    import torch
+
+    from repro_torch.serve import Request, SamplingParams, ServeEngine
+
+    cfg = model.cfg
+    max_new, bs = 32, 32
+    rng = np.random.default_rng(5)
+    system = rng.integers(0, cfg.vocab_size, size=512).astype(np.int32)
+    tails = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+             for n in (16, 40, 64, 23, 57, 31, 48, 20)]
+    unshared = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+                for n in (5, 700, 130, 333)]
+    warm = np.concatenate([system, rng.integers(0, cfg.vocab_size, size=8).astype(np.int32)])
+    shared_prompts = [np.concatenate([system, t]) for t in tails] + unshared
+
+    runs = []  # each measured run's launches
+
+    def serve_shared(label, expect, **kw):
+        eng = ServeEngine(model, params, batch_slots=kw.pop("batch_slots"), max_len=1024,
+                          prefill_budget=64, kv_block_size=bs, prefix_cache=True, **kw)
+        eng.prewarm()
+        # the warm-up request registers the system prompt's 16 blocks
+        eng.submit(Request(rid=100, prompt=warm, params=SamplingParams(max_new=max_new)))
+        eng.run()
+        hits0 = eng.prefix.stats().hit_tokens
+        reqs = [Request(rid=i, prompt=p_, params=SamplingParams(max_new=max_new))
+                for i, p_ in enumerate(shared_prompts)]
+        reset_counts(counters)
+        for r in reqs:
+            eng.submit(r)
+        stats = eng.run()
+        runs.append(read_counts(counters, f"({label})", expect))
+        check_finished(reqs, max_new, cfg.vocab_size)
+        hits = eng.prefix.stats().hit_tokens - hits0
+        peak_blocks = stats.kv_bytes_resident // eng.pool.bytes_per_block
+        print(f"  ({label}) {eng.num_blocks} blocks of {bs} ({eng.pool.bytes_per_block} bytes "
+              f"each, {eng.num_blocks * eng.pool.bytes_per_block / 2**30:.2f} GiB), "
+              f"{eng.B} slots: prefix hit tokens {hits}, peak used blocks {peak_blocks}, peak "
+              f"kv_bytes_resident {stats.kv_bytes_resident}")
+        print_stats(stats)
+        if hits <= 0:
+            raise AssertionError(f"({label}) the prefix cache never hit")
+        agree = teacher_forced(model, params, reqs[1], dev, f"({label})")
+        # a decode step with live requests: the shared prompts, all decoding
+        live = [eng.submit(Request(rid=300 + i, prompt=p_, params=SamplingParams(max_new=64)))
+                for i, p_ in enumerate(shared_prompts[:eng.B])]
+        while eng._prefilling or eng.waiting:
+            eng.step()
+        decode_step_profile(eng, cfg, dev, f"({label}) decode step")
+        for h in live:
+            h.cancel()
+        eng.run()
+        out = dict(num_blocks=eng.num_blocks, bytes_per_block=eng.pool.bytes_per_block,
+                   hit_tokens=hits, peak_blocks=peak_blocks, peak_residents=stats.peak_residents,
+                   kv_bytes_resident=stats.kv_bytes_resident, tok_s=stats.tokens_per_sec,
+                   ttft_p50_ms=stats.ttft_p50 * 1e3, ttft_p99_ms=stats.ttft_p99 * 1e3,
+                   tpot_p50_ms=stats.tpot_p50 * 1e3, agreement=agree)
+        del eng
+        torch.cuda.empty_cache()
+        return out
+
+    # (a) bf16 pool at byte parity with a dense 8 x 1024 cache: 256 blocks
+    a = serve_shared("a: paged bf16 + prefix", ["paged_attention"], batch_slots=8)
+    # (b) int8 pool of (a)'s bytes, twice the slots
+    L, KV, hd = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+    int8_block = L * bs * KV * (hd + 4) * 2
+    b = serve_shared("b: paged int8 + prefix", ["paged_attention_q8"], batch_slots=16,
+                     kv_dtype="int8",
+                     num_blocks=a["num_blocks"] * a["bytes_per_block"] // int8_block)
+    if b["bytes_per_block"] != int8_block:
+        raise AssertionError(f"int8 block bytes {b['bytes_per_block']} != {int8_block}")
+    print(f"  peak residents: (a) {a['peak_residents']}, (b) {b['peak_residents']}; pool "
+          f"blocks (a) {a['num_blocks']}, (b) {b['num_blocks']} at the same bytes")
+
+    # (c) phase 4's traffic over a dense int8 cache
+    eng = ServeEngine(model, params, batch_slots=4, max_len=1024, prefill_budget=64,
+                      kv_dtype="int8")
+    eng.prewarm()
+    reqs = [Request(rid=i, prompt=p_, params=SamplingParams(max_new=max_new))
+            for i, p_ in enumerate(phase4_prompts(cfg))]
+    reset_counts(counters)
+    for r in reqs:
+        eng.submit(r)
+    stats = eng.run()
+    runs.append(read_counts(counters, "(c: dense int8)",
+                            ["decode_attention_q8", "ragged_attention_q8"]))
+    check_finished(reqs, max_new, cfg.vocab_size)
+    print(f"  (c: dense int8) kv_bytes_resident {stats.kv_bytes_resident}")
+    print_stats(stats)
+    c_agree = teacher_forced(model, params, reqs[5], dev, "(c: dense int8)")
+    decode_step_profile(eng, cfg, dev, "(c: dense int8) decode step")
+    c = dict(kv_bytes_resident=stats.kv_bytes_resident, tok_s=stats.tokens_per_sec,
+             ttft_p50_ms=stats.ttft_p50 * 1e3, ttft_p99_ms=stats.ttft_p99 * 1e3,
+             tpot_p50_ms=stats.tpot_p50 * 1e3, peak_residents=stats.peak_residents,
+             agreement=c_agree)
+    del eng
+    torch.cuda.empty_cache()
+    launches = {name: sum(run[name] for run in runs) for name in counters}
+    print(f"  launches during phase 5's three measured runs: {launches}")
+    return launches, {"a": a, "b": b, "c": c}
+
+
+def decode_step_profile(eng, cfg, dev, label: str = "decode step", steps: int = 8) -> None:
+    """Where a decode step goes: wall time per step of an 8-step chunk over
+    the engine's current slots (all slots decoding, or the live ones of a
+    paged engine, through its block tables), the device's busy time per step
+    from the profiler, and the kernels that take it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    active = torch.ones(eng.B, dtype=torch.int32, device=dev)
+    if eng.paged:  # the live slots only: released rows read the scratch block
+        active = torch.tensor([r is not None for r in eng.slot_req], dtype=torch.int32,
+                              device=dev)
+    else:
+        active = torch.ones(eng.B, dtype=torch.int32, device=dev)
+    btab = eng._flush_btab()
 
     def chunk():
-        eng._tick_fn(eng._last_tok, eng._cur_len, active, steps)
+        eng._tick_fn(eng._last_tok, eng._cur_len, active, steps, btab)
         torch.cuda.synchronize()
 
     chunk()
@@ -345,9 +725,10 @@ def decode_step_profile(eng, cfg, dev, steps: int = 8) -> None:
     kernels = [(e.self_device_time_total, e.count, e.key) for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
     busy_ms = sum(r[0] for r in kernels) / 1e3 / steps
-    print(f"  decode step: wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms "
-          f"(idle share {1 - busy_ms / wall_ms:.2f}), {sum(r[1] for r in kernels) // steps} "
-          f"kernels; weight-read floor {cfg.num_params() * 2 / HBM_BYTES_PER_S * 1e3:.2f} ms")
+    print(f"  {label} ({int(active.sum())} slots decoding): wall {wall_ms:.2f} ms, device busy "
+          f"{busy_ms:.2f} ms (idle share {1 - busy_ms / wall_ms:.2f}), "
+          f"{sum(r[1] for r in kernels) // steps} kernels; weight-read floor "
+          f"{cfg.num_params() * 2 / HBM_BYTES_PER_S * 1e3:.2f} ms")
     for us, n, key in sorted(kernels, reverse=True)[:8]:
         print(f"    {us / 1e3 / steps:7.3f} ms/step  {n // steps:4d} calls/step  {key[:80]}")
 
@@ -362,6 +743,7 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels import decode_attention as dk
     from repro_torch.kernels import flash_attention as fk
+    from repro_torch.kernels import paged_attention as pk
     from repro_torch.kernels import ragged_attention as rk
 
     phase("0 device")
@@ -392,19 +774,35 @@ def main() -> int:
 
     phase("2 kernels vs plain on the card")
     timed = check_kernels(dev)
+    timed.update(check_paged_and_quant_kernels(dev))
 
     phase("3 kernel path vs plain path, end to end, f32")
     small_model_streams(dev)
 
     phase("4 full width codeqwen1.5-7b")
-    counters = {"decode_attention": dk, "ragged_attention": rk, "gqa_flash_attention": fk}
-    launches, _, _ = full_width(dev, counters)
+    counters4 = {"decode_attention": (dk, "launches"), "ragged_attention": (rk, "launches"),
+                 "gqa_flash_attention": (fk, "launches")}
+    launches, model, params = full_width(dev, counters4)
+
+    phase("5 full width, paged + prefix and quantized KV")
+    counters5 = {"paged_attention": (pk, "launches"), "paged_attention_q8": (pk, "launches_q8"),
+                 "decode_attention_q8": (dk, "launches_q8"),
+                 "ragged_attention_q8": (rk, "launches_q8")}
+    launches5, serving = paged_and_quantized(dev, model, params, counters5)
+    launches.update(launches5)
+    print(json.dumps({"serving": serving}))
 
     # the pl.pallas_call line of each TPU kernel, as in PERF.md's kernel table
     sources = {
         "decode_attention": ("decode_attention.cu", "src/repro/kernels/decode_attention.py:186"),
         "ragged_attention": ("ragged_attention.cu", "src/repro/kernels/ragged_attention.py:253"),
         "gqa_flash_attention": ("flash_attention.cu", "src/repro/kernels/flash_attention.py:197"),
+        "paged_attention": ("paged_attention.cu", "src/repro/kernels/ragged_attention.py:342"),
+        "paged_attention_q8": ("paged_attention.cu", "src/repro/kernels/ragged_attention.py:342"),
+        "decode_attention_q8": ("decode_attention.cu",
+                                "src/repro/kernels/decode_attention.py:186"),
+        "ragged_attention_q8": ("ragged_attention.cu",
+                                "src/repro/kernels/ragged_attention.py:253"),
     }
     kernels = []
     for name, (src, tpu) in sources.items():

@@ -1,0 +1,74 @@
+#!/usr/bin/env python3
+"""Time the port's unscaled decode and ragged attention kernels at the
+serving path's main shapes (``chip_smoke.py`` phase 2's dense shapes and
+timer: codeqwen1.5-7b, bf16, KV=32, G=1, d=128, 4 slots x 1024 positions; a
+64-token pack), for an A/B of two checkouts on one card:
+
+    python scripts/torch_attention_ab.py --src path/to/checkout/src
+
+Run it alternately for two checkouts on one card, one after the other (A, B,
+B, A): each process builds that checkout's kernels at first use, then prints
+one JSON line with the card, the checkout and the median of ROUNDS timings of
+REPS launches each (CUDA events, L2 warm). Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+REPS, ROUNDS, WARMUP = 200, 7, 10
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--src", required=True, help="the src/ directory of the checkout to time")
+    args = ap.parse_args()
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke as cs
+
+    sys.path.insert(0, str(Path(args.src).resolve()))  # ahead of chip_smoke's own src/
+
+    import torch
+
+    from repro_torch.kernels import decode_attention as dk
+    from repro_torch.kernels import ragged_attention as rk
+
+    if not torch.cuda.is_available():
+        print("torch_attention_ab: no CUDA device", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    KV, D = 32, 128
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    def ints(xs):
+        return torch.tensor(xs, dtype=torch.int32, device=dev)
+
+    k, v = randn(cs.SLOTS, cs.S_MAX, KV, D), randn(cs.SLOTS, cs.S_MAX, KV, D)
+    q_dec, q_rag = randn(cs.SLOTS, KV, 1, D), randn(len(cs.PACK_SLOTS), KV, 1, D)
+    cur, slots, poss = ints(cs.DECODE_POS), ints(cs.PACK_SLOTS), ints(cs.PACK_POS)
+    kernels = {
+        "decode_attention": lambda: dk.decode_attention(q_dec, k, v, cur),
+        "ragged_attention": lambda: rk.ragged_attention(q_rag, k, v, slots, poss),
+    }
+    out = {}
+    for name, fn in kernels.items():
+        times = [cs.time_ms(fn, reps=REPS, warmup=WARMUP) for _ in range(ROUNDS)]
+        out[name] = {"median_ms": statistics.median(times), "rounds_ms": times}
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(json.dumps({"card": card, "src": args.src, "kernels": out}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

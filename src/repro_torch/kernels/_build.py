@@ -32,10 +32,14 @@ NVCC_FLAGS = (
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry points: name -> argtypes (pointers and the stream as c_void_p)
 SIGNATURES = {
-    # q, k, v, cur_len, out, B, S, KV, G, D, window, dtype, stream
-    "repro_decode_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    # q, k, v, tok_slot, tok_pos, out, T, S, KV, G, D, window, dtype, stream
-    "repro_ragged_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # q, k, v, k_scale, v_scale, cur_len, out, B, S, KV, G, D, window, qdtype, sdtype, stream
+    "repro_decode_attention": [_P] * 7 + [_I] * 8 + [_P],
+    # q, k, v, k_scale, v_scale, tok_slot, tok_pos, out, T, S, KV, G, D, window, qdtype,
+    # sdtype, stream
+    "repro_ragged_attention": [_P] * 8 + [_I] * 8 + [_P],
+    # q, k, v, k_scale, v_scale, tok_seq, tok_pos, tables, out, T, NB, bs, max_blocks, KV,
+    # G, D, window, qdtype, sdtype, stream
+    "repro_paged_attention": [_P] * 9 + [_I] * 10 + [_P],
     # q, k, v, out, BKV, G, Sq, Sk, D, causal, dtype, stream
     "repro_gqa_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
 }
@@ -135,5 +139,5 @@ def check(rc: int, name: str) -> None:
     if rc == -1:
         raise ValueError(f"{name}: no kernel instantiated for this head_dim / group size")
     if rc == -2:
-        raise TypeError(f"{name}: unsupported dtype")
+        raise TypeError(f"{name}: unsupported combination of query dtype, store dtype and scales")
     raise RuntimeError(f"{name}: CUDA launch failed with cudaError {rc}")

@@ -1,13 +1,16 @@
 """Argument checks shared by the kernel wrappers: every tensor handed to a
-kernel is on one CUDA device and contiguous, float operands are 16-byte
-aligned (the kernels load rows as vectors), with the storage dtype the
-kernel was built for."""
+kernel is on one CUDA device and contiguous, the row operands (q, the K/V
+store, out) are 16-byte aligned (the kernels load rows as vectors), and the
+dtypes are ones the kernels were built for."""
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
-DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# storage codes of csrc/attention_common.cuh (repro::DType)
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2, torch.float8_e4m3fn: 3}
 
 
 def cuda_operands(name: str, *tensors: torch.Tensor) -> None:
@@ -17,19 +20,51 @@ def cuda_operands(name: str, *tensors: torch.Tensor) -> None:
             raise ValueError(f"{name}: every operand must be on one CUDA device, got {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: operands must be contiguous")
-        if t.is_floating_point() and t.data_ptr() % 16:
+
+
+def aligned_rows(name: str, *tensors: torch.Tensor) -> None:
+    for t in tensors:
+        if t.data_ptr() % 16:
             raise ValueError(f"{name}: q, k, v and out must be 16-byte aligned")
 
 
 def float_code(name: str, *tensors: torch.Tensor) -> int:
     dt = tensors[0].dtype
-    if dt not in DTYPE_CODES or any(t.dtype != dt for t in tensors):
+    if dt not in (torch.float32, torch.bfloat16) or any(t.dtype != dt for t in tensors):
         raise TypeError(f"{name}: q, k, v must share one dtype of f32/bf16, got "
                         f"{[t.dtype for t in tensors]}")
     return DTYPE_CODES[dt]
+
+
+def kv_codes(
+    name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    k_scale: Optional[torch.Tensor], v_scale: Optional[torch.Tensor],
+) -> tuple[int, int]:
+    """(query code, store code) of an attention call over a K/V store that
+    may be quantized. Without scales q, k and v share one dtype of f32/bf16;
+    an int8/fp8 store needs f32 scales of shape ``k.shape[:-1]``, and an f32
+    store may carry them (the identity lane of an f32 model)."""
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError(f"{name}: pass both k_scale and v_scale or neither")
+    if k_scale is None:
+        return (float_code(name, q, k, v),) * 2
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name}: q must be f32 or bf16, got {q.dtype}")
+    if v.dtype != k.dtype or k.dtype not in (torch.float32, torch.int8, torch.float8_e4m3fn):
+        raise TypeError(f"{name}: unsupported scaled K/V store {k.dtype}/{v.dtype}")
+    for s in (k_scale, v_scale):
+        if s.dtype != torch.float32 or s.shape != k.shape[:-1]:
+            raise ValueError(f"{name}: scales must be f32 of shape {tuple(k.shape[:-1])}, got "
+                             f"{s.dtype} {tuple(s.shape)}")
+    return DTYPE_CODES[q.dtype], DTYPE_CODES[k.dtype]
 
 
 def int32_vector(name: str, what: str, t: torch.Tensor, n: int) -> None:
     if t.dtype != torch.int32 or t.shape != (n,):
         raise ValueError(f"{name}: {what} must be int32 of shape ({n},), got "
                          f"{t.dtype} {tuple(t.shape)}")
+
+
+def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    """A tensor's device address for ctypes, None (a null pointer) for None."""
+    return None if t is None else t.data_ptr()

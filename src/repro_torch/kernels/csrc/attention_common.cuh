@@ -1,15 +1,34 @@
-// Shared device code of the decode and ragged attention kernels.
+// Shared device code of the decode, ragged and paged attention kernels.
 //
-// Both kernels compute, for one query token and one KV head, softmax(q k^T /
-// sqrt(D)) v over the contiguous key range [lo, hi] of one cache slot, for the
+// All three compute, for one query token and one KV head, softmax(q k^T /
+// sqrt(D)) v over the contiguous key range [lo, hi] of one sequence, for the
 // G query heads that share the KV head. Decode is the special case "token b
 // reads slot b at position cur_len[b]"; ragged reads (tok_slot[t],
-// tok_pos[t]). Storage is f32 or bf16; all math is f32.
+// tok_pos[t]); paged reads (tok_seq[t], tok_pos[t]) through a block table.
+//
+// Three things vary, each resolved where it costs nothing in the key loop:
+// - the query/output type TQ (f32 or bf16, the model dtype) and the K/V
+//   store type TS (f32, bf16, int8 or fp8 e4m3), as template parameters;
+//   every element is widened to f32 in registers, all math is f32;
+// - an optional f32 scale per (position, head) row of K and of V (the
+//   quantized cache): a null pointer means unscaled. The host picks the
+//   scaled or the unscaled instantiation from that pointer, so an unscaled
+//   kernel carries no scale pointers, loads or registers in its key loop;
+// - how key t maps to a cache row (the Rows functor): contiguous in one
+//   slot for the dense cache, block by block through a table row for the
+//   paged pool.
+//
+// The kernel itself (attention_kernel) and its launch (launch_attention) are
+// shared too: each source defines only an Index policy (token t's key range
+// and Rows) and its C entry point.
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace repro {
 
@@ -20,7 +39,8 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162flo
 __device__ __forceinline__ void store_f32(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store_f32(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 
-// N contiguous elements at p (aligned to N elements) widened to f32.
+// N contiguous elements at p (aligned to N elements) widened to f32: one
+// vector load per lane (16 bytes of f32, 8 of bf16, 4 of int8 or fp8 at N = 4).
 template <int N>
 __device__ __forceinline__ void load_vec(const float* __restrict__ p, float (&o)[N]) {
   if constexpr (N == 4) {
@@ -51,6 +71,35 @@ __device__ __forceinline__ void load_vec(const __nv_bfloat16* __restrict__ p, fl
   }
 }
 
+template <int N>
+__device__ __forceinline__ void load_vec(const int8_t* __restrict__ p, float (&o)[N]) {
+  if constexpr (N == 4) {
+    const char4 x = *reinterpret_cast<const char4*>(p);
+    o[0] = static_cast<float>(x.x); o[1] = static_cast<float>(x.y);
+    o[2] = static_cast<float>(x.z); o[3] = static_cast<float>(x.w);
+  } else if constexpr (N == 2) {
+    const char2 x = *reinterpret_cast<const char2*>(p);
+    o[0] = static_cast<float>(x.x); o[1] = static_cast<float>(x.y);
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) o[i] = static_cast<float>(p[i]);
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void load_vec(const __nv_fp8_e4m3* __restrict__ p, float (&o)[N]) {
+  if constexpr (N == 4) {
+    const float4 x = static_cast<float4>(*reinterpret_cast<const __nv_fp8x4_e4m3*>(p));
+    o[0] = x.x; o[1] = x.y; o[2] = x.z; o[3] = x.w;
+  } else if constexpr (N == 2) {
+    const float2 x = static_cast<float2>(*reinterpret_cast<const __nv_fp8x2_e4m3*>(p));
+    o[0] = x.x; o[1] = x.y;
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) o[i] = static_cast<float>(p[i]);
+  }
+}
+
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
@@ -63,21 +112,48 @@ __device__ __forceinline__ float warp_max(float x) {
   return x;
 }
 
-// Attention of G query rows (q: [G, D]) over cache rows lo..hi of one slot
-// and KV head (k/v point at position 0; row_stride elements between
-// positions), written to out ([G, D]). Called by a block of NW warps.
+// Key t of a dense cache slot: row base + t.
+struct DenseRows {
+  int64_t base;  // slot * S_max
+  __device__ __forceinline__ int64_t operator()(int t) const { return base + t; }
+};
+
+// Key t of a paged sequence: offset t % bs of pool block table[t / bs]. The
+// table entry is one broadcast load per key (every lane reads the same word,
+// served from L1 after the first key of the block). Entries past the pool
+// (the unallocated sentinel) clamp to its last block, as the TPU kernel's
+// index map does; the position bound keeps such keys out of every range.
+struct PagedRows {
+  const int* __restrict__ table;  // this sequence's [max_blocks] row
+  int bs;
+  int last_block;  // NB - 1
+  __device__ __forceinline__ int64_t operator()(int t) const {
+    const int i = t / bs;
+    const int blk = min(__ldg(table + i), last_block);
+    return static_cast<int64_t>(blk) * bs + (t - i * bs);
+  }
+};
+
+// Attention of G query rows (q: [G, D]) over keys lo..hi of one sequence and
+// KV head, written to out ([G, D]). Key t's K row starts at
+// k + rows(t) * row_stride (k, v already offset to the head) and, with
+// kScaled, its scale at k_scale[rows(t) * scale_stride] (k_scale, v_scale
+// already offset to the head). Called by a block of NW warps.
 //
 // Each warp walks the valid range in steps of U keys, round-robin with the
 // other warps, and keeps its own online-softmax state (m, l, acc) for the G
 // rows in registers: lane i holds elements [i*N, i*N + N) of every row, so a
 // key row is one coalesced warp-wide load. The U loads of a step are issued
 // before any of them is used, which keeps NW*U K and V rows in flight per
-// block. At the end the NW partial states are merged through shared memory.
-// An empty range (lo > hi) writes zeros, as the TPU kernel does.
-template <typename T, int D, int G, int NW, int U>
+// block. A row scale is folded into the math, never into a stored row:
+// s = ks * (q . k_stored) / sqrt(D) and acc += (p * vs) * v_stored. At the
+// end the NW partial states are merged through shared memory. An empty range
+// (lo > hi) writes zeros, as the TPU kernel does.
+template <typename TQ, typename TS, bool kScaled, int D, int G, int NW, int U, typename Rows>
 __device__ __forceinline__ void attend_rows(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    int64_t row_stride, int lo, int hi, T* __restrict__ out) {
+    const TQ* __restrict__ q, const TS* __restrict__ k, const TS* __restrict__ v,
+    const float* __restrict__ k_scale, const float* __restrict__ v_scale, int64_t row_stride,
+    int scale_stride, const Rows& rows, int lo, int hi, TQ* __restrict__ out) {
   static_assert(D % 32 == 0, "head_dim must be a multiple of 32");
   constexpr int N = D / 32;
   const int lane = threadIdx.x & 31;
@@ -98,13 +174,19 @@ __device__ __forceinline__ void attend_rows(
   }
 
   for (int base = lo + warp * U; base <= hi; base += NW * U) {
-    float kr[U][N], vr[U][N];
+    float kr[U][N], vr[U][N], ks[U], vs[U];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int t = base + u;
+      ks[u] = vs[u] = 1.f;
       if (t <= hi) {
-        load_vec<N>(k + t * row_stride + lane * N, kr[u]);
-        load_vec<N>(v + t * row_stride + lane * N, vr[u]);
+        const int64_t p = rows(t);
+        load_vec<N>(k + p * row_stride + lane * N, kr[u]);
+        load_vec<N>(v + p * row_stride + lane * N, vr[u]);
+        if constexpr (kScaled) {
+          ks[u] = __ldg(k_scale + p * scale_stride);
+          vs[u] = __ldg(v_scale + p * scale_stride);
+        }
       } else {
 #pragma unroll
         for (int i = 0; i < N; ++i) kr[u][i] = vr[u][i] = 0.f;
@@ -119,6 +201,7 @@ __device__ __forceinline__ void attend_rows(
 #pragma unroll
         for (int i = 0; i < N; ++i) part += qr[g][i] * kr[u][i];
         s[u] = warp_sum(part) * scale;
+        if constexpr (kScaled) s[u] *= ks[u];
       }
       float mx = m[g];
 #pragma unroll
@@ -130,6 +213,7 @@ __device__ __forceinline__ void attend_rows(
       for (int u = 0; u < U; ++u) {
         p[u] = (base + u <= hi) ? expf(s[u] - mx) : 0.f;
         psum += p[u];
+        if constexpr (kScaled) p[u] *= vs[u];  // the V row's scale rides on its weight
       }
       l[g] = l[g] * corr + psum;
 #pragma unroll
@@ -178,6 +262,102 @@ __device__ __forceinline__ void attend_rows(
 __device__ __forceinline__ void key_range(int pos, int S, int window, int* lo, int* hi) {
   *hi = min(pos, S - 1);
   *lo = window > 0 ? max(0, pos - window + 1) : 0;
+}
+
+// Key range of a packed token: a padding token (pos >= S) gets the empty
+// range, so it reads no key and comes out as zeros.
+__device__ __forceinline__ void token_key_range(int pos, int S, int window, int* lo, int* hi) {
+  *lo = 1;
+  *hi = 0;
+  if (pos < S) key_range(pos, S, window, lo, hi);
+}
+
+constexpr int kWarps = 8;  // warps per block of every attention kernel
+
+// One block per (token t, KV head h): attention of the token's G query rows
+// (q, out: [T, KV, G, D]) over the keys index.range(t) of the rows
+// index.rows(t). K/V rows are [.., KV, D] per position, scales [.., KV].
+template <typename TQ, typename TS, bool kScaled, int D, int G, typename Index>
+__global__ void __launch_bounds__(kWarps * 32)
+attention_kernel(const TQ* __restrict__ q, const TS* __restrict__ k, const TS* __restrict__ v,
+                 const float* __restrict__ k_scale, const float* __restrict__ v_scale,
+                 const Index index, TQ* __restrict__ out, int KV, int window) {
+  constexpr int U = G >= 4 ? 2 : 4;
+  const int t = blockIdx.x, h = blockIdx.y;
+  int lo, hi;
+  index.range(t, window, &lo, &hi);
+  const int64_t q_off = (static_cast<int64_t>(t) * KV + h) * G * D;
+  attend_rows<TQ, TS, kScaled, D, G, kWarps, U>(
+      q + q_off, k + h * D, v + h * D, k_scale ? k_scale + h : nullptr,
+      v_scale ? v_scale + h : nullptr, static_cast<int64_t>(KV) * D, KV, index.rows(t), lo,
+      hi, out + q_off);
+}
+
+// Storage codes shared with kernels/_checks.py.
+enum DType { kF32 = 0, kBF16 = 1, kI8 = 2, kF8 = 3 };
+
+template <typename T>
+struct Tag {
+  using type = T;
+};
+
+// Calls f(Tag<TQ>{}, Tag<TS>{}, std::bool_constant<kScaled>{}) for the
+// (query, store, scaled) combinations the serving path uses: a f32 or bf16
+// model over an unscaled store of its own type, the f32 identity lane (a
+// scaled f32 store), and a f32 or bf16 model over scaled int8/fp8 rows.
+// Returns -2 for any other combination.
+template <typename F>
+int dispatch_types(int qdtype, int sdtype, bool scaled, F&& f) {
+  using Plain = std::false_type;
+  using Scaled = std::true_type;
+  if (qdtype == kF32) {
+    if (sdtype == kF32) {
+      return scaled ? f(Tag<float>{}, Tag<float>{}, Scaled{})
+                    : f(Tag<float>{}, Tag<float>{}, Plain{});
+    }
+    if (sdtype == kI8 && scaled) return f(Tag<float>{}, Tag<int8_t>{}, Scaled{});
+    if (sdtype == kF8 && scaled) return f(Tag<float>{}, Tag<__nv_fp8_e4m3>{}, Scaled{});
+  } else if (qdtype == kBF16) {
+    if (sdtype == kBF16 && !scaled) {
+      return f(Tag<__nv_bfloat16>{}, Tag<__nv_bfloat16>{}, Plain{});
+    }
+    if (sdtype == kI8 && scaled) return f(Tag<__nv_bfloat16>{}, Tag<int8_t>{}, Scaled{});
+    if (sdtype == kF8 && scaled) {
+      return f(Tag<__nv_bfloat16>{}, Tag<__nv_fp8_e4m3>{}, Scaled{});
+    }
+  }
+  return -2;
+}
+
+// Launches attention_kernel over a grid of (T tokens, KV heads) for the
+// instantiated (query, store, scaled) combination (dispatch_types) and
+// (head_dim, group): the (D, G) pairs of every served model. k_scale/v_scale
+// are null for an unscaled store. Returns cudaGetLastError() after the
+// launch, -1 for an unsupported (D, G), -2 for an unsupported combination of
+// types and scales.
+template <typename Index>
+int launch_attention(const void* q, const void* k, const void* v, const void* k_scale,
+                     const void* v_scale, const Index& index, void* out, int T, int KV, int G,
+                     int D, int window, int qdtype, int sdtype, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid(T, KV);
+  return dispatch_types(qdtype, sdtype, k_scale != nullptr, [&](auto tq, auto ts, auto sc) {
+    using TQ = typename decltype(tq)::type;
+    using TS = typename decltype(ts)::type;
+    constexpr bool kScaled = decltype(sc)::value;
+#define REPRO_CASE(DD, GG)                                                                \
+  if (D == DD && G == GG) {                                                               \
+    attention_kernel<TQ, TS, kScaled, DD, GG, Index><<<grid, kWarps * 32, 0, st>>>(       \
+        static_cast<const TQ*>(q), static_cast<const TS*>(k), static_cast<const TS*>(v),  \
+        static_cast<const float*>(k_scale), static_cast<const float*>(v_scale), index,    \
+        static_cast<TQ*>(out), KV, window);                                               \
+    return static_cast<int>(cudaGetLastError());                                          \
+  }
+    REPRO_CASE(64, 1) REPRO_CASE(64, 2) REPRO_CASE(64, 4) REPRO_CASE(64, 8)
+    REPRO_CASE(128, 1) REPRO_CASE(128, 2) REPRO_CASE(128, 4) REPRO_CASE(128, 8)
+#undef REPRO_CASE
+    return -1;  // (D, G) not instantiated
+  });
 }
 
 }  // namespace repro

@@ -23,6 +23,7 @@ def gqa_flash_attention(
     global launches
     name = "gqa_flash_attention"
     _checks.cuda_operands(name, q, k, v)
+    _checks.aligned_rows(name, q, k, v)
     dtype = _checks.float_code(name, q, k, v)
     bkv, g, sq, d = q.shape
     if k.ndim != 3 or k.shape[0] != bkv or k.shape[2] != d or v.shape != k.shape:

@@ -3,7 +3,11 @@
 Counterparts of ``repro.kernels.ref`` (same layouts, same masks). They are
 what :mod:`repro_torch.kernels.ops` runs for a CPU tensor, and the oracle
 each CUDA kernel is held against on the card. All softmax math is f32; the
-result is cast back to q's dtype.
+result is cast back to q's dtype. A quantized cache (int8 or float8_e4m3fn
+rows with per-(position, head) f32 scales) is widened to f32 and scaled
+before any math (:func:`dequant_kv`); a block-paged pool is gathered into
+the dense per-sequence view through its block tables (:func:`paged_gather`)
+and then runs the dense function.
 """
 
 from __future__ import annotations
@@ -30,6 +34,16 @@ def gqa_flash_attention(
     return torch.einsum("bgqk,bkd->bgqd", p, v.float()).to(q.dtype)
 
 
+def dequant_kv(k: torch.Tensor, k_scale: Optional[torch.Tensor]) -> torch.Tensor:
+    """A K or V store widened to f32, times its per-row scales (one per
+    ``[..., d]`` row, ``k.shape[:-1]``) when given. With all-ones scales this
+    is bit-identical to the plain widening (``x * 1.0 == x``)."""
+    kf = k.float()
+    if k_scale is None:
+        return kf
+    return kf * k_scale[..., None].float()
+
+
 def decode_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -37,13 +51,18 @@ def decode_attention(
     cur_len: torch.Tensor,
     *,
     window: int = 0,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Single-token grouped decode attention.
 
     q: [B, KV, G, d]; k/v: [B, S_max, KV, d]; cur_len: [] or [B] tokens
     already cached (the new token sits at index cur_len, so key t is valid
-    iff t <= cur_len, and t > cur_len - window when window > 0).
+    iff t <= cur_len, and t > cur_len - window when window > 0). Optional
+    ``k_scale``/``v_scale`` ([B, S_max, KV] f32) dequantize int8/fp8 rows.
     Returns [B, KV, G, d]."""
+    k = dequant_kv(k, k_scale)
+    v = dequant_kv(v, v_scale)
     b, kvh, g, d = q.shape
     s_max = k.shape[1]
     scores = torch.einsum("bkgd,btkd->bkgt", q.float(), k.float()) * d**-0.5
@@ -81,15 +100,20 @@ def ragged_attention(
     *,
     window: int = 0,
     valid: Optional[torch.Tensor] = None,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Packed variable-length attention (the unified-dispatch path).
 
     q: [T, KV, G, d]; k/v: [B, S_max, KV, d] with the packed tokens' K/V
     already scattered at (tok_slot, tok_pos); tok_slot/tok_pos: [T] int32.
-    ``valid`` optionally passes a precomputed :func:`ragged_valid_mask`.
+    ``valid`` optionally passes a precomputed :func:`ragged_valid_mask`;
+    ``k_scale``/``v_scale`` ([B, S_max, KV] f32) dequantize int8/fp8 rows.
     Full-cross form as in the JAX oracle: every token scores against every
     slot and the wrong slots are masked before one softmax over (slot,
     position) — only the token's own slot survives. Returns [T, KV, G, d]."""
+    k = dequant_kv(k, k_scale)
+    v = dequant_kv(v, v_scale)
     t, kvh, g, d = q.shape
     b, s_max = k.shape[0], k.shape[1]
     if valid is None:
@@ -103,3 +127,63 @@ def ragged_attention(
     vf = v.permute(2, 0, 1, 3).reshape(kvh, b * s_max, d).float()
     out = torch.einsum("hqs,hsd->hqd", p, vf)  # [KV, T*G, d]
     return out.reshape(kvh, t, g, d).permute(1, 0, 2, 3).to(q.dtype)
+
+
+def paged_gather(pool: torch.Tensor, block_tables: torch.Tensor) -> torch.Tensor:
+    """Dense rows from a block-paged pool: pool [NB, bs, ...], block_tables
+    [R, max_blocks] int32 -> [R, max_blocks * bs, ...], where position p of
+    row r is ``pool[block_tables[r, p // bs], p % bs]``. Entries past the
+    pool (the unallocated sentinel) clamp to its last block, as in the JAX
+    oracle: their positions hold finite garbage that every consumer masks."""
+    nb, bs = pool.shape[0], pool.shape[1]
+    r, maxb = block_tables.shape
+    view = pool[block_tables.long().clamp(max=nb - 1)]  # [R, maxb, bs, ...]
+    return view.reshape(r, maxb * bs, *pool.shape[2:])
+
+
+def _gather_opt(pool: Optional[torch.Tensor], block_tables: torch.Tensor):
+    return None if pool is None else paged_gather(pool, block_tables)
+
+
+def paged_decode_attention(
+    q: torch.Tensor,
+    pool_k: torch.Tensor,
+    pool_v: torch.Tensor,
+    cur_len: torch.Tensor,
+    block_tables: torch.Tensor,
+    *,
+    window: int = 0,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Decode attention against a paged pool: the dense per-sequence view
+    (scale pools [NB, bs, KV] ride the same gather), then
+    :func:`decode_attention` — bit-identical to the unpaged path."""
+    return decode_attention(
+        q, paged_gather(pool_k, block_tables), paged_gather(pool_v, block_tables), cur_len,
+        window=window, k_scale=_gather_opt(k_scale, block_tables),
+        v_scale=_gather_opt(v_scale, block_tables),
+    )
+
+
+def paged_ragged_attention(
+    q: torch.Tensor,
+    pool_k: torch.Tensor,
+    pool_v: torch.Tensor,
+    tok_seq: torch.Tensor,
+    tok_pos: torch.Tensor,
+    block_tables: torch.Tensor,
+    *,
+    window: int = 0,
+    valid: Optional[torch.Tensor] = None,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Packed ragged attention against a paged pool: token t belongs to
+    table row ``tok_seq[t]``; :func:`ragged_attention` over the gathered
+    view (``valid`` is a :func:`ragged_valid_mask` over that view)."""
+    return ragged_attention(
+        q, paged_gather(pool_k, block_tables), paged_gather(pool_v, block_tables),
+        tok_seq, tok_pos, window=window, valid=valid,
+        k_scale=_gather_opt(k_scale, block_tables), v_scale=_gather_opt(v_scale, block_tables),
+    )

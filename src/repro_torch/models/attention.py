@@ -8,6 +8,23 @@ the JAX package's: wq [d, H, hd], wk/wv [d, KV, hd], wo [H, hd, d].
 
 Where the JAX functions return a new cache (the donated buffer), these
 update the cache tensors IN PLACE and return them.
+
+Two options change the cache the step and packed functions read and write,
+as in the JAX package:
+
+* ``block_tables`` ([B, max_blocks] int32): the cache arguments are a
+  block-paged pool ``[NB + 1, bs, KV, hd]`` and position p of slot b lives at
+  offset p % bs of block ``block_tables[b, p // bs]``. The pool's last block
+  (index NB, the tables' unallocated sentinel) is a scratch block that no
+  table names: a write whose table entry is the sentinel, or whose position
+  lies past the table (bucket padding), lands there. That stands in for the
+  JAX scatter's ``mode="drop"`` without a host sync, and no live block is
+  ever touched by such a write.
+* ``k_scale``/``v_scale`` (f32, [B, S_max, KV] or pool-shaped [NB + 1, bs,
+  KV]): the cache stores quantized rows. The new K/V rows are quantized at
+  insert (``quantize_rows``), their scales scattered beside them, and the
+  kernels widen the rows with their scales. The functions then return a
+  5-tuple (out, k, v, k_scale, v_scale).
 """
 
 from __future__ import annotations
@@ -17,6 +34,7 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dist.compression import quantize_rows
 from repro_torch.kernels import ops
 from repro_torch.models.layers import Params, apply_rope, rms_norm
 
@@ -79,25 +97,66 @@ def _scatter_step(cache: torch.Tensor, new: torch.Tensor, cur_len: torch.Tensor)
     return cache
 
 
+def _paged_rows(pool: torch.Tensor, block_tables: torch.Tensor, seq: torch.Tensor,
+                pos: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(block, offset) in ``pool`` of position ``pos[t]`` of table row
+    ``seq[t]``. A position past the table, or an unallocated (sentinel)
+    entry, maps to the scratch block ``pool.shape[0] - 1``."""
+    scratch, bs = pool.shape[0] - 1, pool.shape[1]
+    maxb = block_tables.shape[1]
+    pos = pos.long()
+    blk = block_tables[seq.long(), (pos // bs).clamp(max=maxb - 1)].long()
+    blk = torch.where(pos < maxb * bs, blk, scratch).clamp(max=scratch)
+    return blk, pos % bs
+
+
 def attention_decode(
     params: Params, cfg: ArchConfig, x: torch.Tensor,
     cache_k: torch.Tensor, cache_v: torch.Tensor, cur_len: torch.Tensor,
+    block_tables: Optional[torch.Tensor] = None,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
 ):
     """One decode step. x: [B, 1, d]; cache_k/v: [B, S_max, KV, hd] (updated
-    in place); cur_len: [B] int32 tokens already cached. The new K/V land at
-    cur_len, then attention runs through ``ops.decode_attention``.
-    Returns (out [B, 1, d], cache_k, cache_v)."""
+    in place) or, with ``block_tables``, a paged pool; cur_len: [B] int32
+    tokens already cached. The new K/V land at cur_len, then attention runs
+    through ``ops.decode_attention`` (``ops.paged_decode_attention``).
+    Returns (out [B, 1, d], cache_k, cache_v), plus the scales when
+    quantized."""
     b = x.shape[0]
     q, k, v = _project(params, cfg, x)
     pos = torch.as_tensor(cur_len, device=x.device).broadcast_to((b,))[:, None]  # [B,1]
     q = apply_rope(q, pos, cfg.rope_theta)
     k = apply_rope(k, pos, cfg.rope_theta)
-    _scatter_step(cache_k, k, cur_len)
-    _scatter_step(cache_v, v, cur_len)
-    o = ops.decode_attention(
-        q[:, 0], cache_k, cache_v, cur_len, window=cfg.sliding_window
-    )[:, None]  # [B, 1, H, hd]
-    return _out_proj(params, o), cache_k, cache_v
+    quant = k_scale is not None
+    if quant:  # per-(position, head) rows; the identity lane at f32 storage
+        k, ks = quantize_rows(k, cache_k.dtype)
+        v, vs = quantize_rows(v, cache_v.dtype)
+    if block_tables is None:
+        _scatter_step(cache_k, k, cur_len)
+        _scatter_step(cache_v, v, cur_len)
+        if quant:
+            _scatter_step(k_scale, ks, cur_len)
+            _scatter_step(v_scale, vs, cur_len)
+        o = ops.decode_attention(
+            q[:, 0], cache_k, cache_v, cur_len, window=cfg.sliding_window,
+            k_scale=k_scale, v_scale=v_scale,
+        )
+    else:
+        blk, off = _paged_rows(cache_k, block_tables, torch.arange(b, device=x.device), pos[:, 0])
+        cache_k[blk, off] = k[:, 0].to(cache_k.dtype)
+        cache_v[blk, off] = v[:, 0].to(cache_v.dtype)
+        if quant:
+            k_scale[blk, off] = ks[:, 0].to(k_scale.dtype)
+            v_scale[blk, off] = vs[:, 0].to(v_scale.dtype)
+        o = ops.paged_decode_attention(
+            q[:, 0], cache_k, cache_v, cur_len, block_tables, window=cfg.sliding_window,
+            k_scale=k_scale, v_scale=v_scale,
+        )
+    out = _out_proj(params, o[:, None])  # o: [B, H, hd]
+    if quant:
+        return out, cache_k, cache_v, k_scale, v_scale
+    return out, cache_k, cache_v
 
 
 def _scatter_pack(cache: torch.Tensor, new: torch.Tensor, slot: torch.Tensor, pos: torch.Tensor):
@@ -127,31 +186,61 @@ def attention_packed(
     tok_slot: torch.Tensor, tok_pos: torch.Tensor,
     valid: Optional[torch.Tensor] = None,
     pack_slots: Optional[torch.Tensor] = None,
+    block_tables: Optional[torch.Tensor] = None,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
 ):
     """Packed variable-length step: any mix of decode singletons and prefill
     chunks as ONE flat token batch (the unified serving dispatch).
 
-    x: [T, d]; cache_k/v: [B, S_max, KV, hd] (updated in place);
-    tok_slot/tok_pos: [T] int32 — token t belongs to cache slot
-    ``tok_slot[t]`` (an index INTO ``pack_slots`` when that is given) at
-    position ``tok_pos[t]``. The new K/V are scattered at (slot, pos)
-    (padding rows at pos >= S_max dropped), then each token attends keys
-    p <= tok_pos[t] of its slot. ``valid`` is a precomputed
-    ``ref.ragged_valid_mask`` over the full cache for the plain path.
+    x: [T, d]; cache_k/v: [B, S_max, KV, hd] (updated in place) or, with
+    ``block_tables``, a paged pool; tok_slot/tok_pos: [T] int32 — token t
+    belongs to cache slot ``tok_slot[t]`` (an index INTO ``pack_slots`` when
+    that is given) at position ``tok_pos[t]``. The new K/V are scattered at
+    (slot, pos) — through the slot's table row when paged — with padding
+    rows at pos >= S_max dropped, then each token attends keys p <=
+    tok_pos[t] of its slot. ``valid`` is a precomputed
+    ``ref.ragged_valid_mask`` over the full cache (or the tables' full dense
+    view) for the plain path.
 
-    The JAX function gathers the P packed slots into a sub-cache and passes
-    local indices; here attention reads the full cache at the global slot
-    ``pack_slots[tok_slot]``, which is the same result without the copy.
-    Returns (out [T, d], cache_k, cache_v)."""
+    The JAX function gathers the P packed slots (or their table rows) and
+    passes local indices; here attention reads the full cache, or the full
+    tables, at the global slot ``pack_slots[tok_slot]``, which is the same
+    result without the copy. Prefix-shared blocks are never written: the
+    engine feeds only positions past the matched prefix. Returns (out
+    [T, d], cache_k, cache_v), plus the scales when quantized."""
     q, k, v = _project(params, cfg, x)
     pos = tok_pos.to(torch.int32)
     q = apply_rope(q, pos, cfg.rope_theta)
     k = apply_rope(k, pos, cfg.rope_theta)
     glob = tok_slot if pack_slots is None else pack_slots[tok_slot.long()]
     glob = glob.to(torch.int32)
-    _scatter_pack(cache_k, k, glob, pos)
-    _scatter_pack(cache_v, v, glob, pos)
-    o = ops.ragged_attention(
-        q, cache_k, cache_v, glob, pos, window=cfg.sliding_window, valid=valid
-    )  # [T, H, hd]
-    return _out_proj(params, o), cache_k, cache_v
+    quant = k_scale is not None
+    if quant:  # [T, KV, hd] rows -> [T, KV] scales
+        k, ks = quantize_rows(k, cache_k.dtype)
+        v, vs = quantize_rows(v, cache_v.dtype)
+    if block_tables is None:
+        _scatter_pack(cache_k, k, glob, pos)
+        _scatter_pack(cache_v, v, glob, pos)
+        if quant:
+            _scatter_pack(k_scale, ks, glob, pos)
+            _scatter_pack(v_scale, vs, glob, pos)
+        o = ops.ragged_attention(
+            q, cache_k, cache_v, glob, pos, window=cfg.sliding_window, valid=valid,
+            k_scale=k_scale, v_scale=v_scale,
+        )  # [T, H, hd]
+    else:
+        blk, off = _paged_rows(cache_k, block_tables, glob, pos)
+        cache_k[blk, off] = k.to(cache_k.dtype)
+        cache_v[blk, off] = v.to(cache_v.dtype)
+        if quant:
+            k_scale[blk, off] = ks.to(k_scale.dtype)
+            v_scale[blk, off] = vs.to(v_scale.dtype)
+        o = ops.paged_ragged_attention(
+            q, cache_k, cache_v, glob, pos, block_tables, window=cfg.sliding_window,
+            valid=valid, k_scale=k_scale, v_scale=v_scale,
+        )  # [T, H, hd]
+    out = _out_proj(params, o)
+    if quant:
+        return out, cache_k, cache_v, k_scale, v_scale
+    return out, cache_k, cache_v

@@ -7,7 +7,10 @@ a Python loop over layers replaces ``lax.scan``. It serves prefill
 (:meth:`LM.prefill`), one decode step for every slot (:meth:`LM.decode_step`)
 and the packed ragged step of the unified engine (:meth:`LM.packed_step`).
 
-Caches are updated in place (the JAX package donates them instead).
+Caches are updated in place (the JAX package donates them instead). A cache
+is dense (:meth:`LM.init_cache`) or a block-paged pool (:meth:`LM.init_kv_pool`,
+read through block tables), and either may store quantized rows with
+per-(position, head) ``k_scale``/``v_scale`` leaves (``kv_dtype``).
 """
 
 from __future__ import annotations
@@ -78,14 +81,38 @@ class LM:
             },
         }
 
-    def init_cache(self, batch: int, max_len: int) -> Params:
-        """Zero KV cache {k, v}: [L, B, S_max, KV, hd] each, in the model dtype."""
+    def _kv_leaves(self, lead: tuple, kv_dtype: Optional[torch.dtype]) -> Params:
+        """Zero K/V leaves [L, *lead, KV, hd] in the model dtype, or in
+        ``kv_dtype`` with all-ones f32 scale leaves [L, *lead, KV]."""
         cfg = self.cfg
-        shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
-        return {
-            "k": torch.zeros(shape, dtype=self.dtype, device=self.device),
-            "v": torch.zeros(shape, dtype=self.dtype, device=self.device),
+        shape = (cfg.n_layers, *lead, cfg.n_kv_heads, cfg.head_dim)
+        dt = self.dtype if kv_dtype is None else kv_dtype
+        leaves = {
+            "k": torch.zeros(shape, dtype=dt, device=self.device),
+            "v": torch.zeros(shape, dtype=dt, device=self.device),
         }
+        if kv_dtype is not None:
+            for name in ("k_scale", "v_scale"):
+                leaves[name] = torch.ones(shape[:-1], dtype=torch.float32, device=self.device)
+        return leaves
+
+    def init_cache(self, batch: int, max_len: int,
+                   kv_dtype: Optional[torch.dtype] = None) -> Params:
+        """Zero KV cache {k, v}: [L, B, S_max, KV, hd] each, in the model
+        dtype. ``kv_dtype`` (f32, int8 or float8_e4m3fn) stores quantized
+        rows instead, with f32 ``k_scale``/``v_scale`` leaves [L, B, S_max,
+        KV]; f32 is the identity lane, bit-identical to the plain cache."""
+        return self._kv_leaves((batch, max_len), kv_dtype)
+
+    def init_kv_pool(self, num_blocks: int, block_size: int,
+                     kv_dtype: Optional[torch.dtype] = None) -> Params:
+        """Zero block-paged pool: [L, num_blocks + 1, block_size, KV, hd]
+        per leaf (scale leaves [L, num_blocks + 1, block_size, KV] with
+        ``kv_dtype``). Blocks 0..num_blocks-1 are the allocator's; block
+        ``num_blocks`` — the tables' unallocated sentinel — is a scratch
+        block that takes the writes a sentinel entry drops (see
+        ``models.attention``), so no table ever names it."""
+        return self._kv_leaves((num_blocks + 1, block_size), kv_dtype)
 
     def _layers(self, params: Params) -> list[Params]:
         """Per-layer views of the stacked blocks, rebuilt only for new params."""
@@ -112,6 +139,9 @@ class LM:
         the JAX package; otherwise rows 0..S-1 of slots slot..slot+B-1 of
         ``cache`` are written in place (the engine's fused admission)."""
         cfg = self.cfg
+        if cache is not None and "k_scale" in cache:
+            raise ValueError("prefill writes an unquantized cache; a quantized cache is "
+                             "filled through packed_step")
         x = embed_tokens(params["embed"], batch["tokens"])
         b, s = x.shape[:2]
         if s > max_len:
@@ -129,18 +159,30 @@ class LM:
 
     # ------------------------------------------------------------ decode step
 
+    def _attend(self, fn, li: int, blk: Params, h: torch.Tensor, cache: Params, *args,
+                block_tables: Optional[torch.Tensor]) -> torch.Tensor:
+        """One layer's attention through ``fn`` (decode or packed) over layer
+        ``li`` of the cache, its scale leaves threaded when quantized."""
+        scales = {}
+        if "k_scale" in cache:
+            scales = {"k_scale": cache["k_scale"][li], "v_scale": cache["v_scale"][li]}
+        out = fn(blk["attn"], self.cfg, h, cache["k"][li], cache["v"][li], *args,
+                 block_tables=block_tables, **scales)
+        return out[0]
+
     def decode_step(
-        self, params: Params, cache: Params, batch: dict, cur_len: torch.Tensor
+        self, params: Params, cache: Params, batch: dict, cur_len: torch.Tensor,
+        block_tables: Optional[torch.Tensor] = None,
     ) -> tuple[torch.Tensor, Params]:
         """One token for every slot. batch: {'tokens': [B, 1]}; cur_len: [B]
-        int32 tokens already cached. Returns (logits [B, 1, V], cache)."""
+        int32 tokens already cached. With ``block_tables`` ([B, max_blocks]
+        int32) ``cache`` is a paged pool. Returns (logits [B, 1, V], cache)."""
         cfg = self.cfg
         x = embed_tokens(params["embed"], batch["tokens"])
         for li, blk in enumerate(self._layers(params)):
             h = rms_norm(x, blk["norm1"], cfg.norm_eps)
-            a, _, _ = attn_mod.attention_decode(
-                blk["attn"], cfg, h, cache["k"][li], cache["v"][li], cur_len
-            )
+            a = self._attend(attn_mod.attention_decode, li, blk, h, cache, cur_len,
+                             block_tables=block_tables)
             x = self._mlp_residual(blk, x + a)
         return self._logits(params, x), cache
 
@@ -155,17 +197,21 @@ class LM:
         tok_pos: torch.Tensor,
         out_rows: Optional[torch.Tensor] = None,
         pack_slots: Optional[torch.Tensor] = None,
+        block_tables: Optional[torch.Tensor] = None,
         max_len: Optional[int] = None,
     ) -> tuple[torch.Tensor, Params]:
         """Unified ragged prefill+decode step over one flat [T] token batch,
         each token with its own (cache slot, absolute position).
 
         tokens/tok_slot/tok_pos: [T] int32. With ``pack_slots`` ([P] int32),
-        ``tok_slot`` indexes into it. Padding tokens carry tok_pos >= S_max:
-        their cache writes are dropped and their logits rows are garbage.
-        ``out_rows`` selects the rows to unembed. ``max_len`` is accepted for
-        the JAX signature; only recurrent families need it. Returns (logits
-        [T or len(out_rows), V], cache)."""
+        ``tok_slot`` indexes into it. With ``block_tables`` ([B, max_blocks]
+        int32) ``cache`` is a paged pool and (slot, pos) resolves to (block,
+        offset) through the slot's table row — the same step otherwise, which
+        keeps paged and dense serving equal. Padding tokens carry tok_pos >=
+        S_max: their cache writes are dropped and their logits rows are
+        garbage. ``out_rows`` selects the rows to unembed. ``max_len`` is
+        accepted for the JAX signature; only recurrent families need it.
+        Returns (logits [T or len(out_rows), V], cache)."""
         del max_len
         cfg = self.cfg
         x = embed_tokens(params["embed"], tokens)
@@ -174,14 +220,15 @@ class LM:
             # the plain path's mask depends only on the descriptors: build it
             # once for every layer (the CUDA kernel derives its own)
             glob = tok_slot if pack_slots is None else pack_slots[tok_slot.long()]
-            b, s_max = cache["k"].shape[1], cache["k"].shape[2]
+            if block_tables is None:
+                b, s_max = cache["k"].shape[1], cache["k"].shape[2]
+            else:  # the tables' dense view: S_max = table width * block size
+                b, s_max = block_tables.shape[0], block_tables.shape[1] * cache["k"].shape[2]
             valid = _ref.ragged_valid_mask(glob, tok_pos, b, s_max, cfg.sliding_window)
         for li, blk in enumerate(self._layers(params)):
             h = rms_norm(x, blk["norm1"], cfg.norm_eps)
-            a, _, _ = attn_mod.attention_packed(
-                blk["attn"], cfg, h, cache["k"][li], cache["v"][li],
-                tok_slot, tok_pos, valid, pack_slots,
-            )
+            a = self._attend(attn_mod.attention_packed, li, blk, h, cache, tok_slot, tok_pos,
+                             valid, pack_slots, block_tables=block_tables)
             x = self._mlp_residual(blk, x + a)
         if out_rows is not None:
             x = x[out_rows.long()]

@@ -1,6 +1,27 @@
-"""Serving: the unified engine and its request API."""
+"""Serving: the unified engine and its request API, the block-paged KV pool
+and the radix prefix cache behind paged serving."""
 
-from repro_torch.serve.engine import Request, RequestHandle, ServeEngine, ServeStats
+from repro_torch.serve.engine import (
+    AdmissionRejected,
+    Request,
+    RequestHandle,
+    ServeEngine,
+    ServeStats,
+)
+from repro_torch.serve.kv_pool import BlockPool, PoolStats, blocks_for
+from repro_torch.serve.prefix_cache import PrefixStats, RadixPrefixCache
 from repro_torch.serve.sampling import SamplingParams
 
-__all__ = ["Request", "RequestHandle", "SamplingParams", "ServeEngine", "ServeStats"]
+__all__ = [
+    "AdmissionRejected",
+    "BlockPool",
+    "PoolStats",
+    "PrefixStats",
+    "RadixPrefixCache",
+    "Request",
+    "RequestHandle",
+    "SamplingParams",
+    "ServeEngine",
+    "ServeStats",
+    "blocks_for",
+]

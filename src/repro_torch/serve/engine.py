@@ -19,13 +19,32 @@ slots and every scheduling iteration advances work through three routes:
   kernel). Inactive slots (empty or mid-prefill) ride along without
   advancing their length or changing their last token.
 
+Two opt-in cache layouts change where K/V live, not what is computed:
+
+* **block-paged KV** (``kv_block_size``): one pool of ``num_blocks`` blocks
+  of ``kv_block_size`` positions replaces the per-slot worst-case rows; each
+  request reserves ``blocks_for(prompt, max_new)`` blocks at admission and
+  reads them through its row of a ``[B, max_len / kv_block_size]`` block
+  table. With ``prefix_cache`` a radix tree shares the full blocks of
+  repeated prompt prefixes (block-aligned copy-on-write: a shared block is
+  never written). A request the pool cannot hold waits at the head of the
+  queue; one it could never hold is refused at submit.
+* **quantized KV** (``kv_dtype`` in ``"f32"``, ``"int8"``, ``"fp8"``): K/V
+  rows are stored quantized with per-(position, head) f32 scales, dense or
+  paged. ``"f32"`` is the identity lane (bit-identical to the plain cache).
+
+Paged and quantized admissions always take the pack tier: the packed
+scatter is the one write path that quantizes rows and routes through the
+block tables.
+
 Tick state (last tokens, per-slot lengths) lives on the device; the host
 tracks counts only and reads dispatch t-1's token values after dispatch t is
 enqueued, so the transfer overlaps device work. Host arrays reach the card
 through pinned memory without a stream synchronisation. The KV cache is
 updated in place (the JAX engine donates it). Not ported: the legacy
-prefill+insert tier, paging, quantization, speculation, sampled (non-greedy)
-requests, the placement backends and the cluster hooks.
+prefill+insert tier, int8 weights, speculation, sampled (non-greedy)
+requests, the placement backends, admission control past the infeasible
+refusal, and the cluster hooks.
 """
 
 from __future__ import annotations
@@ -40,7 +59,20 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.models.model import LM
+from repro_torch.serve.kv_pool import BlockPool, blocks_for
+from repro_torch.serve.prefix_cache import RadixPrefixCache
 from repro_torch.serve.sampling import SMODE_GREEDY, SamplingParams, fused_sample
+
+
+class AdmissionRejected(ValueError):
+    """Typed submit-time rejection: the request was never queued. Of the JAX
+    engine's reasons only ``"infeasible"`` (the request needs more KV blocks
+    than the pool holds) arises here; the others belong to admission control,
+    which is not ported."""
+
+    def __init__(self, reason: str, detail: str = "") -> None:
+        self.reason = reason
+        super().__init__(f"{reason}: {detail}" if detail else reason)
 
 
 @dataclass(eq=False)
@@ -123,7 +155,11 @@ class ServeStats:
     wall_seconds: float = 0.0
     ticks: int = 0
     queue_peak: int = 0
+    alloc_failures: int = 0  # paged admissions that had to wait on the pool
+    # peak resident KV bytes, dtype-aware: dense = the whole cache, paged =
+    # peak used blocks x the measured bytes of one block
     kv_bytes_resident: int = 0
+    peak_residents: int = 0  # most requests holding a slot at once
     # per-request samples of the requests finished in this run: TTFT = first
     # token on the host - submitted; TPOT = mean inter-token time
     ttfts: list[float] = field(default_factory=list)
@@ -148,6 +184,25 @@ class ServeStats:
     @property
     def tpot_p99(self) -> float:
         return percentile(self.tpots, 99)
+
+
+def _norm_kv_dtype(kv_dtype) -> Optional[torch.dtype]:
+    """``None`` is the plain (scale-less) cache; ``"f32"``/``"float32"`` the
+    scaled machinery over an f32 store (the identity lane); ``"fp8"`` and
+    its aliases store float8_e4m3fn rows; ``"int8"``/``"i8"`` int8 rows.
+    torch dtypes of those three are accepted too; anything else raises."""
+    if kv_dtype is None:
+        return None
+    names = {
+        "f32": torch.float32, "float32": torch.float32,
+        "int8": torch.int8, "i8": torch.int8,
+        **{n: torch.float8_e4m3fn for n in (
+            "f8", "fp8", "float8", "float8_e4m3", "float8_e4m3fn")},
+    }
+    dt = names.get(kv_dtype) if isinstance(kv_dtype, str) else kv_dtype
+    if dt not in (torch.float32, torch.int8, torch.float8_e4m3fn):
+        raise ValueError(f"unsupported kv_dtype: {kv_dtype!r}")
+    return dt
 
 
 def _bucket_len(s: int, max_len: int) -> int:
@@ -183,6 +238,10 @@ class ServeEngine:
         max_len: int = 256,
         prefill_budget: int = 64,
         max_chunk: int = 8,
+        kv_block_size: Optional[int] = None,
+        num_blocks: Optional[int] = None,
+        prefix_cache: bool = False,
+        kv_dtype=None,
         device=None,
     ):
         self.device = resolve_device(device)
@@ -196,7 +255,43 @@ class ServeEngine:
         self.max_len = max_len
         self.prefill_budget = max(int(prefill_budget), 1)
         self.max_chunk = max(int(max_chunk), 1)
-        self.cache = model.init_cache(batch_slots, max_len)
+        self.kv_dtype = _norm_kv_dtype(kv_dtype)
+        # quantized and paged admissions ride the pack tier only: the packed
+        # scatter is the one write path that quantizes rows and routes
+        # through the block tables
+        self.kv_block_size = int(kv_block_size) if kv_block_size else 0
+        self.paged = bool(self.kv_block_size)
+        self._chunk_only_admit = self.kv_dtype is not None or self.paged
+        if self.paged:
+            if max_len % self.kv_block_size:
+                raise ValueError(f"max_len={max_len} must be a multiple of "
+                                 f"kv_block_size={self.kv_block_size}")
+            self._maxb = max_len // self.kv_block_size  # table width
+            # default pool: byte parity with the dense cache
+            self.num_blocks = int(num_blocks) if num_blocks else batch_slots * self._maxb
+            self.pool = BlockPool(self.num_blocks, self.kv_block_size)
+            self.prefix = RadixPrefixCache(self.pool, self.kv_block_size) if prefix_cache else None
+            # num_blocks + 1 blocks: the last is the scratch block that takes
+            # the writes of sentinel table entries (models.attention)
+            self.cache = model.init_kv_pool(self.num_blocks, self.kv_block_size,
+                                            kv_dtype=self.kv_dtype)
+            # one block's bytes over every leaf and layer, measured from the
+            # live pool (payloads + scales); the scratch block is not counted
+            self.pool.bytes_per_block = sum(
+                t.numel() // t.shape[1] * t.element_size() for t in self.cache.values()
+            )
+            # host block lists and the [B, max_blocks] table; unallocated
+            # entries hold the sentinel num_blocks
+            self._slot_blocks: list[list[int]] = [[] for _ in range(batch_slots)]
+            self._btab_h = np.full((batch_slots, self._maxb), self.num_blocks, np.int32)
+            self._btab = self._put(self._btab_h.copy())
+            self._btab_dirty = False
+        else:
+            if prefix_cache:
+                raise ValueError("prefix_cache=True requires kv_block_size")
+            self.pool = None
+            self.prefix = None
+            self.cache = model.init_cache(batch_slots, max_len, kv_dtype=self.kv_dtype)
         self.slot_req: list[Optional[Request]] = [None] * batch_slots
         self.slot_len = np.zeros(batch_slots, np.int32)  # host mirror (counts)
         self.slot_fed = np.zeros(batch_slots, np.int32)  # prompt tokens fed
@@ -229,27 +324,32 @@ class ServeEngine:
 
     # ------------------------------------------------------------- dispatches
 
-    def _tick_fn(self, last_tok, cur_len, active, n_steps: int):
+    def _tick_fn(self, last_tok, cur_len, active, n_steps: int, btab=None):
         """One decode chunk: ``n_steps`` decode + greedy-sample steps for
-        every slot. Inactive slots keep their ``last_tok`` and length (their
-        garbage K/V row at ``cur_len`` is rewritten before anything reads
-        it). Returns (toks [n_steps, B], last_tok, cur_len)."""
+        every slot (through the block table ``btab`` when paged). Inactive
+        slots keep their ``last_tok`` and length: their garbage K/V row at
+        ``cur_len`` is rewritten before anything reads it, or, for a slot
+        with no blocks, lands in the pool's scratch block. Returns (toks
+        [n_steps, B], last_tok, cur_len)."""
         act = active.bool()
         tok, cl = last_tok, cur_len
         toks = []
         for _ in range(n_steps):
-            logits, _ = self.model.decode_step(self.params, self.cache, {"tokens": tok[:, None]}, cl)
+            logits, _ = self.model.decode_step(
+                self.params, self.cache, {"tokens": tok[:, None]}, cl, block_tables=btab
+            )
             tok = torch.where(act, fused_sample(logits[:, 0]), tok)
             cl = cl + active
             toks.append(tok)
         return torch.stack(toks), tok, cl
 
-    def _packed_fn(self, last_tok, pack, tb: int):
-        """One ragged pack. ``pack`` is one int32 upload: the [3, tb]
-        descriptor rows (token, local slot, position) then meta = new_len
-        [B] | sample_idx [B] | sample_mask [B] | pack_slots [_PACK_WIDTH].
-        A slot whose prompt completes samples its first token from its final
-        prompt row. Returns (sampled [B], last_tok, cur_len = new_len)."""
+    def _packed_fn(self, last_tok, pack, tb: int, btab=None):
+        """One ragged pack (through the block table ``btab`` when paged).
+        ``pack`` is one int32 upload: the [3, tb] descriptor rows (token,
+        local slot, position) then meta = new_len [B] | sample_idx [B] |
+        sample_mask [B] | pack_slots [_PACK_WIDTH]. A slot whose prompt
+        completes samples its first token from its final prompt row.
+        Returns (sampled [B], last_tok, cur_len = new_len)."""
         b = self.B
         desc = pack[: 3 * tb].view(3, tb)
         meta = pack[3 * tb:]
@@ -259,7 +359,8 @@ class ServeEngine:
         pack_slots = meta[3 * b:]
         logits, _ = self.model.packed_step(
             self.params, self.cache, desc[0], desc[1], desc[2],
-            out_rows=sample_idx, pack_slots=pack_slots, max_len=self.max_len,
+            out_rows=sample_idx, pack_slots=pack_slots, block_tables=btab,
+            max_len=self.max_len,
         )
         sampled = fused_sample(logits)
         return sampled, torch.where(sample_mask, sampled, last_tok), new_len
@@ -328,6 +429,29 @@ class ServeEngine:
         while self._pending:
             self._harvest(self._pending.popleft())
 
+    def _flush_btab(self) -> Optional[torch.Tensor]:
+        """The device block table (None when not paged), re-uploaded only
+        after a slot's mapping changed. The upload gets a fresh copy: a
+        release rewrites the host rows while a dispatch that reads the
+        previous table may still be in flight, and the pinned copy is taken
+        without waiting for it."""
+        if not self.paged:
+            return None
+        if self._btab_dirty:
+            self._btab = self._put(self._btab_h.copy())
+            self._btab_dirty = False
+        return self._btab
+
+    def _release_slot_blocks(self, slot: int) -> None:
+        """Drop the slot's references on its blocks (finish/cancel). Blocks
+        the prefix tree retains stay resident; the rest go back to the free
+        list, and a new owner's writes are enqueued after every dispatch
+        that still reads them."""
+        self.pool.release_all(self._slot_blocks[slot])
+        self._slot_blocks[slot] = []
+        self._btab_h[slot, :] = self.num_blocks
+        self._btab_dirty = True
+
     def _flush_events(self) -> torch.Tensor:
         """The [B] int32 "decoding" lane, re-uploaded only after a slot change.
         A mid-prefill slot is inactive until its last pack completes."""
@@ -344,17 +468,22 @@ class ServeEngine:
 
     def prewarm(self) -> None:
         """Build the kernels and run one dummy dispatch per route (decode
-        chunk, ragged pack, fused admission) off the clock. Results are
-        discarded and the tick state is untouched; call on an IDLE engine:
-        the dummies write garbage into cache rows nothing reads yet."""
+        chunk, ragged pack and, where admissions take it, fused admission)
+        off the clock. Results are discarded and the tick state is
+        untouched; call on an IDLE engine: the dummies write garbage into
+        cache rows nothing reads yet (a paged engine's all-sentinel tables
+        send them to the scratch block)."""
         idle = torch.zeros(self.B, dtype=torch.int32, device=self.device)
-        self._tick_fn(self._last_tok, self._cur_len, idle, 1)
+        btab = self._flush_btab()
+        self._tick_fn(self._last_tok, self._cur_len, idle, 1, btab)
         tb = _T_BUCKETS[0]
         desc = np.zeros((3, tb), np.int32)
         desc[2, 1:] = self.max_len  # token 0 at row 0 of slot 0, then padding
         meta = np.concatenate([self.slot_len, np.zeros(2 * self.B + _PACK_WIDTH, np.int32)])
-        self._packed_fn(self._last_tok, self._put(np.concatenate([desc.ravel(), meta])), tb)
-        self._admit_fn(self._put(np.zeros((1, 1), np.int32)), 0, 0, self._last_tok, self._cur_len)
+        self._packed_fn(self._last_tok, self._put(np.concatenate([desc.ravel(), meta])), tb, btab)
+        if not self._chunk_only_admit:
+            self._admit_fn(self._put(np.zeros((1, 1), np.int32)), 0, 0, self._last_tok,
+                           self._cur_len)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
@@ -363,6 +492,13 @@ class ServeEngine:
             raise ValueError(f"prompt of {len(req.prompt)} tokens needs max_len > that")
         if req.params.smode != SMODE_GREEDY:
             raise NotImplementedError("only greedy requests are ported (smode 0)")
+        if self.paged:
+            need = blocks_for(len(req.prompt), req.params.max_new, self.max_len,
+                              self.kv_block_size)
+            if need > self.num_blocks:  # a wait could never resolve
+                raise AdmissionRejected(
+                    "infeasible", f"request needs {need} KV blocks, pool holds {self.num_blocks}"
+                )
         req.submitted_at = time.perf_counter()
         self.waiting.append(req)
         return RequestHandle(req, self)
@@ -389,6 +525,8 @@ class ServeEngine:
                     self.slot_fed[slot] = 0
                     if slot in self._prefilling:
                         self._prefilling.remove(slot)
+                    if self.paged:  # a cancel frees the blocks mid-stream
+                        self._release_slot_blocks(slot)
                     self._dirty = True
             req.finish_reason = "cancelled"
             req.n_generated = len(req.generated)
@@ -412,20 +550,23 @@ class ServeEngine:
         self._done_now.append(req)
         self.slot_req[slot] = None
         self.slot_len[slot] = 0
+        if self.paged:
+            self._release_slot_blocks(slot)
         if stats is not None:
             stats.total_requests += 1
         self._dirty = True
 
     def _admit_unified(self, stats: ServeStats) -> None:
         """Bind waiting requests to free slots: short prompts take the fused
-        admission now, longer ones join the chunked pack tier."""
+        admission now, longer ones (and every one of a quantized cache) join
+        the chunked pack tier."""
         for slot in range(self.B):
             while self.slot_req[slot] is None and self.waiting:
                 req = self.waiting.popleft()
                 s = len(req.prompt)
                 self.slot_req[slot] = req
                 self._dirty = True
-                if s > self.prefill_budget:
+                if self._chunk_only_admit or s > self.prefill_budget:
                     self.slot_len[slot] = 0
                     self.slot_fed[slot] = 0
                     self._prefilling.append(slot)
@@ -442,6 +583,50 @@ class ServeEngine:
                 self._pending.append(("admit", tok, (slot, req), stats))
                 if req.n_generated >= req.params.max_new:
                     self._finish(req, slot, stats)
+
+    def _admit_paged(self) -> None:
+        """Paged admission: consult the prefix tree, reserve the request's
+        whole worst-case block table, and bind the slot to the pack tier at
+        the first unmatched position.
+
+        * Matched blocks (block-aligned) enter the table read-only and
+          ``slot_fed`` starts past them, so they are never written.
+        * Allocation is all-or-nothing and up front (``blocks_for``): decode
+          never runs out mid-stream. A request the pool cannot hold yet
+          stays at the head of the queue (after LRU eviction of tree-only
+          blocks) until a finishing request frees capacity.
+        """
+        for slot in range(self.B):
+            while self.slot_req[slot] is None and self.waiting:
+                req = self.waiting[0]
+                s = len(req.prompt)
+                need_total = blocks_for(s, req.params.max_new, self.max_len, self.kv_block_size)
+                shared: list[int] = []
+                matched = 0
+                if self.prefix is not None:
+                    shared, matched = self.prefix.match(req.prompt)
+                need = need_total - len(shared)
+                if not self.pool.can_alloc(need):
+                    if self.prefix is not None:
+                        self.prefix.evict(need - self.pool.free)
+                    if not self.pool.can_alloc(need):
+                        # pool exhausted: give back the matched references and
+                        # leave the request waiting, FCFS order intact
+                        self.pool.alloc_failures += 1
+                        self.pool.release_all(shared)
+                        return
+                self.waiting.popleft()
+                blocks = shared + self.pool.alloc(need)
+                self._slot_blocks[slot] = blocks
+                row = self._btab_h[slot]
+                row[:] = self.num_blocks
+                row[: len(blocks)] = blocks
+                self._btab_dirty = True
+                self.slot_req[slot] = req
+                self._dirty = True
+                self.slot_len[slot] = matched
+                self.slot_fed[slot] = matched
+                self._prefilling.append(slot)
 
     def _packed_tick(self, stats: ServeStats) -> None:
         """Build and dispatch one ragged pack: up to ``prefill_budget`` prompt
@@ -478,10 +663,18 @@ class ServeEngine:
             desc[:, t] = (tok, sl, pos)
         meta = np.concatenate([self.slot_len, sample_idx, sample_mask.astype(np.int32), pack_slots])
         toks, self._last_tok, self._cur_len = self._packed_fn(
-            self._last_tok, self._put(np.concatenate([desc.ravel(), meta])), tb
+            self._last_tok, self._put(np.concatenate([desc.ravel(), meta])), tb,
+            self._flush_btab(),
         )
         stats.ticks += 1
         if completed:
+            if self.prefix is not None:
+                # the prompts' K/V now sit in their blocks (the dispatch above
+                # is ordered before any later reader): register their full
+                # blocks BEFORE an instant finish below releases the slot —
+                # the tree takes its own references
+                for i in completed:
+                    self.prefix.insert(self.slot_req[i].prompt, self._slot_blocks[i])
             items = []
             for i in completed:
                 req = self.slot_req[i]
@@ -509,7 +702,7 @@ class ServeEngine:
         while k * 2 <= cap:
             k *= 2
         toks, self._last_tok, self._cur_len = self._tick_fn(
-            self._last_tok, self._cur_len, self._flush_events(), k
+            self._last_tok, self._cur_len, self._flush_events(), k, self._flush_btab()
         )
         stats.ticks += k
         self._pending.append(("chunk", toks, [(i, self.slot_req[i]) for i in active], stats))
@@ -528,9 +721,13 @@ class ServeEngine:
         the newest dispatch. Returns whether any work remains."""
         self._apply_cancels(stats)
         self._release_stopped(stats)
-        self._admit_unified(stats)
+        if self.paged:
+            self._admit_paged()
+        else:
+            self._admit_unified(stats)
         stats.kv_bytes_resident = max(stats.kv_bytes_resident, self.kv_bytes_resident())
         active = [i for i, r in enumerate(self.slot_req) if r is not None]
+        stats.peak_residents = max(stats.peak_residents, len(active))
         if not active:
             self._drain_pending()
             self._release_stopped(stats)
@@ -550,7 +747,11 @@ class ServeEngine:
         return True
 
     def kv_bytes_resident(self) -> int:
-        """Bytes of the dense KV cache (every slot's worst case is resident)."""
+        """Bytes of KV state resident now, dtype-aware: the whole dense cache
+        (every slot's worst case is resident), or the paged pool's used
+        blocks times the measured bytes of one block."""
+        if self.paged:
+            return self.pool.used * self.pool.bytes_per_block
         return sum(t.numel() * t.element_size() for t in self.cache.values())
 
     @property
@@ -582,6 +783,7 @@ class ServeEngine:
         passes its offset (its TTFT clock starts at the scheduled time)."""
         stats = ServeStats()
         self._done_now = []
+        alloc_fail0 = self.pool.alloc_failures if self.paged else 0
         t0 = time.perf_counter()
         arr: deque = deque(sorted(arrivals, key=lambda a: a[0]) if arrivals else ())
         self._running = True
@@ -607,6 +809,8 @@ class ServeEngine:
             self._running = False
         stats.wall_seconds = time.perf_counter() - t0
         stats.kv_bytes_resident = max(stats.kv_bytes_resident, self.kv_bytes_resident())
+        if self.paged:
+            stats.alloc_failures = self.pool.alloc_failures - alloc_fail0
         for req in self._done_now:
             if req.first_token_at is not None:
                 stats.ttfts.append(req.first_token_at - req.submitted_at)
