@@ -6,20 +6,26 @@
 Phases (each raises on failure, so the script exits non-zero):
 
 0. device — fail without CUDA; print the card's name and power limit.
-1. build — compile the hand-written CUDA kernels from ``csrc/`` (four
-   sources, seven kernel bodies: decode, ragged and paged attention over a
-   plain or a quantized store, and GQA flash attention).
+1. build — compile the hand-written CUDA kernels from ``csrc/`` (five
+   sources, nine kernel bodies: decode, ragged and paged attention over a
+   plain or a quantized store, GQA flash attention, and the matmul and
+   int8-weight matmul).
 2. kernels — each kernel body against its plain PyTorch version on the card,
    at the serving path's shapes (codeqwen1.5-7b: KV=32, G=1, d=128, 4 slots
    x 1024 positions; a 64-token ragged pack; 64- and 37-token prefill; an
    8-sequence paged decode over a fragmented pool with a shared prefix,
    block sizes 16 and 32), plus the GQA shape KV=8, G=8, a sliding window,
-   f32 and bf16 queries, int8 and fp8 stores. Times each kernel, its plain
-   version and a one-call PyTorch yardstick (where one exists) with CUDA
-   events, and computes its bound at the card's published peaks.
+   f32 and bf16 queries, int8, fp8 and scaled f32 stores (bf16 queries over
+   a scaled f32 store: the identity KV lane of a bf16 model); the matmuls at
+   M = 4-256 live tokens over codeqwen's (K, N) and a shape with K and N
+   tails, f32 and bf16 activations. Times each kernel, its plain version and
+   a one-call PyTorch yardstick (where one exists) as device time (CUDA events
+   around one CUDA-graph replay of 30 calls, so the wrappers' host time is
+   not counted), and computes its bound at the card's published peaks.
 3. kernel path vs plain path — a small f32 model served greedily through
    ServeEngine on the card and on the CPU, dense, paged with prefix reuse,
-   and over int8 and fp8 caches; the token streams must be equal.
+   over int8 and fp8 caches, and with int8 weights (dense, and paged +
+   prefix over an int8 cache); the token streams must be equal.
 4. full width — codeqwen1.5-7b, 32 layers, bf16, random weights from a seed,
    4 slots x 1024 positions; about 12 greedy requests whose prompts straddle
    the prefill budget, so fused admissions, ragged packs and decode chunks
@@ -31,7 +37,15 @@ Phases (each raises on failure, so the script exits non-zero):
    the measured requests and read just after, the kernels that run drives
    must have launched, the prefix cache must hit, and each run's stream must
    agree with ``LM.prefill`` teacher-forced.
-6. a ``{"kernels": [...]}`` JSON line, then the result line.
+6. full width, int8 weights — phase 4's weights quantized on the card
+   (``ServeEngine(weight_dtype="int8")``) serving (a) phase 4's traffic on a
+   dense bf16 cache and (b) phase 5 (b)'s traffic on the paged int8 pool with
+   prefix reuse; in each run ``matmul_q8`` must launch between the counts'
+   reset and read, the stream must agree with the quantized model's
+   ``LM.prefill`` teacher-forced, and the int8 block stack must take at most
+   0.51x the bf16 one's bytes. Prints the int8 model's top-1 agreement with
+   the bf16 model at clear margins (not gated).
+7. a ``{"kernels": [...]}`` JSON line, then the result line.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -56,6 +70,18 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # bf16 tensor core, f32 CUD
 # summation order; at bf16 both compute in f32 from the same bf16 inputs and
 # round the output once, so they differ by at most ~2 bf16 steps at |x| <= 1
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# max |kernel - plain| / max |plain| allowed for the matmuls (their outputs
+# are not bounded by 1): at f32 both sum in f32 in different orders; at bf16
+# both sum exact products in f32 and round the output once, so they differ
+# by at most one bf16 step (2^-8 relative) of the largest output
+MATMUL_REL_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+# phase 2's matmul shapes: M live tokens (decode 4-16, packs and admissions
+# up to 64, longer prefills), codeqwen's (K, N) of the projections and the
+# MLP, and one shape with K and N tails; the main case is a 4-slot decode
+# step's w_in / w_gate product
+MATMUL_M = (4, 16, 37, 64, 256)
+MATMUL_KN = ((4096, 4096), (4096, 13440), (13440, 4096), (4100, 4104))
+MATMUL_MAIN = (4, 4096, 13440)
 # teacher-forced top-1 agreement floor of phases 4 and 5: a random-weight
 # bf16 model over a 92k vocab has top-2 logit gaps of ~0.2 while bf16 logits
 # near 4 are spaced 0.03 apart, so near-ties flip between two matmul/attention
@@ -79,16 +105,25 @@ def phase(name: str) -> None:
 
 
 def time_ms(fn, reps: int = 30, warmup: int = 3) -> float:
+    """Device time per call of ``fn``: ``reps`` calls captured in one CUDA
+    graph and replayed between two CUDA events, so the host's time between
+    launches (Python wrappers, ctypes) is not counted; L2 warm."""
     import torch
 
     for _ in range(warmup):
         fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(reps):
-        fn()
+    graph.replay()
     end.record()
     torch.cuda.synchronize()
+    del graph
     return start.elapsed_time(end) / reps
 
 
@@ -242,7 +277,10 @@ def check_paged_and_quant_kernels(dev):
     rs = np.random.default_rng(1)
     results = {}
     bf16, f32 = torch.bfloat16, torch.float32
-    stores = {"int8": torch.int8, "fp8": torch.float8_e4m3fn}
+    # "f32": the identity lane (an f32 store, scales of 1); "f32 rand": an
+    # f32 store under random scales. Under bf16 queries both run the
+    # bf16-query / scaled-f32-store instantiation
+    stores = {"int8": torch.int8, "fp8": torch.float8_e4m3fn, "f32": torch.float32}
     no_library = "none: no single PyTorch call attends over int8/fp8 rows with row scales"
     S, D = S_MAX, 128
 
@@ -254,6 +292,9 @@ def check_paged_and_quant_kernels(dev):
         k, v = randn(*shape), randn(*shape)
         if store is None:
             return k.to(qdtype), v.to(qdtype), {}
+        if store == "f32 rand":
+            scale = [torch.rand(shape[:-1], generator=gen, device=dev) + 0.5 for _ in "kv"]
+            return k, v, dict(k_scale=scale[0], v_scale=scale[1])
         k, ks = quantize_rows(k, stores[store])
         v, vs = quantize_rows(v, stores[store])
         return k, v, dict(k_scale=ks, v_scale=vs)
@@ -338,6 +379,12 @@ def check_paged_and_quant_kernels(dev):
             (32, 1, 32, bf16, 0, "decode", False), (8, 8, 16, f32, 0, "decode", False),
             (32, 1, 16, bf16, 100, "pack", False),
         ]),
+        ("paged_attention_q8", "f32", [
+            (32, 1, 32, bf16, 0, "decode", False), (32, 1, 32, bf16, 0, "pack", False),
+        ]),
+        ("paged_attention_q8", "f32 rand", [
+            (32, 1, 32, bf16, 0, "decode", False), (8, 8, 16, bf16, 0, "pack", False),
+        ]),
     ]:
         for kv, g, bs, dtype, window, kind, main in cases:
             nb, tab_h = pool_tables(bs)
@@ -383,6 +430,8 @@ def check_paged_and_quant_kernels(dev):
         ("int8", 32, 1, bf16, 0, True), ("int8", 32, 1, f32, 0, False),
         ("fp8", 32, 1, bf16, 0, False), ("int8", 8, 8, bf16, 0, False),
         ("fp8", 8, 8, f32, 0, False), ("int8", 32, 1, bf16, 100, False),
+        ("f32", 32, 1, bf16, 0, False), ("f32 rand", 32, 1, bf16, 0, False),
+        ("f32 rand", 8, 8, bf16, 0, False),
     ]:
         q = randn(B, kv, g, D, dtype=dtype)
         k, v, scales = store_kv((B, S, kv, D), store, dtype)
@@ -404,7 +453,8 @@ def check_paged_and_quant_kernels(dev):
     for store, kv, g, dtype, window, main in [
         ("int8", 32, 1, bf16, 0, True), ("int8", 32, 1, f32, 0, False),
         ("fp8", 32, 1, bf16, 0, False), ("int8", 8, 8, bf16, 0, False),
-        ("fp8", 8, 8, f32, 24, False),
+        ("fp8", 8, 8, f32, 24, False), ("f32", 32, 1, bf16, 0, False),
+        ("f32 rand", 32, 1, bf16, 0, False),
     ]:
         q = randn(len(slots), kv, g, D, dtype=dtype)
         k, v, scales = store_kv((B, S, kv, D), store, dtype)
@@ -421,6 +471,91 @@ def check_paged_and_quant_kernels(dev):
                                              **scales),
                 len(rows), n_keys * kv * g * D * 4, kv_row_bytes(k, kv, True),
                 nbytes(q, q, ts, tp), main=main)
+    torch.cuda.synchronize()
+    return results
+
+
+def check_matmul_kernels(dev):
+    """Phase 2 for ``matmul`` and ``matmul_q8``: every (M, K, N) of
+    MATMUL_M x MATMUL_KN at bf16 and f32 activations against the plain
+    version, within MATMUL_REL_TOL of max |plain|; all cases timed, the main
+    case (MATMUL_MAIN, bf16) of each returned. Yardsticks: ``torch.matmul``
+    for ``matmul``; for ``matmul_q8`` ``torch._weight_int8pack_mm`` (one call
+    over the int8 weight transposed to [N, K], with bf16 scales) where it runs
+    on the card and agrees, with the two-call dequant + ``torch.matmul``
+    printed beside it."""
+    import torch
+
+    from repro_torch.kernels import matmul as mmk
+    from repro_torch.kernels import ref
+    from repro_torch.models.quant import quantize_leaf
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    results = {}
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def int8_pack_yardstick(a, q8, scale, want, tol):
+        """(fn, label) of the one-call PyTorch int8-weight product, or (None,
+        reason) where it does not run on the card or computes another
+        function."""
+        try:
+            w_nk, s = q8.t().contiguous(), scale.to(a.dtype)
+            fn = lambda: torch._weight_int8pack_mm(a, w_nk, s)  # noqa: E731
+            err = (fn().float() - want.float()).abs().max().item()
+        except (RuntimeError, NotImplementedError, TypeError) as e:
+            return None, f"none: torch._weight_int8pack_mm does not run here ({type(e).__name__})"
+        if not err <= tol:
+            return None, f"none: torch._weight_int8pack_mm differs by {err:.3g} (tol {tol:.3g})"
+        return fn, "torch._weight_int8pack_mm (int8 [N, K], bf16 scales)"
+
+    for dtype in (bf16, f32):
+        dname = str(dtype).split(".")[-1]
+        for k, n in MATMUL_KN:
+            w = torch.randn(k, n, generator=gen, device=dev)
+            leaf = quantize_leaf(w[None], (1,))
+            q8, scale = leaf["q8"][0], leaf["scale"][0].reshape(n)
+            b = w.to(dtype)
+            for m in MATMUL_M:
+                a = torch.randn(m, k, generator=gen, device=dev).to(dtype)
+                main = (m, k, n) == MATMUL_MAIN and dtype == bf16
+                for name, kernel, plain, by in [
+                    ("matmul_q8", lambda: mmk.matmul_q8(a, q8, scale),
+                     lambda: ref.matmul_q8(a, q8, scale), nbytes(a, q8, scale)),
+                    ("matmul", lambda: mmk.matmul(a, b), lambda: ref.matmul(a, b),
+                     nbytes(a, b)),
+                ]:
+                    got, want = kernel(), plain()
+                    torch.cuda.synchronize()
+                    want_max = want.float().abs().max().item()
+                    tol = MATMUL_REL_TOL[dname] * want_max
+                    err = (got.float() - want.float()).abs().max().item()
+                    timed = dict(ms=time_ms(kernel), plain_ms=time_ms(plain))
+                    timed["bound_ms"], timed["bound_by"] = bound(by + m * n * a.element_size(),
+                                                                 2 * m * k * n, dtype)
+                    extra = ""
+                    if name == "matmul":
+                        timed["library_ms"] = time_ms(lambda: torch.matmul(a, b))
+                        timed["library"] = "torch.matmul"
+                    else:
+                        fn, timed["library"] = int8_pack_yardstick(a, q8, scale, want, tol)
+                        timed["library_ms"] = time_ms(fn) if fn is not None else None
+                        if main:
+                            two = time_ms(lambda: a @ (q8.to(dtype) * scale.to(dtype)))
+                            extra = f" (dequant + torch.matmul, two calls: {two:.4f} ms)"
+                    lib = (f"{timed['library_ms']:.4f}" if timed["library_ms"] is not None
+                           else "none")
+                    print(f"  {name:10s} M={m:<4d} K={k:<6d} N={n:<6d} {dname:8s} "
+                          f"rel_err={err / want_max:.2e} "
+                          f"tol={MATMUL_REL_TOL[dname]:g} ms={timed['ms']:.4f} "
+                          f"plain={timed['plain_ms']:.4f} bound={timed['bound_ms']:.4f} "
+                          f"library={lib}{extra}", flush=True)
+                    if not err <= tol:
+                        raise AssertionError(f"{name} M={m} K={k} N={n} {dname}: max_abs_err "
+                                             f"{err} above {tol}")
+                    if main:
+                        results[name] = dict(timed, max_abs_err=err, tol=tol)
+                        if timed["library_ms"] is None:
+                            print(f"  {name} yardstick: {timed['library']}")
     torch.cuda.synchronize()
     return results
 
@@ -454,6 +589,9 @@ def small_model_streams(dev):
         ("paged + prefix, bs=16", shared + prompts[6:], dict(kv_block_size=16, prefix_cache=True)),
         ("int8 dense", prompts, dict(kv_dtype="int8")),
         ("fp8 paged, bs=16", prompts, dict(kv_dtype="fp8", kv_block_size=16)),
+        ("int8 weights, dense", prompts, dict(weight_dtype="int8")),
+        ("int8 weights + int8 KV, paged + prefix, bs=16", shared + prompts[6:],
+         dict(weight_dtype="int8", kv_dtype="int8", kv_block_size=16, prefix_cache=True)),
     ]
 
     def serve(model, params, device, reqs, kw):
@@ -588,6 +726,78 @@ def phase4_prompts(cfg):
 # ----------------------------------------------------------------- phase 5
 
 
+def shared_traffic(cfg):
+    """Phase 5's shared-prefix traffic: (warm-up prompt, 12 prompts) — a
+    512-token system prompt ahead of 8 tails of 16-64 tokens, and 4 unshared
+    prompts of 5-700 tokens."""
+    rng = np.random.default_rng(5)
+    system = rng.integers(0, cfg.vocab_size, size=512).astype(np.int32)
+    tails = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+             for n in (16, 40, 64, 23, 57, 31, 48, 20)]
+    unshared = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+                for n in (5, 700, 130, 333)]
+    warm = np.concatenate([system, rng.integers(0, cfg.vocab_size, size=8).astype(np.int32)])
+    return warm, [np.concatenate([system, t]) for t in tails] + unshared
+
+
+def serve_shared(dev, model, params, counters, label, expect, **kw):
+    """Serve the shared-prefix traffic on a paged engine with prefix reuse
+    (block size 32); the counts are set to 0 just before the 12 measured
+    requests and read just after. Returns (the run's launches, its readings,
+    the engine's params)."""
+    import torch
+
+    from repro_torch.serve import Request, SamplingParams, ServeEngine
+
+    cfg = model.cfg
+    max_new, bs = 32, 32
+    floor_ms = kw.pop("floor_ms", None)
+    warm, shared_prompts = shared_traffic(cfg)
+    eng = ServeEngine(model, params, batch_slots=kw.pop("batch_slots"), max_len=1024,
+                      prefill_budget=64, kv_block_size=bs, prefix_cache=True, **kw)
+    eng.prewarm()
+    # the warm-up request registers the system prompt's 16 blocks
+    eng.submit(Request(rid=100, prompt=warm, params=SamplingParams(max_new=max_new)))
+    eng.run()
+    hits0 = eng.prefix.stats().hit_tokens
+    reqs = [Request(rid=i, prompt=p_, params=SamplingParams(max_new=max_new))
+            for i, p_ in enumerate(shared_prompts)]
+    reset_counts(counters)
+    for r in reqs:
+        eng.submit(r)
+    stats = eng.run()
+    launches = read_counts(counters, f"({label})", expect)
+    check_finished(reqs, max_new, cfg.vocab_size)
+    hits = eng.prefix.stats().hit_tokens - hits0
+    peak_blocks = stats.kv_bytes_resident // eng.pool.bytes_per_block
+    print(f"  ({label}) {eng.num_blocks} blocks of {bs} ({eng.pool.bytes_per_block} bytes "
+          f"each, {eng.num_blocks * eng.pool.bytes_per_block / 2**30:.2f} GiB), "
+          f"{eng.B} slots: prefix hit tokens {hits}, peak used blocks {peak_blocks}, peak "
+          f"kv_bytes_resident {stats.kv_bytes_resident}")
+    print_stats(stats)
+    if hits <= 0:
+        raise AssertionError(f"({label}) the prefix cache never hit")
+    agree = teacher_forced(model, eng.params, reqs[1], dev, f"({label})")
+    # a decode step with live requests: the shared prompts, all decoding
+    live = [eng.submit(Request(rid=300 + i, prompt=p_, params=SamplingParams(max_new=64)))
+            for i, p_ in enumerate(shared_prompts[:eng.B])]
+    while eng._prefilling or eng.waiting:
+        eng.step()
+    step = decode_step_profile(eng, cfg, dev, f"({label}) decode step", floor_ms=floor_ms)
+    for h in live:
+        h.cancel()
+    eng.run()
+    out = dict(num_blocks=eng.num_blocks, bytes_per_block=eng.pool.bytes_per_block,
+               hit_tokens=hits, peak_blocks=peak_blocks, peak_residents=stats.peak_residents,
+               kv_bytes_resident=stats.kv_bytes_resident, tok_s=stats.tokens_per_sec,
+               ttft_p50_ms=stats.ttft_p50 * 1e3, ttft_p99_ms=stats.ttft_p99 * 1e3,
+               tpot_p50_ms=stats.tpot_p50 * 1e3, agreement=agree, decode_step=step)
+    qparams = eng.params
+    del eng
+    torch.cuda.empty_cache()
+    return launches, out, qparams
+
+
 def paged_and_quantized(dev, model, params, counters):
     """Full-width serving on the paged pool with prefix reuse, then the same
     traffic over an int8 pool of the same bytes, then phase 4's traffic over
@@ -600,69 +810,18 @@ def paged_and_quantized(dev, model, params, counters):
 
     cfg = model.cfg
     max_new, bs = 32, 32
-    rng = np.random.default_rng(5)
-    system = rng.integers(0, cfg.vocab_size, size=512).astype(np.int32)
-    tails = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
-             for n in (16, 40, 64, 23, 57, 31, 48, 20)]
-    unshared = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
-                for n in (5, 700, 130, 333)]
-    warm = np.concatenate([system, rng.integers(0, cfg.vocab_size, size=8).astype(np.int32)])
-    shared_prompts = [np.concatenate([system, t]) for t in tails] + unshared
-
     runs = []  # each measured run's launches
 
-    def serve_shared(label, expect, **kw):
-        eng = ServeEngine(model, params, batch_slots=kw.pop("batch_slots"), max_len=1024,
-                          prefill_budget=64, kv_block_size=bs, prefix_cache=True, **kw)
-        eng.prewarm()
-        # the warm-up request registers the system prompt's 16 blocks
-        eng.submit(Request(rid=100, prompt=warm, params=SamplingParams(max_new=max_new)))
-        eng.run()
-        hits0 = eng.prefix.stats().hit_tokens
-        reqs = [Request(rid=i, prompt=p_, params=SamplingParams(max_new=max_new))
-                for i, p_ in enumerate(shared_prompts)]
-        reset_counts(counters)
-        for r in reqs:
-            eng.submit(r)
-        stats = eng.run()
-        runs.append(read_counts(counters, f"({label})", expect))
-        check_finished(reqs, max_new, cfg.vocab_size)
-        hits = eng.prefix.stats().hit_tokens - hits0
-        peak_blocks = stats.kv_bytes_resident // eng.pool.bytes_per_block
-        print(f"  ({label}) {eng.num_blocks} blocks of {bs} ({eng.pool.bytes_per_block} bytes "
-              f"each, {eng.num_blocks * eng.pool.bytes_per_block / 2**30:.2f} GiB), "
-              f"{eng.B} slots: prefix hit tokens {hits}, peak used blocks {peak_blocks}, peak "
-              f"kv_bytes_resident {stats.kv_bytes_resident}")
-        print_stats(stats)
-        if hits <= 0:
-            raise AssertionError(f"({label}) the prefix cache never hit")
-        agree = teacher_forced(model, params, reqs[1], dev, f"({label})")
-        # a decode step with live requests: the shared prompts, all decoding
-        live = [eng.submit(Request(rid=300 + i, prompt=p_, params=SamplingParams(max_new=64)))
-                for i, p_ in enumerate(shared_prompts[:eng.B])]
-        while eng._prefilling or eng.waiting:
-            eng.step()
-        decode_step_profile(eng, cfg, dev, f"({label}) decode step")
-        for h in live:
-            h.cancel()
-        eng.run()
-        out = dict(num_blocks=eng.num_blocks, bytes_per_block=eng.pool.bytes_per_block,
-                   hit_tokens=hits, peak_blocks=peak_blocks, peak_residents=stats.peak_residents,
-                   kv_bytes_resident=stats.kv_bytes_resident, tok_s=stats.tokens_per_sec,
-                   ttft_p50_ms=stats.ttft_p50 * 1e3, ttft_p99_ms=stats.ttft_p99 * 1e3,
-                   tpot_p50_ms=stats.tpot_p50 * 1e3, agreement=agree)
-        del eng
-        torch.cuda.empty_cache()
-        return out
-
     # (a) bf16 pool at byte parity with a dense 8 x 1024 cache: 256 blocks
-    a = serve_shared("a: paged bf16 + prefix", ["paged_attention"], batch_slots=8)
+    la, a, _ = serve_shared(dev, model, params, counters, "a: paged bf16 + prefix",
+                            ["paged_attention"], batch_slots=8)
     # (b) int8 pool of (a)'s bytes, twice the slots
     L, KV, hd = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
     int8_block = L * bs * KV * (hd + 4) * 2
-    b = serve_shared("b: paged int8 + prefix", ["paged_attention_q8"], batch_slots=16,
-                     kv_dtype="int8",
-                     num_blocks=a["num_blocks"] * a["bytes_per_block"] // int8_block)
+    lb, b, _ = serve_shared(dev, model, params, counters, "b: paged int8 + prefix",
+                            ["paged_attention_q8"], batch_slots=16, kv_dtype="int8",
+                            num_blocks=a["num_blocks"] * a["bytes_per_block"] // int8_block)
+    runs += [la, lb]
     if b["bytes_per_block"] != int8_block:
         raise AssertionError(f"int8 block bytes {b['bytes_per_block']} != {int8_block}")
     print(f"  peak residents: (a) {a['peak_residents']}, (b) {b['peak_residents']}; pool "
@@ -696,11 +855,109 @@ def paged_and_quantized(dev, model, params, counters):
     return launches, {"a": a, "b": b, "c": c}
 
 
-def decode_step_profile(eng, cfg, dev, label: str = "decode step", steps: int = 8) -> None:
+# ----------------------------------------------------------------- phase 6
+
+
+def top1_vs_dense(model, params, qparams, seq, dev) -> dict:
+    """Top-1 agreement of the int8-weight model's prefill logits with the
+    bf16 model's over ``seq``, at the positions where the bf16 model's top-2
+    margin is clear (> 0.05) — the quality number
+    tests/test_quant_serving.py gates on the CPU; printed, not gated here."""
+    import torch
+
+    toks = {"tokens": torch.from_numpy(seq[None]).to(dev)}
+    with torch.no_grad():
+        dense, _ = model.prefill(params, toks, len(seq))
+        quant, _ = model.prefill(qparams, toks, len(seq))
+    dense, quant = dense[0].float(), quant[0].float()
+    top2 = dense.topk(2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 0.05
+    same = dense.argmax(-1) == quant.argmax(-1)
+    out = dict(clear=int(clear.sum()), positions=len(seq),
+               agree_clear=float(same[clear].float().mean()) if clear.any() else float("nan"),
+               agree_all=float(same.float().mean()))
+    print(f"  int8 vs bf16 weights, prefill over {len(seq)} tokens: top-1 agreement "
+          f"{out['agree_clear']:.3f} at the {out['clear']} clear-margin positions (> 0.05), "
+          f"{out['agree_all']:.3f} at all (not gated)")
+    return out
+
+
+def int8_weights(dev, model, params, counters, num_blocks_b: int):
+    """Phase 6: int8-weight serving at full width. (a) phase 4's traffic on a
+    dense bf16 cache, (b) phase 5 (b)'s traffic on a paged int8 pool of
+    ``num_blocks_b`` blocks with prefix reuse; each engine quantizes phase 4's
+    weights on the card. Returns the launches summed over the two measured
+    runs and the readings."""
+    import torch
+
+    from repro_torch.common import pytree_bytes
+    from repro_torch.serve import Request, SamplingParams, ServeEngine
+
+    cfg = model.cfg
+    max_new = 32
+    dense_bytes = pytree_bytes(params["blocks"])
+    head_bytes = pytree_bytes(params["embed"].get("head"))
+
+    def resident(label, qparams) -> dict:
+        q_bytes = pytree_bytes(qparams["blocks"])
+        ratio = q_bytes / dense_bytes
+        print(f"  ({label}) resident params['blocks']: int8 {q_bytes} bytes, bf16 {dense_bytes} "
+              f"bytes, ratio {ratio:.4f}")
+        if ratio > 0.51:
+            raise AssertionError(f"({label}) int8 block stack {ratio:.4f}x the bf16 one")
+        return dict(blocks_bytes=q_bytes, blocks_bytes_bf16=dense_bytes, ratio=ratio)
+
+    # (a) phase 4's traffic, dense bf16 cache
+    t0 = time.perf_counter()
+    eng = ServeEngine(model, params, batch_slots=4, max_len=1024, prefill_budget=64,
+                      weight_dtype="int8")
+    torch.cuda.synchronize()
+    print(f"  quantized {cfg.n_layers} layers on the card in {time.perf_counter() - t0:.2f} s")
+    eng.prewarm()
+    reqs = [Request(rid=i, prompt=p_, params=SamplingParams(max_new=max_new))
+            for i, p_ in enumerate(phase4_prompts(cfg))]
+    reset_counts(counters)
+    for r in reqs:
+        eng.submit(r)
+    stats = eng.run()
+    la = read_counts(counters, "(a: int8 weights, dense bf16 KV)",
+                     ["matmul_q8", "decode_attention", "ragged_attention", "gqa_flash_attention"])
+    check_finished(reqs, max_new, cfg.vocab_size)
+    print_stats(stats)
+    a = resident("a", eng.params)
+    a.update(tok_s=stats.tokens_per_sec, ttft_p50_ms=stats.ttft_p50 * 1e3,
+             ttft_p99_ms=stats.ttft_p99 * 1e3, tpot_p50_ms=stats.tpot_p50 * 1e3,
+             peak_residents=stats.peak_residents, kv_bytes_resident=stats.kv_bytes_resident,
+             agreement=teacher_forced(model, eng.params, reqs[5], dev, "(a: int8 weights)"))
+    seq = np.concatenate([reqs[5].prompt, np.asarray(reqs[5].generated, np.int32)])
+    a["vs_bf16"] = top1_vs_dense(model, params, eng.params, seq, dev)
+    floor_ms = (a["blocks_bytes"] + head_bytes) / HBM_BYTES_PER_S * 1e3
+    a["decode_step"] = decode_step_profile(eng, cfg, dev, "(a: int8 weights) decode step",
+                                           floor_ms=floor_ms)
+    del eng
+    torch.cuda.empty_cache()
+
+    # (b) phase 5 (b)'s traffic: paged int8 KV + prefix, 16 slots — fully quantized
+    lb, b, qparams = serve_shared(dev, model, params, counters,
+                                  "b: int8 weights, paged int8 KV + prefix",
+                                  ["matmul_q8", "paged_attention_q8"], batch_slots=16,
+                                  kv_dtype="int8", num_blocks=num_blocks_b, weight_dtype="int8",
+                                  floor_ms=floor_ms)
+    b.update(resident("b", qparams))
+    del qparams
+    torch.cuda.empty_cache()
+    launches = {name: la[name] + lb[name] for name in counters}
+    print(f"  launches during phase 6's two measured runs: {launches}")
+    return launches, {"a": a, "b": b}
+
+
+def decode_step_profile(eng, cfg, dev, label: str = "decode step", steps: int = 8,
+                        floor_ms=None) -> dict:
     """Where a decode step goes: wall time per step of an 8-step chunk over
     the engine's current slots (all slots decoding, or the live ones of a
     paged engine, through its block tables), the device's busy time per step
-    from the profiler, and the kernels that take it."""
+    from the profiler, and the kernels that take it. ``floor_ms`` is the
+    step's weight-read floor (default: every bf16 parameter once)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -725,12 +982,15 @@ def decode_step_profile(eng, cfg, dev, label: str = "decode step", steps: int = 
     kernels = [(e.self_device_time_total, e.count, e.key) for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
     busy_ms = sum(r[0] for r in kernels) / 1e3 / steps
+    if floor_ms is None:
+        floor_ms = cfg.num_params() * 2 / HBM_BYTES_PER_S * 1e3
+    n_kernels = sum(r[1] for r in kernels) // steps
     print(f"  {label} ({int(active.sum())} slots decoding): wall {wall_ms:.2f} ms, device busy "
           f"{busy_ms:.2f} ms (idle share {1 - busy_ms / wall_ms:.2f}), "
-          f"{sum(r[1] for r in kernels) // steps} kernels; weight-read floor "
-          f"{cfg.num_params() * 2 / HBM_BYTES_PER_S * 1e3:.2f} ms")
+          f"{n_kernels} kernels; weight-read floor {floor_ms:.2f} ms")
     for us, n, key in sorted(kernels, reverse=True)[:8]:
         print(f"    {us / 1e3 / steps:7.3f} ms/step  {n // steps:4d} calls/step  {key[:80]}")
+    return dict(wall_ms=wall_ms, busy_ms=busy_ms, kernels=n_kernels, floor_ms=floor_ms)
 
 
 # -------------------------------------------------------------------- main
@@ -743,6 +1003,7 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels import decode_attention as dk
     from repro_torch.kernels import flash_attention as fk
+    from repro_torch.kernels import matmul as mmk
     from repro_torch.kernels import paged_attention as pk
     from repro_torch.kernels import ragged_attention as rk
 
@@ -770,11 +1031,13 @@ def main() -> int:
     regs = [int(w.split()[0]) for w in log.split("Used ")[1:]]
     spills = sum(int(line.split(" bytes spill stores")[0].split()[-1])
                  for line in log.splitlines() if "bytes spill stores" in line)
-    print(f"  ptxas: {len(regs)} kernels, max {max(regs)} registers, {spills} bytes spill stores")
+    print(f"  ptxas: {len(regs)} kernel instantiations ({len(_build.SIGNATURES)} C entry "
+          f"points), max {max(regs)} registers, {spills} bytes spill stores")
 
     phase("2 kernels vs plain on the card")
     timed = check_kernels(dev)
     timed.update(check_paged_and_quant_kernels(dev))
+    timed.update(check_matmul_kernels(dev))
 
     phase("3 kernel path vs plain path, end to end, f32")
     small_model_streams(dev)
@@ -790,6 +1053,16 @@ def main() -> int:
                  "ragged_attention_q8": (rk, "launches_q8")}
     launches5, serving = paged_and_quantized(dev, model, params, counters5)
     launches.update(launches5)
+
+    phase("6 full width, int8 weights")
+    counters6 = {"matmul_q8": (mmk, "launches_q8"), "matmul": (mmk, "launches"),
+                 **counters4, **counters5}
+    launches6, serving6 = int8_weights(dev, model, params, counters6,
+                                       serving["b"]["num_blocks"])
+    # matmul is held and timed in phase 2 only: no serving path calls it (the
+    # dense projections are torch.matmul, as the JAX package's are XLA's)
+    launches.update(matmul_q8=launches6["matmul_q8"], matmul=launches6["matmul"])
+    serving["int8_weights"] = serving6
     print(json.dumps({"serving": serving}))
 
     # the pl.pallas_call line of each TPU kernel, as in PERF.md's kernel table
@@ -803,6 +1076,8 @@ def main() -> int:
                                 "src/repro/kernels/decode_attention.py:186"),
         "ragged_attention_q8": ("ragged_attention.cu",
                                 "src/repro/kernels/ragged_attention.py:253"),
+        "matmul_q8": ("matmul.cu", "src/repro/kernels/matmul.py:100"),
+        "matmul": ("matmul.cu", "src/repro/kernels/matmul.py:138"),
     }
     kernels = []
     for name, (src, tpu) in sources.items():
@@ -815,6 +1090,9 @@ def main() -> int:
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
         })
+        if t.get("library_ms") is None and t.get("library"):
+            kernels[-1]["library"] = t["library"]
+    kernels[-1]["launched_in"] = "phase 2 only: no serving path calls matmul"
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

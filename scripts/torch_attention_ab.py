@@ -9,7 +9,8 @@ timer: codeqwen1.5-7b, bf16, KV=32, G=1, d=128, 4 slots x 1024 positions; a
 Run it alternately for two checkouts on one card, one after the other (A, B,
 B, A): each process builds that checkout's kernels at first use, then prints
 one JSON line with the card, the checkout and the median of ROUNDS timings of
-REPS launches each (CUDA events, L2 warm). Needs a CUDA device.
+REPS launches each (one CUDA graph replay between CUDA events, so host time
+between launches is not counted; L2 warm). Needs a CUDA device.
 """
 
 from __future__ import annotations

@@ -42,7 +42,12 @@ SIGNATURES = {
     "repro_paged_attention": [_P] * 9 + [_I] * 10 + [_P],
     # q, k, v, out, BKV, G, Sq, Sk, D, causal, dtype, stream
     "repro_gqa_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # a, b, scale, workspace, counters, out, M, K, N, adtype, bdtype, stream
+    "repro_matmul": [_P] * 6 + [_I] * 5 + [_P],
+    # M, K, N, adtype, bdtype -> f32 elements of workspace repro_matmul needs
+    "repro_matmul_workspace": [_I] * 5,
 }
+RESTYPES = {"repro_matmul_workspace": ctypes.c_longlong}  # every other entry: int
 
 _lib = None
 
@@ -127,7 +132,7 @@ def load() -> ctypes.CDLL:
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = RESTYPES.get(name, ctypes.c_int)
     _lib = lib
     return lib
 
@@ -139,5 +144,7 @@ def check(rc: int, name: str) -> None:
     if rc == -1:
         raise ValueError(f"{name}: no kernel instantiated for this head_dim / group size")
     if rc == -2:
-        raise TypeError(f"{name}: unsupported combination of query dtype, store dtype and scales")
+        raise TypeError(f"{name}: unsupported combination of operand dtypes and scales")
+    if rc == -3:
+        raise RuntimeError(f"{name}: the split-K scratch is missing")
     raise RuntimeError(f"{name}: CUDA launch failed with cudaError {rc}")

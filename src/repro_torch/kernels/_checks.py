@@ -43,7 +43,7 @@ def kv_codes(
     """(query code, store code) of an attention call over a K/V store that
     may be quantized. Without scales q, k and v share one dtype of f32/bf16;
     an int8/fp8 store needs f32 scales of shape ``k.shape[:-1]``, and an f32
-    store may carry them (the identity lane of an f32 model)."""
+    store may carry them under f32 or bf16 queries (the identity lane)."""
     if (k_scale is None) != (v_scale is None):
         raise ValueError(f"{name}: pass both k_scale and v_scale or neither")
     if k_scale is None:
@@ -68,3 +68,10 @@ def int32_vector(name: str, what: str, t: torch.Tensor, n: int) -> None:
 def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     """A tensor's device address for ctypes, None (a null pointer) for None."""
     return None if t is None else t.data_ptr()
+
+
+def stream(t: torch.Tensor) -> int:
+    """The raw handle of the current CUDA stream on ``t``'s device, as
+    ``torch.cuda.current_stream(t.device).cuda_stream`` gives it but without
+    building a Stream object (the wrappers run several times per layer)."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)

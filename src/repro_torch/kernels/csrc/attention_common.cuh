@@ -304,8 +304,8 @@ struct Tag {
 // Calls f(Tag<TQ>{}, Tag<TS>{}, std::bool_constant<kScaled>{}) for the
 // (query, store, scaled) combinations the serving path uses: a f32 or bf16
 // model over an unscaled store of its own type, the f32 identity lane (a
-// scaled f32 store), and a f32 or bf16 model over scaled int8/fp8 rows.
-// Returns -2 for any other combination.
+// scaled f32 store, under f32 or bf16 queries), and a f32 or bf16 model over
+// scaled int8/fp8 rows. Returns -2 for any other combination.
 template <typename F>
 int dispatch_types(int qdtype, int sdtype, bool scaled, F&& f) {
   using Plain = std::false_type;
@@ -321,6 +321,7 @@ int dispatch_types(int qdtype, int sdtype, bool scaled, F&& f) {
     if (sdtype == kBF16 && !scaled) {
       return f(Tag<__nv_bfloat16>{}, Tag<__nv_bfloat16>{}, Plain{});
     }
+    if (sdtype == kF32 && scaled) return f(Tag<__nv_bfloat16>{}, Tag<float>{}, Scaled{});
     if (sdtype == kI8 && scaled) return f(Tag<__nv_bfloat16>{}, Tag<int8_t>{}, Scaled{});
     if (sdtype == kF8 && scaled) {
       return f(Tag<__nv_bfloat16>{}, Tag<__nv_fp8_e4m3>{}, Scaled{});

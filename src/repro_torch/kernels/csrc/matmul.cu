@@ -1,0 +1,773 @@
+// Matrix product [M, K] @ [K, N] with f32 accumulation, and its int8-weight
+// form with one f32 scale per output column.
+//
+// Replaces the TPU kernels repro/kernels/matmul.py::matmul_q8
+// (_matmul_q8_kernel) and ::matmul (_matmul_kernel): a [M, K] row-major
+// (f32 or bf16), b [K, N] row-major (int8 with scale [N] f32 for matmul_q8;
+// the type of a for matmul), out [M, N] in a's type. out[m, n] =
+// (sum_k a[m, k] * b[k, n]) * scale[n]: the sum in f32, the column scale
+// applied once to the finished sum (the TPU kernel's flush multiply), the K,
+// M and N tails masked.
+//
+// What bounds it on the H100: at the serving path's decode shapes (M = 4-16
+// live tokens, K and N of 4096 or 13440) the weight bytes, K * N of them for
+// int8 (0.0165 ms at M = 4, K = 4096, N = 13440 at 3.35 TB/s), so the int8
+// tile must be the only weight traffic and is widened in registers; at
+// M >= ~300 (bf16) the 2 * M * K * N flops, which only tensor cores deliver.
+//
+// Simple design, three paths picked on the host from M and the operands:
+// - M <= 8 (decode at up to 8 slots): a split-K GEMV. Block (x, y) owns a
+//   strip of 128 columns and a slice of the K rows, sliced so that the
+//   blocks fill whole waves of two per SM; its slice of the M activation
+//   rows is staged once in shared memory as f32 (32 KB). Each warp reads
+//   whole 128-column row segments (lane i: 4 columns, one vector load,
+//   neighbouring lanes on neighbouring addresses) of every 8th 4-row quad;
+//   per step a thread widens 32 weight rows held as raw bits in registers
+//   (int8 by a byte permute into an f32 mantissa and one subtraction, no
+//   int-to-float conversion) and accumulates [MR, 4] in f32 registers while
+//   the next step's loads are in flight (two register buffers). No barrier
+//   inside the K loop; the warps' partials meet in shared memory, and the
+//   last block of a strip to finish (an atomic ticket) adds the slices'
+//   partials in slice order, so the sum does not depend on timing. MR is M
+//   rounded up to 4 or 8.
+// - M > 8, bf16 activations (wider decode, packs, admissions, prefill):
+//   64 x 64 output tiles, four warps of 32 x 32 on mma.sync m16n8k16 (bf16
+//   in, f32 accumulate). When K % 8 == 0 and N is a multiple of 16 bytes of
+//   weights, the A and B tiles of 32-deep K steps stream through a 4-stage
+//   cp.async ring in shared memory (zero-filled past the edges) and the raw
+//   int8 weight is widened to bf16 as the B fragments are built (exact:
+//   every int8 is a bf16); K is split across blocks where that fills the
+//   card's waves better, and a second kernel adds the f32 partials in a
+//   fixed order. Other shapes take a synchronous tile that widens while
+//   staging.
+// - M > 8, f32 activations (the small parity model): a CUDA-core FMA tile
+//   (256 threads of 4 x 4 outputs over 16-deep K steps), so f32 stays f32.
+// wgmma, TMA and tensor cores for the decode GEMV are later work.
+
+#include <algorithm>
+
+#include "attention_common.cuh"
+
+namespace repro {
+
+__device__ __forceinline__ float to_f32(int8_t x) { return static_cast<float>(x); }
+
+}  // namespace repro
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+
+// Four consecutive elements (row, col..col+3) of a row-major [rows, cols]
+// matrix widened to f32; elements past either edge read as 0. One vector
+// load when the four are inside the matrix and aligned (cols % 4 == 0, the
+// base 16-byte aligned), else element by element.
+template <typename T>
+__device__ __forceinline__ void load4(const T* __restrict__ p, int row, int col, int rows,
+                                      int cols, float (&v)[4]) {
+  const int64_t off = static_cast<int64_t>(row) * cols + col;
+  if (row < rows && col + 3 < cols && (cols & 3) == 0) {
+    repro::load_vec<4>(p + off, v);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      v[i] = (row < rows && col + i < cols) ? repro::to_f32(p[off + i]) : 0.f;
+  }
+}
+
+// The same four elements as raw bits (widened later, so a load in flight
+// holds one register per 4 bytes).
+template <typename T>
+struct Raw4;
+template <>
+struct Raw4<int8_t> {
+  uint32_t v;
+};
+template <>
+struct Raw4<bf16> {
+  uint2 v;
+};
+template <>
+struct Raw4<float> {
+  float4 v;
+};
+
+// The first n (0..4) of four elements at p as raw bits, zeros after them.
+__device__ __forceinline__ void masked_raw(const int8_t* p, int n, uint32_t& v) {
+  v = 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    if (i < n) v |= static_cast<uint32_t>(static_cast<uint8_t>(p[i])) << (8 * i);
+}
+__device__ __forceinline__ void masked_raw(const bf16* p, int n, uint2& v) {
+  uint32_t e[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) e[i] = i < n ? __bfloat16_as_ushort(p[i]) : 0u;
+  v = make_uint2(e[0] | (e[1] << 16), e[2] | (e[3] << 16));
+}
+__device__ __forceinline__ void masked_raw(const float* p, int n, float4& v) {
+  v = make_float4(n > 0 ? p[0] : 0.f, n > 1 ? p[1] : 0.f, n > 2 ? p[2] : 0.f,
+                  n > 3 ? p[3] : 0.f);
+}
+
+template <typename T>
+__device__ __forceinline__ Raw4<T> load_raw4(const T* __restrict__ p, int row, int col,
+                                             int rows, int cols) {
+  Raw4<T> r;
+  const T* q = p + static_cast<int64_t>(row) * cols + col;
+  if (row < rows && col + 3 < cols && (cols & 3) == 0) {
+    r.v = *reinterpret_cast<const decltype(r.v)*>(q);
+  } else {
+    masked_raw(q, row < rows ? min(cols - col, 4) : 0, r.v);
+  }
+  return r;
+}
+
+// A raw int8 byte (zero-extended) as f32: 2^23 + (b + 128) built in the
+// mantissa, minus 2^23 + 128. Exact.
+__device__ __forceinline__ float i8_bits_to_f32(uint32_t byte) {
+  return __int_as_float(0x4B000000 | (byte ^ 0x80u)) - 8388736.f;
+}
+
+__device__ __forceinline__ void widen(const Raw4<int8_t>& r, float (&o)[4]) {
+  const uint32_t u = r.v ^ 0x80808080u;  // every byte b + 128
+#pragma unroll
+  for (int i = 0; i < 4; ++i)  // byte i into the mantissa of 2^23 (one byte permute)
+    o[i] = __int_as_float(__byte_perm(u, 0x4B000000u, 0x7540 + i)) - 8388736.f;
+}
+
+__device__ __forceinline__ void widen(const Raw4<bf16>& r, float (&o)[4]) {
+  o[0] = __uint_as_float(r.v.x << 16);
+  o[1] = __uint_as_float(r.v.x & 0xFFFF0000u);
+  o[2] = __uint_as_float(r.v.y << 16);
+  o[3] = __uint_as_float(r.v.y & 0xFFFF0000u);
+}
+
+__device__ __forceinline__ void widen(const Raw4<float>& r, float (&o)[4]) {
+  o[0] = r.v.x; o[1] = r.v.y; o[2] = r.v.z; o[3] = r.v.w;
+}
+
+// bf16x2 of two f32 integers of at most 8 significant bits (int8 values):
+// their upper halves, exactly.
+__device__ __forceinline__ uint32_t pack_int_bf16x2(float lo, float hi) {
+  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16(lo))) |
+         (static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16(hi))) << 16);
+}
+
+// ------------------------------------------------------------------ GEMV
+
+constexpr int kGemvThreads = 256;
+constexpr int kGemvColThreads = 32;                         // a warp: one row, 4 columns a lane
+constexpr int kGemvCols = kGemvColThreads * 4;              // 128 columns per block
+constexpr int kGemvGroups = kGemvThreads / kGemvColThreads;  // 8 K groups (warps)
+constexpr int kGemvMaxM = 8;         // larger M: the tiles
+constexpr int kGemvQuantum = 4 * kGemvGroups;  // K rows a slice is a multiple of
+constexpr int kGemvSmem = 8192;      // f32 of shared memory: the A slice, then the reduce
+
+// Most K rows of one block: its [MR, slice] f32 slice of A fills kGemvSmem.
+__host__ __device__ constexpr int gemv_max_slice(int mr) { return kGemvSmem / mr; }
+
+// Block (x, y) computes columns [128 x, 128 x + 128) over the K slice
+// [y * slice, (y + 1) * slice). With gridDim.y = S > 1 each block stores its
+// f32 partial to ws[y] ([M, N]), and the last block of a column strip to
+// finish (a ticket in counters[x], reset by that block) adds the S partials
+// in slice order, scales and stores.
+template <typename TA, typename TB, bool kScaled, int MR>
+__global__ void __launch_bounds__(kGemvThreads, 2)
+gemv_kernel(const TA* __restrict__ a, const TB* __restrict__ b, const float* __restrict__ scale,
+            TA* __restrict__ out, float* __restrict__ ws, int* __restrict__ counters, int M,
+            int K, int N, int slice) {
+  // 4-row quads per step: 32 weight rows of int8, 16 of bf16, 8 of f32 — 128
+  // bytes per thread per step, double-buffered in two sets of raw-bit registers
+  constexpr int U = 8 / static_cast<int>(sizeof(TB));
+  constexpr int kStep = kGemvGroups * U;  // quads per step of the block
+  constexpr int kSlice = gemv_max_slice(MR);
+  constexpr int kRedM = MR < 8 ? MR : 8;  // rows of M reduced per round
+  __shared__ __align__(16) float smem[kGemvSmem];
+  __shared__ int last;
+  float (*sa)[kSlice] = reinterpret_cast<float (*)[kSlice]>(smem);  // [MR][kSlice]
+  float (*red)[kRedM][kGemvCols] =
+      reinterpret_cast<float (*)[kRedM][kGemvCols]>(smem);  // [warps][kRedM][cols]
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int n = blockIdx.x * kGemvCols + lane * 4;
+  const int kbeg = blockIdx.y * slice, kend = min(K, kbeg + slice);
+
+  float acc[MR][4];
+#pragma unroll
+  for (int m = 0; m < MR; ++m)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[m][i] = 0.f;
+
+  // warp kg reads the quads q = kg + 8 j of the slice: rows kbeg + 4q ..
+  // kbeg + 4q + 3, a whole row segment of the strip per load (rows past the
+  // slice read as 0, unloaded)
+  Raw4<TB> w0[U][4], w1[U][4];
+  auto load_step = [&](Raw4<TB>(&w)[U][4], int q0) {
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        w[u][r] = load_raw4(b, kbeg + 4 * (q0 + kGemvGroups * u) + r, n, kend, N);
+  };
+  auto compute_step = [&](const Raw4<TB>(&w)[U][4], int q0) {
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int kk = 4 * (q0 + kGemvGroups * u);
+      if (kk >= slice) break;
+      float wf[4][4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) widen(w[u][r], wf[r]);
+#pragma unroll
+      for (int m = 0; m < MR; ++m) {
+        const float4 av = *reinterpret_cast<const float4*>(&sa[m][kk]);  // broadcast
+        const float ar[4] = {av.x, av.y, av.z, av.w};
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[m][i] = fmaf(ar[r], wf[r][i], acc[m][i]);
+      }
+    }
+  };
+  // the first step's weight loads are in flight while the slice of A is staged
+  load_step(w0, warp);
+  {  // the slice of A as f32, 4 consecutive k per chunk, every load issued first
+    constexpr int kChunks = MR * kSlice / 4 / kGemvThreads;
+    float v[kChunks][4];
+#pragma unroll
+    for (int j = 0; j < kChunks; ++j) {
+      const int i = threadIdx.x + j * kGemvThreads;
+      const int m = i / (kSlice / 4), k = kbeg + (i % (kSlice / 4)) * 4;
+      const TA* p = a + static_cast<int64_t>(m) * K + k;
+      if (m < M && k + 3 < kend && (K & 3) == 0) {
+        repro::load_vec<4>(p, v[j]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) v[j][e] = (m < M && k + e < kend) ? repro::to_f32(p[e]) : 0.f;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kChunks; ++j) {
+      const int i = threadIdx.x + j * kGemvThreads;
+      *reinterpret_cast<float4*>(&sa[i / (kSlice / 4)][(i % (kSlice / 4)) * 4]) =
+          make_float4(v[j][0], v[j][1], v[j][2], v[j][3]);
+    }
+  }
+  __syncthreads();
+  // two steps per turn, so each buffer is a fixed set of registers: the next
+  // step's loads are issued before the current step is computed
+  for (int q0 = warp; kbeg + 4 * q0 < kend; q0 += 2 * kStep) {
+    const int q1 = q0 + kStep;
+    if (kbeg + 4 * q1 < kend) load_step(w1, q1);
+    compute_step(w0, q0);
+    if (kbeg + 4 * q1 >= kend) break;
+    if (kbeg + 4 * (q1 + kStep) < kend) load_step(w0, q1 + kStep);
+    compute_step(w1, q1);
+  }
+
+  // the warps' partials, kRedM rows of M at a time, through shared memory
+  // (which held the slice of A until this barrier)
+  const int splits = gridDim.y;
+#pragma unroll
+  for (int m0 = 0; m0 < MR; m0 += kRedM) {
+    __syncthreads();
+#pragma unroll
+    for (int m = 0; m < kRedM; ++m)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) red[warp][m][lane * 4 + i] = acc[m0 + m][i];
+    __syncthreads();
+    for (int idx = threadIdx.x; idx < kRedM * kGemvCols; idx += kGemvThreads) {
+      const int m = m0 + idx / kGemvCols, col = blockIdx.x * kGemvCols + idx % kGemvCols;
+      if (m >= M || col >= N) continue;
+      float s = 0.f;
+#pragma unroll
+      for (int w = 0; w < kGemvGroups; ++w) s += red[w][idx / kGemvCols][idx % kGemvCols];
+      if (splits > 1) {
+        ws[(static_cast<int64_t>(blockIdx.y) * M + m) * N + col] = s;
+        continue;
+      }
+      if constexpr (kScaled) s *= scale[col];
+      repro::store_f32(out + static_cast<int64_t>(m) * N + col, s);
+    }
+  }
+  if (splits == 1) return;
+  __threadfence();  // this block's partial is visible before its ticket
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(&counters[blockIdx.x], 1) == splits - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  for (int idx = threadIdx.x; idx < MR * kGemvCols; idx += kGemvThreads) {
+    const int m = idx / kGemvCols, col = blockIdx.x * kGemvCols + idx % kGemvCols;
+    if (m >= M || col >= N) continue;
+    float s = 0.f;
+    for (int z = 0; z < splits; ++z)
+      s += __ldcg(ws + (static_cast<int64_t>(z) * M + m) * N + col);
+    if constexpr (kScaled) s *= scale[col];
+    repro::store_f32(out + static_cast<int64_t>(m) * N + col, s);
+  }
+  if (threadIdx.x == 0) counters[blockIdx.x] = 0;  // ready for the next launch
+}
+
+int device_sms() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (sms <= 0) sms = 132;
+  }
+  return sms;
+}
+
+// K rows per GEMV block: at most the A slice shared memory holds for MR
+// rows, a multiple of kGemvQuantum, and as many K splits (from the fewest
+// allowed, up to 16 more) as fill the waves of two blocks per SM best: the
+// blocks are of equal work, so a last wave that is mostly empty costs as
+// much as a full one. Fewer splits win ties within 2%.
+int gemv_slice(int M, int K, int N) {
+  const int most = gemv_max_slice(M <= 4 ? 4 : 8);
+  const int strips = (N + kGemvCols - 1) / kGemvCols;
+  const int slots = 2 * device_sms();
+  const int fewest = (K + most - 1) / most;
+  int best = most;
+  double best_fill = -1.0;
+  for (int want = fewest; want <= fewest + 16; ++want) {
+    const int rows = std::max(
+        kGemvQuantum, ((K + want - 1) / want + kGemvQuantum - 1) / kGemvQuantum * kGemvQuantum);
+    const int blocks = strips * ((K + rows - 1) / rows);
+    const double fill = static_cast<double>(blocks) / (((blocks + slots - 1) / slots) * slots);
+    if (fill > best_fill + 0.02) {
+      best_fill = fill;
+      best = rows;
+    }
+  }
+  return best;
+}
+
+// -------------------------------------------------- tiles, M > 8
+
+constexpr int kBM = 64, kBN = 64;
+
+// bf16 activations: mma.sync m16n8k16, four warps of 32 x 32 outputs.
+constexpr int kMmaBK = 32;
+constexpr int kMmaThreads = 128;
+constexpr int kPad = 8;      // bf16 elements of A row padding (conflict-free fragment reads)
+constexpr int kStages = 4;   // cp.async ring depth
+
+__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
+                                          const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// 16 bytes global -> shared, asynchronously; zero-filled when !valid (the
+// source is then never read).
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// The A fragments of the warp's two m16 tiles at k offset kk of a staged
+// [kBM][kMmaBK + kPad] bf16 tile (row g / g + 8, columns 2 * t4 (+ 8)).
+__device__ __forceinline__ void a_fragments(uint16_t (*sa)[kMmaBK + kPad], int wm, int g,
+                                            int t4, int kk, uint32_t (&af)[2][4]) {
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+    const int r = wm + mt * 16 + g;
+    af[mt][0] = *reinterpret_cast<const uint32_t*>(&sa[r][kk + t4 * 2]);
+    af[mt][1] = *reinterpret_cast<const uint32_t*>(&sa[r + 8][kk + t4 * 2]);
+    af[mt][2] = *reinterpret_cast<const uint32_t*>(&sa[r][kk + t4 * 2 + 8]);
+    af[mt][3] = *reinterpret_cast<const uint32_t*>(&sa[r + 8][kk + t4 * 2 + 8]);
+  }
+}
+
+// accumulator (mt, nt) of a warp: [0..1] at row g, [2..3] at row g + 8,
+// columns 2 * t4 + {0, 1}; times the column scale, cast to bf16.
+template <bool kScaled>
+__device__ __forceinline__ void store_tile(const float (&acc)[2][4][4], const float* scale,
+                                           bf16* out, int row0, int col0, int g, int t4, int M,
+                                           int N) {
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int row = row0 + mt * 16 + g + (i >> 1) * 8;
+        const int col = col0 + nt * 8 + t4 * 2 + (i & 1);
+        if (row >= M || col >= N) continue;
+        float s = acc[mt][nt][i];
+        if constexpr (kScaled) s *= scale[col];
+        out[static_cast<int64_t>(row) * N + col] = __float2bfloat16(s);
+      }
+    }
+  }
+}
+
+// The pipelined tile: needs K % 8 == 0 and N * sizeof(TB) % 16 == 0 (every
+// 16-byte chunk wholly inside or outside the matrix).
+// With gridDim.z = S > 1 (split K) block z sums its share of the K steps and
+// stores the unscaled f32 partial to ws[z] ([M, N]); split_reduce_kernel
+// adds the S partials in order (deterministic) and flushes.
+template <typename TB, bool kScaled>
+__global__ void __launch_bounds__(kMmaThreads)
+mma_pipe_kernel(const bf16* __restrict__ a, const TB* __restrict__ b,
+                const float* __restrict__ scale, bf16* __restrict__ out,
+                float* __restrict__ ws, int M, int K, int N) {
+  constexpr int kBRow = kBN * static_cast<int>(sizeof(TB)) + 16;  // staged B row, bytes
+  constexpr int kBChunks = kBN * static_cast<int>(sizeof(TB)) / 16;  // 16-byte chunks per row
+  constexpr int kBElems = 16 / static_cast<int>(sizeof(TB));         // elements per chunk
+  __shared__ __align__(16) uint16_t sa[kStages][kBM][kMmaBK + kPad];
+  __shared__ __align__(16) uint8_t sb[kStages][kMmaBK][kBRow];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
+  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
+  const int ktotal = (K + kMmaBK - 1) / kMmaBK;
+  const int per = (ktotal + gridDim.z - 1) / gridDim.z;
+  const int kbeg = blockIdx.z * per;
+  const int ksteps = max(0, min(ktotal, kbeg + per) - kbeg);  // this block's K steps
+
+  auto load_stage = [&](int stage, int k0) {
+#pragma unroll
+    for (int i = tid; i < kBM * kMmaBK / 8; i += kMmaThreads) {  // 8 bf16 per chunk
+      const int r = i / (kMmaBK / 8), kc = (i % (kMmaBK / 8)) * 8;
+      const bool ok = m0 + r < M && k0 + kc < K;
+      cp_async16(&sa[stage][r][kc], ok ? a + static_cast<int64_t>(m0 + r) * K + k0 + kc : a, ok);
+    }
+#pragma unroll
+    for (int i = tid; i < kMmaBK * kBChunks; i += kMmaThreads) {
+      const int r = i / kBChunks, nc = (i % kBChunks) * kBElems;
+      const bool ok = k0 + r < K && n0 + nc < N;
+      cp_async16(&sb[stage][r][nc * sizeof(TB)],
+                 ok ? b + static_cast<int64_t>(k0 + r) * N + n0 + nc : b, ok);
+    }
+  };
+
+  float acc[2][4][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < ksteps) load_stage(s, (kbeg + s) * kMmaBK);
+    cp_async_commit();
+  }
+  for (int ks = 0; ks < ksteps; ++ks) {
+    cp_async_wait<kStages - 2>();  // step ks has landed (this thread's copies)
+    __syncthreads();               // ... and everyone's; step ks - 1's stage is free
+    const int next = ks + kStages - 1;
+    if (next < ksteps) load_stage(next % kStages, (kbeg + next) * kMmaBK);
+    cp_async_commit();
+    const int st = ks % kStages;
+#pragma unroll
+    for (int kk = 0; kk < kMmaBK; kk += 16) {
+      uint32_t af[2][4], bfr[4][2];
+      a_fragments(sa[st], wm, g, t4, kk, af);
+      const int k = kk + t4 * 2;
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int col = wn + nt * 8 + g;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {  // rows k + 8h and k + 8h + 1 of column col
+          const int kr = k + 8 * h;
+          if constexpr (sizeof(TB) == 1) {
+            bfr[nt][h] = pack_int_bf16x2(i8_bits_to_f32(sb[st][kr][col]),
+                                         i8_bits_to_f32(sb[st][kr + 1][col]));
+          } else {
+            const uint32_t lo = *reinterpret_cast<const uint16_t*>(&sb[st][kr][col * 2]);
+            const uint32_t hi = *reinterpret_cast<const uint16_t*>(&sb[st][kr + 1][col * 2]);
+            bfr[nt][h] = lo | (hi << 16);
+          }
+        }
+      }
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) mma_16816(acc[mt][nt], af[mt], bfr[nt]);
+    }
+  }
+  cp_async_wait<0>();
+  if (gridDim.z == 1) {
+    store_tile<kScaled>(acc, scale, out, m0 + wm, n0 + wn, g, t4, M, N);
+    return;
+  }
+  float* part = ws + static_cast<int64_t>(blockIdx.z) * M * N;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int row = m0 + wm + mt * 16 + g + (i >> 1) * 8;
+        const int col = n0 + wn + nt * 8 + t4 * 2 + (i & 1);
+        if (row < M && col < N) part[static_cast<int64_t>(row) * N + col] = acc[mt][nt][i];
+      }
+}
+
+template <bool kScaled>
+__global__ void __launch_bounds__(256)
+split_reduce_kernel(const float* __restrict__ ws, int splits, const float* __restrict__ scale,
+                    bf16* __restrict__ out, int M, int N) {
+  const int64_t total = static_cast<int64_t>(M) * N;
+  for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x; i < total;
+       i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    float s = 0.f;
+    for (int z = 0; z < splits; ++z) s += ws[z * total + i];
+    if constexpr (kScaled) s *= scale[i % N];
+    out[i] = __float2bfloat16(s);
+  }
+}
+
+// K splits of the pipelined tile: at most 8, at least 8 K steps each, as
+// many as fill the waves of (about) four 128-thread blocks per SM best;
+// fewer splits win ties within 2% (each split adds an f32 partial of the
+// output to write and read back).
+int split_count(int M, int K, int N) {
+  const int slots = 4 * device_sms();
+  const int tiles = ((M + kBM - 1) / kBM) * ((N + kBN - 1) / kBN);
+  const int most = std::max(1, std::min(8, (K + kMmaBK - 1) / kMmaBK / 8));
+  int best = 1;
+  double best_fill = -1.0;
+  for (int s = 1; s <= most; ++s) {
+    const int blocks = tiles * s;
+    const double fill = static_cast<double>(blocks) / (((blocks + slots - 1) / slots) * slots);
+    if (fill > best_fill + 0.02) {
+      best_fill = fill;
+      best = s;
+    }
+  }
+  return best;
+}
+
+// The path launch() takes for a bf16 @ TB product with M > kGemvMaxM.
+template <typename TB>
+bool pipelined(int K, int N) {
+  return K % 8 == 0 && (static_cast<int64_t>(N) * sizeof(TB)) % 16 == 0;
+}
+
+// Any shape: the tiles staged synchronously, widened to bf16 on the way.
+template <typename TB, bool kScaled>
+__global__ void __launch_bounds__(kMmaThreads)
+mma_tile_kernel(const bf16* __restrict__ a, const TB* __restrict__ b,
+                const float* __restrict__ scale, bf16* __restrict__ out, int M, int K, int N) {
+  // A as [m][k], B as [k][n], both bf16 bits
+  __shared__ __align__(16) uint16_t sa[kBM][kMmaBK + kPad];
+  __shared__ __align__(16) uint16_t sb[kMmaBK][kBN + kPad];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
+  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
+
+  float acc[2][4][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
+
+  for (int k0 = 0; k0 < K; k0 += kMmaBK) {
+    for (int i = tid; i < kBM * kMmaBK / 4; i += kMmaThreads) {
+      const int r = i / (kMmaBK / 4), kc = (i % (kMmaBK / 4)) * 4;
+      float v[4];
+      load4(a, m0 + r, k0 + kc, M, K, v);
+      *reinterpret_cast<uint2*>(&sa[r][kc]) = make_uint2(pack_bf16(v[0], v[1]),
+                                                         pack_bf16(v[2], v[3]));
+    }
+    for (int i = tid; i < kMmaBK * kBN / 4; i += kMmaThreads) {
+      const int r = i / (kBN / 4), nc = (i % (kBN / 4)) * 4;
+      float v[4];
+      load4(b, k0 + r, n0 + nc, K, N, v);  // int8 or bf16 -> bf16: exact
+      *reinterpret_cast<uint2*>(&sb[r][nc]) = make_uint2(pack_bf16(v[0], v[1]),
+                                                         pack_bf16(v[2], v[3]));
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < kMmaBK; kk += 16) {
+      uint32_t af[2][4], bfr[4][2];
+      a_fragments(sa, wm, g, t4, kk, af);
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int col = wn + nt * 8 + g;
+        const int k = kk + t4 * 2;
+        bfr[nt][0] = static_cast<uint32_t>(sb[k][col]) | (static_cast<uint32_t>(sb[k + 1][col]) << 16);
+        bfr[nt][1] = static_cast<uint32_t>(sb[k + 8][col]) |
+                     (static_cast<uint32_t>(sb[k + 9][col]) << 16);
+      }
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) mma_16816(acc[mt][nt], af[mt], bfr[nt]);
+    }
+    __syncthreads();
+  }
+  store_tile<kScaled>(acc, scale, out, m0 + wm, n0 + wn, g, t4, M, N);
+}
+
+// f32 activations: CUDA-core FMA, 256 threads of 4 x 4 outputs.
+constexpr int kFmaBK = 16;
+constexpr int kFmaThreads = 256;
+
+template <typename TB, bool kScaled>
+__global__ void __launch_bounds__(kFmaThreads)
+fma_tile_kernel(const float* __restrict__ a, const TB* __restrict__ b,
+                const float* __restrict__ scale, float* __restrict__ out, int M, int K, int N) {
+  __shared__ __align__(16) float sa[kFmaBK][kBM + 4];  // A transposed: [k][m]
+  __shared__ __align__(16) float sb[kFmaBK][kBN + 4];  // [k][n]
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+
+  for (int k0 = 0; k0 < K; k0 += kFmaBK) {
+    {  // A: 64 rows x 16 k, one 4-wide chunk per thread
+      const int r = tid / 4, kc = (tid % 4) * 4;
+      float v[4];
+      load4(a, m0 + r, k0 + kc, M, K, v);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) sa[kc + j][r] = v[j];
+    }
+    {  // B: 16 k x 64 columns, one 4-wide chunk per thread
+      const int r = tid / 16, nc = (tid % 16) * 4;
+      float v[4];
+      load4(b, k0 + r, n0 + nc, K, N, v);
+      *reinterpret_cast<float4*>(&sb[r][nc]) = make_float4(v[0], v[1], v[2], v[3]);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < kFmaBK; ++k) {
+      const float4 av = *reinterpret_cast<const float4*>(&sa[k][ty * 4]);
+      const float4 bv = *reinterpret_cast<const float4*>(&sb[k][tx * 4]);
+      const float ar[4] = {av.x, av.y, av.z, av.w};
+      const float br[4] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = m0 + ty * 4 + i;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int col = n0 + tx * 4 + j;
+      if (row >= M || col >= N) continue;
+      float s = acc[i][j];
+      if constexpr (kScaled) s *= scale[col];
+      out[static_cast<int64_t>(row) * N + col] = s;
+    }
+  }
+}
+
+template <typename TA, typename TB, bool kScaled>
+int launch(const void* a_, const void* b_, const void* scale_, void* out_, void* ws, int* counters,
+           int M, int K, int N, cudaStream_t st) {
+  const TA* a = static_cast<const TA*>(a_);
+  const TB* b = static_cast<const TB*>(b_);
+  const float* scale = static_cast<const float*>(scale_);
+  TA* out = static_cast<TA*>(out_);
+  if (M <= kGemvMaxM) {
+    const int slice = gemv_slice(M, K, N);
+    const int splits = (K + slice - 1) / slice;
+    if (splits > 1 && (ws == nullptr || counters == nullptr)) return -3;
+    const dim3 grid((N + kGemvCols - 1) / kGemvCols, std::max(splits, 1));
+    float* part = static_cast<float*>(ws);
+#define REPRO_GEMV(MR)                                                                  \
+  gemv_kernel<TA, TB, kScaled, MR><<<grid, kGemvThreads, 0, st>>>(a, b, scale, out, part, \
+                                                                counters, M, K, N, slice)
+    if (M <= 4) {
+      REPRO_GEMV(4);
+    } else {
+      REPRO_GEMV(8);
+    }
+#undef REPRO_GEMV
+    return static_cast<int>(cudaGetLastError());
+  }
+  const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
+  if constexpr (std::is_same_v<TA, bf16>) {
+    if (pipelined<TB>(K, N)) {
+      const int splits = ws ? split_count(M, K, N) : 1;
+      const dim3 grid3(grid.x, grid.y, splits);
+      mma_pipe_kernel<TB, kScaled><<<grid3, kMmaThreads, 0, st>>>(
+          a, b, scale, out, static_cast<float*>(ws), M, K, N);
+      if (splits > 1) {
+        const int64_t total = static_cast<int64_t>(M) * N;
+        const int blocks = static_cast<int>(std::min<int64_t>((total + 255) / 256, 4096));
+        split_reduce_kernel<kScaled><<<blocks, 256, 0, st>>>(static_cast<const float*>(ws),
+                                                              splits, scale, out, M, N);
+      }
+    } else {
+      mma_tile_kernel<TB, kScaled><<<grid, kMmaThreads, 0, st>>>(a, b, scale, out, M, K, N);
+    }
+  } else {
+    fma_tile_kernel<TB, kScaled><<<grid, kFmaThreads, 0, st>>>(a, b, scale, out, M, K, N);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// f32 elements of scratch repro_matmul needs for these operands: the K-split
+// partials of the pipelined bf16 tile, 0 when the product is not split.
+extern "C" long long repro_matmul_workspace(int M, int K, int N, int adtype, int bdtype) {
+  if (M <= kGemvMaxM) {
+    const int slice = gemv_slice(M, K, N);
+    const long long splits = (K + slice - 1) / slice;
+    return splits > 1 ? splits * M * N : 0;
+  }
+  if (adtype != repro::kBF16) return 0;
+  const bool pipe = bdtype == repro::kI8 ? pipelined<int8_t>(K, N)
+                    : bdtype == repro::kBF16 ? pipelined<bf16>(K, N) : false;
+  const int splits = pipe ? split_count(M, K, N) : 1;
+  return splits > 1 ? static_cast<long long>(splits) * M * N : 0;
+}
+
+// adtype: the type of a and out; bdtype: the type of b (repro::DType codes).
+// scale: null for matmul, f32 [N] for matmul_q8. ws: the f32 scratch
+// repro_matmul_workspace asks for (null when it asks for none); counters:
+// int32 zeros, one per 128 columns (ceil(N / 128)), left zero again. The
+// served combinations are f32 @ f32 and bf16 @ bf16 unscaled, f32 @ int8 and
+// bf16 @ int8 scaled. Returns cudaGetLastError() after the launches, -2 for
+// any other combination, -3 for a missing scratch.
+extern "C" int repro_matmul(const void* a, const void* b, const void* scale, void* ws,
+                            void* counters_, void* out, int M, int K, int N, int adtype,
+                            int bdtype, void* stream) {
+  int* counters = static_cast<int*>(counters_);
+  using repro::kBF16;
+  using repro::kF32;
+  using repro::kI8;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool scaled = scale != nullptr;
+  if (adtype == kF32 && bdtype == kF32 && !scaled)
+    return launch<float, float, false>(a, b, scale, out, ws, counters, M, K, N, st);
+  if (adtype == kF32 && bdtype == kI8 && scaled)
+    return launch<float, int8_t, true>(a, b, scale, out, ws, counters, M, K, N, st);
+  if (adtype == kBF16 && bdtype == kBF16 && !scaled)
+    return launch<bf16, bf16, false>(a, b, scale, out, ws, counters, M, K, N, st);
+  if (adtype == kBF16 && bdtype == kI8 && scaled)
+    return launch<bf16, int8_t, true>(a, b, scale, out, ws, counters, M, K, N, st);
+  return -2;
+}

@@ -44,7 +44,7 @@ def decode_attention(
     rc = lib.repro_decode_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _checks.ptr(k_scale), _checks.ptr(v_scale),
         cur_len.data_ptr(), out.data_ptr(), b, k.shape[1], kvh, g, d, int(window), qd, sd,
-        torch.cuda.current_stream(q.device).cuda_stream,
+        _checks.stream(q),
     )
     _build.check(rc, name)
     if k_scale is None:

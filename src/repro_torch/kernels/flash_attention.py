@@ -37,7 +37,7 @@ def gqa_flash_attention(
     rc = lib.repro_gqa_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         bkv, g, sq, k.shape[1], d, int(bool(causal)), dtype,
-        torch.cuda.current_stream(q.device).cuda_stream,
+        _checks.stream(q),
     )
     _build.check(rc, name)
     launches += 1

@@ -1,4 +1,5 @@
-"""Dispatch layer for the attention kernels, mirroring ``repro.kernels.ops``.
+"""Dispatch layer for the attention and matmul kernels, mirroring
+``repro.kernels.ops``.
 
 The device of the tensors decides, as ``ops._resolve`` decides by backend
 in the JAX package, but with no mode that could pick the plain version on
@@ -7,8 +8,9 @@ tensor runs the hand-written CUDA kernel, anything else raises. The
 quantized store rides the same ops: ``k_scale``/``v_scale`` (f32, one per
 (position, head) row) mark an int8/fp8 cache, widened inside the kernel or
 the plain version, never as a dequantized cache copy. The paged ops take a
-block-paged pool and its block tables. Block-size and autotune arguments are
-not ported.
+block-paged pool and its block tables. ``matmul_q8`` is the int8-weight
+product of :func:`repro_torch.models.quant.qmatmul`. Block-size, mode and
+autotune arguments are not ported.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import torch
 
 from repro_torch.kernels import decode_attention as _decode_k
 from repro_torch.kernels import flash_attention as _flash_k
+from repro_torch.kernels import matmul as _matmul_k
 from repro_torch.kernels import paged_attention as _paged_k
 from repro_torch.kernels import ragged_attention as _ragged_k
 from repro_torch.kernels import ref
@@ -37,7 +40,24 @@ def _on_cuda(t: torch.Tensor) -> bool:
         return True
     if t.device.type == "cpu":
         return False
-    raise ValueError(f"no attention path for device {t.device}")
+    raise ValueError(f"no kernel path for device {t.device}")
+
+
+def matmul(a, b):
+    """[M, K] @ [K, N] with f32 accumulation, in a's dtype (f32 or bf16; b
+    of the same dtype)."""
+    if _on_cuda(a):
+        return _matmul_k.matmul(a.contiguous(), b.contiguous())
+    return ref.matmul(a, b)
+
+
+def matmul_q8(a, b_q8, b_scale):
+    """[M, K] @ int8 [K, N] times per-output-column f32 scales [N], f32
+    accumulation, in a's dtype: the weight stays int8 in memory and is
+    widened inside the kernel."""
+    if _on_cuda(a):
+        return _matmul_k.matmul_q8(a.contiguous(), b_q8.contiguous(), b_scale.contiguous())
+    return ref.matmul_q8(a, b_q8, b_scale)
 
 
 def gqa_flash_attention(q, k, v, *, causal: bool = True):

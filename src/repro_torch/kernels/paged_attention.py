@@ -63,7 +63,7 @@ def paged_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _checks.ptr(k_scale), _checks.ptr(v_scale),
         tok_seq.data_ptr(), tok_pos.data_ptr(), block_tables.data_ptr(), out.data_ptr(),
         t, nb, bs, block_tables.shape[1], kvh, g, d, int(window), qd, sd,
-        torch.cuda.current_stream(q.device).cuda_stream,
+        _checks.stream(q),
     )
     _build.check(rc, name)
     if k_scale is None:

@@ -54,7 +54,7 @@ def ragged_attention(
     rc = lib.repro_ragged_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _checks.ptr(k_scale), _checks.ptr(v_scale),
         tok_slot.data_ptr(), tok_pos.data_ptr(), out.data_ptr(), t, k.shape[1], kvh, g, d,
-        int(window), qd, sd, torch.cuda.current_stream(q.device).cuda_stream,
+        int(window), qd, sd, _checks.stream(q),
     )
     _build.check(rc, name)
     if k_scale is None:

@@ -1,4 +1,5 @@
-"""Plain PyTorch versions of the attention kernels on the serving path.
+"""Plain PyTorch versions of the kernels on the serving path: attention and
+the (int8-weight) matrix product.
 
 Counterparts of ``repro.kernels.ref`` (same layouts, same masks). They are
 what :mod:`repro_torch.kernels.ops` runs for a CPU tensor, and the oracle
@@ -17,6 +18,19 @@ from typing import Optional
 import torch
 
 NEG_INF = -1e30
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """[M, K] @ [K, N] with f32 accumulation, cast to a's dtype."""
+    return (a.float() @ b.float()).to(a.dtype)
+
+
+def matmul_q8(a: torch.Tensor, b_q8: torch.Tensor, b_scale: torch.Tensor) -> torch.Tensor:
+    """[M, K] @ int8 [K, N] with per-output-column f32 scales [N]: the f32
+    accumulator of the widened weight, scaled per column once it is finished
+    (the kernel's flush multiply), cast to a's dtype."""
+    acc = a.float() @ b_q8.float()
+    return (acc * b_scale.reshape(1, -1).float()).to(a.dtype)
 
 
 def gqa_flash_attention(

@@ -4,7 +4,8 @@ against the KV cache, and the packed ragged step (counterparts of
 
 All three are GQA-native: K/V stay at ``n_kv_heads`` and the kernels group
 query heads ``[.., KV, G, hd]`` without repeating K/V. Weight layouts are
-the JAX package's: wq [d, H, hd], wk/wv [d, KV, hd], wo [H, hd, d].
+the JAX package's: wq [d, H, hd], wk/wv [d, KV, hd], wo [H, hd, d], each
+dense or an int8 ``{"q8", "scale"}`` leaf (``models.quant``).
 
 Where the JAX functions return a new cache (the donated buffer), these
 update the cache tensors IN PLACE and return them.
@@ -37,15 +38,17 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.dist.compression import quantize_rows
 from repro_torch.kernels import ops
 from repro_torch.models.layers import Params, apply_rope, rms_norm
+from repro_torch.models.quant import qmatmul
 
 
 def _project(params: Params, cfg: ArchConfig, x: torch.Tensor):
-    """x [..., d] -> q [..., H, hd], k/v [..., KV, hd] (qk-norm applied)."""
+    """x [..., d] -> q [..., H, hd], k/v [..., KV, hd] (qk-norm applied),
+    each projection dense or int8 (``qmatmul``)."""
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     lead = x.shape[:-1]
-    q = (x @ params["wq"].reshape(cfg.d_model, H * hd)).reshape(*lead, H, hd)
-    k = (x @ params["wk"].reshape(cfg.d_model, KV * hd)).reshape(*lead, KV, hd)
-    v = (x @ params["wv"].reshape(cfg.d_model, KV * hd)).reshape(*lead, KV, hd)
+    q = qmatmul(x, params["wq"]).reshape(*lead, H, hd)
+    k = qmatmul(x, params["wk"]).reshape(*lead, KV, hd)
+    v = qmatmul(x, params["wv"]).reshape(*lead, KV, hd)
     if cfg.qk_norm:
         q = rms_norm(q, params["q_norm"], cfg.norm_eps)
         k = rms_norm(k, params["k_norm"], cfg.norm_eps)
@@ -53,9 +56,8 @@ def _project(params: Params, cfg: ArchConfig, x: torch.Tensor):
 
 
 def _out_proj(params: Params, o: torch.Tensor) -> torch.Tensor:
-    """o [..., H, hd] -> [..., d] through wo [H, hd, d]."""
-    H, hd, d = params["wo"].shape
-    return o.reshape(*o.shape[:-2], H * hd) @ params["wo"].reshape(H * hd, d)
+    """o [..., H, hd] -> [..., d] through wo [H, hd, d], dense or int8."""
+    return qmatmul(o.reshape(*o.shape[:-2], -1), params["wo"])
 
 
 def attention_apply(

@@ -2,8 +2,9 @@
 ``repro/models/layers.py``).
 
 Params are nested dicts of tensors, with a leading ``L`` axis where the JAX
-package stacks layers. Weights are stored in the config dtype; math that
-needs f32 (norms, RoPE phases, SiLU) upcasts locally and casts back.
+package stacks layers. Weights are stored in the config dtype, or as int8
+``{"q8", "scale"}`` leaves (``models.quant``); math that needs f32 (norms,
+RoPE phases, SiLU) upcasts locally and casts back.
 """
 
 from __future__ import annotations
@@ -11,6 +12,8 @@ from __future__ import annotations
 from typing import Any
 
 import torch
+
+from repro_torch.models.quant import qmatmul
 
 Params = dict[str, Any]
 
@@ -56,11 +59,12 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
 
 
 def mlp_apply(params: Params, x: torch.Tensor) -> torch.Tensor:
-    """SwiGLU: (x W_in) * silu(x W_gate) W_out, SiLU in f32 cast back to h's dtype."""
-    h = x @ params["w_in"]
-    g = x @ params["w_gate"]
+    """SwiGLU: (x W_in) * silu(x W_gate) W_out, SiLU in f32 cast back to h's
+    dtype; each weight dense or int8 (``models.quant.qmatmul``)."""
+    h = qmatmul(x, params["w_in"])
+    g = qmatmul(x, params["w_gate"])
     h = h * torch.nn.functional.silu(g.float()).to(h.dtype)
-    return h @ params["w_out"]
+    return qmatmul(h, params["w_out"])
 
 
 def embed_tokens(params: Params, tokens: torch.Tensor) -> torch.Tensor:

@@ -2,8 +2,9 @@
 
 A pre-norm transformer: RMSNorm -> GQA attention (optional qk-norm, RoPE)
 -> residual -> RMSNorm -> SwiGLU -> residual, then final norm and unembed.
-Layer params are stacked on a leading ``L`` axis as in the JAX package, and
-a Python loop over layers replaces ``lax.scan``. It serves prefill
+Layer params are stacked on a leading ``L`` axis as in the JAX package
+(an int8 weight's ``{"q8", "scale"}`` sub-dict slices per layer like any
+leaf), and a Python loop over layers replaces ``lax.scan``. It serves prefill
 (:meth:`LM.prefill`), one decode step for every slot (:meth:`LM.decode_step`)
 and the packed ragged step of the unified engine (:meth:`LM.packed_step`).
 
@@ -32,6 +33,7 @@ from repro_torch.models.layers import (
     trunc_normal,
     unembed,
 )
+from repro_torch.models.quant import layer_matmul_views
 
 
 class LM:
@@ -115,9 +117,12 @@ class LM:
         return self._kv_leaves((num_blocks + 1, block_size), kv_dtype)
 
     def _layers(self, params: Params) -> list[Params]:
-        """Per-layer views of the stacked blocks, rebuilt only for new params."""
+        """Per-layer views of the stacked blocks (int8 leaves as the [K, N]
+        weight and [N] scale the matmul kernel takes), rebuilt only for new
+        params."""
         if self._views[0] is not params:
-            self._views = (params, [_index(params["blocks"], i) for i in range(self.cfg.n_layers)])
+            self._views = (params, [layer_matmul_views(_index(params["blocks"], i))
+                                    for i in range(self.cfg.n_layers)])
         return self._views[1]
 
     def _mlp_residual(self, blk: Params, x: torch.Tensor) -> torch.Tensor:

@@ -33,6 +33,11 @@ Two opt-in cache layouts change where K/V live, not what is computed:
   rows are stored quantized with per-(position, head) f32 scales, dense or
   paged. ``"f32"`` is the identity lane (bit-identical to the plain cache).
 
+``weight_dtype="int8"`` quantizes the stacked matmul weights once at
+construction (``models.quant.quantize_params``); every projection and MLP
+product then runs the int8-weight matmul kernel. It combines with every
+cache layout above.
+
 Paged and quantized admissions always take the pack tier: the packed
 scatter is the one write path that quantizes rows and routes through the
 block tables.
@@ -42,9 +47,9 @@ tracks counts only and reads dispatch t-1's token values after dispatch t is
 enqueued, so the transfer overlaps device work. Host arrays reach the card
 through pinned memory without a stream synchronisation. The KV cache is
 updated in place (the JAX engine donates it). Not ported: the legacy
-prefill+insert tier, int8 weights, speculation, sampled (non-greedy)
-requests, the placement backends, admission control past the infeasible
-refusal, and the cluster hooks.
+prefill+insert tier, speculation, sampled (non-greedy) requests, the
+placement backends, admission control past the infeasible refusal, and the
+cluster hooks.
 """
 
 from __future__ import annotations
@@ -59,6 +64,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.models.model import LM
+from repro_torch.models.quant import quantize_params
 from repro_torch.serve.kv_pool import BlockPool, blocks_for
 from repro_torch.serve.prefix_cache import RadixPrefixCache
 from repro_torch.serve.sampling import SMODE_GREEDY, SamplingParams, fused_sample
@@ -242,6 +248,7 @@ class ServeEngine:
         num_blocks: Optional[int] = None,
         prefix_cache: bool = False,
         kv_dtype=None,
+        weight_dtype=None,
         device=None,
     ):
         self.device = resolve_device(device)
@@ -250,7 +257,10 @@ class ServeEngine:
         if params["final_norm"].device != self.device:
             raise ValueError(f"params live on {params['final_norm'].device}, engine on {self.device}")
         self.model = model
-        self.params = params
+        # None keeps the params as given; "int8" rewrites the eligible stacked
+        # weights to {"q8", "scale"} leaves (unquantized leaves shared)
+        self.weight_dtype = weight_dtype
+        self.params = quantize_params(params, weight_dtype)
         self.B = batch_slots
         self.max_len = max_len
         self.prefill_budget = max(int(prefill_budget), 1)
