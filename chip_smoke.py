@@ -6,10 +6,10 @@
 Phases (each raises on failure, so the script exits non-zero):
 
 0. device — fail without CUDA; print the card's name and power limit.
-1. build — compile the hand-written CUDA kernels from ``csrc/`` (five
-   sources, nine kernel bodies: decode, ragged and paged attention over a
-   plain or a quantized store, GQA flash attention, and the matmul and
-   int8-weight matmul).
+1. build — compile the hand-written CUDA kernels from ``csrc/`` (seven
+   sources, eleven kernel bodies: decode, ragged and paged attention over a
+   plain or a quantized store, flash attention (GQA, and flat as a group of
+   one), the matmul and int8-weight matmul, RMSNorm and row softmax).
 2. kernels — each kernel body against its plain PyTorch version on the card,
    at the serving path's shapes (codeqwen1.5-7b: KV=32, G=1, d=128, 4 slots
    x 1024 positions; a 64-token ragged pack; 64- and 37-token prefill; an
@@ -45,7 +45,19 @@ Phases (each raises on failure, so the script exits non-zero):
    ``LM.prefill`` teacher-forced, and the int8 block stack must take at most
    0.51x the bf16 one's bytes. Prints the int8 model's top-1 agreement with
    the bf16 model at clear margins (not gated).
-7. a ``{"kernels": [...]}`` JSON line, then the result line.
+7. the kernel API and its autotuner — flat flash attention, RMSNorm and
+   softmax at every tile / rows-per-block candidate and the matmul at every
+   forced K split, against their plain versions at the main shapes
+   (codeqwen1.5-7b, bf16: flash BH=32, S=1024, d=128, causal and not;
+   RMSNorm 2048 x 4096; softmax 64 x 92,416 and 4096 x 1024 f32; matmul
+   M = 4 and 256 over K=4096, N=13440) and ragged tails (S=96, R=37); a
+   ``REPRO_AUTOTUNE=1`` sweep of ``ops.matmul`` and ``ops.flash_attention``
+   into a JSON cache under build/ that a fresh tuner re-reads without
+   measuring, tuned outputs against the default plan's; the four ops driven
+   once through ``ops`` between the counts' reset and read; each new kernel
+   timed beside its bound, plain version and library call.
+8. a ``{"kernels": [...], "to_port": [...]}`` JSON line (every row of
+   PERF.md's kernel table), then the result line.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -993,6 +1005,312 @@ def decode_step_profile(eng, cfg, dev, label: str = "decode step", steps: int = 
     return dict(wall_ms=wall_ms, busy_ms=busy_ms, kernels=n_kernels, floor_ms=floor_ms)
 
 
+# ----------------------------------------------------------------- phase 7
+
+# the kernel API's main shapes (codeqwen1.5-7b, bf16): one prompt's 32 heads
+# of 1024 tokens for flat flash attention; a 2048-token prefill's d_model for
+# RMSNorm; a 64-row pack's logits over the vocabulary and f32 attention-score
+# rows for softmax; a 4-slot decode step's w_in and a prefill-sized M = 256
+# for the matmul. Ragged tails: S = 96, R = 37
+FLASH_MAIN = (32, 1024, 128)  # BH, S, d
+RMSNORM_MAIN = (2048, 4096)
+SOFTMAX_MAIN = (64, 92416)
+SOFTMAX_SCORES = (4096, 1024)
+MATMUL_API = (MATMUL_MAIN, (256, 4096, 13440))
+# the kernel API's tolerances. At f32 both sides compute in f32 in different
+# orders; at bf16 both compute in f32 from the same inputs and round the
+# output once, so they differ by a bf16 step or two. RMSNorm: |kernel -
+# plain| <= tol * (|plain| + rms(plain)), the floor at the output's own
+# scale. Flash attention: tol * (|plain| + max|plain row|): the plain version
+# rounds p to bf16 before P.V (as the JAX oracle does), an error of a bf16
+# step of the row's terms p.v, which an element that cancels can fall far
+# below (S = 1024, row 1: |plain| 0.009 beside a row max of 2.4). Softmax: each element
+# against its own value, |kernel - plain| <= rtol * |plain| + 1e-6 * max|plain
+# row|, rtol one or two output roundings, and every row sums to 1 within
+# rtol: nearly every element of a 92,416-wide row is far below the largest,
+# and a floor at the row's scale would let a dropped or mis-scaled chunk pass
+API_TOL = {"float32": 2e-4, "bfloat16": 2e-2}
+SOFTMAX_RTOL = {"float32": 1e-5, "bfloat16": 1e-2}
+
+
+def kernel_api(dev, counters):
+    """Phase 7: the kernel API (``ops.flash_attention``, ``ops.rmsnorm``,
+    ``ops.softmax``, ``ops.matmul``) and its autotuner on the card.
+
+    (a) every candidate configuration of flat flash attention, RMSNorm,
+    softmax and the matmul's K split against the plain version, at the main
+    shapes and the ragged tails, each candidate timed; (b) a sweep of the
+    four ops at their main shapes into a JSON cache under build/
+    (``REPRO_AUTOTUNE=1``), every candidate of the sweep launching, a fresh
+    tuner on that file hitting without a measure, and the tuned outputs equal
+    to the default plan's; (c) the counts set to
+    0, the four ops driven once through ``ops`` at the main shapes with the
+    tuned plans, the counts read; (d) each op's time beside its bound, plain
+    version and library call. Returns (timed rows, launches)."""
+    import os
+
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import autotune, ops, ref
+    from repro_torch.kernels import flash_attention as fk
+    from repro_torch.kernels import matmul as mmk
+    from repro_torch.kernels import rmsnorm as rnk
+    from repro_torch.kernels import softmax as smk
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def randn(*shape, dtype=bf16, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev) * scale).to(dtype)
+
+    worst = {}  # op -> (its rule, the largest share of the limit an element used)
+
+    def held(name, case, got, want, tol):
+        """max |got - want|, after checking it everywhere against the op's
+        rule (see API_TOL and SOFTMAX_RTOL)."""
+        got, want = got.float(), want.float()
+        diff = (got - want).abs()
+        if name == "softmax":
+            limit = tol * want.abs() + 1e-6 * want.abs().amax(-1, keepdim=True)
+            rule = f"{tol} * |plain| + 1e-6 * max|plain row|"
+            sums = got.double().sum(-1)
+            if not ((sums - 1).abs() <= tol).all():
+                raise AssertionError(f"{name} {case}: row sums {sums.min().item()} to "
+                                     f"{sums.max().item()}, not 1 within {tol}")
+        elif name == "flash_attention":
+            limit = tol * (want.abs() + want.abs().amax(-1, keepdim=True))
+            rule = f"{tol} * (|plain| + max|plain row|)"
+        else:
+            limit = tol * (want.abs() + want.pow(2).mean().sqrt())
+            rule = f"{tol} * (|plain| + rms(plain))"
+        bad = diff > limit
+        if bad.any() or not torch.isfinite(got).all():
+            raise AssertionError(f"{name} {case}: {int(bad.sum())} elements outside {rule}, "
+                                 f"max_abs_err {diff.max().item()}")
+        used = (diff / limit).max().item()
+        if used >= worst.get(name, ("", -1.0))[1]:
+            worst[name] = (rule, used)
+        return diff.max().item()
+
+    def tol_of(name, dtype):
+        return (SOFTMAX_RTOL if name == "softmax" else API_TOL)[dname(dtype)]
+
+    def dname(dtype):
+        return str(dtype).split(".")[-1]
+
+    # ---- (a) every candidate against the plain version
+    bh, s, d = FLASH_MAIN
+    flash_cases = [(bh, s, s, d, causal, bf16) for causal in (True, False)] + [
+        (bh, 96, 96, d, True, bf16), (8, 96, 96, 16, True, f32), (8, 80, 130, 64, False, f32)]
+    cand_ms = {}
+    for b_, sq, sk, d_, causal, dtype in flash_cases:
+        q, k, v = randn(b_, sq, d_, dtype=dtype), randn(b_, sk, d_, dtype=dtype), \
+            randn(b_, sk, d_, dtype=dtype)
+        want = ref.flash_attention(q[None], k[None], v[None], causal=causal)[0]
+        for tile in fk.TILES:
+            run = lambda: fk.flash_attention(q, k, v, causal=causal,  # noqa: E731
+                                             block_q=tile[0], block_k=tile[1])
+            case = f"BH={b_} Sq={sq} Sk={sk} d={d_} causal={causal} {dname(dtype)} tile={tile}"
+            err = held("flash_attention", case, run(), want, API_TOL[dname(dtype)])
+            ms = time_ms(run)
+            cand_ms[("flash_attention", b_, sq, sk, d_, causal, dtype, tile)] = ms
+            print(f"  flash_attention   {case:60s} err={err:.2e} ms={ms:.4f}", flush=True)
+    row_cases = [
+        ("rmsnorm", RMSNORM_MAIN, bf16, bf16), ("rmsnorm", (37, 4096), bf16, bf16),
+        ("rmsnorm", (37, 4100), f32, f32), ("rmsnorm", (37, 4096), bf16, f32),
+        ("softmax", SOFTMAX_MAIN, bf16, None), ("softmax", SOFTMAX_SCORES, f32, None),
+        ("softmax", (37, 92416), bf16, None), ("softmax", (37, 1000), f32, None),
+    ]
+    for name, (r, c), dtype, wdtype in row_cases:
+        x = randn(r, c, dtype=dtype, scale=4.0)
+        w = randn(c, dtype=wdtype) if wdtype is not None else None
+        want = ref.rmsnorm(x, w) if w is not None else ref.softmax(x)
+        for rows in rnk.BLOCK_ROWS:
+            if w is not None:
+                run = lambda: rnk.rmsnorm(x, w, block_rows=rows)  # noqa: E731
+            else:
+                run = lambda: smk.softmax(x, block_rows=rows)  # noqa: E731
+            case = f"R={r} C={c} {dname(dtype)} w={dname(wdtype) if w is not None else '-'} " \
+                   f"block_rows={rows}"
+            err = held(name, case, run(), want, tol_of(name, dtype))
+            ms = time_ms(run)
+            cand_ms[(name, r, c, dtype, rows)] = ms
+            print(f"  {name:17s} {case:60s} err={err:.2e} ms={ms:.4f}", flush=True)
+    for m, k, n in MATMUL_API:
+        a, b = randn(m, k), randn(k, n)
+        want = ref.matmul(a, b)
+        tol = MATMUL_REL_TOL["bfloat16"] * want.float().abs().max().item()
+        for split in mmk.SPLIT_K:
+            run = lambda: mmk.matmul(a, b, split_k=split)  # noqa: E731
+            case = f"M={m} K={k} N={n} bfloat16 split_k={split}"
+            err = (run().float() - want.float()).abs().max().item()
+            if not err <= tol:
+                raise AssertionError(f"matmul {case}: max_abs_err {err} above {tol}")
+            ms = time_ms(run)
+            cand_ms[("matmul", m, k, n, split)] = ms
+            print(f"  matmul            {case:60s} err={err:.2e} ms={ms:.4f}", flush=True)
+
+    for name, (rule, used) in worst.items():
+        print(f"  {name}: every candidate within {rule}; the worst element used "
+              f"{used:.3f} of its limit at its dtype's tol")
+
+    # ---- (b) the autotuner: sweep into a fresh cache, read it back
+    cache = ROOT / "build" / "chip_smoke_autotune.json"
+    cache.unlink(missing_ok=True)
+    saved = {key: os.environ.get(key) for key in ("REPRO_AUTOTUNE", "REPRO_AUTOTUNE_CACHE")}
+    os.environ.update(REPRO_AUTOTUNE="1", REPRO_AUTOTUNE_CACHE=str(cache))
+    autotune.set_tuner(None)  # the next op builds the tuner from the environment
+    try:
+        tuner = autotune.get_tuner()
+        if not (tuner.sweep and tuner.path == str(cache)):
+            raise AssertionError("the tuner did not take REPRO_AUTOTUNE / REPRO_AUTOTUNE_CACHE")
+        q, k, v = (randn(1, bh, s, d) for _ in range(3))
+        mm_in = [(randn(m, k_), randn(k_, n)) for m, k_, n in MATMUL_API]
+        x_rms, w_rms = randn(*RMSNORM_MAIN, scale=4.0), randn(RMSNORM_MAIN[1])
+        x_sm, x_sc = randn(*SOFTMAX_MAIN, scale=4.0), randn(*SOFTMAX_SCORES, dtype=f32,
+                                                            scale=4.0)
+        swept = [("flash_attention", (bh, s, d), bf16, lambda: ops.flash_attention(q, k, v))] + [
+            ("matmul", tuple(a.shape) + (b.shape[1],), bf16, lambda a=a, b=b: ops.matmul(a, b))
+            for a, b in mm_in] + [
+            ("rmsnorm", RMSNORM_MAIN, bf16, lambda: ops.rmsnorm(x_rms, w_rms)),
+            ("softmax", SOFTMAX_MAIN, bf16, lambda: ops.softmax(x_sm)),
+            ("softmax", SOFTMAX_SCORES, f32, lambda: ops.softmax(x_sc))]
+        tuned = {}
+        for op, shape, dtype, call in swept:
+            n0 = tuner.sweeps_run
+            call()
+            torch.cuda.synchronize()
+            if tuner.sweeps_run != n0 + 1:
+                raise AssertionError(f"{op} {shape}: no sweep ran on a cold cache")
+            log = ", ".join(f"{cfg}: {sec * 1e3:.4f} ms" if err is None else f"{cfg}: {err}"
+                            for cfg, sec, err in tuner.last_sweep)
+            tuned[(op, shape)] = tuner.lookup(op, shape, dtype, "cuda")
+            print(f"  sweep {op} {shape} {dname(dtype)}: {log}; winner {tuned[(op, shape)]} "
+                  f"(default {autotune.DEFAULTS[op]})", flush=True)
+            failed = [(cfg, err) for cfg, _, err in tuner.last_sweep if err is not None]
+            if failed or len(tuner.last_sweep) != len(autotune.CANDIDATES[op]):
+                raise AssertionError(f"{op} {shape}: candidates failed in the sweep: {failed}")
+        print(f"  sweeps_run {tuner.sweeps_run}, cache {cache.relative_to(ROOT)}: "
+              f"{len(json.loads(cache.read_text()))} entries")
+        fresh = autotune.Autotuner(str(cache), sweep=True)
+        asked = []
+        for op, shape, dtype, _ in swept:
+            got = fresh.get(op, shape, dtype, "cuda", measure=lambda cfg: asked.append(cfg) or 0.0)
+            if got != tuned[(op, shape)]:
+                raise AssertionError(f"{op} {shape}: a fresh tuner read {got}, "
+                                     f"the sweep stored {tuned[(op, shape)]}")
+        if asked or fresh.sweeps_run:
+            raise AssertionError(f"a fresh tuner on the cache measured again: {asked}")
+        print(f"  a fresh Autotuner on the cache: {len(swept)} hits, sweeps_run 0")
+        tile = fk.DEFAULT_TILE
+        err = held("flash_attention", "tuned vs default plan", ops.flash_attention(q, k, v),
+                   ops.flash_attention(q, k, v, block_q=tile[0], block_k=tile[1]),
+                   API_TOL["bfloat16"])
+        print(f"  ops.flash_attention tuned plan vs default: max_abs_err {err:.2e}")
+        for name, call, x_, dtype in [
+                ("rmsnorm", lambda **kw: ops.rmsnorm(x_rms, w_rms, **kw), x_rms, bf16),
+                ("softmax", lambda **kw: ops.softmax(x_sm, **kw), x_sm, bf16),
+                ("softmax", lambda **kw: ops.softmax(x_sc, **kw), x_sc, f32)]:
+            err = held(name, "tuned vs default plan", call(), call(block_rows=0),
+                       tol_of(name, dtype))
+            print(f"  ops.{name} {tuple(x_.shape)} tuned plan vs default: max_abs_err {err:.2e}")
+        for a, b in mm_in:
+            want = ops.matmul(a, b, split_k=0)
+            tol = MATMUL_REL_TOL["bfloat16"] * want.float().abs().max().item()
+            err = (ops.matmul(a, b).float() - want.float()).abs().max().item()
+            if not err <= tol:
+                raise AssertionError(f"matmul M={a.shape[0]}: tuned vs default {err} above {tol}")
+            print(f"  ops.matmul M={a.shape[0]} tuned plan vs default: max_abs_err {err:.2e} "
+                  f"(tol {tol:.3g})")
+
+        # ---- (c) the kernel API's main path, counted
+        reset_counts(counters)
+        outs = [ops.flash_attention(q, k, v), ops.flash_attention(q, k, v, causal=False),
+                ops.rmsnorm(x_rms, w_rms), ops.softmax(x_sm), ops.softmax(x_sc)] + [
+            ops.matmul(a, b) for a, b in mm_in]
+        torch.cuda.synchronize()
+        launches = read_counts(counters, "phase 7 (the kernel API at its main shapes)")
+        for o in outs:
+            if not torch.isfinite(o).all():
+                raise AssertionError("the kernel API gave a non-finite output")
+        plans = {(op, shape): ops._blocks(op, shape, dt) for op, shape, dt in [
+            ("flash_attention", FLASH_MAIN, bf16), ("rmsnorm", RMSNORM_MAIN, bf16),
+            ("softmax", SOFTMAX_MAIN, bf16), ("softmax", SOFTMAX_SCORES, f32)] + [
+            ("matmul", shape, bf16) for shape in MATMUL_API]}
+        print(f"  plans at the main shapes: {plans}")
+    finally:
+        for key, val in saved.items():
+            if val is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = val
+        autotune.set_tuner(None)
+
+    # ---- (d) each op at its main shape: time, bound, plain, library
+    results = {}
+    fl = 4 * d * bh * sum(i + 1 for i in range(s))  # causal: key j <= query i
+    qf, kf, vf = q[0], k[0], v[0]
+    cfg = plans[("flash_attention", FLASH_MAIN)]
+    results["flash_attention"] = dict(
+        ms=time_ms(lambda: fk.flash_attention(qf, kf, vf, block_q=cfg["block_q"],
+                                              block_k=cfg["block_k"])),
+        plain_ms=time_ms(lambda: ref.flash_attention(q, k, v)),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True)),
+        library="torch.nn.functional.scaled_dot_product_attention (causal)", config=cfg,
+        max_abs_err=held("flash_attention", "main", outs[0], ref.flash_attention(q, k, v),
+                         API_TOL["bfloat16"]))
+    results["flash_attention"]["bound_ms"], results["flash_attention"]["bound_by"] = bound(
+        nbytes(q, k, v, q), fl, bf16)
+    rows = plans[("rmsnorm", RMSNORM_MAIN)]["block_rows"]
+    results["rmsnorm"] = dict(
+        ms=time_ms(lambda: rnk.rmsnorm(x_rms, w_rms, block_rows=rows)),
+        plain_ms=time_ms(lambda: ref.rmsnorm(x_rms, w_rms)),
+        library_ms=time_ms(lambda: F.rms_norm(x_rms, (RMSNORM_MAIN[1],), w_rms, 1e-6)),
+        library="torch.nn.functional.rms_norm", config={"block_rows": rows},
+        max_abs_err=held("rmsnorm", "main", outs[2], ref.rmsnorm(x_rms, w_rms),
+                         API_TOL["bfloat16"]))
+    results["rmsnorm"]["bound_ms"], results["rmsnorm"]["bound_by"] = bound(
+        nbytes(x_rms, w_rms, x_rms), 3 * x_rms.numel(), bf16)
+    rows = plans[("softmax", SOFTMAX_MAIN)]["block_rows"]
+    results["softmax"] = dict(
+        ms=time_ms(lambda: smk.softmax(x_sm, block_rows=rows)),
+        plain_ms=time_ms(lambda: ref.softmax(x_sm)),
+        library_ms=time_ms(lambda: torch.softmax(x_sm, -1)),
+        library="torch.softmax", config={"block_rows": rows},
+        max_abs_err=held("softmax", "main", outs[3], ref.softmax(x_sm), SOFTMAX_RTOL["bfloat16"]))
+    results["softmax"]["bound_ms"], results["softmax"]["bound_by"] = bound(
+        nbytes(x_sm, x_sm), 4 * x_sm.numel(), bf16)
+    for name, t in results.items():
+        t["tol"] = tol_of(name, bf16)
+        print(f"  {name:17s} main shape, plan {t['config']}: ms={t['ms']:.4f} "
+              f"bound={t['bound_ms']:.5f} ({t['bound_by']}) plain={t['plain_ms']:.4f} "
+              f"library={t['library_ms']:.4f} ({t['library']})", flush=True)
+    # beside them: the non-causal flash, the f32 score rows, the tuned matmuls
+    nc = time_ms(lambda: fk.flash_attention(qf, kf, vf, causal=False, block_q=cfg["block_q"],
+                                            block_k=cfg["block_k"]))
+    err = held("flash_attention", "main, non-causal", outs[1],
+               ref.flash_attention(q, k, v, causal=False), API_TOL["bfloat16"])
+    print(f"  flash_attention non-causal, plan {cfg}: err={err:.2e} ms={nc:.4f} "
+          f"bound={bound(nbytes(q, k, v, q), 2 * fl, bf16)[0]:.5f} "
+          f"SDPA={time_ms(lambda: F.scaled_dot_product_attention(q, k, v)):.4f}")
+    rows = plans[("softmax", SOFTMAX_SCORES)]["block_rows"]
+    err = held("softmax", "scores, f32", outs[4], ref.softmax(x_sc), SOFTMAX_RTOL["float32"])
+    print(f"  softmax R={SOFTMAX_SCORES[0]} C={SOFTMAX_SCORES[1]} f32, block_rows {rows}: "
+          f"err={err:.2e} ms={time_ms(lambda: smk.softmax(x_sc, block_rows=rows)):.4f} "
+          f"bound={bound(nbytes(x_sc, x_sc), 4 * x_sc.numel(), f32)[0]:.5f} "
+          f"torch.softmax={time_ms(lambda: torch.softmax(x_sc, -1)):.4f}")
+    for (m, k_, n), (a, b) in zip(MATMUL_API, mm_in):
+        split = plans[("matmul", (m, k_, n))]["split_k"]
+        print(f"  matmul M={m} K={k_} N={n} bf16: tuned split_k={split} "
+              f"{cand_ms[('matmul', m, k_, n, split)]:.4f} ms, default split_k=0 "
+              f"{cand_ms[('matmul', m, k_, n, 0)]:.4f} ms, bound "
+              f"{bound(nbytes(a, b) + m * n * 2, 2 * m * k_ * n, bf16)[0]:.5f}, torch.matmul "
+              f"{time_ms(lambda: torch.matmul(a, b)):.4f}")
+    torch.cuda.synchronize()
+    return results, launches
+
+
 # -------------------------------------------------------------------- main
 
 
@@ -1006,6 +1324,8 @@ def main() -> int:
     from repro_torch.kernels import matmul as mmk
     from repro_torch.kernels import paged_attention as pk
     from repro_torch.kernels import ragged_attention as rk
+    from repro_torch.kernels import rmsnorm as rnk
+    from repro_torch.kernels import softmax as smk
 
     phase("0 device")
     if not torch.cuda.is_available():
@@ -1059,11 +1379,18 @@ def main() -> int:
                  **counters4, **counters5}
     launches6, serving6 = int8_weights(dev, model, params, counters6,
                                        serving["b"]["num_blocks"])
-    # matmul is held and timed in phase 2 only: no serving path calls it (the
-    # dense projections are torch.matmul, as the JAX package's are XLA's)
-    launches.update(matmul_q8=launches6["matmul_q8"], matmul=launches6["matmul"])
+    # no serving path calls matmul (the dense projections are torch.matmul, as
+    # the JAX package's are XLA's): its launches are phase 7's
+    launches.update(matmul_q8=launches6["matmul_q8"])
     serving["int8_weights"] = serving6
     print(json.dumps({"serving": serving}))
+
+    phase("7 kernel API and autotuner")
+    counters7 = {"flash_attention": (fk, "launches_flat"), "rmsnorm": (rnk, "launches"),
+                 "softmax": (smk, "launches"), "matmul": (mmk, "launches")}
+    timed7, launches7 = kernel_api(dev, counters7)
+    timed.update(timed7)
+    launches.update(launches7)
 
     # the pl.pallas_call line of each TPU kernel, as in PERF.md's kernel table
     sources = {
@@ -1078,22 +1405,36 @@ def main() -> int:
                                 "src/repro/kernels/ragged_attention.py:253"),
         "matmul_q8": ("matmul.cu", "src/repro/kernels/matmul.py:100"),
         "matmul": ("matmul.cu", "src/repro/kernels/matmul.py:138"),
+        "flash_attention": ("flash_attention.cu", "src/repro/kernels/flash_attention.py:126"),
+        "rmsnorm": ("rmsnorm.cu", "src/repro/kernels/rmsnorm.py:34"),
+        "softmax": ("softmax.cu", "src/repro/kernels/softmax.py:29"),
     }
+    # PERF.md's row of each kernel; rows 12-15 are the next slice's
+    rows = {"decode_attention": 1, "ragged_attention": 2, "gqa_flash_attention": 3,
+            "decode_attention_q8": 4, "ragged_attention_q8": 5, "paged_attention": 6,
+            "paged_attention_q8": 6, "flash_attention": 7, "matmul": 8, "matmul_q8": 9,
+            "rmsnorm": 10, "softmax": 11}
     kernels = []
     for name, (src, tpu) in sources.items():
         t = timed[name]
         kernels.append({
-            "name": name, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{src}",
+            "name": name, "row": rows[name], "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{src}",
             # one line under both names that readers of this JSON look up
             "replaces": tpu, "tpu_kernel": tpu, "launches": launches[name],
             "max_abs_err": t["max_abs_err"], "tol": t["tol"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
         })
-        if t.get("library_ms") is None and t.get("library"):
+        if t.get("library"):
             kernels[-1]["library"] = t["library"]
-    kernels[-1]["launched_in"] = "phase 2 only: no serving path calls matmul"
-    print(json.dumps({"kernels": kernels}))
+        if name in counters7:  # no serving path calls the kernel API's ops
+            kernels[-1]["launched_in"] = "phase 7: the kernel API at its main shapes"
+            kernels[-1]["config"] = t.get("config", {"split_k": 0})
+    to_port = [{"row": r, "name": n, "replaces": f"src/repro/kernels/{f}", "slice": "B"}
+               for r, n, f in [(12, "axpy", "axpy.py:36"), (13, "dotp", "dotp.py:38"),
+                               (14, "fft", "fft.py:64"), (15, "conv2d", "conv2d.py:77")]]
+    print(json.dumps({"kernels": kernels, "to_port": to_port}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Time the port's unscaled decode and ragged attention kernels at the
-serving path's main shapes (``chip_smoke.py`` phase 2's dense shapes and
+"""Time the port's unscaled decode, ragged and GQA flash attention kernels at
+the serving path's main shapes (``chip_smoke.py`` phase 2's dense shapes and
 timer: codeqwen1.5-7b, bf16, KV=32, G=1, d=128, 4 slots x 1024 positions; a
-64-token pack), for an A/B of two checkouts on one card:
+64-token pack; a 64-token prefill of 32 KV rows), for an A/B of two
+checkouts on one card:
 
     python scripts/torch_attention_ab.py --src path/to/checkout/src
 
@@ -37,6 +38,7 @@ def main() -> int:
     import torch
 
     from repro_torch.kernels import decode_attention as dk
+    from repro_torch.kernels import flash_attention as fk
     from repro_torch.kernels import ragged_attention as rk
 
     if not torch.cuda.is_available():
@@ -55,9 +57,11 @@ def main() -> int:
     k, v = randn(cs.SLOTS, cs.S_MAX, KV, D), randn(cs.SLOTS, cs.S_MAX, KV, D)
     q_dec, q_rag = randn(cs.SLOTS, KV, 1, D), randn(len(cs.PACK_SLOTS), KV, 1, D)
     cur, slots, poss = ints(cs.DECODE_POS), ints(cs.PACK_SLOTS), ints(cs.PACK_POS)
+    q_pre, k_pre, v_pre = randn(KV, 1, 64, D), randn(KV, 64, D), randn(KV, 64, D)
     kernels = {
         "decode_attention": lambda: dk.decode_attention(q_dec, k, v, cur),
         "ragged_attention": lambda: rk.ragged_attention(q_rag, k, v, slots, poss),
+        "gqa_flash_attention": lambda: fk.gqa_flash_attention(q_pre, k_pre, v_pre),
     }
     out = {}
     for name, fn in kernels.items():

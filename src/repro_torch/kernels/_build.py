@@ -40,12 +40,16 @@ SIGNATURES = {
     # q, k, v, k_scale, v_scale, tok_seq, tok_pos, tables, out, T, NB, bs, max_blocks, KV,
     # G, D, window, qdtype, sdtype, stream
     "repro_paged_attention": [_P] * 9 + [_I] * 10 + [_P],
-    # q, k, v, out, BKV, G, Sq, Sk, D, causal, dtype, stream
-    "repro_gqa_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    # a, b, scale, workspace, counters, out, M, K, N, adtype, bdtype, stream
-    "repro_matmul": [_P] * 6 + [_I] * 5 + [_P],
-    # M, K, N, adtype, bdtype -> f32 elements of workspace repro_matmul needs
-    "repro_matmul_workspace": [_I] * 5,
+    # q, k, v, out, BKV, G, Sq, Sk, D, causal, block_q, block_k, dtype, stream
+    "repro_flash_attention": [_P] * 4 + [_I] * 9 + [_P],
+    # a, b, scale, workspace, counters, out, M, K, N, adtype, bdtype, split_k, stream
+    "repro_matmul": [_P] * 6 + [_I] * 6 + [_P],
+    # M, K, N, adtype, bdtype, split_k -> f32 elements of workspace repro_matmul needs
+    "repro_matmul_workspace": [_I] * 6,
+    # x, w, out, R, C, eps, rows, xdtype, wdtype, stream
+    "repro_rmsnorm": [_P] * 3 + [_I] * 2 + [ctypes.c_float] + [_I] * 3 + [_P],
+    # x, out, R, C, rows, dtype, stream
+    "repro_softmax": [_P] * 2 + [_I] * 4 + [_P],
 }
 RESTYPES = {"repro_matmul_workspace": ctypes.c_longlong}  # every other entry: int
 
@@ -142,7 +146,8 @@ def check(rc: int, name: str) -> None:
     if rc == 0:
         return
     if rc == -1:
-        raise ValueError(f"{name}: no kernel instantiated for this head_dim / group size")
+        raise ValueError(f"{name}: no kernel instantiated for this head_dim, group size, "
+                         "tile or rows per block")
     if rc == -2:
         raise TypeError(f"{name}: unsupported combination of operand dtypes and scales")
     if rc == -3:

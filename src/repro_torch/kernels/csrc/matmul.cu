@@ -42,6 +42,8 @@
 //   staging.
 // - M > 8, f32 activations (the small parity model): a CUDA-core FMA tile
 //   (256 threads of 4 x 4 outputs over 16-deep K steps), so f32 stays f32.
+// The number of K splits is the autotuner's knob (split_k: 0, the default,
+// is the wave-filling choice above; 1, 2, 4 or 8 force it).
 // wgmma, TMA and tensor cores for the decode GEMV are later work.
 
 #include <algorithm>
@@ -327,9 +329,14 @@ int device_sms() {
 // rows, a multiple of kGemvQuantum, and as many K splits (from the fewest
 // allowed, up to 16 more) as fill the waves of two blocks per SM best: the
 // blocks are of equal work, so a last wave that is mostly empty costs as
-// much as a full one. Fewer splits win ties within 2%.
-int gemv_slice(int M, int K, int N) {
+// much as a full one. Fewer splits win ties within 2%. A forced split_k > 0
+// asks for that many slices instead (at least the fewest allowed).
+int gemv_slice(int M, int K, int N, int split_k) {
   const int most = gemv_max_slice(M <= 4 ? 4 : 8);
+  if (split_k > 0) {
+    const int rows = ((K + split_k - 1) / split_k + kGemvQuantum - 1) / kGemvQuantum;
+    return std::min(most, std::max(1, rows) * kGemvQuantum);
+  }
   const int strips = (N + kGemvCols - 1) / kGemvCols;
   const int slots = 2 * device_sms();
   const int fewest = (K + most - 1) / most;
@@ -539,8 +546,10 @@ split_reduce_kernel(const float* __restrict__ ws, int splits, const float* __res
 // K splits of the pipelined tile: at most 8, at least 8 K steps each, as
 // many as fill the waves of (about) four 128-thread blocks per SM best;
 // fewer splits win ties within 2% (each split adds an f32 partial of the
-// output to write and read back).
-int split_count(int M, int K, int N) {
+// output to write and read back). A forced split_k > 0 is taken as it is, up
+// to one 32-deep K step per split.
+int split_count(int M, int K, int N, int split_k) {
+  if (split_k > 0) return std::min(split_k, (K + kMmaBK - 1) / kMmaBK);
   const int slots = 4 * device_sms();
   const int tiles = ((M + kBM - 1) / kBM) * ((N + kBN - 1) / kBN);
   const int most = std::max(1, std::min(8, (K + kMmaBK - 1) / kMmaBK / 8));
@@ -684,13 +693,13 @@ fma_tile_kernel(const float* __restrict__ a, const TB* __restrict__ b,
 
 template <typename TA, typename TB, bool kScaled>
 int launch(const void* a_, const void* b_, const void* scale_, void* out_, void* ws, int* counters,
-           int M, int K, int N, cudaStream_t st) {
+           int M, int K, int N, int split_k, cudaStream_t st) {
   const TA* a = static_cast<const TA*>(a_);
   const TB* b = static_cast<const TB*>(b_);
   const float* scale = static_cast<const float*>(scale_);
   TA* out = static_cast<TA*>(out_);
   if (M <= kGemvMaxM) {
-    const int slice = gemv_slice(M, K, N);
+    const int slice = gemv_slice(M, K, N, split_k);
     const int splits = (K + slice - 1) / slice;
     if (splits > 1 && (ws == nullptr || counters == nullptr)) return -3;
     const dim3 grid((N + kGemvCols - 1) / kGemvCols, std::max(splits, 1));
@@ -709,7 +718,7 @@ int launch(const void* a_, const void* b_, const void* scale_, void* out_, void*
   const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
   if constexpr (std::is_same_v<TA, bf16>) {
     if (pipelined<TB>(K, N)) {
-      const int splits = ws ? split_count(M, K, N) : 1;
+      const int splits = ws ? split_count(M, K, N, split_k) : 1;
       const dim3 grid3(grid.x, grid.y, splits);
       mma_pipe_kernel<TB, kScaled><<<grid3, kMmaThreads, 0, st>>>(
           a, b, scale, out, static_cast<float*>(ws), M, K, N);
@@ -730,18 +739,20 @@ int launch(const void* a_, const void* b_, const void* scale_, void* out_, void*
 
 }  // namespace
 
-// f32 elements of scratch repro_matmul needs for these operands: the K-split
-// partials of the pipelined bf16 tile, 0 when the product is not split.
-extern "C" long long repro_matmul_workspace(int M, int K, int N, int adtype, int bdtype) {
+// f32 elements of scratch repro_matmul needs for these operands and this
+// split_k: the K-split partials of the GEMV or the pipelined bf16 tile, 0
+// when the product is not split.
+extern "C" long long repro_matmul_workspace(int M, int K, int N, int adtype, int bdtype,
+                                            int split_k) {
   if (M <= kGemvMaxM) {
-    const int slice = gemv_slice(M, K, N);
+    const int slice = gemv_slice(M, K, N, split_k);
     const long long splits = (K + slice - 1) / slice;
     return splits > 1 ? splits * M * N : 0;
   }
   if (adtype != repro::kBF16) return 0;
   const bool pipe = bdtype == repro::kI8 ? pipelined<int8_t>(K, N)
                     : bdtype == repro::kBF16 ? pipelined<bf16>(K, N) : false;
-  const int splits = pipe ? split_count(M, K, N) : 1;
+  const int splits = pipe ? split_count(M, K, N, split_k) : 1;
   return splits > 1 ? static_cast<long long>(splits) * M * N : 0;
 }
 
@@ -750,11 +761,15 @@ extern "C" long long repro_matmul_workspace(int M, int K, int N, int adtype, int
 // repro_matmul_workspace asks for (null when it asks for none); counters:
 // int32 zeros, one per 128 columns (ceil(N / 128)), left zero again. The
 // served combinations are f32 @ f32 and bf16 @ bf16 unscaled, f32 @ int8 and
-// bf16 @ int8 scaled. Returns cudaGetLastError() after the launches, -2 for
-// any other combination, -3 for a missing scratch.
+// bf16 @ int8 scaled. split_k: 0 lets the kernel split K to fill the card's
+// waves; 1, 2, 4, 8, ... force that many K splits where the path splits (the
+// GEMV, at least as many as its shared memory needs; the pipelined tile, at
+// most one per K step); the other tiles never split. Returns
+// cudaGetLastError() after the launches, -2 for any other combination, -3
+// for a missing scratch.
 extern "C" int repro_matmul(const void* a, const void* b, const void* scale, void* ws,
                             void* counters_, void* out, int M, int K, int N, int adtype,
-                            int bdtype, void* stream) {
+                            int bdtype, int split_k, void* stream) {
   int* counters = static_cast<int*>(counters_);
   using repro::kBF16;
   using repro::kF32;
@@ -762,12 +777,12 @@ extern "C" int repro_matmul(const void* a, const void* b, const void* scale, voi
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool scaled = scale != nullptr;
   if (adtype == kF32 && bdtype == kF32 && !scaled)
-    return launch<float, float, false>(a, b, scale, out, ws, counters, M, K, N, st);
+    return launch<float, float, false>(a, b, scale, out, ws, counters, M, K, N, split_k, st);
   if (adtype == kF32 && bdtype == kI8 && scaled)
-    return launch<float, int8_t, true>(a, b, scale, out, ws, counters, M, K, N, st);
+    return launch<float, int8_t, true>(a, b, scale, out, ws, counters, M, K, N, split_k, st);
   if (adtype == kBF16 && bdtype == kBF16 && !scaled)
-    return launch<bf16, bf16, false>(a, b, scale, out, ws, counters, M, K, N, st);
+    return launch<bf16, bf16, false>(a, b, scale, out, ws, counters, M, K, N, split_k, st);
   if (adtype == kBF16 && bdtype == kI8 && scaled)
-    return launch<bf16, int8_t, true>(a, b, scale, out, ws, counters, M, K, N, st);
+    return launch<bf16, int8_t, true>(a, b, scale, out, ws, counters, M, K, N, split_k, st);
   return -2;
 }

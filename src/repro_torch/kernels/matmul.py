@@ -4,7 +4,9 @@
 
 CUDA tensors only: :mod:`repro_torch.kernels.ops` routes CPU tensors to
 ``ref.matmul`` / ``ref.matmul_q8``. ``launches`` counts ``matmul`` launches,
-``launches_q8`` ``matmul_q8`` launches.
+``launches_q8`` ``matmul_q8`` launches. ``split_k`` is the autotuner's knob
+of ``matmul`` (0: the kernel splits K to fill the card's waves; 1, 2, 4, 8:
+that many K splits); ``matmul_q8``, on the serving path, keeps 0.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ launches_q8 = 0
 _GEMV_COLS = 128  # columns per GEMV block: one split-K ticket counter each
 _counters: dict = {}  # device -> int32 zeros the kernels leave zero
 _scratch: dict = {}  # device -> f32 buffer for split-K partials, grown as needed
+SPLIT_K = (0, 1, 2, 4, 8)  # the autotuner's candidates
 
 
 def _ticket_counters(device: torch.device, n: int) -> torch.Tensor:
@@ -47,14 +50,14 @@ def _partials(device: torch.device, n: int) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=256)
-def _workspace_elems(m: int, k: int, n: int, a_code: int, b_code: int) -> int:
+def _workspace_elems(m: int, k: int, n: int, a_code: int, b_code: int, split_k: int) -> int:
     """f32 elements of scratch the kernels need for the partials of a K-split
     GEMV or tile of this shape (0 when it does not split)."""
-    return _build.load().repro_matmul_workspace(m, k, n, a_code, b_code)
+    return _build.load().repro_matmul_workspace(m, k, n, a_code, b_code, split_k)
 
 
 def _launch(name: str, a: torch.Tensor, b: torch.Tensor,
-            scale: Optional[torch.Tensor]) -> torch.Tensor:
+            scale: Optional[torch.Tensor], split_k: int = 0) -> torch.Tensor:
     operands = [a, b] if scale is None else [a, b, scale]
     _checks.cuda_operands(name, *operands)
     if a.ndim != 2 or b.ndim != 2 or a.shape[1] != b.shape[0]:
@@ -71,24 +74,27 @@ def _launch(name: str, a: torch.Tensor, b: torch.Tensor,
         return out
     lib = _build.load()
     codes = (_checks.DTYPE_CODES[a.dtype], _checks.DTYPE_CODES.get(b.dtype, -1))
-    n_ws = _workspace_elems(m, k, n, *codes)
+    if split_k < 0:
+        raise ValueError(f"{name}: split_k must be >= 0, got {split_k}")
+    n_ws = _workspace_elems(m, k, n, *codes, split_k)
     ws = _partials(a.device, n_ws) if n_ws else None
     rc = lib.repro_matmul(
         a.data_ptr(), b.data_ptr(), _checks.ptr(scale), _checks.ptr(ws),
-        _ticket_counters(a.device, n).data_ptr(), out.data_ptr(), m, k, n, *codes,
+        _ticket_counters(a.device, n).data_ptr(), out.data_ptr(), m, k, n, *codes, split_k,
         _checks.stream(a),
     )
     _build.check(rc, name)
     return out
 
 
-def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def matmul(a: torch.Tensor, b: torch.Tensor, *, split_k: int = 0) -> torch.Tensor:
     """a [M, K] @ b [K, N], both f32 or both bf16, f32 accumulation; returns
-    [M, N] in a's dtype on a's device and stream, without synchronising."""
+    [M, N] in a's dtype on a's device and stream, without synchronising.
+    ``split_k``: 0 lets the kernel choose the K splits, n > 0 forces n."""
     global launches
     if b.dtype != a.dtype:
         raise TypeError(f"matmul: a and b must share one dtype, got {a.dtype} and {b.dtype}")
-    out = _launch("matmul", a, b, None)
+    out = _launch("matmul", a, b, None, split_k)
     if out.numel():
         launches += 1
     return out

@@ -1,5 +1,4 @@
-"""Dispatch layer for the attention and matmul kernels, mirroring
-``repro.kernels.ops``.
+"""Dispatch layer for the port's kernels, mirroring ``repro.kernels.ops``.
 
 The device of the tensors decides, as ``ops._resolve`` decides by backend
 in the JAX package, but with no mode that could pick the plain version on
@@ -9,8 +8,15 @@ quantized store rides the same ops: ``k_scale``/``v_scale`` (f32, one per
 (position, head) row) mark an int8/fp8 cache, widened inside the kernel or
 the plain version, never as a dequantized cache copy. The paged ops take a
 block-paged pool and its block tables. ``matmul_q8`` is the int8-weight
-product of :func:`repro_torch.models.quant.qmatmul`. Block-size, mode and
-autotune arguments are not ported.
+product of :func:`repro_torch.models.quant.qmatmul`.
+
+The kernel API's tuned ops (``matmul``, ``flash_attention``, ``rmsnorm``,
+``softmax``) take their kernel's knobs from the autotuner
+(:mod:`repro_torch.kernels.autotune`, backend ``"cuda"``) unless the caller
+pins them; the resolved plan is memoised per static (op, shape, dtype) cell
+and tuner generation, as in the JAX package. A CPU tensor never consults
+the tuner. The serving ops (attention over the caches, ``matmul_q8``) keep
+fixed plans. ``mode`` is not ported: the tensor's device decides.
 """
 
 from __future__ import annotations
@@ -20,12 +26,41 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import autotune
 from repro_torch.kernels import decode_attention as _decode_k
 from repro_torch.kernels import flash_attention as _flash_k
 from repro_torch.kernels import matmul as _matmul_k
 from repro_torch.kernels import paged_attention as _paged_k
 from repro_torch.kernels import ragged_attention as _ragged_k
 from repro_torch.kernels import ref
+from repro_torch.kernels import rmsnorm as _rmsnorm_k
+from repro_torch.kernels import softmax as _softmax_k
+
+BACKEND = "cuda"  # the tuner's backend of the port's kernels
+
+
+@functools.lru_cache(maxsize=4096)
+def _plan(op: str, shape: tuple[int, ...], dtype_name: str, gen: int) -> dict[str, int]:
+    """Memoised plan for one static (op, shape, dtype) cell on backend
+    ``"cuda"``. ``gen`` is the tuner generation — swapping tuners (tests)
+    invalidates every memoised plan without touching this cache directly."""
+    tuner = autotune.get_tuner()
+    hit = tuner.lookup(op, shape, dtype_name, BACKEND)
+    if hit is not None:
+        return dict(hit)
+    # only build the measure closure (it allocates synthetic inputs of
+    # the caller's shape) once we know the lookup missed and a sweep will run
+    measure = autotune.measure_for(op, shape, dtype_name, BACKEND) if tuner.sweep else None
+    return tuner.get(op, shape, dtype_name, BACKEND, measure=measure)
+
+
+def _blocks(op: str, shape: tuple[int, ...], dtype) -> dict[str, int]:
+    return _plan(op, tuple(shape), autotune.dtype_name(dtype), autotune.generation())
+
+
+def _rows(x: torch.Tensor) -> torch.Tensor:
+    """x as [rows, last dim], contiguous."""
+    return x.reshape(-1, x.shape[-1]).contiguous()
 
 
 @functools.lru_cache(maxsize=64)
@@ -43,12 +78,15 @@ def _on_cuda(t: torch.Tensor) -> bool:
     raise ValueError(f"no kernel path for device {t.device}")
 
 
-def matmul(a, b):
+def matmul(a, b, *, split_k: Optional[int] = None):
     """[M, K] @ [K, N] with f32 accumulation, in a's dtype (f32 or bf16; b
-    of the same dtype)."""
-    if _on_cuda(a):
-        return _matmul_k.matmul(a.contiguous(), b.contiguous())
-    return ref.matmul(a, b)
+    of the same dtype). ``split_k`` pins the kernel's K splits (0: its own
+    choice); by default the tuner's plan."""
+    if not _on_cuda(a):
+        return ref.matmul(a, b)
+    if split_k is None:
+        split_k = _blocks("matmul", (a.shape[0], a.shape[1], b.shape[1]), a.dtype)["split_k"]
+    return _matmul_k.matmul(a.contiguous(), b.contiguous(), split_k=split_k)
 
 
 def matmul_q8(a, b_q8, b_scale):
@@ -58,6 +96,55 @@ def matmul_q8(a, b_q8, b_scale):
     if _on_cuda(a):
         return _matmul_k.matmul_q8(a.contiguous(), b_q8.contiguous(), b_scale.contiguous())
     return ref.matmul_q8(a, b_q8, b_scale)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, block_q: Optional[int] = None,
+                    block_k: Optional[int] = None):
+    """q/k/v: [B, H, S, d] or [BH, S, d]; k/v may have another length than
+    q (keys past it masked; causal is top-left aligned). ``block_q`` /
+    ``block_k`` pin the kernel's tile; the tuner's plan fills the gaps."""
+    squeeze = q.ndim == 3
+    if squeeze:
+        q, k, v = q[None], k[None], v[None]
+    b, h, s, d = q.shape
+    if not _on_cuda(q):
+        out = ref.flash_attention(q, k, v, causal=causal)
+        return out[0] if squeeze else out
+    qf = q.reshape(b * h, s, d).contiguous()
+    kf = k.reshape(b * h, k.shape[2], d).contiguous()
+    vf = v.reshape(b * h, v.shape[2], d).contiguous()
+    if block_q is None or block_k is None:
+        cfg = _blocks("flash_attention", qf.shape, q.dtype)
+        block_q = cfg["block_q"] if block_q is None else block_q
+        block_k = cfg["block_k"] if block_k is None else block_k
+    out = _flash_k.flash_attention(qf, kf, vf, causal=causal, block_q=block_q,
+                                   block_k=block_k).reshape(b, h, s, d)
+    return out[0] if squeeze else out
+
+
+def rmsnorm(x, w, *, eps: float = 1e-6, block_rows: Optional[int] = None):
+    """``x * rsqrt(mean(x^2) + eps) * w`` over the last dim of x (any leading
+    dims), f32 math, in x's dtype. ``block_rows`` pins the kernel's rows per
+    block; by default the tuner's plan."""
+    if not _on_cuda(x):
+        return ref.rmsnorm(x, w, eps)
+    x2 = _rows(x)
+    if block_rows is None:
+        block_rows = _blocks("rmsnorm", x2.shape, x.dtype)["block_rows"]
+    out = _rmsnorm_k.rmsnorm(x2, w.contiguous(), eps=eps, block_rows=block_rows)
+    return out.reshape(x.shape)
+
+
+def softmax(x, *, block_rows: Optional[int] = None):
+    """Numerically stable softmax over the last dim of x (any leading dims),
+    f32 math, in x's dtype. ``block_rows`` pins the kernel's rows per block;
+    by default the tuner's plan."""
+    if not _on_cuda(x):
+        return ref.softmax(x)
+    x2 = _rows(x)
+    if block_rows is None:
+        block_rows = _blocks("softmax", x2.shape, x.dtype)["block_rows"]
+    return _softmax_k.softmax(x2, block_rows=block_rows).reshape(x.shape)
 
 
 def gqa_flash_attention(q, k, v, *, causal: bool = True):

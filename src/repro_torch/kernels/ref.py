@@ -1,5 +1,6 @@
-"""Plain PyTorch versions of the kernels on the serving path: attention and
-the (int8-weight) matrix product.
+"""Plain PyTorch versions of the port's kernels: attention and the
+(int8-weight) matrix product on the serving path, and the kernel API's flat
+flash attention, RMSNorm and row softmax.
 
 Counterparts of ``repro.kernels.ref`` (same layouts, same masks). They are
 what :mod:`repro_torch.kernels.ops` runs for a CPU tensor, and the oracle
@@ -31,6 +32,38 @@ def matmul_q8(a: torch.Tensor, b_q8: torch.Tensor, b_scale: torch.Tensor) -> tor
     (the kernel's flush multiply), cast to a's dtype."""
     acc = a.float() @ b_q8.float()
     return (acc * b_scale.reshape(1, -1).float()).to(a.dtype)
+
+
+def flash_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True
+) -> torch.Tensor:
+    """Flat attention. q: [B, H, Sq, d]; k/v: [B, H, Sk, d]. Causal mask is
+    the oracle's ``tril`` over (Sq, Sk): query i sees keys j <= i. As
+    ``repro.kernels.ref.flash_attention``, the f32 probabilities are cast to
+    v's dtype before P·V. Returns [B, H, Sq, d] in v's dtype."""
+    sq, sk, d = q.shape[2], k.shape[2], q.shape[3]
+    scores = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * d**-0.5
+    if causal:
+        mask = torch.ones(sq, sk, dtype=torch.bool, device=q.device).tril()
+        scores = scores.masked_fill(~mask, NEG_INF)
+    p = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype), v)
+
+
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """``x * rsqrt(mean(x^2) + eps) * w`` over the last dim, f32 math, in x's
+    dtype."""
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * w.float()).to(x.dtype)
+
+
+def softmax(x: torch.Tensor) -> torch.Tensor:
+    """Row softmax over the last dim, numerically stable, f32 math, in x's
+    dtype."""
+    xf = x.float()
+    e = torch.exp(xf - xf.amax(dim=-1, keepdim=True))
+    return (e / e.sum(dim=-1, keepdim=True)).to(x.dtype)
 
 
 def gqa_flash_attention(
