@@ -6,10 +6,11 @@
 Phases (each raises on failure, so the script exits non-zero):
 
 0. device — fail without CUDA; print the card's name and power limit.
-1. build — compile the hand-written CUDA kernels from ``csrc/`` (seven
-   sources, eleven kernel bodies: decode, ragged and paged attention over a
+1. build — compile the hand-written CUDA kernels from ``csrc/`` (eleven
+   sources, fifteen kernel bodies: decode, ragged and paged attention over a
    plain or a quantized store, flash attention (GQA, and flat as a group of
-   one), the matmul and int8-weight matmul, RMSNorm and row softmax).
+   one), the matmul and int8-weight matmul, RMSNorm, row softmax, axpy, the
+   partial dot products, the Stockham FFT and the implicit-GEMM conv2d).
 2. kernels — each kernel body against its plain PyTorch version on the card,
    at the serving path's shapes (codeqwen1.5-7b: KV=32, G=1, d=128, 4 slots
    x 1024 positions; a 64-token ragged pack; 64- and 37-token prefill; an
@@ -56,8 +57,22 @@ Phases (each raises on failure, so the script exits non-zero):
    measuring, tuned outputs against the default plan's; the four ops driven
    once through ``ops`` between the counts' reset and read; each new kernel
    timed beside its bound, plain version and library call.
-8. a ``{"kernels": [...], "to_port": [...]}`` JSON line (every row of
-   PERF.md's kernel table), then the result line.
+8. the paper's kernel suite — axpy, dotp, the Stockham FFT and conv2d at
+   every block / rows / patch candidate against their plain versions at the
+   main shapes (axpy and dotp over 2^28-element vectors, axpy also bf16
+   [64, 2^22] at alpha 1/3; FFT f32 [8192, 16384], the paper's 16k-point
+   rows, f32 [65536, 1024] and bf16 [4096, 4096]; conv2d bf16 [4, 512, 512,
+   256] x [3, 3, 256, 256], the paper's fconv2d widths, and f32 [2, 128,
+   128, 64] x [3, 3, 64, 64]) and tails (axpy [3, 1,000,003], dotp over
+   1,000,003 elements and dotp_partials [8, 100,003] at every block, FFT
+   [37, 64] and N = 2, conv2d with a ragged H and 1 x 1 taps); a
+   ``REPRO_AUTOTUNE=1`` sweep of the four ops at their main shapes into
+   phase 7's cache, re-read by a fresh tuner; the four ops driven once
+   through ``ops`` between the counts' reset and read, each output held
+   against its plain version; each op timed beside its bound, plain version
+   and library call.
+9. a ``{"kernels": [...], "to_port": []}`` JSON line (every row of PERF.md's
+   kernel table), then the result line.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -1311,6 +1326,291 @@ def kernel_api(dev, counters):
     return results, launches
 
 
+# ----------------------------------------------------------------- phase 8
+
+# the paper's kernel suite at one card's size: axpy and dotp over vectors of
+# 2^28 elements (1 GiB each in f32), axpy also over bf16 [64, 2^22] at alpha
+# 1/3 (an alpha bf16 rounds); the FFT at the paper's 16,384-point rows
+# (benchmarks/common.py), 8,192 of them, beside 65,536 f32 rows of 1,024 and
+# 4,096 bf16 rows of 4,096; conv2d at the paper's fconv2d widths (C = O =
+# 256, 3 x 3 taps) over four 512 x 512 bf16 images, and an f32 case. Tails:
+# axpy [3, 1,000,003], dotp over 1,000,003 elements and dotp_partials
+# [8, 100,003] at each block, FFT rows [37, 64] and N = 2, conv2d with a
+# ragged H and with 1 x 1 taps
+SUITE_N = 2**28
+AXPY_BF16 = (64, 2**22)
+FFT_MAIN = (8192, 16384)
+FFT_CASES = (FFT_MAIN, (65536, 1024), (4096, 4096), (37, 64), (8, 2))
+CONV_MAIN = ((4, 512, 512, 256), (3, 3, 256, 256))
+CONV_CASES = (CONV_MAIN, ((2, 128, 128, 64), (3, 3, 64, 64)), ((2, 13, 9, 4), (3, 3, 4, 8)),
+              ((1, 8, 8, 4), (1, 1, 4, 4)))
+# the suite's tolerances (tests/test_torch_suite.py holds the same rules).
+# axpy: each element within one unit in the last place of its dtype — the
+# kernel's fma and the plain version's float64 sum round once alike, but at
+# a double-rounding tie of the f64 sum. dotp: within 1e-5 * sum |x_i y_i|,
+# f32 sums in different orders (the result itself cancels: ~1.6e4 against
+# ~2e8 at 2^28 normals). FFT: max |kernel - plain| / max |plain| below 1e-5
+# at f32 (the JAX test's bound; the kernel's Stockham stages against cuFFT,
+# both f32) and 1e-2 at bf16 (an output rounding, 2^-8, of the largest).
+# conv2d: |kernel - plain| <= tol * (|plain| + rms(plain)), 1e-5 at f32 (sums
+# in other orders) and 1e-2 at bf16 (one output rounding).
+SUITE_TOL = {"dotp": 1e-5, "fft": {"float32": 1e-5, "bfloat16": 1e-2},
+             "conv2d": {"float32": 1e-5, "bfloat16": 1e-2}}
+SUITE_REPS = 10  # calls per timed graph: each main-shape call takes a millisecond or more
+
+
+def kernel_suite(dev, counters):
+    """Phase 8: the paper's kernel suite (``ops.axpy``, ``ops.dotp``,
+    ``ops.fft``, ``ops.conv2d``) on the card.
+
+    (a) every candidate of each kernel against its plain version at the main
+    shapes and the tails, each timed; (b) a ``REPRO_AUTOTUNE=1`` sweep of the
+    four ops at their main shapes into phase 7's cache file, every candidate
+    launching (or, for the FFT, refused where its rows do not fit a block),
+    and a fresh tuner on that file hitting without a measure; (c) the counts
+    set to 0, the four ops driven once through ``ops`` at the main shapes
+    with the tuned plans, the counts read, each output held against its
+    plain version; (d) each op's time beside its bound, plain version and
+    one library call. Returns (timed rows, launches)."""
+    import os
+
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import autotune, ops, ref
+    from repro_torch.kernels import axpy as axk
+    from repro_torch.kernels import conv2d as cvk
+    from repro_torch.kernels import dotp as dpk
+    from repro_torch.kernels import fft as ffk
+
+    gen = torch.Generator(device=dev).manual_seed(8)
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def randn(*shape, dtype=f32):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    def dname(dtype):
+        return str(dtype).split(".")[-1]
+
+    worst = {}  # "op dtype" -> (its rule, the largest share of the limit an element used)
+
+    def held(name, case, got, want, *operands):
+        """max |got - want| after checking it against the op's rule (see
+        SUITE_TOL); ``operands`` are dotp's x and y."""
+        if isinstance(got, tuple):  # the FFT's (re, im): one scale for both
+            scale = max(w.float().abs().max().item() for w in want)
+            err = max((g.float() - w.float()).abs().max().item() for g, w in zip(got, want))
+            tol = SUITE_TOL["fft"][dname(want[0].dtype)]
+            rule = f"{tol} * max|plain|"
+            if not err <= tol * scale or not all(torch.isfinite(g).all() for g in got):
+                raise AssertionError(f"{name} {case}: max_abs_err {err} outside {rule} "
+                                     f"(max|plain| {scale})")
+            used = err / (tol * scale)
+        else:
+            diff = (got.float() - want.float()).abs()
+            if name == "axpy":
+                w = want.float().abs()
+                limit = 2.0 ** (torch.floor(torch.log2(torch.where(w == 0, 2.0**-126, w)))
+                                - (23 if want.dtype == f32 else 7))
+                rule = "one unit in the last place of the plain output"
+            elif name == "dotp":
+                x, y = operands
+                limit = SUITE_TOL["dotp"] * (x.float() * y.float()).abs().sum().item()
+                rule = "1e-5 * sum |x y|"
+            else:
+                tol = SUITE_TOL["conv2d"][dname(want.dtype)]
+                w = want.float()
+                limit = tol * (w.abs() + w.pow(2).mean().sqrt())
+                rule = f"{tol} * (|plain| + rms(plain))"
+            bad = diff > limit
+            if bad.any() or not torch.isfinite(got.float()).all():
+                raise AssertionError(f"{name} {case}: {int(bad.sum())} elements outside {rule}, "
+                                     f"max_abs_err {diff.max().item()}")
+            err = diff.max().item()
+            used = (diff / limit).max().item()
+        key = f"{name} {dname((want[0] if isinstance(want, tuple) else want).dtype)}"
+        if used >= worst.get(key, ("", -1.0))[1]:
+            worst[key] = (rule, used)
+        return err
+
+    def candidates(name, case, knob, values, run, want, *operands, skip=lambda v: False):
+        for v in values:
+            if skip(v):
+                continue
+            fn = lambda v=v: run(v)  # noqa: E731
+            err = held(name, f"{case} {knob}={v}", fn(), want, *operands)
+            ms = time_ms(fn, reps=SUITE_REPS)
+            print(f"  {name:7s} {case:44s} {knob}={v:<6d} err={err:.2e} ms={ms:.4f}", flush=True)
+
+    # ---- (a) every candidate against the plain version, op by op
+    for shape, dtype, alpha in [((1, SUITE_N), f32, 2.5), (AXPY_BF16, bf16, 1 / 3),
+                                ((3, 1000003), f32, 1 / 3), ((3, 1000003), bf16, 2.5)]:
+        x, y = randn(*shape, dtype=dtype), randn(*shape, dtype=dtype)
+        want = ref.axpy(alpha, x, y)
+        candidates("axpy", f"{list(shape)} {dname(dtype)} alpha={alpha:.4g}", "block", axk.BLOCK,
+                   lambda b: axk.axpy(alpha, x, y, block=b), want)
+        del x, y, want
+    for shape, dtype in [((1, SUITE_N), f32), ((1, SUITE_N), bf16), ((1, 1000003), f32),
+                         ((8, 100003), bf16), ((8, 100003), f32)]:
+        x, y = randn(*shape, dtype=dtype), randn(*shape, dtype=dtype)
+        candidates("dotp", f"{list(shape)} {dname(dtype)}", "block", dpk.BLOCK,
+                   lambda b: dpk.dotp(x, y, block=b), ref.dotp(x, y), x, y)
+        if shape[0] > 1:  # the partials' layout: [R, cdiv(C, block)] at each block
+            for b in dpk.BLOCK:
+                eff = b or dpk.auto_block(*shape, torch.cuda.get_device_properties(dev)
+                                          .multi_processor_count)
+                got, want = dpk.dotp_partials(x, y, block=b), ref.dotp_partials(x, y, eff)
+                mag = ref.dotp_partials(x.abs(), y.abs(), eff)
+                if got.shape != (shape[0], -(-shape[1] // eff)) or \
+                        not ((got - want).abs() <= SUITE_TOL["dotp"] * mag).all():
+                    raise AssertionError(f"dotp_partials {shape} block={b}: {tuple(got.shape)}, "
+                                         f"max_abs_err {(got - want).abs().max().item()}")
+            print(f"  dotp_partials {list(shape)} {dname(dtype)}: [R, cdiv(C, block)] at every "
+                  f"block, each partial within 1e-5 * its sum |x y|")
+        del x, y
+    for (b, n), dtype in [(FFT_CASES[0], f32), (FFT_CASES[1], f32), (FFT_CASES[2], bf16),
+                          (FFT_CASES[3], f32), (FFT_CASES[4], f32), (FFT_CASES[3], bf16)]:
+        re, im = randn(b, n, dtype=dtype), randn(b, n, dtype=dtype)
+        candidates("fft", f"[{b}, {n}] {dname(dtype)}", "block_rows", ffk.BLOCK_ROWS,
+                   lambda r: ffk.fft(re, im, block_rows=r), ref.fft(re, im),
+                   skip=lambda r: not ffk.fits(n, r))
+        for r in ffk.BLOCK_ROWS:
+            if not ffk.fits(n, r):  # refused, not run
+                try:
+                    ffk.fft(re, im, block_rows=r)
+                except ValueError:
+                    continue
+                raise AssertionError(f"fft N={n}: block_rows {r} does not fit, yet ran")
+        del re, im
+    torch.backends.cudnn.allow_tf32 = False  # the plain conv in full f32
+    for (xs, ws), dtype in [(CONV_CASES[0], bf16), (CONV_CASES[1], f32), (CONV_CASES[2], f32),
+                            (CONV_CASES[2], bf16), (CONV_CASES[3], bf16)]:
+        x, w = randn(*xs, dtype=dtype), randn(*ws, dtype=dtype)
+        candidates("conv2d", f"{list(xs)} x {list(ws)} {dname(dtype)}", "block_h", cvk.BLOCK_H,
+                   lambda h: cvk.conv2d(x, w, block_h=h), ref.conv2d(x, w))
+        del x, w
+    torch.cuda.empty_cache()
+    for name, (rule, used) in worst.items():
+        print(f"  {name}: every candidate within {rule}; the worst element used {used:.3f} of its "
+              f"limit")
+
+    # ---- (b) the autotuner: sweep the main shapes into phase 7's cache, read it back
+    cache = ROOT / "build" / "chip_smoke_autotune.json"
+    saved = {key: os.environ.get(key) for key in ("REPRO_AUTOTUNE", "REPRO_AUTOTUNE_CACHE")}
+    os.environ.update(REPRO_AUTOTUNE="1", REPRO_AUTOTUNE_CACHE=str(cache))
+    autotune.set_tuner(None)
+    results = {}
+    try:
+        tuner = autotune.get_tuner()
+        if not (tuner.sweep and tuner.path == str(cache)):
+            raise AssertionError("the tuner did not take REPRO_AUTOTUNE / REPRO_AUTOTUNE_CACHE")
+        vx, vy = randn(SUITE_N), randn(SUITE_N)
+        re, im = randn(*FFT_MAIN), randn(*FFT_MAIN)
+        cx, cw = randn(*CONV_MAIN[0], dtype=bf16), randn(*CONV_MAIN[1], dtype=bf16)
+        main = {  # op -> (cache key shape, dtype, the ops call)
+            "axpy": ((1, SUITE_N), f32, lambda: ops.axpy(1 / 3, vx, vy)),
+            "dotp": ((1, SUITE_N), f32, lambda: ops.dotp(vx, vy)),
+            "fft": (FFT_MAIN, f32, lambda: ops.fft(re, im)),
+            "conv2d": (CONV_MAIN[0], bf16, lambda: ops.conv2d(cx, cw)),
+        }
+        tuned = {}
+        for op, (shape, dtype, call) in main.items():
+            n0 = tuner.sweeps_run
+            call()
+            torch.cuda.synchronize()
+            if tuner.sweeps_run != n0 + 1:
+                raise AssertionError(f"{op} {shape}: no sweep ran on a cold cache")
+            log = ", ".join(f"{cfg}: {sec * 1e3:.4f} ms" if err is None else f"{cfg}: {err}"
+                            for cfg, sec, err in tuner.last_sweep)
+            tuned[op] = tuner.lookup(op, shape, dtype, "cuda")
+            print(f"  sweep {op} {shape} {dname(dtype)}: {log}; winner {tuned[op]} "
+                  f"(default {autotune.DEFAULTS[op]})", flush=True)
+            # only the FFT's rows that do not fit a block may fail, and they must
+            failed = [cfg for cfg, _, err in tuner.last_sweep if err is not None]
+            refused = [cfg for cfg in autotune.CANDIDATES[op]
+                       if op == "fft" and not ffk.fits(shape[1], cfg["block_rows"])]
+            if failed != refused or len(tuner.last_sweep) != len(autotune.CANDIDATES[op]):
+                raise AssertionError(f"{op} {shape}: candidates failed in the sweep: {failed}")
+        fresh = autotune.Autotuner(str(cache), sweep=True)
+        asked = []
+        for op, (shape, dtype, _) in main.items():
+            got = fresh.get(op, shape, dtype, "cuda", measure=lambda cfg: asked.append(cfg) or 0.0)
+            if got != tuned[op]:
+                raise AssertionError(f"{op}: a fresh tuner read {got}, the sweep stored "
+                                     f"{tuned[op]}")
+        if asked or fresh.sweeps_run:
+            raise AssertionError(f"a fresh tuner on the cache measured again: {asked}")
+        print(f"  a fresh Autotuner on the cache: {len(main)} hits, sweeps_run 0; cache "
+              f"{cache.relative_to(ROOT)}: {len(json.loads(cache.read_text()))} entries")
+
+        # ---- (c) the suite's main path, counted
+        reset_counts(counters)
+        outs = {op: call() for op, (_, _, call) in main.items()}
+        torch.cuda.synchronize()
+        launches = read_counts(counters, "phase 8 (the kernel suite at its main shapes)")
+        plans = {op: ops._blocks(op, shape, dtype) for op, (shape, dtype, _) in main.items()}
+        print(f"  plans at the main shapes: {plans}")
+    finally:
+        for key, val in saved.items():
+            if val is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = val
+        autotune.set_tuner(None)
+
+    # ---- (d) each op at its main shape: its output held, time, bound, plain, library
+    def row(name, out, want, kernel, plain, library, lib_name, nbytes_, flops, dtype,
+            *operands):
+        t = dict(max_abs_err=held(name, "main, through ops", out, want, *operands),
+                 ms=time_ms(kernel, reps=SUITE_REPS), plain_ms=time_ms(plain, reps=SUITE_REPS),
+                 library_ms=time_ms(library, reps=SUITE_REPS), library=lib_name,
+                 config=plans[name], tol=(SUITE_TOL[name][dname(dtype)] if name in ("fft", "conv2d")
+                                          else SUITE_TOL.get(name, "1 ulp")))
+        t["bound_ms"], t["bound_by"] = bound(nbytes_, flops, dtype)
+        print(f"  {name:7s} main shape, plan {t['config']}: ms={t['ms']:.4f} "
+              f"bound={t['bound_ms']:.5f} ({t['bound_by']}) plain={t['plain_ms']:.4f} "
+              f"library={t['library_ms']:.4f} ({lib_name})", flush=True)
+        results[name] = t
+
+    n = SUITE_N
+    blk = plans["axpy"]["block"]
+    row("axpy", outs["axpy"], ref.axpy(1 / 3, vx, vy),
+        lambda: axk.axpy(1 / 3, vx[None], vy[None], block=blk), lambda: ref.axpy(1 / 3, vx, vy),
+        lambda: torch.add(vy, vx, alpha=1 / 3), "torch.add(y, x, alpha=a)",
+        nbytes(vx, vy, vx), 2 * n, f32)
+    blk = plans["dotp"]["block"]
+    row("dotp", outs["dotp"], ref.dotp(vx, vy), lambda: dpk.dotp(vx[None], vy[None], block=blk),
+        lambda: ref.dotp(vx, vy), lambda: torch.dot(vx, vy), "torch.dot", nbytes(vx, vy) + 4,
+        2 * n, f32, vx, vy)
+    del vx, vy, outs["axpy"], outs["dotp"]
+    torch.cuda.empty_cache()
+    rows_ = plans["fft"]["block_rows"]
+    b, n_ = FFT_MAIN
+    z = torch.complex(re, im)
+    twr, twi = ffk.twiddles(n_, re.device)
+    row("fft", outs["fft"], ref.fft(re, im), lambda: ffk.fft(re, im, block_rows=rows_),
+        lambda: ref.fft(re, im), lambda: torch.fft.fft(z, dim=-1),
+        "torch.fft.fft (cuFFT) over a complex64 tensor made beforehand",
+        2 * nbytes(re, im) + nbytes(twr, twi), 5 * b * n_ * int(np.log2(n_)), f32)
+    del re, im, z, outs["fft"]
+    torch.cuda.empty_cache()
+    bh = plans["conv2d"]["block_h"]
+    (bb, hh, ww, cc), (kh, kw, _, oo) = CONV_MAIN
+    m = bb * (hh - kh + 1) * (ww - kw + 1)
+    x_cl = cx.permute(0, 3, 1, 2)  # NHWC storage = NCHW in channels_last
+    w_cl = cw.permute(3, 0, 1, 2).contiguous().permute(0, 3, 1, 2)  # OIHW, channels_last
+    row("conv2d", outs["conv2d"], ref.conv2d(cx, cw), lambda: cvk.conv2d(cx, cw, block_h=bh),
+        lambda: ref.conv2d(cx, cw), lambda: F.conv2d(x_cl, w_cl),
+        "torch.nn.functional.conv2d (cuDNN), bf16 channels_last",
+        nbytes(cx, cw) + m * oo * 2, 2 * m * oo * kh * kw * cc, bf16)
+    del cx, cw, x_cl, w_cl, outs
+    for name, (rule, used) in worst.items():
+        print(f"  {name}: the worst element of phase 8 used {used:.3f} of its limit ({rule})")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return results, launches
+
+
 # -------------------------------------------------------------------- main
 
 
@@ -1319,7 +1619,11 @@ def main() -> int:
 
     # the port comes from this checkout's src/: without it nothing runs
     from repro_torch.kernels import _build
+    from repro_torch.kernels import axpy as axk
+    from repro_torch.kernels import conv2d as cvk
     from repro_torch.kernels import decode_attention as dk
+    from repro_torch.kernels import dotp as dpk
+    from repro_torch.kernels import fft as ffk
     from repro_torch.kernels import flash_attention as fk
     from repro_torch.kernels import matmul as mmk
     from repro_torch.kernels import paged_attention as pk
@@ -1392,6 +1696,16 @@ def main() -> int:
     timed.update(timed7)
     launches.update(launches7)
 
+    phase("8 the paper's kernel suite")
+    del model, params  # phase 4's weights: nothing after phase 6 reads them
+    torch.cuda.empty_cache()
+    counters8 = {"axpy": (axk, "launches"), "dotp": (dpk, "launches"),
+                 "fft": (ffk, "launches"), "conv2d": (cvk, "launches")}
+    timed8, launches8 = kernel_suite(dev, counters8)
+    timed.update(timed8)
+    launches.update(launches8)
+
+    phase("9 the kernel table")
     # the pl.pallas_call line of each TPU kernel, as in PERF.md's kernel table
     sources = {
         "decode_attention": ("decode_attention.cu", "src/repro/kernels/decode_attention.py:186"),
@@ -1408,12 +1722,16 @@ def main() -> int:
         "flash_attention": ("flash_attention.cu", "src/repro/kernels/flash_attention.py:126"),
         "rmsnorm": ("rmsnorm.cu", "src/repro/kernels/rmsnorm.py:34"),
         "softmax": ("softmax.cu", "src/repro/kernels/softmax.py:29"),
+        "axpy": ("axpy.cu", "src/repro/kernels/axpy.py:36"),
+        "dotp": ("dotp.cu", "src/repro/kernels/dotp.py:38"),
+        "fft": ("fft.cu", "src/repro/kernels/fft.py:64"),
+        "conv2d": ("conv2d.cu", "src/repro/kernels/conv2d.py:77"),
     }
-    # PERF.md's row of each kernel; rows 12-15 are the next slice's
+    # PERF.md's row of each kernel
     rows = {"decode_attention": 1, "ragged_attention": 2, "gqa_flash_attention": 3,
             "decode_attention_q8": 4, "ragged_attention_q8": 5, "paged_attention": 6,
             "paged_attention_q8": 6, "flash_attention": 7, "matmul": 8, "matmul_q8": 9,
-            "rmsnorm": 10, "softmax": 11}
+            "rmsnorm": 10, "softmax": 11, "axpy": 12, "dotp": 13, "fft": 14, "conv2d": 15}
     kernels = []
     for name, (src, tpu) in sources.items():
         t = timed[name]
@@ -1431,10 +1749,10 @@ def main() -> int:
         if name in counters7:  # no serving path calls the kernel API's ops
             kernels[-1]["launched_in"] = "phase 7: the kernel API at its main shapes"
             kernels[-1]["config"] = t.get("config", {"split_k": 0})
-    to_port = [{"row": r, "name": n, "replaces": f"src/repro/kernels/{f}", "slice": "B"}
-               for r, n, f in [(12, "axpy", "axpy.py:36"), (13, "dotp", "dotp.py:38"),
-                               (14, "fft", "fft.py:64"), (15, "conv2d", "conv2d.py:77")]]
-    print(json.dumps({"kernels": kernels, "to_port": to_port}))
+        if name in counters8:
+            kernels[-1]["launched_in"] = "phase 8: the kernel suite at its main shapes"
+            kernels[-1]["config"] = t["config"]
+    print(json.dumps({"kernels": kernels, "to_port": []}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

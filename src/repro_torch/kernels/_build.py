@@ -50,6 +50,14 @@ SIGNATURES = {
     "repro_rmsnorm": [_P] * 3 + [_I] * 2 + [ctypes.c_float] + [_I] * 3 + [_P],
     # x, out, R, C, rows, dtype, stream
     "repro_softmax": [_P] * 2 + [_I] * 4 + [_P],
+    # x, y, out, alpha, R, C, block, dtype, stream
+    "repro_axpy": [_P] * 3 + [ctypes.c_float] + [_I] * 4 + [_P],
+    # x, y, out, R, C, block, dtype, stream
+    "repro_dotp": [_P] * 3 + [_I] * 4 + [_P],
+    # re, im, twr, twi, out_re, out_im, B, N, rows, dtype, stream
+    "repro_fft": [_P] * 6 + [_I] * 4 + [_P],
+    # x, w, out, B, H, W, C, KH, KW, O, block_h, dtype, stream
+    "repro_conv2d": [_P] * 3 + [_I] * 9 + [_P],
 }
 RESTYPES = {"repro_matmul_workspace": ctypes.c_longlong}  # every other entry: int
 
@@ -147,7 +155,7 @@ def check(rc: int, name: str) -> None:
         return
     if rc == -1:
         raise ValueError(f"{name}: no kernel instantiated for this head_dim, group size, "
-                         "tile or rows per block")
+                         "tile, rows per block, block or shape")
     if rc == -2:
         raise TypeError(f"{name}: unsupported combination of operand dtypes and scales")
     if rc == -3:

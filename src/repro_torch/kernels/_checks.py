@@ -22,6 +22,15 @@ def cuda_operands(name: str, *tensors: torch.Tensor) -> None:
             raise ValueError(f"{name}: operands must be contiguous")
 
 
+def c_int_dims(name: str, *tensors: torch.Tensor) -> None:
+    """Every dimension must fit the C interface's ``int``: refuse one of 2^31
+    or more (the kernels offset in 64 bits, the sizes they are given are
+    32-bit). Checked on the shape alone, before anything is allocated."""
+    for t in tensors:
+        if any(d >= 2**31 for d in t.shape):
+            raise ValueError(f"{name}: every dimension must be below 2^31, got {tuple(t.shape)}")
+
+
 def aligned_rows(name: str, *tensors: torch.Tensor) -> None:
     for t in tensors:
         if t.data_ptr() % 16:
@@ -31,7 +40,7 @@ def aligned_rows(name: str, *tensors: torch.Tensor) -> None:
 def float_code(name: str, *tensors: torch.Tensor) -> int:
     dt = tensors[0].dtype
     if dt not in (torch.float32, torch.bfloat16) or any(t.dtype != dt for t in tensors):
-        raise TypeError(f"{name}: q, k, v must share one dtype of f32/bf16, got "
+        raise TypeError(f"{name}: operands must share one dtype of f32/bf16, got "
                         f"{[t.dtype for t in tensors]}")
     return DTYPE_CODES[dt]
 

@@ -25,7 +25,15 @@ either package reads the other's file. The port's kernels key on backend
   waves (the plan it ran before the tuner existed), 1, 2, 4, 8 force it;
 * ``flash_attention``: ``block_q`` x ``block_k``, the instantiated tiles;
 * ``rmsnorm`` and ``softmax``: ``block_rows``, the rows per CUDA block —
-  0 lets the kernel choose from the shape, 1, 2, 4, 8 force it.
+  0 lets the kernel choose from the shape, 1, 2, 4, 8 force it;
+* ``axpy``: ``block``, elements per CUDA block (0: one 16-byte vector per
+  thread); ``dotp``: ``block``, elements per partial sum (0: the wrapper's
+  choice from the shape);
+* ``fft``: ``block_rows``, whole rows per CUDA block (0: the kernel's
+  choice; rows * N may not pass 16,384);
+* ``conv2d``: ``block_h``, output rows of a block's 64-pixel patch (0: the
+  kernel's choice). Its key is x's shape, as in the JAX package; the
+  measure also takes w's shape.
 
 Cache location: ``$REPRO_AUTOTUNE_CACHE`` if set, else
 ``~/.cache/repro/autotune.json``. Sweeping is opt-in via
@@ -43,6 +51,10 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
+from repro_torch.kernels import axpy as _axpy_k
+from repro_torch.kernels import conv2d as _conv2d_k
+from repro_torch.kernels import dotp as _dotp_k
+from repro_torch.kernels import fft as _fft_k
 from repro_torch.kernels import flash_attention as _flash_k
 from repro_torch.kernels import matmul as _matmul_k
 from repro_torch.kernels import rmsnorm as _rmsnorm_k
@@ -53,12 +65,16 @@ _SCHEMA_VERSION = 1
 Config = dict[str, int]
 
 # Defaults: what each kernel ran before the tuner existed (the matmul's own
-# split, the flash tile of the serving path); the row kernels' own choice.
+# split, the flash tile of the serving path); the other kernels' own choice.
 DEFAULTS: dict[str, Config] = {
     "matmul": {"split_k": 0},
     "flash_attention": dict(zip(("block_q", "block_k"), _flash_k.DEFAULT_TILE)),
     "softmax": {"block_rows": 0},
     "rmsnorm": {"block_rows": 0},
+    "axpy": {"block": 0},
+    "dotp": {"block": 0},
+    "fft": {"block_rows": 0},
+    "conv2d": {"block_h": 0},
 }
 
 # Every configuration each kernel is instantiated for.
@@ -67,6 +83,10 @@ CANDIDATES: dict[str, list[Config]] = {
     "flash_attention": [{"block_q": q, "block_k": k} for (q, k) in _flash_k.TILES],
     "softmax": [{"block_rows": r} for r in _softmax_k.BLOCK_ROWS],
     "rmsnorm": [{"block_rows": r} for r in _rmsnorm_k.BLOCK_ROWS],
+    "axpy": [{"block": b} for b in _axpy_k.BLOCK],
+    "dotp": [{"block": b} for b in _dotp_k.BLOCK],
+    "fft": [{"block_rows": r} for r in _fft_k.BLOCK_ROWS],
+    "conv2d": [{"block_h": h} for h in _conv2d_k.BLOCK_H],
 }
 
 # numpy's names for torch dtypes: the JAX package names dtypes with
@@ -274,20 +294,49 @@ def measure_softmax(shape, dtype, backend) -> Callable[[Config], float]:
     return lambda cfg: _time_best(lambda: _softmax_k.softmax(x, block_rows=cfg["block_rows"]))
 
 
+def measure_axpy(shape, dtype, backend) -> Callable[[Config], float]:
+    x, y = _inputs(backend, dtype, shape, shape)
+    return lambda cfg: _time_best(lambda: _axpy_k.axpy(1.5, x, y, block=cfg["block"]))
+
+
+def measure_dotp(shape, dtype, backend) -> Callable[[Config], float]:
+    x, y = _inputs(backend, dtype, shape, shape)
+    return lambda cfg: _time_best(lambda: _dotp_k.dotp(x, y, block=cfg["block"]))
+
+
+def measure_fft(shape, dtype, backend) -> Callable[[Config], float]:
+    """A block_rows whose rows do not fit one block at this N raises in its
+    first call, and the sweep skips it."""
+    re, im = _inputs(backend, dtype, shape, shape)
+    return lambda cfg: _time_best(lambda: _fft_k.fft(re, im, block_rows=cfg["block_rows"]))
+
+
+def measure_conv2d(shape, dtype, backend, w_shape) -> Callable[[Config], float]:
+    """``shape`` is x's (the cache key's), ``w_shape`` the weight's."""
+    x, w = _inputs(backend, dtype, shape, w_shape)
+    return lambda cfg: _time_best(lambda: _conv2d_k.conv2d(x, w, block_h=cfg["block_h"]))
+
+
 MEASURES: dict[str, Callable[..., Callable[[Config], float]]] = {
     "matmul": measure_matmul,
     "flash_attention": measure_flash_attention,
     "rmsnorm": measure_rmsnorm,
     "softmax": measure_softmax,
+    "axpy": measure_axpy,
+    "dotp": measure_dotp,
+    "fft": measure_fft,
+    "conv2d": measure_conv2d,
 }
 
 
-def measure_for(op: str, shape, dtype, backend):
-    """Measure-closure factory, or None when the op has no sweep runner."""
+def measure_for(op: str, shape, dtype, backend, *operands):
+    """Measure-closure factory, or None when the op has no sweep runner.
+    ``operands``: the shapes its measure needs beyond the key's (conv2d:
+    w's)."""
     fn = MEASURES.get(op)
     if fn is None:
         return None
-    return fn(shape, dtype, backend)
+    return fn(shape, dtype, backend, *operands)
 
 
 # ---------------------------------------------------------------------------

@@ -49,6 +49,7 @@
 #include <algorithm>
 
 #include "attention_common.cuh"
+#include "mma_common.cuh"
 
 namespace repro {
 
@@ -365,27 +366,10 @@ constexpr int kMmaThreads = 128;
 constexpr int kPad = 8;      // bf16 elements of A row padding (conflict-free fragment reads)
 constexpr int kStages = 4;   // cp.async ring depth
 
-__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
-                                          const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// 16 bytes global -> shared, asynchronously; zero-filled when !valid (the
-// source is then never read).
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
-               "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
+using repro::cp_async16;
+using repro::cp_async_commit;
+using repro::cp_async_wait;
+using repro::mma_16816;
 
 // The A fragments of the warp's two m16 tiles at k offset kk of a staged
 // [kBM][kMmaBK + kPad] bf16 tile (row g / g + 8, columns 2 * t4 (+ 8)).

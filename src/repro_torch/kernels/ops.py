@@ -11,7 +11,8 @@ block-paged pool and its block tables. ``matmul_q8`` is the int8-weight
 product of :func:`repro_torch.models.quant.qmatmul`.
 
 The kernel API's tuned ops (``matmul``, ``flash_attention``, ``rmsnorm``,
-``softmax``) take their kernel's knobs from the autotuner
+``softmax``, and the paper's kernel suite ``axpy``, ``dotp``, ``fft`` and
+``conv2d``) take their kernel's knobs from the autotuner
 (:mod:`repro_torch.kernels.autotune`, backend ``"cuda"``) unless the caller
 pins them; the resolved plan is memoised per static (op, shape, dtype) cell
 and tuner generation, as in the JAX package. A CPU tensor never consults
@@ -27,7 +28,11 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import autotune
+from repro_torch.kernels import axpy as _axpy_k
+from repro_torch.kernels import conv2d as _conv2d_k
 from repro_torch.kernels import decode_attention as _decode_k
+from repro_torch.kernels import dotp as _dotp_k
+from repro_torch.kernels import fft as _fft_k
 from repro_torch.kernels import flash_attention as _flash_k
 from repro_torch.kernels import matmul as _matmul_k
 from repro_torch.kernels import paged_attention as _paged_k
@@ -40,22 +45,27 @@ BACKEND = "cuda"  # the tuner's backend of the port's kernels
 
 
 @functools.lru_cache(maxsize=4096)
-def _plan(op: str, shape: tuple[int, ...], dtype_name: str, gen: int) -> dict[str, int]:
+def _plan(op: str, shape: tuple[int, ...], dtype_name: str, gen: int,
+          operands: tuple = ()) -> dict[str, int]:
     """Memoised plan for one static (op, shape, dtype) cell on backend
     ``"cuda"``. ``gen`` is the tuner generation — swapping tuners (tests)
-    invalidates every memoised plan without touching this cache directly."""
+    invalidates every memoised plan without touching this cache directly.
+    ``operands``: shapes a sweep's measure needs beyond the key's (conv2d:
+    w's); the cache key does not carry them, as in the JAX package."""
     tuner = autotune.get_tuner()
     hit = tuner.lookup(op, shape, dtype_name, BACKEND)
     if hit is not None:
         return dict(hit)
     # only build the measure closure (it allocates synthetic inputs of
     # the caller's shape) once we know the lookup missed and a sweep will run
-    measure = autotune.measure_for(op, shape, dtype_name, BACKEND) if tuner.sweep else None
+    measure = (autotune.measure_for(op, shape, dtype_name, BACKEND, *operands)
+               if tuner.sweep else None)
     return tuner.get(op, shape, dtype_name, BACKEND, measure=measure)
 
 
-def _blocks(op: str, shape: tuple[int, ...], dtype) -> dict[str, int]:
-    return _plan(op, tuple(shape), autotune.dtype_name(dtype), autotune.generation())
+def _blocks(op: str, shape: tuple[int, ...], dtype, *operands) -> dict[str, int]:
+    return _plan(op, tuple(shape), autotune.dtype_name(dtype), autotune.generation(),
+                 tuple(tuple(o) for o in operands))
 
 
 def _rows(x: torch.Tensor) -> torch.Tensor:
@@ -145,6 +155,61 @@ def softmax(x, *, block_rows: Optional[int] = None):
     if block_rows is None:
         block_rows = _blocks("softmax", x2.shape, x.dtype)["block_rows"]
     return _softmax_k.softmax(x2, block_rows=block_rows).reshape(x.shape)
+
+
+def axpy(alpha, x, y, *, block: Optional[int] = None):
+    """``alpha * x + y`` over 1-D or 2-D x and y of one shape, f32 math, in
+    x's dtype; alpha is rounded to x's dtype first, as the TPU kernel does
+    (``ref.axpy``). ``block`` pins the kernel's elements per CUDA block (0:
+    its own choice); by default the tuner's plan, keyed on the [R, C] view
+    (a vector is [1, N]), as in the JAX package."""
+    if not _on_cuda(x):
+        return ref.axpy(alpha, x, y)
+    x2 = x.reshape(1, -1) if x.ndim == 1 else x
+    y2 = y.reshape(1, -1) if y.ndim == 1 else y
+    if block is None:
+        block = _blocks("axpy", x2.shape, x.dtype)["block"]
+    out = _axpy_k.axpy(alpha, x2.contiguous(), y2.contiguous(), block=block)
+    return out.reshape(x.shape)
+
+
+def dotp(x, y, *, block: Optional[int] = None):
+    """The f32 dot product of x and y (any shape, flattened) as a 0-d tensor.
+    ``block`` pins the kernel's elements per partial sum (0: the wrapper's
+    choice); by default the tuner's plan, keyed on [1, N]."""
+    if not _on_cuda(x):
+        return ref.dotp(x, y)
+    x2 = x.reshape(1, -1).contiguous()
+    y2 = y.reshape(1, -1).contiguous()
+    if block is None:
+        block = _blocks("dotp", x2.shape, x.dtype)["block"]
+    return _dotp_k.dotp(x2, y2, block=block)
+
+
+def fft(re, im, *, block_rows: Optional[int] = None):
+    """Batched complex FFT over the last dim of planar (re, im) [..., N],
+    N a power of two (on the card 2 to 16,384), f32 math, in re's and im's
+    dtype. ``block_rows`` pins the kernel's rows per CUDA block; by default
+    the tuner's plan."""
+    if not _on_cuda(re):
+        return ref.fft(re, im)
+    re2, im2 = _rows(re), _rows(im)
+    if block_rows is None:
+        block_rows = _blocks("fft", re2.shape, re.dtype)["block_rows"]
+    ore, oim = _fft_k.fft(re2, im2, block_rows=block_rows)
+    return ore.reshape(re.shape), oim.reshape(im.shape)
+
+
+def conv2d(x, w, *, block_h: Optional[int] = None):
+    """NHWC x HWIO VALID convolution, stride 1, f32 sums, in x's dtype.
+    ``block_h`` pins the output rows of the kernel's pixel patch (0: its own
+    choice); by default the tuner's plan, keyed on x's shape as in the JAX
+    package (a sweep measures at w's shape too)."""
+    if not _on_cuda(x):
+        return ref.conv2d(x, w)
+    if block_h is None:
+        block_h = _blocks("conv2d", x.shape, x.dtype, w.shape)["block_h"]
+    return _conv2d_k.conv2d(x.contiguous(), w.contiguous(), block_h=block_h)
 
 
 def gqa_flash_attention(q, k, v, *, causal: bool = True):

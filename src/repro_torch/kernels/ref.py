@@ -1,6 +1,7 @@
 """Plain PyTorch versions of the port's kernels: attention and the
-(int8-weight) matrix product on the serving path, and the kernel API's flat
-flash attention, RMSNorm and row softmax.
+(int8-weight) matrix product on the serving path, the kernel API's flat
+flash attention, RMSNorm and row softmax, and the paper's kernel suite
+(axpy, dot product, Stockham FFT, 2-D convolution).
 
 Counterparts of ``repro.kernels.ref`` (same layouts, same masks). They are
 what :mod:`repro_torch.kernels.ops` runs for a CPU tensor, and the oracle
@@ -16,7 +17,9 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 NEG_INF = -1e30
 
@@ -234,3 +237,104 @@ def paged_ragged_attention(
         tok_seq, tok_pos, window=window, valid=valid,
         k_scale=_gather_opt(k_scale, block_tables), v_scale=_gather_opt(v_scale, block_tables),
     )
+
+
+# ---------------------------------------------------------------- kernel suite
+
+
+def axpy(alpha, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``alpha * x + y`` rounded once to f32, as a fused multiply-add does
+    (the CUDA kernel's ``fmaf``, and XLA's contraction of the TPU kernel's
+    body, ``repro/kernels/axpy.py``, in interpret mode), then cast to x's
+    dtype. Computed in float64, where the product is exact: it equals the
+    f32 fma except where the f64 sum lands on an f32 rounding tie (about one
+    element in 2^28). alpha is first rounded to x's dtype and then widened,
+    as the TPU kernel does (``jnp.asarray(alpha, x.dtype)``), so at bf16 an
+    alpha such as 1/3 is its bf16 neighbour 0.333984375 (the JAX oracle
+    ``repro.kernels.ref.axpy`` keeps it in f32 and differs there by alpha's
+    rounding error times x, plus an output rounding)."""
+    a = rounded_alpha(alpha, x.dtype)
+    return (a * x.double() + y.double()).float().to(x.dtype)
+
+
+def rounded_alpha(alpha, dtype: torch.dtype) -> float:
+    """alpha rounded to ``dtype`` (the TPU kernel's ``jnp.asarray(alpha,
+    x.dtype)``) as a Python float, exact in f32 and f64. Rounded on the host,
+    so nothing is copied to the card (a CUDA graph could not capture it); a
+    tensor alpha is read with ``float()``, which synchronises."""
+    return float(torch.tensor(float(alpha), dtype=dtype))
+
+
+def dotp(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Sum of ``x * y`` over every element, in f32 (a 0-d tensor)."""
+    return (x.float() * y.float()).sum()
+
+
+def dotp_partials(x: torch.Tensor, y: torch.Tensor, block: int) -> torch.Tensor:
+    """x, y: [R, C]. [R, cdiv(C, block)] f32: partial j of row r sums
+    ``x[r, c] * y[r, c]`` over c in [j * block, (j + 1) * block)."""
+    r, c = x.shape
+    nb = -(-c // block)
+    prod = F.pad(x.float() * y.float(), (0, nb * block - c))
+    return prod.reshape(r, nb, block).sum(-1)
+
+
+def fft(re: torch.Tensor, im: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Batched complex FFT over the last dim, planar (re, im), through
+    complex64 (the JAX oracle defers to ``jnp.fft`` likewise); outputs in
+    re's and im's dtypes."""
+    z = torch.fft.fft(torch.complex(re.float(), im.float()), dim=-1)
+    return z.real.to(re.dtype), z.imag.to(im.dtype)
+
+
+def fft_twiddles(n: int) -> tuple[np.ndarray, np.ndarray]:
+    """Per-stage Stockham radix-2 twiddle table [log2(n), n//2] (re, im), a
+    copy of ``repro.kernels.ref.fft_twiddles`` with the same f32 bits: the
+    angle in float64, ``np.cos``/``np.sin``, then float32.
+
+    Stage s (s=0 the first) multiplies odd halves by W_{2L}^{j mod L} where
+    L = 2**s; entries are tiled so every stage reads row s directly.
+    """
+    stages = int(np.log2(n))
+    if 2**stages != n:
+        raise ValueError(f"n={n} must be a power of 2")
+    tw_re = np.ones((stages, n // 2), np.float32)
+    tw_im = np.zeros((stages, n // 2), np.float32)
+    for s in range(stages):
+        l = 2**s
+        j = np.arange(n // 2) % l
+        ang = -2.0 * np.pi * j / (2 * l)
+        tw_re[s] = np.cos(ang).astype(np.float32)
+        tw_im[s] = np.sin(ang).astype(np.float32)
+    return tw_re, tw_im
+
+
+def fft_stockham(re: torch.Tensor, im: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Stockham radix-2 over the last dim of [B, N], step by step: the
+    algorithm of the TPU kernel and of ``csrc/fft.cu``, with the same twiddle
+    table, in f32. Stage s views each half of the row as [N / 2L, L]
+    (L = 2**s), multiplies the second half by the stage's twiddles and
+    writes ``[e + t, e - t]`` side by side."""
+    b, n = re.shape
+    tw_re, tw_im = fft_twiddles(n)
+    xr, xi = re.float(), im.float()
+    for s in range(tw_re.shape[0]):
+        l = 2**s
+        g = n // (2 * l)
+        er, ei = xr[:, : n // 2].reshape(b, g, l), xi[:, : n // 2].reshape(b, g, l)
+        orr, oi = xr[:, n // 2:].reshape(b, g, l), xi[:, n // 2:].reshape(b, g, l)
+        twr = torch.from_numpy(tw_re[s]).to(re.device).reshape(g, l)
+        twi = torch.from_numpy(tw_im[s]).to(re.device).reshape(g, l)
+        tr = orr * twr - oi * twi
+        ti = orr * twi + oi * twr
+        xr = torch.cat([er + tr, er - tr], dim=-1).reshape(b, n)
+        xi = torch.cat([ei + ti, ei - ti], dim=-1).reshape(b, n)
+    return xr.to(re.dtype), xi.to(im.dtype)
+
+
+def conv2d(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """NHWC x HWIO VALID convolution, stride 1, f32 math, in x's dtype
+    (``F.conv2d`` over NCHW / OIHW views of the f32 operands; on the card the
+    caller keeps ``torch.backends.cudnn.allow_tf32`` off for full f32)."""
+    out = F.conv2d(x.float().permute(0, 3, 1, 2), w.float().permute(3, 2, 0, 1))
+    return out.permute(0, 2, 3, 1).to(x.dtype)

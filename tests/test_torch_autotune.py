@@ -203,6 +203,8 @@ def test_dtype_names():
     ("matmul", (100, 70, 130)), ("matmul", (4, 4096, 13440)),
     ("flash_attention", (32, 1024, 128)), ("flash_attention", (6, 96, 16)),
     ("softmax", (64, 92416)), ("rmsnorm", (37, 128)), ("decode_attention", (4, 1024, 32, 128)),
+    ("axpy", (1, 2**28)), ("axpy", (3, 1000003)), ("dotp", (1, 1000003)), ("fft", (8192, 16384)),
+    ("fft", (37, 64)), ("conv2d", (4, 512, 512, 256)), ("conv2d", (2, 13, 9, 4)),
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("kv", [None, "int8", "float8_e4m3fn"])
@@ -230,6 +232,11 @@ def test_cache_file_written_by_jax_reads_in_the_port(jtune, tuner_path):
         ("matmul", (4, 4096, 13440), jnp.bfloat16, "interpret",
          {"block_m": 64, "block_n": 64, "block_k": 64}, jnp.int8),
         ("softmax", (200, 128), jnp.float32, "pallas", {"block_rows": 64}, None),
+        ("axpy", (1, 2**28), jnp.float32, "cuda", {"block": 1024}, None),
+        ("dotp", (1, 1000003), jnp.bfloat16, "cuda", {"block": 16384}, None),
+        ("fft", (8192, 16384), jnp.float32, "cuda", {"block_rows": 1}, None),
+        ("conv2d", (4, 512, 512, 256), jnp.bfloat16, "cuda", {"block_h": 2}, None),
+        ("conv2d", (2, 12, 10, 8), jnp.float32, "pallas", {"block_h": 8}, None),
     ]
     for op, shape, dt, backend, cfg, kv in entries:
         jt.store(op, shape, dt, backend, cfg, kv_dtype=kv)
@@ -252,6 +259,10 @@ def test_cache_file_written_by_the_port_reads_in_jax(jtune, tuner_path):
          {"block_q": 32, "block_k": 32}),
         ("rmsnorm", (2048, 4096), torch.bfloat16, jnp.bfloat16, {"block_rows": 4}),
         ("softmax", (4096, 1024), torch.float32, jnp.float32, {"block_rows": 8}),
+        ("axpy", (64, 2**22), torch.bfloat16, jnp.bfloat16, {"block": 0}),
+        ("dotp", (1, 2**28), torch.float32, jnp.float32, {"block": 65536}),
+        ("fft", (65536, 1024), torch.float32, jnp.float32, {"block_rows": 4}),
+        ("conv2d", (2, 128, 128, 64), torch.float32, jnp.float32, {"block_h": 8}),
     ]
     for op, shape, tdt, _, cfg in entries:
         t.store(op, shape, tdt, "cuda", cfg)

@@ -21,6 +21,10 @@ import pytest
 import torch
 
 from repro_torch.kernels import autotune, ops, ref
+from repro_torch.kernels import axpy as axk
+from repro_torch.kernels import conv2d as cvk
+from repro_torch.kernels import dotp as dpk
+from repro_torch.kernels import fft as ffk
 from repro_torch.kernels import flash_attention as fk
 from repro_torch.kernels import matmul as mmk
 from repro_torch.kernels import rmsnorm as rnk
@@ -140,6 +144,10 @@ def test_cpu_tensors_never_consult_the_tuner(tmp_path):
         ops.rmsnorm(x, torch.randn(32))
         ops.matmul(x, torch.randn(32, 8))
         ops.flash_attention(x[None, :, :16], x[None, :, :16], x[None, :, :16])
+        ops.axpy(2.0, x, x)
+        ops.dotp(x, x)
+        ops.fft(x, x)
+        ops.conv2d(x.reshape(1, 5, 8, 4), torch.randn(3, 3, 4, 2))
     finally:
         autotune.set_tuner(None)
 
@@ -163,11 +171,16 @@ def _fake_cuda(monkeypatch, module, fn_name, plain):
     ("rmsnorm", {"block_rows": 8}, {"block_rows": 1}),
     ("matmul", {"split_k": 4}, {"split_k": 0}),
     ("flash_attention", {"block_q": 64, "block_k": 64}, {"block_q": 32}),
+    ("axpy", {"block": 4096}, {"block": 1024}),
+    ("dotp", {"block": 16384}, {"block": 0}),
+    ("fft", {"block_rows": 4}, {"block_rows": 1}),
+    ("conv2d", {"block_h": 8}, {"block_h": 2}),
 ])
 def test_cuda_dispatch_takes_the_tuners_plan_and_pins(tmp_path, monkeypatch, op, tuned, pinned):
     x = torch.randn(40, 24)
     w = torch.randn(24)
     q = torch.randn(2, 3, 48, 16)
+    c_w = torch.randn(3, 3, 4, 8)
     calls = {
         "softmax": (smk, "softmax", lambda x, **kw: ref.softmax(x), lambda **kw: ops.softmax(x, **kw),
                     x.shape, ref.softmax(x)),
@@ -182,6 +195,17 @@ def test_cuda_dispatch_takes_the_tuners_plan_and_pins(tmp_path, monkeypatch, op,
                                                               causal=causal)[0],
             lambda **kw: ops.flash_attention(q, q, q, **kw), (6, 48, 16),
             ref.flash_attention(q, q, q)),
+        # the JAX package's keys: a vector as [1, N], dotp flattened, conv2d on x's shape
+        "axpy": (axk, "axpy", lambda a, x, y, **kw: ref.axpy(a, x, y),
+                 lambda **kw: ops.axpy(2.5, w, w, **kw), (1, 24), ref.axpy(2.5, w, w)),
+        "dotp": (dpk, "dotp", lambda x, y, **kw: ref.dotp(x, y), lambda **kw: ops.dotp(x, x, **kw),
+                 (1, 960), ref.dotp(x, x)),
+        "fft": (ffk, "fft", lambda re, im, **kw: ref.fft(re, im),
+                lambda **kw: ops.fft(x[:, :16], x[:, 8:], **kw), (40, 16),
+                ref.fft(x[:, :16], x[:, 8:])),
+        "conv2d": (cvk, "conv2d", lambda x, w, **kw: ref.conv2d(x, w),
+                   lambda **kw: ops.conv2d(x.reshape(2, 10, 12, 4), c_w, **kw), (2, 10, 12, 4),
+                   ref.conv2d(x.reshape(2, 10, 12, 4), c_w)),
     }
     module, fn_name, plain, call, shape, want = calls[op]
     t = autotune.Autotuner(str(tmp_path / "t.json"), sweep=False)
