@@ -7,10 +7,12 @@ Phases (each raises on failure, so the script exits non-zero):
 
 0. device — fail without CUDA; print the card's name and power limit.
 1. build — compile the hand-written CUDA kernels from ``csrc/`` (eleven
-   sources, fifteen kernel bodies: decode, ragged and paged attention over a
-   plain or a quantized store, flash attention (GQA, and flat as a group of
-   one), the matmul and int8-weight matmul, RMSNorm, row softmax, axpy, the
-   partial dot products, the Stockham FFT and the implicit-GEMM conv2d).
+   sources, seventeen kernel bodies: decode, ragged and paged attention over
+   a plain or a quantized store, flash attention (GQA, and flat as a group
+   of one; bf16 on wgmma, f32 on CUDA cores), the matmul and int8-weight
+   matmul, RMSNorm, row softmax, axpy, the partial dot products, the
+   Stockham FFT and its four-step transposes, and the implicit-GEMM
+   conv2d); print the build's seconds.
 2. kernels — each kernel body against its plain PyTorch version on the card,
    at the serving path's shapes (codeqwen1.5-7b: KV=32, G=1, d=128, 4 slots
    x 1024 positions; a 64-token ragged pack; 64- and 37-token prefill; an
@@ -19,14 +21,19 @@ Phases (each raises on failure, so the script exits non-zero):
    f32 and bf16 queries, int8, fp8 and scaled f32 stores (bf16 queries over
    a scaled f32 store: the identity KV lane of a bf16 model); the matmuls at
    M = 4-256 live tokens over codeqwen's (K, N) and a shape with K and N
-   tails, f32 and bf16 activations. Times each kernel, its plain version and
+   tails, f32 and bf16 activations; decode, ragged and paged attention at
+   the new (head_dim, group) pairs (16, 1), (16, 4), (80, 2), (128, 5) and
+   (128, 12) over bf16 and scaled int8 stores; GQA flash at every bf16 tile
+   and head width. Times each kernel, its plain version and
    a one-call PyTorch yardstick (where one exists) as device time (CUDA events
    around one CUDA-graph replay of 30 calls, so the wrappers' host time is
    not counted), and computes its bound at the card's published peaks.
 3. kernel path vs plain path — a small f32 model served greedily through
    ServeEngine on the card and on the CPU, dense, paged with prefix reuse,
    over int8 and fp8 caches, and with int8 weights (dense, and paged +
-   prefix over an int8 cache); the token streams must be equal.
+   prefix over an int8 cache), then the reduced codeqwen1.5-7b and
+   qwen3-32b configs (head_dim 16, groups 1 and 4), dense and paged; the
+   token streams must be equal.
 4. full width — codeqwen1.5-7b, 32 layers, bf16, random weights from a seed,
    4 slots x 1024 positions; about 12 greedy requests whose prompts straddle
    the prefill budget, so fused admissions, ragged packs and decode chunks
@@ -46,8 +53,10 @@ Phases (each raises on failure, so the script exits non-zero):
    ``LM.prefill`` teacher-forced, and the int8 block stack must take at most
    0.51x the bf16 one's bytes. Prints the int8 model's top-1 agreement with
    the bf16 model at clear margins (not gated).
-7. the kernel API and its autotuner — flat flash attention, RMSNorm and
-   softmax at every tile / rows-per-block candidate and the matmul at every
+7. the kernel API and its autotuner — flat flash attention (every tile of
+   its dtype: the wgmma body's for bf16, SDPA timed beside each, the
+   CUDA-core body's for f32; d = 80 too), RMSNorm and
+   softmax at every rows-per-block candidate and the matmul at every
    forced K split, against their plain versions at the main shapes
    (codeqwen1.5-7b, bf16: flash BH=32, S=1024, d=128, causal and not;
    RMSNorm 2048 x 4096; softmax 64 x 92,416 and 4096 x 1024 f32; matmul
@@ -61,14 +70,18 @@ Phases (each raises on failure, so the script exits non-zero):
    every block / rows / patch candidate against their plain versions at the
    main shapes (axpy and dotp over 2^28-element vectors, axpy also bf16
    [64, 2^22] at alpha 1/3; FFT f32 [8192, 16384], the paper's 16k-point
-   rows, f32 [65536, 1024] and bf16 [4096, 4096]; conv2d bf16 [4, 512, 512,
-   256] x [3, 3, 256, 256], the paper's fconv2d widths, and f32 [2, 128,
-   128, 64] x [3, 3, 64, 64]) and tails (axpy [3, 1,000,003], dotp over
+   rows, f32 [65536, 1024] and bf16 [4096, 4096], and rows past one block
+   through the four-step path, f32 [1024, 32768] and [32, 2^20]; conv2d bf16
+   [4, 512, 512, 256] x [3, 3, 256, 256], the paper's fconv2d widths, f32
+   [2, 128, 128, 64] x [3, 3, 64, 64], and x and w of different dtypes) and
+   tails (axpy [3, 1,000,003], dotp over
    1,000,003 elements and dotp_partials [8, 100,003] at every block, FFT
    [37, 64] and N = 2, conv2d with a ragged H and 1 x 1 taps); a
    ``REPRO_AUTOTUNE=1`` sweep of the four ops at their main shapes into
-   phase 7's cache, re-read by a fresh tuner; the four ops driven once
-   through ``ops`` between the counts' reset and read, each output held
+   phase 7's cache, re-read by a fresh tuner; the four ops (and the FFT over
+   [1024, 32768] rows, whose five launches count as ``fft_long``) driven
+   once through ``ops``
+   between the counts' reset and read, each output held
    against its plain version; each op timed beside its bound, plain version
    and library call.
 9. a ``{"kernels": [...], "to_port": []}`` JSON line (every row of PERF.md's
@@ -283,8 +296,98 @@ def check_kernels(dev):
             )
             timed["bound_ms"], timed["bound_by"] = bound(nbytes(q, k, v, q), fl, dtype)
         report("gqa_flash_attention", f"BKV={bkv} G={g} S={s} {dtype}", dtype, err, timed)
+
+    # every bf16 tile of the wgmma body at every head width, the group packed
+    # into the query tile (G = 8, a 64-token prefill: the grouped serving
+    # shape), and the main shape's time at each tile beside SDPA's
+    for tile in fk.TILES[bf16]:
+        for d in fk.HEAD_DIMS:
+            q, k, v = randn(8, 8, 64, d, dtype=bf16), randn(8, 64, d, dtype=bf16), \
+                randn(8, 64, d, dtype=bf16)
+            got = fk.gqa_flash_attention(q, k, v, block_q=tile[0], block_k=tile[1])
+            err = (got.float() - ref.gqa_flash_attention(q, k, v).float()).abs().max().item()
+            report("gqa_flash_attention", f"BKV=8 G=8 S=64 d={d} tile={tile}", bf16, err)
+        q, k, v = randn(32, 1, 64, 128, dtype=bf16), randn(32, 64, 128, dtype=bf16), \
+            randn(32, 64, 128, dtype=bf16)
+        ms = time_ms(lambda: fk.gqa_flash_attention(q, k, v, block_q=tile[0], block_k=tile[1]))
+        print(f"  gqa_flash_attention  BKV=32 G=1 S=64 d=128 tile={tile}: ms={ms:.4f} "
+              f"(SDPA {results['gqa_flash_attention']['library_ms']:.4f})", flush=True)
+    # the f32 CUDA-core body at the same prefill, every tile: its default is
+    # the f32 DEFAULT_TILE
+    q, k, v = randn(32, 1, 64, 128, dtype=f32), randn(32, 64, 128, dtype=f32), \
+        randn(32, 64, 128, dtype=f32)
+    for tile in fk.TILES[f32]:
+        ms = time_ms(lambda: fk.gqa_flash_attention(q, k, v, block_q=tile[0], block_k=tile[1]))
+        mark = " (the f32 default)" if tile == fk.DEFAULT_TILE[f32] else ""
+        print(f"  gqa_flash_attention  BKV=32 G=1 S=64 d=128 float32 tile={tile}: "
+              f"ms={ms:.4f}{mark}", flush=True)
     torch.cuda.synchronize()
     return results
+
+
+# phase 2's new domain of the serving attention kernels: (head_dim, group)
+# pairs of the reduced configs (16, 1) and (16, 4), zamba2's width 80,
+# llama4-scout's group 5 and mistral-large's 12
+DOMAIN_PAIRS = ((16, 1), (16, 4), (80, 2), (128, 5), (128, 12))
+
+
+def check_attention_domain(dev):
+    """Phase 2: decode, ragged and paged attention at each DOMAIN_PAIRS (D,
+    G), over a bf16 store and over a scaled int8 store under bf16 queries,
+    against the plain version (4 KV heads, phase 2's dense slots, pack and
+    a pool of the dense cache's rows under a reversed table)."""
+    import torch
+
+    from repro_torch.dist.compression import quantize_rows
+    from repro_torch.kernels import decode_attention as dk
+    from repro_torch.kernels import paged_attention as pk
+    from repro_torch.kernels import ragged_attention as rk
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    bf16 = torch.bfloat16
+    tol = TOL["bfloat16"]
+    B, S, kv, bs = SLOTS, S_MAX, 4, 32
+    cl = torch.tensor(DECODE_POS, dtype=torch.int32, device=dev)
+    ts = torch.tensor(PACK_SLOTS, dtype=torch.int32, device=dev)
+    tp = torch.tensor(PACK_POS, dtype=torch.int32, device=dev)
+    real = tp < S
+    nb = B * S // bs
+    tables = (nb - 1 - torch.arange(nb, dtype=torch.int32, device=dev)).reshape(B, -1)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    def pool(t):  # the dense cache's rows as pool blocks, in reverse order
+        return t.reshape(nb, bs, *t.shape[2:]).flip(0).contiguous()
+
+    for d, g in DOMAIN_PAIRS:
+        for store in ("bf16", "int8"):
+            k, v = randn(B, S, kv, d), randn(B, S, kv, d)
+            if store == "bf16":
+                k, v, sc = k.to(bf16), v.to(bf16), {}
+            else:
+                (k, ks), (v, vs) = quantize_rows(k, torch.int8), quantize_rows(v, torch.int8)
+                sc = dict(k_scale=ks, v_scale=vs)
+            q = randn(B, kv, g, d).to(bf16)
+            errs = [(dk.decode_attention(q, k, v, cl, **sc).float()
+                     - ref.decode_attention(q, k, v, cl, **sc).float()).abs().max().item()]
+            qt = randn(ts.numel(), kv, g, d).to(bf16)
+            got = rk.ragged_attention(qt, k, v, ts, tp, **sc)
+            want = ref.ragged_attention(qt, k, v, ts, tp, **sc)
+            errs.append((got[real].float() - want[real].float()).abs().max().item())
+            if got[~real].any():
+                raise AssertionError(f"ragged_attention d={d} g={g}: padding rows not zero")
+            psc = {n: pool(t) for n, t in sc.items()}
+            got = pk.paged_attention(qt, pool(k), pool(v), ts, tp, tables, **psc)
+            want = ref.paged_ragged_attention(qt, pool(k), pool(v), ts, tp, tables, **psc)
+            errs.append((got[real].float() - want[real].float()).abs().max().item())
+            print(f"  attention domain d={d:3d} G={g:2d} {store} store, bf16 q: max_abs_err "
+                  f"decode {errs[0]:.2e} ragged {errs[1]:.2e} paged {errs[2]:.2e} tol={tol:g}",
+                  flush=True)
+            if not max(errs) <= tol:
+                raise AssertionError(f"attention domain d={d} g={g} {store}: {errs} above {tol}")
+    torch.cuda.synchronize()
 
 
 def check_paged_and_quant_kernels(dev):
@@ -644,6 +747,28 @@ def small_model_streams(dev):
         extra = f", {hits_dev} prefix hit tokens" if hits_dev is not None else ""
         print(f"  {lane}: {len(on_cpu)} greedy streams identical on the card (kernels) and the "
               f"CPU (plain){extra}", flush=True)
+
+    # the port's reduced configs at head_dim 16 (codeqwen: G = 1; qwen3-32b:
+    # G = 4 with qk_norm), in f32: dense, and paged with prefix reuse
+    for name in ("codeqwen1.5-7b", "qwen3-32b"):
+        rcfg = replace(get_arch(name).reduced(), dtype="float32")
+        r_cpu = LM(rcfg, device="cpu")
+        r_params = r_cpu.init(torch.Generator().manual_seed(0))
+        r_dev, r_params_dev = LM(rcfg, device=dev), _tree_to(r_params, dev)
+        r_prompts = [p_ % rcfg.vocab_size for p_ in prompts]
+        r_shared = [p_ % rcfg.vocab_size for p_ in shared]
+        for lane, reqs, kw in [("dense", r_prompts, {}),
+                               ("paged + prefix, bs=16", r_shared + r_prompts[6:],
+                                dict(kv_block_size=16, prefix_cache=True))]:
+            on_cpu, hits_cpu = serve(r_cpu, r_params, "cpu", reqs, kw)
+            on_dev, hits_dev = serve(r_dev, r_params_dev, dev, reqs, kw)
+            if on_dev != on_cpu or hits_dev != hits_cpu:
+                diff = [rid for rid in on_cpu if on_cpu[rid] != on_dev.get(rid)]
+                raise AssertionError(f"{name} reduced, {lane}: streams differ for rids {diff}, "
+                                     f"prefix hits {hits_dev} on the card, {hits_cpu} on CPU")
+            print(f"  {name} reduced (d_head {rcfg.d_head}, G "
+                  f"{rcfg.n_heads // rcfg.n_kv_heads}), {lane}: {len(on_cpu)} greedy streams "
+                  f"identical on the card (kernels) and the CPU (plain)", flush=True)
 
 
 def _tree_to(tree, dev):
@@ -1116,21 +1241,27 @@ def kernel_api(dev, counters):
 
     # ---- (a) every candidate against the plain version
     bh, s, d = FLASH_MAIN
+    # bf16 runs the wgmma body at its tiles, f32 the CUDA-core body at its own
     flash_cases = [(bh, s, s, d, causal, bf16) for causal in (True, False)] + [
-        (bh, 96, 96, d, True, bf16), (8, 96, 96, 16, True, f32), (8, 80, 130, 64, False, f32)]
+        (bh, 96, 96, d, True, bf16), (bh, s, s, 80, True, bf16), (8, 96, 96, 16, True, f32),
+        (8, 80, 130, 64, False, f32), (8, 80, 130, 80, True, f32)]
     cand_ms = {}
     for b_, sq, sk, d_, causal, dtype in flash_cases:
         q, k, v = randn(b_, sq, d_, dtype=dtype), randn(b_, sk, d_, dtype=dtype), \
             randn(b_, sk, d_, dtype=dtype)
         want = ref.flash_attention(q[None], k[None], v[None], causal=causal)[0]
-        for tile in fk.TILES:
+        sdpa = ""
+        if dtype == bf16 and sq == s:  # the main shapes: SDPA beside every tile
+            sdpa = " SDPA={:.4f}".format(time_ms(lambda: F.scaled_dot_product_attention(
+                q[None], k[None], v[None], is_causal=causal)))
+        for tile in fk.TILES[dtype]:
             run = lambda: fk.flash_attention(q, k, v, causal=causal,  # noqa: E731
                                              block_q=tile[0], block_k=tile[1])
             case = f"BH={b_} Sq={sq} Sk={sk} d={d_} causal={causal} {dname(dtype)} tile={tile}"
             err = held("flash_attention", case, run(), want, API_TOL[dname(dtype)])
             ms = time_ms(run)
             cand_ms[("flash_attention", b_, sq, sk, d_, causal, dtype, tile)] = ms
-            print(f"  flash_attention   {case:60s} err={err:.2e} ms={ms:.4f}", flush=True)
+            print(f"  flash_attention   {case:60s} err={err:.2e} ms={ms:.4f}{sdpa}", flush=True)
     row_cases = [
         ("rmsnorm", RMSNORM_MAIN, bf16, bf16), ("rmsnorm", (37, 4096), bf16, bf16),
         ("rmsnorm", (37, 4100), f32, f32), ("rmsnorm", (37, 4096), bf16, f32),
@@ -1202,9 +1333,9 @@ def kernel_api(dev, counters):
                             for cfg, sec, err in tuner.last_sweep)
             tuned[(op, shape)] = tuner.lookup(op, shape, dtype, "cuda")
             print(f"  sweep {op} {shape} {dname(dtype)}: {log}; winner {tuned[(op, shape)]} "
-                  f"(default {autotune.DEFAULTS[op]})", flush=True)
+                  f"(default {autotune.default(op, dtype)})", flush=True)
             failed = [(cfg, err) for cfg, _, err in tuner.last_sweep if err is not None]
-            if failed or len(tuner.last_sweep) != len(autotune.CANDIDATES[op]):
+            if failed or len(tuner.last_sweep) != len(autotune.candidates(op, dtype)):
                 raise AssertionError(f"{op} {shape}: candidates failed in the sweep: {failed}")
         print(f"  sweeps_run {tuner.sweeps_run}, cache {cache.relative_to(ROOT)}: "
               f"{len(json.loads(cache.read_text()))} entries")
@@ -1218,7 +1349,7 @@ def kernel_api(dev, counters):
         if asked or fresh.sweeps_run:
             raise AssertionError(f"a fresh tuner on the cache measured again: {asked}")
         print(f"  a fresh Autotuner on the cache: {len(swept)} hits, sweeps_run 0")
-        tile = fk.DEFAULT_TILE
+        tile = fk.DEFAULT_TILE[bf16]
         err = held("flash_attention", "tuned vs default plan", ops.flash_attention(q, k, v),
                    ops.flash_attention(q, k, v, block_q=tile[0], block_k=tile[1]),
                    API_TOL["bfloat16"])
@@ -1341,6 +1472,9 @@ SUITE_N = 2**28
 AXPY_BF16 = (64, 2**22)
 FFT_MAIN = (8192, 16384)
 FFT_CASES = (FFT_MAIN, (65536, 1024), (4096, 4096), (37, 64), (8, 2))
+# rows longer than a block (the four-step path): 2^15 and 2^20 points, 2^25
+# elements each (128 MiB of f32 per plane)
+FFT_LONG = ((1024, 32768), (32, 2**20))
 CONV_MAIN = ((4, 512, 512, 256), (3, 3, 256, 256))
 CONV_CASES = (CONV_MAIN, ((2, 128, 128, 64), (3, 3, 64, 64)), ((2, 13, 9, 4), (3, 3, 4, 8)),
               ((1, 8, 8, 4), (1, 1, 4, 4)))
@@ -1469,7 +1603,8 @@ def kernel_suite(dev, counters):
                   f"block, each partial within 1e-5 * its sum |x y|")
         del x, y
     for (b, n), dtype in [(FFT_CASES[0], f32), (FFT_CASES[1], f32), (FFT_CASES[2], bf16),
-                          (FFT_CASES[3], f32), (FFT_CASES[4], f32), (FFT_CASES[3], bf16)]:
+                          (FFT_CASES[3], f32), (FFT_CASES[4], f32), (FFT_CASES[3], bf16),
+                          (FFT_LONG[0], f32), (FFT_LONG[1], f32), ((3, 2**17), bf16)]:
         re, im = randn(b, n, dtype=dtype), randn(b, n, dtype=dtype)
         candidates("fft", f"[{b}, {n}] {dname(dtype)}", "block_rows", ffk.BLOCK_ROWS,
                    lambda r: ffk.fft(re, im, block_rows=r), ref.fft(re, im),
@@ -1483,11 +1618,15 @@ def kernel_suite(dev, counters):
                 raise AssertionError(f"fft N={n}: block_rows {r} does not fit, yet ran")
         del re, im
     torch.backends.cudnn.allow_tf32 = False  # the plain conv in full f32
-    for (xs, ws), dtype in [(CONV_CASES[0], bf16), (CONV_CASES[1], f32), (CONV_CASES[2], f32),
-                            (CONV_CASES[2], bf16), (CONV_CASES[3], bf16)]:
-        x, w = randn(*xs, dtype=dtype), randn(*ws, dtype=dtype)
-        candidates("conv2d", f"{list(xs)} x {list(ws)} {dname(dtype)}", "block_h", cvk.BLOCK_H,
-                   lambda h: cvk.conv2d(x, w, block_h=h), ref.conv2d(x, w))
+    # x and w of one dtype, then mixed (the FMA tile widens each to f32 and
+    # writes x's dtype)
+    for (xs, ws), dtype, wdtype in [
+            (CONV_CASES[0], bf16, bf16), (CONV_CASES[1], f32, f32), (CONV_CASES[2], f32, f32),
+            (CONV_CASES[2], bf16, bf16), (CONV_CASES[3], bf16, bf16), (CONV_CASES[1], bf16, f32),
+            (CONV_CASES[2], f32, bf16)]:
+        x, w = randn(*xs, dtype=dtype), randn(*ws, dtype=wdtype)
+        candidates("conv2d", f"{list(xs)} x {list(ws)} {dname(dtype)} x {dname(wdtype)} w",
+                   "block_h", cvk.BLOCK_H, lambda h: cvk.conv2d(x, w, block_h=h), ref.conv2d(x, w))
         del x, w
     torch.cuda.empty_cache()
     for name, (rule, used) in worst.items():
@@ -1524,13 +1663,22 @@ def kernel_suite(dev, counters):
                             for cfg, sec, err in tuner.last_sweep)
             tuned[op] = tuner.lookup(op, shape, dtype, "cuda")
             print(f"  sweep {op} {shape} {dname(dtype)}: {log}; winner {tuned[op]} "
-                  f"(default {autotune.DEFAULTS[op]})", flush=True)
+                  f"(default {autotune.default(op, dtype)})", flush=True)
             # only the FFT's rows that do not fit a block may fail, and they must
             failed = [cfg for cfg, _, err in tuner.last_sweep if err is not None]
             refused = [cfg for cfg in autotune.CANDIDATES[op]
                        if op == "fft" and not ffk.fits(shape[1], cfg["block_rows"])]
             if failed != refused or len(tuner.last_sweep) != len(autotune.CANDIDATES[op]):
                 raise AssertionError(f"{op} {shape}: candidates failed in the sweep: {failed}")
+        # rows past a block: the four-step path, whose only candidate is block_rows 0
+        lre, lim = randn(*FFT_LONG[0]), randn(*FFT_LONG[0])
+        ops.fft(lre, lim)
+        torch.cuda.synchronize()
+        log = ", ".join(f"{cfg}: {sec * 1e3:.4f} ms" if err is None else f"{cfg}: refused"
+                        for cfg, sec, err in tuner.last_sweep)
+        print(f"  sweep fft {FFT_LONG[0]} float32: {log}", flush=True)
+        if tuner.lookup("fft", FFT_LONG[0], f32, "cuda") != {"block_rows": 0}:
+            raise AssertionError("fft: a row past a block must plan block_rows 0")
         fresh = autotune.Autotuner(str(cache), sweep=True)
         asked = []
         for op, (shape, dtype, _) in main.items():
@@ -1546,9 +1694,15 @@ def kernel_suite(dev, counters):
         # ---- (c) the suite's main path, counted
         reset_counts(counters)
         outs = {op: call() for op, (_, _, call) in main.items()}
+        outs["fft_long"] = ops.fft(lre, lim)
         torch.cuda.synchronize()
         launches = read_counts(counters, "phase 8 (the kernel suite at its main shapes)")
+        # one four-step call at 2^15 points: three transposes and two row passes
+        if launches["fft_long"] != 5:
+            raise AssertionError(f"fft_long: {launches['fft_long']} launches counted for one "
+                                 "four-step call, 5 made")
         plans = {op: ops._blocks(op, shape, dtype) for op, (shape, dtype, _) in main.items()}
+        plans["fft_long"] = ops._blocks("fft", FFT_LONG[0], f32)
         print(f"  plans at the main shapes: {plans}")
     finally:
         for key, val in saved.items():
@@ -1564,8 +1718,9 @@ def kernel_suite(dev, counters):
         t = dict(max_abs_err=held(name, "main, through ops", out, want, *operands),
                  ms=time_ms(kernel, reps=SUITE_REPS), plain_ms=time_ms(plain, reps=SUITE_REPS),
                  library_ms=time_ms(library, reps=SUITE_REPS), library=lib_name,
-                 config=plans[name], tol=(SUITE_TOL[name][dname(dtype)] if name in ("fft", "conv2d")
-                                          else SUITE_TOL.get(name, "1 ulp")))
+                 config=plans[name],
+                 tol=(SUITE_TOL[name.split("_")[0]][dname(dtype)] if name.startswith(("fft", "conv"))
+                      else SUITE_TOL.get(name, "1 ulp")))
         t["bound_ms"], t["bound_by"] = bound(nbytes_, flops, dtype)
         print(f"  {name:7s} main shape, plan {t['config']}: ms={t['ms']:.4f} "
               f"bound={t['bound_ms']:.5f} ({t['bound_by']}) plain={t['plain_ms']:.4f} "
@@ -1593,6 +1748,14 @@ def kernel_suite(dev, counters):
         "torch.fft.fft (cuFFT) over a complex64 tensor made beforehand",
         2 * nbytes(re, im) + nbytes(twr, twi), 5 * b * n_ * int(np.log2(n_)), f32)
     del re, im, z, outs["fft"]
+    torch.cuda.empty_cache()
+    b, n_ = FFT_LONG[0]
+    z = torch.complex(lre, lim)
+    row("fft_long", outs["fft_long"], ref.fft(lre, lim), lambda: ffk.fft(lre, lim),
+        lambda: ref.fft(lre, lim), lambda: torch.fft.fft(z, dim=-1),
+        "torch.fft.fft (cuFFT) over a complex64 tensor made beforehand",
+        2 * nbytes(lre, lim), 5 * b * n_ * int(np.log2(n_)), f32)
+    del lre, lim, z, outs["fft_long"]
     torch.cuda.empty_cache()
     bh = plans["conv2d"]["block_h"]
     (bb, hh, ww, cc), (kh, kw, _, oo) = CONV_MAIN
@@ -1657,11 +1820,18 @@ def main() -> int:
                  for line in log.splitlines() if "bytes spill stores" in line)
     print(f"  ptxas: {len(regs)} kernel instantiations ({len(_build.SIGNATURES)} C entry "
           f"points), max {max(regs)} registers, {spills} bytes spill stores")
+    lines = log.splitlines()
+    for i, line in enumerate(lines[:-1]):  # name the kernels that spill
+        if "Function properties for" in line and "bytes spill stores" in lines[i + 1]:
+            n = int(lines[i + 1].split(" bytes spill stores")[0].split()[-1])
+            if n:
+                print(f"    {n} bytes spill stores in {line.split('for ')[-1].strip()[:160]}")
 
     phase("2 kernels vs plain on the card")
     timed = check_kernels(dev)
     timed.update(check_paged_and_quant_kernels(dev))
     timed.update(check_matmul_kernels(dev))
+    check_attention_domain(dev)
 
     phase("3 kernel path vs plain path, end to end, f32")
     small_model_streams(dev)
@@ -1700,7 +1870,8 @@ def main() -> int:
     del model, params  # phase 4's weights: nothing after phase 6 reads them
     torch.cuda.empty_cache()
     counters8 = {"axpy": (axk, "launches"), "dotp": (dpk, "launches"),
-                 "fft": (ffk, "launches"), "conv2d": (cvk, "launches")}
+                 "fft": (ffk, "launches"), "fft_long": (ffk, "launches_long"),
+                 "conv2d": (cvk, "launches")}
     timed8, launches8 = kernel_suite(dev, counters8)
     timed.update(timed8)
     launches.update(launches8)
@@ -1725,13 +1896,15 @@ def main() -> int:
         "axpy": ("axpy.cu", "src/repro/kernels/axpy.py:36"),
         "dotp": ("dotp.cu", "src/repro/kernels/dotp.py:38"),
         "fft": ("fft.cu", "src/repro/kernels/fft.py:64"),
+        "fft_long": ("fft.cu", "src/repro/kernels/fft.py:64"),
         "conv2d": ("conv2d.cu", "src/repro/kernels/conv2d.py:77"),
     }
     # PERF.md's row of each kernel
     rows = {"decode_attention": 1, "ragged_attention": 2, "gqa_flash_attention": 3,
             "decode_attention_q8": 4, "ragged_attention_q8": 5, "paged_attention": 6,
             "paged_attention_q8": 6, "flash_attention": 7, "matmul": 8, "matmul_q8": 9,
-            "rmsnorm": 10, "softmax": 11, "axpy": 12, "dotp": 13, "fft": 14, "conv2d": 15}
+            "rmsnorm": 10, "softmax": 11, "axpy": 12, "dotp": 13, "fft": 14, "fft_long": 14,
+            "conv2d": 15}
     kernels = []
     for name, (src, tpu) in sources.items():
         t = timed[name]

@@ -56,8 +56,10 @@ SIGNATURES = {
     "repro_dotp": [_P] * 3 + [_I] * 4 + [_P],
     # re, im, twr, twi, out_re, out_im, B, N, rows, dtype, stream
     "repro_fft": [_P] * 6 + [_I] * 4 + [_P],
-    # x, w, out, B, H, W, C, KH, KW, O, block_h, dtype, stream
-    "repro_conv2d": [_P] * 3 + [_I] * 9 + [_P],
+    # re, im, out_re, out_im, B, R, C, tw_n, in_dtype, out_dtype, stream
+    "repro_fft_transpose": [_P] * 4 + [_I] * 3 + [ctypes.c_longlong] + [_I] * 2 + [_P],
+    # x, w, out, B, H, W, C, KH, KW, O, block_h, xdtype, wdtype, stream
+    "repro_conv2d": [_P] * 3 + [_I] * 10 + [_P],
 }
 RESTYPES = {"repro_matmul_workspace": ctypes.c_longlong}  # every other entry: int
 

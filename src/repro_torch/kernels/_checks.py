@@ -12,6 +12,25 @@ import torch
 # storage codes of csrc/attention_common.cuh (repro::DType)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2, torch.float8_e4m3fn: 3}
 
+# the (head_dim, group) domain of the decode, ragged and paged attention
+# kernels (csrc/attention_common.cuh: launch_attention's cases) and the head
+# widths of the flash kernel (csrc/flash_attention.cu)
+HEAD_DIMS = (16, 32, 64, 80, 128)
+MAX_GROUP = 16
+
+
+def in_attention_domain(d: int, g: int) -> bool:
+    """Whether the serving attention kernels take head width ``d`` with a
+    group of ``g`` query heads per KV head."""
+    return d in HEAD_DIMS and 1 <= g <= MAX_GROUP
+
+
+def attention_domain(name: str, d: int, g: int) -> None:
+    """Raise unless the serving attention kernels take (d, g)."""
+    if not in_attention_domain(d, g):
+        raise ValueError(f"{name}: no kernel instantiated for head_dim {d} with a group of {g} "
+                         f"(head_dim one of {HEAD_DIMS}, group 1 to {MAX_GROUP})")
+
 
 def cuda_operands(name: str, *tensors: torch.Tensor) -> None:
     dev = tensors[0].device

@@ -23,14 +23,18 @@ either package reads the other's file. The port's kernels key on backend
 
 * ``matmul``: ``split_k`` — 0 lets the kernel split K to fill the card's
   waves (the plan it ran before the tuner existed), 1, 2, 4, 8 force it;
-* ``flash_attention``: ``block_q`` x ``block_k``, the instantiated tiles;
+* ``flash_attention``: ``block_q`` x ``block_k``, the instantiated tiles of
+  the call's dtype (bf16's wgmma tiles, f32's CUDA-core tiles;
+  :func:`candidates`), by default the serving path's tile of that dtype
+  (:func:`default`);
 * ``rmsnorm`` and ``softmax``: ``block_rows``, the rows per CUDA block —
   0 lets the kernel choose from the shape, 1, 2, 4, 8 force it;
 * ``axpy``: ``block``, elements per CUDA block (0: one 16-byte vector per
   thread); ``dotp``: ``block``, elements per partial sum (0: the wrapper's
   choice from the shape);
 * ``fft``: ``block_rows``, whole rows per CUDA block (0: the kernel's
-  choice; rows * N may not pass 16,384);
+  choice; rows * N may not pass 16,384, so a longer row, which runs the
+  four-step kernels, takes only 0);
 * ``conv2d``: ``block_h``, output rows of a block's 64-pixel patch (0: the
   kernel's choice). Its key is x's shape, as in the JAX package; the
   measure also takes w's shape.
@@ -38,7 +42,10 @@ either package reads the other's file. The port's kernels key on backend
 Cache location: ``$REPRO_AUTOTUNE_CACHE`` if set, else
 ``~/.cache/repro/autotune.json``. Sweeping is opt-in via
 ``REPRO_AUTOTUNE=1``; without it, a cache miss returns the per-op default
-and nothing is written. Entries are keyed on a schema version — bump
+and nothing is written. A cached winner on backend ``"cuda"`` that is no
+longer among its op's candidates (a tile a rebuilt kernel dropped) is a
+miss: it is swept again, or the default runs, and never reaches the
+kernel. Entries are keyed on a schema version — bump
 ``_SCHEMA_VERSION`` to invalidate every cached winner at once.
 """
 
@@ -65,10 +72,10 @@ _SCHEMA_VERSION = 1
 Config = dict[str, int]
 
 # Defaults: what each kernel ran before the tuner existed (the matmul's own
-# split, the flash tile of the serving path); the other kernels' own choice.
+# split); the other kernels' own choice. Flash attention's default and
+# candidates depend on the dtype: :func:`default` and :func:`candidates`.
 DEFAULTS: dict[str, Config] = {
     "matmul": {"split_k": 0},
-    "flash_attention": dict(zip(("block_q", "block_k"), _flash_k.DEFAULT_TILE)),
     "softmax": {"block_rows": 0},
     "rmsnorm": {"block_rows": 0},
     "axpy": {"block": 0},
@@ -77,10 +84,9 @@ DEFAULTS: dict[str, Config] = {
     "conv2d": {"block_h": 0},
 }
 
-# Every configuration each kernel is instantiated for.
+# Every configuration each dtype-free op's kernel is instantiated for.
 CANDIDATES: dict[str, list[Config]] = {
     "matmul": [{"split_k": s} for s in _matmul_k.SPLIT_K],
-    "flash_attention": [{"block_q": q, "block_k": k} for (q, k) in _flash_k.TILES],
     "softmax": [{"block_rows": r} for r in _softmax_k.BLOCK_ROWS],
     "rmsnorm": [{"block_rows": r} for r in _rmsnorm_k.BLOCK_ROWS],
     "axpy": [{"block": b} for b in _axpy_k.BLOCK],
@@ -104,6 +110,25 @@ def dtype_name(dtype: Any) -> str:
     if isinstance(dtype, str) and dtype in _TORCH_NAMES.values():
         return dtype  # bfloat16 / float8 need ml_dtypes to be numpy dtypes
     return np.dtype(dtype).name
+
+
+def candidates(op: str, dtype: Any) -> list[Config]:
+    """The configurations a sweep of ``op`` times at ``dtype``: flash
+    attention's tiles of that dtype, every other op's :data:`CANDIDATES`."""
+    if op == "flash_attention":
+        tiles = _flash_k.TILES[_TORCH_DTYPES[dtype_name(dtype)]]
+        return [{"block_q": q, "block_k": k} for q, k in tiles]
+    return CANDIDATES.get(op, [DEFAULTS[op]])
+
+
+def default(op: str, dtype: Any) -> Config:
+    """What ``op`` runs at ``dtype`` without a cached winner: flash
+    attention's serving tile of that dtype, every other op's
+    :data:`DEFAULTS`."""
+    if op == "flash_attention":
+        tile = _flash_k.DEFAULT_TILE[_TORCH_DTYPES[dtype_name(dtype)]]
+        return dict(zip(("block_q", "block_k"), tile))
+    return dict(DEFAULTS[op])
 
 
 def bucket_dim(n: int) -> int:
@@ -190,6 +215,14 @@ class Autotuner:
         self._load()[cache_key(op, shape, dtype, backend, kv_dtype)] = dict(config)
         self.save()
 
+    def hit(self, op, shape, dtype, backend, kv_dtype=None) -> Optional[Config]:
+        """The cached winner, unless it is on backend ``"cuda"`` and no
+        longer a candidate of its op at ``dtype`` (then None: a miss)."""
+        found = self.lookup(op, shape, dtype, backend, kv_dtype)
+        if found is None or (backend == "cuda" and found not in candidates(op, dtype)):
+            return None
+        return found
+
     def get(
         self,
         op: str,
@@ -202,15 +235,17 @@ class Autotuner:
         """Cached winner, or (if sweeping is enabled) sweep-measure-persist,
         or the default. ``measure`` maps a candidate config to its cost in
         seconds; ``None`` disables sweeping for this call. A candidate whose
-        measure raises is skipped (and logged in ``last_sweep``)."""
-        hit = self.lookup(op, shape, dtype, backend, kv_dtype)
-        if hit is not None:
-            return dict(hit)  # copy: callers must not mutate the cache
+        measure raises is skipped (and logged in ``last_sweep``). A cached
+        config that is no longer a candidate counts as a miss (:meth:`hit`);
+        a sweep then overwrites it."""
+        found = self.hit(op, shape, dtype, backend, kv_dtype)
+        if found is not None:
+            return dict(found)  # copy: callers must not mutate the cache
         if not self.sweep or measure is None:
-            return dict(DEFAULTS[op])
+            return default(op, dtype)
         best_cfg, best_t = None, float("inf")
         self.last_sweep = []
-        for cfg in CANDIDATES.get(op, [DEFAULTS[op]]):
+        for cfg in candidates(op, dtype):
             try:
                 t = measure(cfg)
             except Exception as e:  # candidate invalid for this shape
@@ -220,7 +255,7 @@ class Autotuner:
             if t < best_t:
                 best_cfg, best_t = cfg, t
         if best_cfg is None:
-            best_cfg = dict(DEFAULTS[op])
+            best_cfg = default(op, dtype)
         self.sweeps_run += 1
         self.store(op, shape, dtype, backend, best_cfg, kv_dtype)
         return dict(best_cfg)

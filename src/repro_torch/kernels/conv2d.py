@@ -20,10 +20,11 @@ BLOCK_H = (0, 1, 2, 4, 8)
 
 
 def conv2d(x: torch.Tensor, w: torch.Tensor, *, block_h: int = 0) -> torch.Tensor:
-    """x: [B, H, W, C]; w: [KH, KW, C, O]; one dtype, f32 or bf16. Returns
-    the VALID, stride-1 convolution [B, H - KH + 1, W - KW + 1, O] (f32
-    sums) in x's dtype, on x's device and stream, without synchronising.
-    ``block_h``: one of :data:`BLOCK_H`."""
+    """x: [B, H, W, C]; w: [KH, KW, C, O]; each f32 or bf16, not
+    necessarily the same (both are widened to f32, as the TPU kernel does).
+    Returns the VALID, stride-1 convolution [B, H - KH + 1, W - KW + 1, O]
+    (f32 sums) in x's dtype, on x's device and stream, without
+    synchronising. ``block_h``: one of :data:`BLOCK_H`."""
     global launches
     name = "conv2d"
     _checks.c_int_dims(name, x, w)
@@ -37,12 +38,12 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, *, block_h: int = 0) -> torch.Tenso
         raise ValueError(f"{name}: a {kh} x {kw} window does not fit a {h} x {wd} image")
     if block_h not in BLOCK_H:
         raise ValueError(f"{name}: block_h must be one of {BLOCK_H}, got {block_h}")
-    code = _checks.float_code(name, x, w)
+    xcode, wcode = _checks.float_code(name, x), _checks.float_code(name, w)
     out = torch.empty(b, h - kh + 1, wd - kw + 1, o, dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
     rc = _build.load().repro_conv2d(
-        x.data_ptr(), w.data_ptr(), out.data_ptr(), b, h, wd, c, kh, kw, o, block_h, code,
+        x.data_ptr(), w.data_ptr(), out.data_ptr(), b, h, wd, c, kh, kw, o, block_h, xcode, wcode,
         _checks.stream(x),
     )
     _build.check(rc, name)

@@ -2,9 +2,10 @@
 // paper's fconv2d).
 //
 // Replaces the TPU kernel repro/kernels/conv2d.py::conv2d (_conv2d_kernel):
-// x [B, H, W, C] and w [KH, KW, C, O] of one type (f32 or bf16); out [B,
-// H - KH + 1, W - KW + 1, O] in that type, out[b, i, j, o] = sum over (p, q,
-// c) of x[b, i + p, j + q, c] * w[p, q, c, o], summed in f32. The TPU kernel
+// x [B, H, W, C] and w [KH, KW, C, O], each f32 or bf16 (x and w may
+// differ, as the TPU kernel widens both to f32); out [B, H - KH + 1, W - KW
+// + 1, O] in x's type, out[b, i, j, o] = sum over (p, q, c) of x[b, i + p,
+// j + q, c] * w[p, q, c, o], summed in f32. The TPU kernel
 // sums KH * KW products [rows * W_out, C] @ [C, O] per tile; this kernel is
 // the same sum as one product [M, K] @ [K, N] with M = B * H_out * W_out
 // output pixels, N = O and K = KH * KW * C, whose A tile is gathered from x
@@ -27,8 +28,10 @@
 //   mma.sync m16n8k16 (bf16 in, f32 accumulate), A and B tiles of 32-deep K
 //   steps streamed through a 4-stage cp.async ring (16-byte chunks of 8
 //   channels never straddle a tap; chunks past an edge are zero-filled).
-// - f32, or bf16 with other C or O: a CUDA-core FMA tile (256 threads of 4 x
-//   4 outputs over 16-deep K steps), element-wise gathers widened to f32.
+// - f32, bf16 with other C or O, or x and w of different types: a
+//   CUDA-core FMA tile (256 threads of 4 x 4 outputs over 16-deep K steps),
+//   templated on x's and w's types, element-wise gathers widened to f32 and
+//   the output written in x's type.
 // wgmma, TMA and reuse of the halo in shared memory are later work.
 
 #include <algorithm>
@@ -182,9 +185,10 @@ conv_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w, bf16* __
 constexpr int kFmaBK = 16;
 constexpr int kFmaThreads = 256;
 
-template <typename T>
+template <typename TX, typename TW>
 __global__ void __launch_bounds__(kFmaThreads)
-conv_fma_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ out, Geom g) {
+conv_fma_kernel(const TX* __restrict__ x, const TW* __restrict__ w, TX* __restrict__ out,
+                Geom g) {
   __shared__ __align__(16) float sa[kFmaBK][kBM + 4];  // A transposed: [k][pixel]
   __shared__ __align__(16) float sb[kFmaBK][kBN + 4];  // [k][channel]
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
@@ -253,7 +257,7 @@ int pick_block_h(int Ho, int Wo) {
   return best;
 }
 
-template <typename T>
+template <typename TX, typename TW>
 int launch(const void* x, const void* w, void* out, int B, int H, int W, int C, int KH, int KW,
            int O, int block_h, cudaStream_t st) {
   Geom g;
@@ -274,7 +278,7 @@ int launch(const void* x, const void* w, void* out, int B, int H, int W, int C, 
   g.tiles_hw = static_cast<int>(tiles_hw);
   if (blocks == 0) return 0;
   const dim3 grid(static_cast<unsigned>(blocks));
-  if constexpr (std::is_same_v<T, bf16>) {
+  if constexpr (std::is_same_v<TX, bf16> && std::is_same_v<TW, bf16>) {
     if (C % 8 == 0 && O % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
         reinterpret_cast<uintptr_t>(w) % 16 == 0 && reinterpret_cast<uintptr_t>(out) % 4 == 0) {
       conv_mma_kernel<<<grid, kMmaThreads, 0, st>>>(static_cast<const bf16*>(x),
@@ -283,24 +287,30 @@ int launch(const void* x, const void* w, void* out, int B, int H, int W, int C, 
       return static_cast<int>(cudaGetLastError());
     }
   }
-  conv_fma_kernel<T><<<grid, kFmaThreads, 0, st>>>(static_cast<const T*>(x),
-                                                   static_cast<const T*>(w),
-                                                   static_cast<T*>(out), g);
+  conv_fma_kernel<TX, TW><<<grid, kFmaThreads, 0, st>>>(static_cast<const TX*>(x),
+                                                        static_cast<const TW*>(w),
+                                                        static_cast<TX*>(out), g);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // x [B, H, W, C], w [KH, KW, C, O], out [B, H - KH + 1, W - KW + 1, O], all
-// contiguous of one dtype (0 = float32, 1 = bfloat16). block_h: output rows
-// of a block's pixel patch, 1, 2, 4 or 8, or 0 for the kernel's choice.
-// Returns cudaGetLastError() after the launch, -1 for a block_h or a shape
-// the kernel does not take, -2 for an unsupported dtype.
+// contiguous; x and out of xdtype, w of wdtype (0 = float32, 1 = bfloat16).
+// block_h: output rows of a block's pixel patch, 1, 2, 4 or 8, or 0 for the
+// kernel's choice. Returns cudaGetLastError() after the launch, -1 for a
+// block_h or a shape the kernel does not take, -2 for an unsupported dtype.
 extern "C" int repro_conv2d(const void* x, const void* w, void* out, int B, int H, int W, int C,
-                            int KH, int KW, int O, int block_h, int dtype, void* stream) {
+                            int KH, int KW, int O, int block_h, int xdtype, int wdtype,
+                            void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == repro::kF32) return launch<float>(x, w, out, B, H, W, C, KH, KW, O, block_h, st);
-  if (dtype == repro::kBF16)
-    return launch<bf16>(x, w, out, B, H, W, C, KH, KW, O, block_h, st);
+#define REPRO_CONV(XC, TX, WC, TW) \
+  if (xdtype == XC && wdtype == WC) \
+    return launch<TX, TW>(x, w, out, B, H, W, C, KH, KW, O, block_h, st);
+  REPRO_CONV(repro::kF32, float, repro::kF32, float)
+  REPRO_CONV(repro::kBF16, bf16, repro::kBF16, bf16)
+  REPRO_CONV(repro::kBF16, bf16, repro::kF32, float)
+  REPRO_CONV(repro::kF32, float, repro::kBF16, bf16)
+#undef REPRO_CONV
   return -2;
 }

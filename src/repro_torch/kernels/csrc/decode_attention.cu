@@ -14,8 +14,9 @@
 // the ~295 flops per byte where tensor cores would become the limit, so the
 // kernel is a streaming read; an int8 or fp8 store halves the bytes of bf16.
 //
-// Simple design: one block per (slot, KV head) with the G query rows of the
-// group held in registers, so the cache is never expanded G-fold. The TPU
+// Simple design: one block per (slot, KV head, chunk of 1, 4 or 8 rows of the
+// group) with the chunk's query rows held in registers, so the cache is
+// never expanded G-fold (D and G over attention_common.cuh's domain). The TPU
 // grid's sequential S axis becomes a loop inside the block over the valid
 // range only (no tile past cur_len or before the window is read). Eight warps
 // split that range; each keeps NW*U coalesced row loads in flight and its own

@@ -2,7 +2,9 @@
 // synchronisation-critical DSP kernel).
 //
 // Replaces the TPU kernel repro/kernels/fft.py::fft (_fft_kernel): re, im
-// [B, N] of one type (f32 or bf16), N = 2^k from 2 to 16,384; out re, im
+// [B, N] of one type (f32 or bf16), N = 2^k from 2 to 16,384 in fft_kernel
+// (longer rows: the four-step transposes at the end of this file around two
+// batches of fft_kernel, composed by kernels/fft.py); out re, im
 // [B, N] in that type; all math in f32. Stage s (L = 2^s) views each half of
 // the row as [N / 2L, L], multiplies the second half by the stage's row of
 // the twiddle table ([log2 N, N / 2] re and im, ref.fft_twiddles: the TPU
@@ -190,7 +192,95 @@ int launch(const void* re, const void* im, const float* twr, const float* twi, v
   return launch_vec<T, 1>(re, im, twr, twi, ore, oim, B, log2n, rows, st);
 }
 
+// ------------------------------------------------ rows longer than a block
+
+// out[b][c][r] = in[b][r][c] (times W_N^(r c) = exp(-2 pi i r c / N) when
+// tw_n > 0) for planar in [B, R, C] and out [B, C, R]: the transposes (and
+// the twiddle step) of the four-step FFT that fft.py composes around two
+// batches of the row kernel for N > 16,384. A 32 x 32 tile passes through
+// shared memory (padded a word per row), so both the read and the write
+// are coalesced rows of 32; the twiddle's angle is reduced exactly as the
+// integer (r c) mod N and taken in double (sincospi), then rounded to f32.
+constexpr int kTile = 32, kTileRows = 8;
+
+template <typename TI, typename TO, bool kTwiddle>
+__global__ void __launch_bounds__(kTile * kTileRows)
+transpose_kernel(const TI* __restrict__ re, const TI* __restrict__ im, TO* __restrict__ ore,
+                 TO* __restrict__ oim, int B, int R, int C, int64_t tw_n) {
+  __shared__ float tr[kTile][kTile + 1], ti[kTile][kTile + 1];
+  const int c0 = blockIdx.x * kTile, r0 = blockIdx.y * kTile;
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  for (int b = blockIdx.z; b < B; b += gridDim.z) {
+    const int64_t base = static_cast<int64_t>(b) * R * C;
+#pragma unroll
+    for (int i = ty; i < kTile; i += kTileRows) {
+      const int r = r0 + i, c = c0 + tx;
+      if (r < R && c < C) {
+        float xr = repro::to_f32(re[base + static_cast<int64_t>(r) * C + c]);
+        float xi = repro::to_f32(im[base + static_cast<int64_t>(r) * C + c]);
+        if constexpr (kTwiddle) {
+          const int64_t e = (static_cast<int64_t>(r) * c) % tw_n;
+          double sn, cs;
+          sincospi(-2.0 * static_cast<double>(e) / static_cast<double>(tw_n), &sn, &cs);
+          const float wr = static_cast<float>(cs), wi = static_cast<float>(sn);
+          const float yr = __fsub_rn(__fmul_rn(xr, wr), __fmul_rn(xi, wi));
+          xi = __fadd_rn(__fmul_rn(xr, wi), __fmul_rn(xi, wr));
+          xr = yr;
+        }
+        tr[i][tx] = xr;
+        ti[i][tx] = xi;
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = ty; i < kTile; i += kTileRows) {
+      const int c = c0 + i, r = r0 + tx;
+      if (r < R && c < C) {
+        repro::store_f32(ore + base + static_cast<int64_t>(c) * R + r, tr[tx][i]);
+        repro::store_f32(oim + base + static_cast<int64_t>(c) * R + r, ti[tx][i]);
+      }
+    }
+    __syncthreads();  // the tile is free for the next batch row
+  }
+}
+
+template <typename TI, typename TO, bool kTwiddle>
+int launch_transpose(const void* re, const void* im, void* ore, void* oim, int B, int R, int C,
+                     int64_t tw_n, cudaStream_t st) {
+  const dim3 grid((C + kTile - 1) / kTile, (R + kTile - 1) / kTile, std::min(B, 65535));
+  if (grid.y > 65535) return -1;
+  transpose_kernel<TI, TO, kTwiddle><<<grid, dim3(kTile, kTileRows), 0, st>>>(
+      static_cast<const TI*>(re), static_cast<const TI*>(im), static_cast<TO*>(ore),
+      static_cast<TO*>(oim), B, R, C, tw_n);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
+
+// The four-step FFT's transposes: in re, im [B, R, C] of in_dtype, out ore,
+// oim [B, C, R] of out_dtype (0 = float32, 1 = bfloat16), out[b][c][r] =
+// in[b][r][c], times W_N^(r c) when tw_n = N > 0 (f32 to f32 only). Returns
+// cudaGetLastError() after the launch, -1 for a shape the kernel does not
+// take, -2 for an unsupported combination of dtypes.
+extern "C" int repro_fft_transpose(const void* re, const void* im, void* ore, void* oim, int B,
+                                   int R, int C, long long tw_n, int in_dtype, int out_dtype,
+                                   void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (B < 0 || R < 1 || C < 1 || tw_n < 0) return -1;
+  if (B == 0) return 0;
+  const bool f32_in = in_dtype == repro::kF32, f32_out = out_dtype == repro::kF32;
+  if (tw_n > 0) {
+    if (!f32_in || !f32_out) return -2;
+    return launch_transpose<float, float, true>(re, im, ore, oim, B, R, C, tw_n, st);
+  }
+  if (f32_in && f32_out)
+    return launch_transpose<float, float, false>(re, im, ore, oim, B, R, C, 0, st);
+  if (in_dtype == repro::kBF16 && f32_out)
+    return launch_transpose<__nv_bfloat16, float, false>(re, im, ore, oim, B, R, C, 0, st);
+  if (f32_in && out_dtype == repro::kBF16)
+    return launch_transpose<float, __nv_bfloat16, false>(re, im, ore, oim, B, R, C, 0, st);
+  return -2;
+}
 
 // re, im, ore, oim: [B, N] contiguous of one dtype (0 = float32, 1 =
 // bfloat16); twr, twi: the f32 twiddle table [log2 N, N / 2]. rows: rows per

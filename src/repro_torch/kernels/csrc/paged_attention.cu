@@ -21,10 +21,11 @@
 // block of that prefix.
 //
 // Simple design: the ragged kernel (attention_common.cuh's attention_kernel)
-// with a paged index: one block per (packed token, KV head). The block reads
-// its own (seq, pos), then walks its valid key range in the shared in-block
-// loop with paged addressing: key p reads the table entry of block p / bs
-// (one broadcast load, L1-resident for the bs keys of the block) and the rows
+// with a paged index: one block per (packed token, KV head, chunk of the
+// group). The block reads its own (seq, pos), then walks its valid key range
+// in the shared in-block loop with paged addressing: key p reads the table
+// entry of block p / bs (one broadcast load, L1-resident for the bs keys of
+// the block) and the rows
 // at offset p % bs, which are contiguous per head within a block exactly as
 // in the dense cache. The block size bs is a runtime argument (the engine
 // uses 8, 16 or 32). Quantized rows are widened in registers with their

@@ -24,9 +24,10 @@
 // simple kernel reads them once per token and leans on the 50 MB L2 for the
 // reuse.
 //
-// Simple design: one block per (packed token, KV head), each block reading
-// its own (slot, pos) — the TPU kernel's scalar-prefetched index map becomes
-// two loads at block start — then the same in-block loop over the valid key
+// Simple design: one block per (packed token, KV head, chunk of the group),
+// each block reading its own (slot, pos) — the TPU kernel's
+// scalar-prefetched index map becomes two loads at block start — then the
+// same in-block loop over the valid key
 // range as the decode kernel (attention_common.cuh), widening quantized rows
 // in registers with their scales folded into the math. Sharing K/V tiles
 // between the tokens of a chunk is later work.

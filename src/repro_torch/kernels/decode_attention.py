@@ -34,6 +34,7 @@ def decode_attention(
     _checks.aligned_rows(name, q, k, v)
     qd, sd = _checks.kv_codes(name, q, k, v, k_scale, v_scale)
     b, kvh, g, d = q.shape
+    _checks.attention_domain(name, d, g)
     if k.ndim != 4 or k.shape[0] != b or k.shape[2:] != (kvh, d) or v.shape != k.shape:
         raise ValueError(f"{name}: cache shape {tuple(k.shape)} does not match q {tuple(q.shape)}")
     _checks.int32_vector(name, "cur_len", cur_len, b)

@@ -51,9 +51,10 @@ def _plan(op: str, shape: tuple[int, ...], dtype_name: str, gen: int,
     ``"cuda"``. ``gen`` is the tuner generation — swapping tuners (tests)
     invalidates every memoised plan without touching this cache directly.
     ``operands``: shapes a sweep's measure needs beyond the key's (conv2d:
-    w's); the cache key does not carry them, as in the JAX package."""
+    w's); the cache key does not carry them, as in the JAX package. A
+    cached config the kernel no longer has is a miss (``Autotuner.hit``)."""
     tuner = autotune.get_tuner()
-    hit = tuner.lookup(op, shape, dtype_name, BACKEND)
+    hit = tuner.hit(op, shape, dtype_name, BACKEND)
     if hit is not None:
         return dict(hit)
     # only build the measure closure (it allocates synthetic inputs of
@@ -112,7 +113,8 @@ def flash_attention(q, k, v, *, causal: bool = True, block_q: Optional[int] = No
                     block_k: Optional[int] = None):
     """q/k/v: [B, H, S, d] or [BH, S, d]; k/v may have another length than
     q (keys past it masked; causal is top-left aligned). ``block_q`` /
-    ``block_k`` pin the kernel's tile; the tuner's plan fills the gaps."""
+    ``block_k`` pin the kernel's tile (one of ``flash_attention.TILES`` of
+    q's dtype); the tuner's plan fills the gaps."""
     squeeze = q.ndim == 3
     if squeeze:
         q, k, v = q[None], k[None], v[None]
@@ -188,9 +190,10 @@ def dotp(x, y, *, block: Optional[int] = None):
 
 def fft(re, im, *, block_rows: Optional[int] = None):
     """Batched complex FFT over the last dim of planar (re, im) [..., N],
-    N a power of two (on the card 2 to 16,384), f32 math, in re's and im's
-    dtype. ``block_rows`` pins the kernel's rows per CUDA block; by default
-    the tuner's plan."""
+    N a power of two (on the card 2 to 2^30: up to 16,384 points a row in
+    one block, longer rows through the four-step kernels), f32 math, in re's
+    and im's dtype. ``block_rows`` pins the kernel's rows per CUDA block; by
+    default the tuner's plan."""
     if not _on_cuda(re):
         return ref.fft(re, im)
     re2, im2 = _rows(re), _rows(im)
@@ -201,7 +204,8 @@ def fft(re, im, *, block_rows: Optional[int] = None):
 
 
 def conv2d(x, w, *, block_h: Optional[int] = None):
-    """NHWC x HWIO VALID convolution, stride 1, f32 sums, in x's dtype.
+    """NHWC x HWIO VALID convolution, stride 1, f32 sums, in x's dtype (x
+    and w each f32 or bf16, both widened to f32).
     ``block_h`` pins the output rows of the kernel's pixel patch (0: its own
     choice); by default the tuner's plan, keyed on x's shape as in the JAX
     package (a sweep measures at w's shape too)."""
@@ -214,7 +218,8 @@ def conv2d(x, w, *, block_h: Optional[int] = None):
 
 def gqa_flash_attention(q, k, v, *, causal: bool = True):
     """GQA-native attention: q [B, H, S, d], k/v [B, KV, S, d], H % KV == 0.
-    K/V are never expanded to H heads. Returns [B, H, S, d]."""
+    K/V are never expanded to H heads; on the card a KV head's group is
+    packed into the kernel's query tile. Returns [B, H, S, d]."""
     b, h, sq, d = q.shape
     kvh = k.shape[1]
     if h % kvh:

@@ -338,3 +338,19 @@ def conv2d(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     caller keeps ``torch.backends.cudnn.allow_tf32`` off for full f32)."""
     out = F.conv2d(x.float().permute(0, 3, 1, 2), w.float().permute(3, 2, 0, 1))
     return out.permute(0, 2, 3, 1).to(x.dtype)
+
+
+def fft_transpose(re: torch.Tensor, im: torch.Tensor, tw_n: int, dtype: torch.dtype
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """[B, R, C] planar (re, im) to [B, C, R] in ``dtype``, each element
+    times W_N^(r c) = exp(-2 pi i (r c mod N) / N) first when ``tw_n`` = N
+    > 0 (the angle in float64, the product in f32): the transpose of
+    ``kernels/fft.py::four_step``."""
+    xr, xi = re.float(), im.float()
+    if tw_n:
+        r = torch.arange(re.shape[1], device=re.device, dtype=torch.int64)[:, None]
+        c = torch.arange(re.shape[2], device=re.device, dtype=torch.int64)[None, :]
+        ang = (r * c % tw_n).double() * (-2.0 * np.pi / tw_n)
+        wr, wi = torch.cos(ang).float(), torch.sin(ang).float()
+        xr, xi = xr * wr - xi * wi, xr * wi + xi * wr
+    return (xr.transpose(1, 2).contiguous().to(dtype), xi.transpose(1, 2).contiguous().to(dtype))

@@ -84,16 +84,51 @@ def test_cache_key_is_versioned_and_stable():
 
 def test_miss_without_sweep_returns_default_and_writes_nothing(tuner_path):
     t = Autotuner(tuner_path, sweep=False)
-    for op, default in autotune.DEFAULTS.items():
-        assert t.get(op, (64, 64, 64), torch.bfloat16, "cuda") == default
+    for op in autotune.MEASURES:
+        for dtype in (torch.bfloat16, torch.float32):
+            assert t.get(op, (64, 64, 64), dtype, "cuda") == autotune.default(op, dtype)
     assert not os.path.exists(tuner_path)
 
 
 def test_defaults_are_candidates():
-    """Each default is a configuration its kernel is instantiated for."""
+    """Each default is a configuration its kernel is instantiated for, at
+    every dtype (flash attention's differ by dtype)."""
     assert autotune.DEFAULTS.keys() == autotune.CANDIDATES.keys()
-    for op, default in autotune.DEFAULTS.items():
-        assert default in autotune.CANDIDATES[op], op
+    for op in autotune.MEASURES:
+        for dtype in (torch.bfloat16, torch.float32):
+            assert autotune.default(op, dtype) in autotune.candidates(op, dtype), (op, dtype)
+
+
+@pytest.mark.parametrize("op,shape,dtype,stale", [
+    # a tile of the CUDA-core body that the bf16 wgmma body does not have, as
+    # an earlier build's sweep stored it at the flat main shape
+    ("flash_attention", (32, 1024, 128), torch.bfloat16, {"block_q": 32, "block_k": 64}),
+    ("flash_attention", (6, 96, 16), torch.float32, {"block_q": 128, "block_k": 128}),
+    ("matmul", (64, 256, 512), torch.bfloat16, {"split_k": 3}),
+])
+def test_a_cached_config_the_kernel_lacks_is_a_miss(tmp_path, monkeypatch, op, shape, dtype,
+                                                     stale):
+    """A cached winner that is no longer a candidate never reaches the
+    kernel: without sweeping the default runs and the file is left as it
+    was; with sweeping it is swept again and overwritten."""
+    path = str(tmp_path / "stale.json")
+    Autotuner(path, sweep=False).store(op, shape, dtype, "cuda", stale)
+    t = Autotuner(path, sweep=False)
+    assert t.lookup(op, shape, dtype, "cuda") == stale
+    assert t.hit(op, shape, dtype, "cuda") is None
+    assert t.get(op, shape, dtype, "cuda") == autotune.default(op, dtype)
+    autotune.set_tuner(Autotuner(path, sweep=False))
+    try:
+        assert ops._blocks(op, shape, dtype) == autotune.default(op, dtype)
+        assert Autotuner(path, sweep=False).lookup(op, shape, dtype, "cuda") == stale
+        winner = autotune.candidates(op, dtype)[-1]
+        monkeypatch.setattr(autotune, "measure_for",
+                            lambda *a: lambda cfg: float(cfg != winner))
+        autotune.set_tuner(Autotuner(path, sweep=True))
+        assert ops._blocks(op, shape, dtype) == winner
+        assert Autotuner(path, sweep=False).lookup(op, shape, dtype, "cuda") == winner
+    finally:
+        autotune.set_tuner(None)
 
 
 def test_corrupt_cache_is_cold_not_fatal(tuner_path):
@@ -105,12 +140,12 @@ def test_corrupt_cache_is_cold_not_fatal(tuner_path):
 
 def test_sweep_picks_measured_winner_and_persists(tuner_path):
     t = Autotuner(tuner_path, sweep=True)
-    # the cost prefers the (32, 64) tile
+    # the cost prefers the (128, 64) tile, a bf16 tile other than the default
     cfg = t.get(
         "flash_attention", (32, 1024, 128), torch.bfloat16, "cuda",
-        measure=lambda c: abs(c["block_q"] - 32) + abs(c["block_k"] - 64),
+        measure=lambda c: abs(c["block_q"] - 128) + abs(c["block_k"] - 64),
     )
-    assert cfg == {"block_q": 32, "block_k": 64}
+    assert cfg == {"block_q": 128, "block_k": 64}
     t2 = Autotuner(tuner_path, sweep=False)
     assert t2.lookup("flash_attention", (32, 1024, 128), torch.bfloat16, "cuda") == cfg
 
@@ -183,7 +218,7 @@ def test_plan_sweeps_only_when_enabled(tmp_path, monkeypatch):
 
 def test_measure_functions_need_the_cuda_backend():
     assert autotune.measure_for("matmul_q8", (8, 8, 8), torch.float32, "cuda") is None
-    assert set(autotune.MEASURES) == set(autotune.CANDIDATES)
+    assert set(autotune.MEASURES) == set(autotune.CANDIDATES) | {"flash_attention"}
     with pytest.raises(ValueError, match="cuda"):
         autotune.measure_for("matmul", (8, 8, 8), torch.float32, "interpret")
 

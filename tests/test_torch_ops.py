@@ -300,12 +300,11 @@ def _err(got, want):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("tile", fk.TILES)
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype,tile", [(dt, t) for dt, tiles in fk.TILES.items() for t in tiles])
 @pytest.mark.parametrize("sq,sk,d,causal", [(96, 96, 16, True), (37, 37, 128, True),
                                             (50, 130, 64, False), (130, 50, 32, True),
                                             (64, 64, 128, False)])
-def test_cuda_flash_tiles_vs_plain(tile, dtype, sq, sk, d, causal):
+def test_cuda_flash_tiles_vs_plain(dtype, tile, sq, sk, d, causal):
     dev = _cuda()
     q = _randn(dev, 0, 6, sq, d, dtype=dtype)
     k, v = _randn(dev, 1, 6, sk, d, dtype=dtype), _randn(dev, 2, 6, sk, d, dtype=dtype)
@@ -373,6 +372,6 @@ def test_cuda_measure_times_every_candidate(op, shape):
     """Each op's measure function times every candidate on the card."""
     _cuda()
     measure = autotune.measure_for(op, shape, torch.float32, "cuda")
-    for cfg in autotune.CANDIDATES[op]:
+    for cfg in autotune.candidates(op, torch.float32):
         t = measure(cfg)
         assert 0 < t < 1, (cfg, t)

@@ -357,14 +357,14 @@ def test_cuda_conv2d_vs_plain(block_h, dtype, b, h, w, c, o, kh, kw):
 def test_cuda_refusals():
     dev = _cuda()
     x = _randn(dev, 8, 2, 32768)
-    with pytest.raises(ValueError, match="16384"):
-        ffk.fft(x, x)
+    with pytest.raises(ValueError, match="16384"):  # a 32,768-point row fits no block
+        ffk.fft(x, x, block_rows=1)
     with pytest.raises(ValueError, match="power of two"):
         ffk.fft(x[:, :48].contiguous(), x[:, :48].contiguous())
     with pytest.raises(ValueError, match="block_rows"):
         ffk.fft(x[:, :4096].contiguous(), x[:, :4096].contiguous(), block_rows=8)
-    with pytest.raises(TypeError):
-        cvk.conv2d(_randn(dev, 9, 1, 8, 8, 4), _randn(dev, 9, 3, 3, 4, 4, dtype=torch.bfloat16))
+    with pytest.raises(TypeError):  # x and w may differ among f32 and bf16, not int8
+        cvk.conv2d(_randn(dev, 9, 1, 8, 8, 4), _randn(dev, 9, 3, 3, 4, 4).to(torch.int8))
     with pytest.raises(TypeError):
         axk.axpy(1.0, x, x.to(torch.bfloat16))
     with pytest.raises(ValueError, match="block_h"):
