@@ -7,12 +7,14 @@ Phases (each raises on failure, so the script exits non-zero):
 
 0. device — fail without CUDA; print the card's name and power limit.
 1. build — compile the hand-written CUDA kernels from ``csrc/`` (eleven
-   sources, seventeen kernel bodies: decode, ragged and paged attention over
-   a plain or a quantized store, flash attention (GQA, and flat as a group
-   of one; bf16 on wgmma, f32 on CUDA cores), the matmul and int8-weight
-   matmul, RMSNorm, row softmax, axpy, the partial dot products, the
-   Stockham FFT and its four-step transposes, and the implicit-GEMM
-   conv2d); print the build's seconds.
+   sources over the shared Hopper header ``gemm_wgmma.cuh``, eighteen kernel
+   bodies: decode, ragged and paged attention over a plain or a quantized
+   store, flash attention (GQA, and flat as a group of one; bf16 on wgmma,
+   f32 on CUDA cores), the matmul and int8-weight matmul (the bf16 tile on
+   the header's wgmma + TMA mainloop), RMSNorm, row softmax, axpy, the
+   partial dot products, the Stockham FFT and its four-step transposes, and
+   the implicit-GEMM conv2d on the same mainloop); print the build's
+   seconds.
 2. kernels — each kernel body against its plain PyTorch version on the card,
    at the serving path's shapes (codeqwen1.5-7b: KV=32, G=1, d=128, 4 slots
    x 1024 positions; a 64-token ragged pack; 64- and 37-token prefill; an
@@ -21,7 +23,8 @@ Phases (each raises on failure, so the script exits non-zero):
    f32 and bf16 queries, int8, fp8 and scaled f32 stores (bf16 queries over
    a scaled f32 store: the identity KV lane of a bf16 model); the matmuls at
    M = 4-256 live tokens over codeqwen's (K, N) and a shape with K and N
-   tails, f32 and bf16 activations; decode, ragged and paged attention at
+   tails, f32 and bf16 activations, each printed with the body it took;
+   decode, ragged and paged attention at
    the new (head_dim, group) pairs (16, 1), (16, 4), (80, 2), (128, 5) and
    (128, 12) over bf16 and scaled int8 stores; GQA flash at every bf16 tile
    and head width. Times each kernel, its plain version and
@@ -57,15 +60,17 @@ Phases (each raises on failure, so the script exits non-zero):
    its dtype: the wgmma body's for bf16, SDPA timed beside each, the
    CUDA-core body's for f32; d = 80 too), RMSNorm and
    softmax at every rows-per-block candidate and the matmul at every
-   forced K split, against their plain versions at the main shapes
+   wgmma tile x K split, against their plain versions at the main shapes
    (codeqwen1.5-7b, bf16: flash BH=32, S=1024, d=128, causal and not;
    RMSNorm 2048 x 4096; softmax 64 x 92,416 and 4096 x 1024 f32; matmul
    M = 4 and 256 over K=4096, N=13440) and ragged tails (S=96, R=37); a
    ``REPRO_AUTOTUNE=1`` sweep of ``ops.matmul`` and ``ops.flash_attention``
    into a JSON cache under build/ that a fresh tuner re-reads without
    measuring, tuned outputs against the default plan's; the four ops driven
-   once through ``ops`` between the counts' reset and read; each new kernel
-   timed beside its bound, plain version and library call.
+   once through ``ops`` between the counts' reset and read (the M = 256
+   matmul must launch the wgmma body); each new kernel timed beside its
+   bound, plain version and library call, the M = 256 matmul as a row of
+   its own (``matmul_tile``).
 8. the paper's kernel suite — axpy, dotp, the Stockham FFT and conv2d at
    every block / rows / patch candidate against their plain versions at the
    main shapes (axpy and dotp over 2^28-element vectors, axpy also bf16
@@ -81,9 +86,10 @@ Phases (each raises on failure, so the script exits non-zero):
    phase 7's cache, re-read by a fresh tuner; the four ops (and the FFT over
    [1024, 32768] rows, whose five launches count as ``fft_long``) driven
    once through ``ops``
-   between the counts' reset and read, each output held
-   against its plain version; each op timed beside its bound, plain version
-   and library call.
+   between the counts' reset and read (conv2d must launch its wgmma body),
+   each output held against its plain version; each op timed beside its
+   bound, plain version and library call, conv2d on the wgmma body beside
+   cuDNN.
 9. a ``{"kernels": [...], "to_port": []}`` JSON line (every row of PERF.md's
    kernel table), then the result line.
 
@@ -674,7 +680,9 @@ def check_matmul_kernels(dev):
                             extra = f" (dequant + torch.matmul, two calls: {two:.4f} ms)"
                     lib = (f"{timed['library_ms']:.4f}" if timed["library_ms"] is not None
                            else "none")
-                    print(f"  {name:10s} M={m:<4d} K={k:<6d} N={n:<6d} {dname:8s} "
+                    body = mmk.route(m, k, n, a.dtype, torch.int8 if name == "matmul_q8"
+                                     else b.dtype)
+                    print(f"  {name:10s} M={m:<4d} K={k:<6d} N={n:<6d} {dname:8s} {body:8s} "
                           f"rel_err={err / want_max:.2e} "
                           f"tol={MATMUL_REL_TOL[dname]:g} ms={timed['ms']:.4f} "
                           f"plain={timed['plain_ms']:.4f} bound={timed['bound_ms']:.4f} "
@@ -1287,14 +1295,16 @@ def kernel_api(dev, counters):
         a, b = randn(m, k), randn(k, n)
         want = ref.matmul(a, b)
         tol = MATMUL_REL_TOL["bfloat16"] * want.float().abs().max().item()
-        for split in mmk.SPLIT_K:
-            run = lambda: mmk.matmul(a, b, split_k=split)  # noqa: E731
-            case = f"M={m} K={k} N={n} bfloat16 split_k={split}"
+        body = mmk.route(m, k, n, bf16, bf16)
+        for cfg in autotune.candidates("matmul", bf16):
+            run = lambda: mmk.matmul(a, b, **cfg)  # noqa: E731
+            case = (f"M={m} K={k} N={n} bfloat16 {body} tile={cfg['block_m']}x{cfg['block_n']} "
+                    f"split_k={cfg['split_k']}")
             err = (run().float() - want.float()).abs().max().item()
             if not err <= tol:
                 raise AssertionError(f"matmul {case}: max_abs_err {err} above {tol}")
             ms = time_ms(run)
-            cand_ms[("matmul", m, k, n, split)] = ms
+            cand_ms[("matmul", m, k, n, tuple(cfg.values()))] = ms
             print(f"  matmul            {case:60s} err={err:.2e} ms={ms:.4f}", flush=True)
 
     for name, (rule, used) in worst.items():
@@ -1362,7 +1372,7 @@ def kernel_api(dev, counters):
                        tol_of(name, dtype))
             print(f"  ops.{name} {tuple(x_.shape)} tuned plan vs default: max_abs_err {err:.2e}")
         for a, b in mm_in:
-            want = ops.matmul(a, b, split_k=0)
+            want = ops.matmul(a, b, **autotune.default("matmul", bf16))
             tol = MATMUL_REL_TOL["bfloat16"] * want.float().abs().max().item()
             err = (ops.matmul(a, b).float() - want.float()).abs().max().item()
             if not err <= tol:
@@ -1447,12 +1457,30 @@ def kernel_api(dev, counters):
           f"bound={bound(nbytes(x_sc, x_sc), 4 * x_sc.numel(), f32)[0]:.5f} "
           f"torch.softmax={time_ms(lambda: torch.softmax(x_sc, -1)):.4f}")
     for (m, k_, n), (a, b) in zip(MATMUL_API, mm_in):
-        split = plans[("matmul", (m, k_, n))]["split_k"]
-        print(f"  matmul M={m} K={k_} N={n} bf16: tuned split_k={split} "
-              f"{cand_ms[('matmul', m, k_, n, split)]:.4f} ms, default split_k=0 "
-              f"{cand_ms[('matmul', m, k_, n, 0)]:.4f} ms, bound "
+        plan = plans[("matmul", (m, k_, n))]
+        print(f"  matmul M={m} K={k_} N={n} bf16 ({mmk.route(m, k_, n, bf16, bf16)}): tuned "
+              f"{plan} {cand_ms[('matmul', m, k_, n, tuple(plan.values()))]:.4f} ms, default "
+              f"{cand_ms[('matmul', m, k_, n, (0, 0, 0))]:.4f} ms, bound "
               f"{bound(nbytes(a, b) + m * n * 2, 2 * m * k_ * n, bf16)[0]:.5f}, torch.matmul "
               f"{time_ms(lambda: torch.matmul(a, b)):.4f}")
+    # the M = 256 matmul on the wgmma tile: a row of its own
+    (m, k_, n), (a, b) = MATMUL_API[1], mm_in[1]
+    plan = plans[("matmul", (m, k_, n))]
+    want = ref.matmul(a, b)
+    tol = MATMUL_REL_TOL["bfloat16"] * want.float().abs().max().item()
+    results["matmul_tile"] = dict(
+        ms=time_ms(lambda: mmk.matmul(a, b, **plan)), plain_ms=time_ms(lambda: ref.matmul(a, b)),
+        library_ms=time_ms(lambda: torch.matmul(a, b)), library="torch.matmul", config=plan,
+        max_abs_err=(outs[-1].float() - want.float()).abs().max().item(), tol=tol)
+    if not results["matmul_tile"]["max_abs_err"] <= tol:
+        raise AssertionError(f"matmul M={m} through ops: max_abs_err "
+                             f"{results['matmul_tile']['max_abs_err']} above {tol}")
+    results["matmul_tile"]["bound_ms"], results["matmul_tile"]["bound_by"] = bound(
+        nbytes(a, b) + m * n * 2, 2 * m * k_ * n, bf16)
+    t = results["matmul_tile"]
+    print(f"  matmul_tile       M={m} K={k_} N={n}, plan {plan}: ms={t['ms']:.4f} "
+          f"bound={t['bound_ms']:.5f} ({t['bound_by']}) plain={t['plain_ms']:.4f} "
+          f"library={t['library_ms']:.4f} (torch.matmul)", flush=True)
     torch.cuda.synchronize()
     return results, launches
 
@@ -1861,7 +1889,8 @@ def main() -> int:
 
     phase("7 kernel API and autotuner")
     counters7 = {"flash_attention": (fk, "launches_flat"), "rmsnorm": (rnk, "launches"),
-                 "softmax": (smk, "launches"), "matmul": (mmk, "launches")}
+                 "softmax": (smk, "launches"), "matmul": (mmk, "launches"),
+                 "matmul_tile": (mmk, "launches_wgmma")}
     timed7, launches7 = kernel_api(dev, counters7)
     timed.update(timed7)
     launches.update(launches7)
@@ -1871,7 +1900,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     counters8 = {"axpy": (axk, "launches"), "dotp": (dpk, "launches"),
                  "fft": (ffk, "launches"), "fft_long": (ffk, "launches_long"),
-                 "conv2d": (cvk, "launches")}
+                 "conv2d": (cvk, "launches"), "conv2d_wgmma": (cvk, "launches_wgmma")}
     timed8, launches8 = kernel_suite(dev, counters8)
     timed.update(timed8)
     launches.update(launches8)
@@ -1890,6 +1919,7 @@ def main() -> int:
                                 "src/repro/kernels/ragged_attention.py:253"),
         "matmul_q8": ("matmul.cu", "src/repro/kernels/matmul.py:100"),
         "matmul": ("matmul.cu", "src/repro/kernels/matmul.py:138"),
+        "matmul_tile": ("matmul.cu", "src/repro/kernels/matmul.py:138"),
         "flash_attention": ("flash_attention.cu", "src/repro/kernels/flash_attention.py:126"),
         "rmsnorm": ("rmsnorm.cu", "src/repro/kernels/rmsnorm.py:34"),
         "softmax": ("softmax.cu", "src/repro/kernels/softmax.py:29"),
@@ -1902,7 +1932,8 @@ def main() -> int:
     # PERF.md's row of each kernel
     rows = {"decode_attention": 1, "ragged_attention": 2, "gqa_flash_attention": 3,
             "decode_attention_q8": 4, "ragged_attention_q8": 5, "paged_attention": 6,
-            "paged_attention_q8": 6, "flash_attention": 7, "matmul": 8, "matmul_q8": 9,
+            "paged_attention_q8": 6, "flash_attention": 7, "matmul": 8, "matmul_tile": 8,
+            "matmul_q8": 9,
             "rmsnorm": 10, "softmax": 11, "axpy": 12, "dotp": 13, "fft": 14, "fft_long": 14,
             "conv2d": 15}
     kernels = []
@@ -1921,10 +1952,12 @@ def main() -> int:
             kernels[-1]["library"] = t["library"]
         if name in counters7:  # no serving path calls the kernel API's ops
             kernels[-1]["launched_in"] = "phase 7: the kernel API at its main shapes"
-            kernels[-1]["config"] = t.get("config", {"split_k": 0})
+            kernels[-1]["config"] = t.get("config", {"block_m": 0, "block_n": 0, "split_k": 0})
         if name in counters8:
             kernels[-1]["launched_in"] = "phase 8: the kernel suite at its main shapes"
             kernels[-1]["config"] = t["config"]
+        if name == "conv2d":  # of its launches, those of the wgmma body
+            kernels[-1]["launches_wgmma"] = launches["conv2d_wgmma"]
     print(json.dumps({"kernels": kernels, "to_port": []}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

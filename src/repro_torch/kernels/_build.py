@@ -42,9 +42,10 @@ SIGNATURES = {
     "repro_paged_attention": [_P] * 9 + [_I] * 10 + [_P],
     # q, k, v, out, BKV, G, Sq, Sk, D, causal, block_q, block_k, dtype, stream
     "repro_flash_attention": [_P] * 4 + [_I] * 9 + [_P],
-    # a, b, scale, workspace, counters, out, M, K, N, adtype, bdtype, split_k, stream
-    "repro_matmul": [_P] * 6 + [_I] * 6 + [_P],
-    # M, K, N, adtype, bdtype, split_k -> f32 elements of workspace repro_matmul needs
+    # a, b, scale, workspace, counters, out, M, K, N, adtype, bdtype, route, split_k,
+    # block_m, block_n, stream
+    "repro_matmul": [_P] * 6 + [_I] * 9 + [_P],
+    # M, K, N, route, split_k, block_n -> f32 elements of workspace repro_matmul needs
     "repro_matmul_workspace": [_I] * 6,
     # x, w, out, R, C, eps, rows, xdtype, wdtype, stream
     "repro_rmsnorm": [_P] * 3 + [_I] * 2 + [ctypes.c_float] + [_I] * 3 + [_P],
@@ -58,8 +59,8 @@ SIGNATURES = {
     "repro_fft": [_P] * 6 + [_I] * 4 + [_P],
     # re, im, out_re, out_im, B, R, C, tw_n, in_dtype, out_dtype, stream
     "repro_fft_transpose": [_P] * 4 + [_I] * 3 + [ctypes.c_longlong] + [_I] * 2 + [_P],
-    # x, w, out, B, H, W, C, KH, KW, O, block_h, xdtype, wdtype, stream
-    "repro_conv2d": [_P] * 3 + [_I] * 10 + [_P],
+    # x, w, out, B, H, W, C, KH, KW, O, block_h, xdtype, wdtype, route, stream
+    "repro_conv2d": [_P] * 3 + [_I] * 11 + [_P],
 }
 RESTYPES = {"repro_matmul_workspace": ctypes.c_longlong}  # every other entry: int
 
@@ -157,7 +158,7 @@ def check(rc: int, name: str) -> None:
         return
     if rc == -1:
         raise ValueError(f"{name}: no kernel instantiated for this head_dim, group size, "
-                         "tile, rows per block, block or shape")
+                         "tile, rows per block, block, route or shape")
     if rc == -2:
         raise TypeError(f"{name}: unsupported combination of operand dtypes and scales")
     if rc == -3:

@@ -21,8 +21,11 @@ same string for the same op, shape, dtype, backend and ``kv_dtype``, so
 either package reads the other's file. The port's kernels key on backend
 ``"cuda"``; their knobs differ from the Pallas block sizes:
 
-* ``matmul``: ``split_k`` — 0 lets the kernel split K to fill the card's
-  waves (the plan it ran before the tuner existed), 1, 2, 4, 8 force it;
+* ``matmul``: ``split_k`` — 0 lets the kernel split K as its roofline
+  estimate prefers, 1, 2, 4, 8 force it — and the wgmma tile ``block_m`` x
+  ``block_n``, the JAX tuner's names — 0 x 0 lets the kernel choose, 128 x
+  128 or 128 x 256 force it (the bodies for M <= 8, f32 and shapes outside
+  the wgmma tile's domain ignore it);
 * ``flash_attention``: ``block_q`` x ``block_k``, the instantiated tiles of
   the call's dtype (bf16's wgmma tiles, f32's CUDA-core tiles;
   :func:`candidates`), by default the serving path's tile of that dtype
@@ -35,8 +38,8 @@ either package reads the other's file. The port's kernels key on backend
 * ``fft``: ``block_rows``, whole rows per CUDA block (0: the kernel's
   choice; rows * N may not pass 16,384, so a longer row, which runs the
   four-step kernels, takes only 0);
-* ``conv2d``: ``block_h``, output rows of a block's 64-pixel patch (0: the
-  kernel's choice). Its key is x's shape, as in the JAX package; the
+* ``conv2d``: ``block_h``, output rows of a block's pixel patch (128
+  pixels on the wgmma body, 64 on the FMA tile; 0: the kernel's choice). Its key is x's shape, as in the JAX package; the
   measure also takes w's shape.
 
 Cache location: ``$REPRO_AUTOTUNE_CACHE`` if set, else
@@ -71,11 +74,10 @@ _SCHEMA_VERSION = 1
 
 Config = dict[str, int]
 
-# Defaults: what each kernel ran before the tuner existed (the matmul's own
-# split); the other kernels' own choice. Flash attention's default and
+# Defaults: each kernel's own choice (the matmul's K splits and tile). Flash attention's default and
 # candidates depend on the dtype: :func:`default` and :func:`candidates`.
 DEFAULTS: dict[str, Config] = {
-    "matmul": {"split_k": 0},
+    "matmul": {"block_m": 0, "block_n": 0, "split_k": 0},
     "softmax": {"block_rows": 0},
     "rmsnorm": {"block_rows": 0},
     "axpy": {"block": 0},
@@ -86,7 +88,8 @@ DEFAULTS: dict[str, Config] = {
 
 # Every configuration each dtype-free op's kernel is instantiated for.
 CANDIDATES: dict[str, list[Config]] = {
-    "matmul": [{"split_k": s} for s in _matmul_k.SPLIT_K],
+    "matmul": [{"block_m": m, "block_n": n, "split_k": s}
+               for m, n in ((0, 0),) + _matmul_k.TILES for s in _matmul_k.SPLIT_K],
     "softmax": [{"block_rows": r} for r in _softmax_k.BLOCK_ROWS],
     "rmsnorm": [{"block_rows": r} for r in _rmsnorm_k.BLOCK_ROWS],
     "axpy": [{"block": b} for b in _axpy_k.BLOCK],
@@ -310,7 +313,7 @@ def _inputs(backend: str, dtype, *shapes):
 def measure_matmul(shape, dtype, backend) -> Callable[[Config], float]:
     m, k, n = shape
     a, b = _inputs(backend, dtype, (m, k), (k, n))
-    return lambda cfg: _time_best(lambda: _matmul_k.matmul(a, b, split_k=cfg["split_k"]))
+    return lambda cfg: _time_best(lambda: _matmul_k.matmul(a, b, **cfg))
 
 
 def measure_flash_attention(shape, dtype, backend) -> Callable[[Config], float]:

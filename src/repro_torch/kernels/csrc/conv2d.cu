@@ -16,29 +16,39 @@
 // What bounds it on the H100: the operations, 2 M N K (1.23 TFLOP at B = 4,
 // H = W = 512, C = O = 256, 3 x 3 taps: 1.24 ms at 989 TFLOP/s bf16).
 //
-// Simple design, matmul.cu's two tiles with the A loader replaced by the
-// pixel gather. A block computes 64 output pixels x 64 output channels; its
-// 64 pixels are a patch of block_h output rows x 64 / block_h columns of one
-// image (the autotuner's knob, as the TPU kernel's block_h is its tile's
-// output rows: 1, 2, 4 or 8, or 0 for the kernel's choice, the patch that
-// pads the output plane least, squarer on ties), the H and W tails masked.
-// The pixel tile is the slow index of the 1-D grid, so a tile's O tiles run
-// side by side and read its input rows from L2.
-// - bf16 with C % 8 == 0 and O % 8 == 0: four warps of 32 x 32 outputs on
-//   mma.sync m16n8k16 (bf16 in, f32 accumulate), A and B tiles of 32-deep K
-//   steps streamed through a 4-stage cp.async ring (16-byte chunks of 8
-//   channels never straddle a tap; chunks past an edge are zero-filled).
-// - f32, bf16 with other C or O, or x and w of different types: a
-//   CUDA-core FMA tile (256 threads of 4 x 4 outputs over 16-deep K steps),
-//   templated on x's and w's types, element-wise gathers widened to f32 and
-//   the output written in x's type.
-// wgmma, TMA and reuse of the halo in shared memory are later work.
+// Two bodies; the wrapper (kernels/conv2d.py::route) picks one from the
+// dtypes, C and O alone and passes it in. A block computes a patch of
+// output pixels x a range of output channels; the patch is block_h output
+// rows x P / block_h columns of one image (P = 128 pixels on wgmma, 64 on
+// the FMA tile; block_h is the autotuner's knob, as the TPU kernel's
+// block_h is its tile's output rows: 1, 2, 4 or 8, or 0 for the kernel's
+// choice, the patch that pads the output plane least, squarer on ties), the
+// H and W tails masked at the store.
+// - wgmma (bf16 x and w, C % 8 == 0 and O % 8 == 0): gemm_wgmma.cuh's
+//   mainloop with the K steps walked as (tap, 64-channel chunk). The A tile
+//   of one step is ONE TMA box of x, whose 4-D map runs over (C, W, H, B):
+//   box {64, P / block_h, block_h, 1} at (c0, wo + q, ho + p, b) for tap (p,
+//   q) lands as 128 pixel rows x 128 bytes, exactly a K-major 128-byte-
+//   swizzled A tile. TMA zero-fills channels past C and columns or rows past
+//   the image (pixels past Ho or Wo read real or zero data and are masked at
+//   the store): no im2col copy and no per-thread gather. B is w viewed as
+//   [KH * KW, C, O] in a 3-D MN-major map, boxes of 64 channels x 64 output
+//   columns of one tap, zero past C, so a C that is not a multiple of 64
+//   needs no special case. The tile is 128 x 256 where O >= 256, so each
+//   pixel patch is gathered once for all of O (128 x 128 below). The pixel
+//   patch is the grid's fast index.
+// - fma (f32, mixed x/w dtypes, or C or O not a multiple of 8): a CUDA-core
+//   FMA tile (256 threads of 4 x 4 outputs over 16-deep K steps), templated
+//   on x's and w's types, element-wise gathers widened to f32 and the output
+//   written in x's type.
+// Reuse of the halo between taps inside shared memory and persistent blocks
+// are later work.
 
 #include <algorithm>
 #include <climits>
 
 #include "attention_common.cuh"
-#include "mma_common.cuh"
+#include "gemm_wgmma.cuh"
 
 namespace {
 
@@ -72,112 +82,90 @@ __device__ __forceinline__ int64_t tap_offset(const Geom& g, int k) {
   return (static_cast<int64_t>(p) * g.W + q) * g.C + c;
 }
 
-// ------------------------------------------------ bf16 tensor-core tile
+// ---------------------------------------------------- bf16: the wgmma tile
 
-constexpr int kMmaBK = 32;
-constexpr int kMmaThreads = 128;
-constexpr int kPad = 8;     // bf16 elements of row padding (conflict-free fragment reads)
-constexpr int kStages = 4;  // cp.async ring depth
+using repro::kGemmBK;
+using repro::kGemmBM;
 
-__global__ void __launch_bounds__(kMmaThreads)
-conv_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w, bf16* __restrict__ out,
-                Geom g) {
-  __shared__ __align__(16) uint16_t sa[kStages][kBM][kMmaBK + kPad];  // [pixel][k]
-  __shared__ __align__(16) uint16_t sb[kStages][kMmaBK][kBN + kPad];  // [k][channel]
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int gq = lane >> 2, t4 = lane & 3;
-  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
-  const int tile = blockIdx.x / g.o_tiles;
-  const int n0 = (blockIdx.x - tile * g.o_tiles) * kBN;
-  const int ksteps = (g.K + kMmaBK - 1) / kMmaBK;
+// gemm_wgmma.cuh's policy for the implicit GEMM: block (x, y) computes the
+// 128 pixels of pixel patch x (b, th, tx) for output channels [BN y, BN y +
+// BN), over every (tap, 64-channel chunk) K step.
+struct ConvTiles {
+  CUtensorMap x;  // x [B, H, W, C] as (C, W, H, B): boxes of 64 channels x tw x bh x 1
+  CUtensorMap w;  // w [KH * KW, C, O] as (O, C, tap): boxes of 64 columns x 64 channels x 1
+  int N;          // O
+  int Ho, Wo, KW, bh, tw, tiles_w, tiles_hw, chunks, ksteps;
 
-  // this thread's A chunks: pixels tid / 4 and tid / 4 + 32, channels kc .. kc + 7 of a K step
-  const int kc = (tid & 3) * 8;
-  int64_t a_off[2], unused;
-  bool a_ok[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) a_ok[h] = pixel(g, tile, tid / 4 + 32 * h, a_off[h], unused);
-
-  auto load_stage = [&](int stage, int k0) {
-    const int k = k0 + kc;
-    const int64_t t = k < g.K ? tap_offset(g, k) : 0;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const bool ok = a_ok[h] && k < g.K;
-      repro::cp_async16(&sa[stage][tid / 4 + 32 * h][kc], ok ? x + a_off[h] + t : x, ok);
-    }
-#pragma unroll
-    for (int i = tid; i < kMmaBK * kBN / 8; i += kMmaThreads) {
-      const int r = i / (kBN / 8), nc = (i % (kBN / 8)) * 8;
-      const bool ok = k0 + r < g.K && n0 + nc < g.O;
-      repro::cp_async16(&sb[stage][r][nc],
-                        ok ? w + static_cast<int64_t>(k0 + r) * g.O + n0 + nc : w, ok);
-    }
-  };
-
-  float acc[2][4][4];
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
-
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < ksteps) load_stage(s, s * kMmaBK);
-    repro::cp_async_commit();
+  __device__ __forceinline__ int k_steps() const { return ksteps; }
+  // the patch's image and its first output row and column
+  __device__ __forceinline__ void patch(int& b, int& ho, int& wo) const {
+    const int tile = blockIdx.x;
+    b = tile / tiles_hw;
+    const int rem = tile - b * tiles_hw;
+    const int th = rem / tiles_w;
+    ho = th * bh;
+    wo = (rem - th * tiles_w) * tw;
   }
-  for (int ks = 0; ks < ksteps; ++ks) {
-    repro::cp_async_wait<kStages - 2>();  // step ks has landed (this thread's copies)
-    __syncthreads();                      // ... and everyone's; step ks - 1's stage is free
-    const int next = ks + kStages - 1;
-    if (next < ksteps) load_stage(next % kStages, next * kMmaBK);
-    repro::cp_async_commit();
-    const int st = ks % kStages;
+  template <int BN>
+  __device__ __forceinline__ void load(int i, uint8_t* sa, uint8_t* sb, uint64_t* bar,
+                                       int n0) const {
+    int b, ho, wo;
+    patch(b, ho, wo);
+    const int tap = i / chunks, c0 = (i - tap * chunks) * kGemmBK;
+    const int p = tap / KW, q = tap - p * KW;
+    repro::tma_load(sa, &x, bar, c0, wo + q, ho + p, b);
 #pragma unroll
-    for (int kk = 0; kk < kMmaBK; kk += 16) {
-      uint32_t af[2][4], bfr[4][2];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {  // rows gq / gq + 8, columns 2 t4 (+ 8)
-        const int r = wm + mt * 16 + gq;
-        af[mt][0] = *reinterpret_cast<const uint32_t*>(&sa[st][r][kk + t4 * 2]);
-        af[mt][1] = *reinterpret_cast<const uint32_t*>(&sa[st][r + 8][kk + t4 * 2]);
-        af[mt][2] = *reinterpret_cast<const uint32_t*>(&sa[st][r][kk + t4 * 2 + 8]);
-        af[mt][3] = *reinterpret_cast<const uint32_t*>(&sa[st][r + 8][kk + t4 * 2 + 8]);
-      }
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {  // rows k and k + 1 (and + 8) of channel col
-        const int col = wn + nt * 8 + gq, k = kk + t4 * 2;
-        bfr[nt][0] = static_cast<uint32_t>(sb[st][k][col]) |
-                     (static_cast<uint32_t>(sb[st][k + 1][col]) << 16);
-        bfr[nt][1] = static_cast<uint32_t>(sb[st][k + 8][col]) |
-                     (static_cast<uint32_t>(sb[st][k + 9][col]) << 16);
-      }
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) repro::mma_16816(acc[mt][nt], af[mt], bfr[nt]);
-    }
+    for (int j = 0; j < BN / 64; ++j)
+      repro::tma_load(sb + j * 64 * 128, &w, bar, n0 + 64 * j, c0, tap);
   }
-  repro::cp_async_wait<0>();
+  // tile row r is pixel (ho + r / tw, wo + r % tw) of the patch
+  __device__ __forceinline__ int64_t out_row(int r) const {
+    int b, ho, wo;
+    patch(b, ho, wo);
+    ho += r / tw;
+    wo += r % tw;
+    if (ho >= Ho || wo >= Wo) return -1;
+    return ((static_cast<int64_t>(b) * Ho + ho) * Wo + wo) * N;
+  }
+  __device__ __forceinline__ int64_t plane() const { return 0; }  // never split
+};
 
-  // accumulator (mt, nt): [0..1] at row gq, [2..3] at row gq + 8, channels 2 t4 + {0, 1}
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      int64_t in_unused, o_off;
-      if (!pixel(g, tile, wm + mt * 16 + gq + 8 * h, in_unused, o_off)) continue;
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int col = n0 + wn + nt * 8 + t4 * 2;
-        if (col >= g.O) continue;  // O % 8 == 0: col + 1 is inside too
-        *reinterpret_cast<__nv_bfloat162*>(out + o_off + col) =
-            __floats2bfloat162_rn(acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
-      }
-    }
-  }
+template <int BN>
+int launch_wgmma_bn(const bf16* x, const bf16* w, bf16* out, int B, int H, int W, int C, int KH,
+                    int KW, int O, int bh, cudaStream_t st) {
+  ConvTiles t;
+  const cuuint64_t x_dims[4] = {static_cast<cuuint64_t>(C), static_cast<cuuint64_t>(W),
+                                static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(B)};
+  const cuuint64_t x_strides[3] = {static_cast<cuuint64_t>(C) * 2,
+                                   static_cast<cuuint64_t>(W) * C * 2,
+                                   static_cast<cuuint64_t>(H) * W * C * 2};
+  const cuuint32_t x_box[4] = {kGemmBK, static_cast<cuuint32_t>(kGemmBM / bh),
+                               static_cast<cuuint32_t>(bh), 1};
+  const cuuint64_t w_dims[3] = {static_cast<cuuint64_t>(O), static_cast<cuuint64_t>(C),
+                                static_cast<cuuint64_t>(KH) * KW};
+  const cuuint64_t w_strides[2] = {static_cast<cuuint64_t>(O) * 2,
+                                   static_cast<cuuint64_t>(C) * O * 2};
+  const cuuint32_t w_box[3] = {64, kGemmBK, 1};
+  if (!repro::encode_map(&t.x, x, 4, x_dims, x_strides, x_box) ||
+      !repro::encode_map(&t.w, w, 3, w_dims, w_strides, w_box))
+    return static_cast<int>(cudaErrorInvalidValue);
+  t.N = O;
+  t.Ho = H - KH + 1;
+  t.Wo = W - KW + 1;
+  t.KW = KW;
+  t.bh = bh;
+  t.tw = kGemmBM / bh;
+  t.tiles_w = (t.Wo + t.tw - 1) / t.tw;
+  const int64_t tiles_hw = static_cast<int64_t>((t.Ho + bh - 1) / bh) * t.tiles_w;
+  const int64_t tiles = B * tiles_hw;
+  t.chunks = (C + kGemmBK - 1) / kGemmBK;
+  const int64_t ksteps = static_cast<int64_t>(KH) * KW * t.chunks;
+  if (tiles > INT_MAX || ksteps > INT_MAX) return -1;
+  t.tiles_hw = static_cast<int>(tiles_hw);
+  t.ksteps = static_cast<int>(ksteps);
+  const dim3 grid(static_cast<unsigned>(tiles), (O + BN - 1) / BN);
+  if (grid.y > 65535) return -1;
+  return repro::launch_gemm_wgmma<BN>(t, grid, out, nullptr, st);
 }
 
 // ------------------------------------------------ CUDA-core FMA tile
@@ -239,14 +227,14 @@ conv_fma_kernel(const TX* __restrict__ x, const TW* __restrict__ w, TX* __restri
   }
 }
 
-// block_h 0: of the patches 8 x 8, 4 x 16, 2 x 32 and 1 x 64, the one whose
-// tiles pad the output plane least, the squarer on ties (its input rows
-// overlap most between taps).
-int pick_block_h(int Ho, int Wo) {
+// block_h 0: of the patches of `pixels` (64 or 128) as 8, 4, 2 or 1 rows,
+// the one whose tiles pad the output plane least, the squarer on ties (its
+// input rows overlap most between taps).
+int pick_block_h(int Ho, int Wo, int pixels) {
   int best = 8;
   int64_t least = INT64_MAX;
   for (int bh = 8; bh >= 1; bh /= 2) {
-    const int tw = kBM / bh;
+    const int tw = pixels / bh;
     const int64_t padded =
         static_cast<int64_t>((Ho + bh - 1) / bh * bh) * ((Wo + tw - 1) / tw * tw);
     if (padded < least) {
@@ -257,18 +245,35 @@ int pick_block_h(int Ho, int Wo) {
   return best;
 }
 
+// The bodies, as kernels/conv2d.py::route names them.
+enum Route { kWgmma = 0, kFma = 1 };
+
 template <typename TX, typename TW>
-int launch(const void* x, const void* w, void* out, int B, int H, int W, int C, int KH, int KW,
-           int O, int block_h, cudaStream_t st) {
+int launch(int route, const void* x, const void* w, void* out, int B, int H, int W, int C, int KH,
+           int KW, int O, int block_h, cudaStream_t st) {
+  const int Ho = H - KH + 1, Wo = W - KW + 1;
+  const int64_t K = static_cast<int64_t>(KH) * KW * C;
+  if (Ho < 1 || Wo < 1 || C < 1 || O < 1 || K > INT_MAX) return -1;
+  if (block_h != 0 && block_h != 1 && block_h != 2 && block_h != 4 && block_h != 8) return -1;
+  if (route == kWgmma) {
+    if constexpr (std::is_same_v<TX, bf16> && std::is_same_v<TW, bf16>) {
+      if (C % 8 || O % 8) return -1;
+      const int bh = block_h != 0 ? block_h : pick_block_h(Ho, Wo, kGemmBM);
+      const bf16* xb = static_cast<const bf16*>(x);
+      const bf16* wb = static_cast<const bf16*>(w);
+      bf16* ob = static_cast<bf16*>(out);
+      return O >= 256 ? launch_wgmma_bn<256>(xb, wb, ob, B, H, W, C, KH, KW, O, bh, st)
+                      : launch_wgmma_bn<128>(xb, wb, ob, B, H, W, C, KH, KW, O, bh, st);
+    }
+    return -1;
+  }
+  if (route != kFma) return -1;
   Geom g;
   g.H = H; g.W = W; g.C = C; g.KW = KW; g.O = O;
-  g.Ho = H - KH + 1;
-  g.Wo = W - KW + 1;
-  const int64_t K = static_cast<int64_t>(KH) * KW * C;
-  if (g.Ho < 1 || g.Wo < 1 || C < 1 || O < 1 || K > INT_MAX) return -1;
+  g.Ho = Ho;
+  g.Wo = Wo;
   g.K = static_cast<int>(K);
-  g.bh = block_h != 0 ? block_h : pick_block_h(g.Ho, g.Wo);
-  if (g.bh != 1 && g.bh != 2 && g.bh != 4 && g.bh != 8) return -1;
+  g.bh = block_h != 0 ? block_h : pick_block_h(g.Ho, g.Wo, kBM);
   g.tw = kBM / g.bh;
   g.tiles_w = (g.Wo + g.tw - 1) / g.tw;
   const int64_t tiles_hw = static_cast<int64_t>((g.Ho + g.bh - 1) / g.bh) * g.tiles_w;
@@ -277,19 +282,8 @@ int launch(const void* x, const void* w, void* out, int B, int H, int W, int C, 
   if (blocks > INT_MAX) return -1;
   g.tiles_hw = static_cast<int>(tiles_hw);
   if (blocks == 0) return 0;
-  const dim3 grid(static_cast<unsigned>(blocks));
-  if constexpr (std::is_same_v<TX, bf16> && std::is_same_v<TW, bf16>) {
-    if (C % 8 == 0 && O % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-        reinterpret_cast<uintptr_t>(w) % 16 == 0 && reinterpret_cast<uintptr_t>(out) % 4 == 0) {
-      conv_mma_kernel<<<grid, kMmaThreads, 0, st>>>(static_cast<const bf16*>(x),
-                                                    static_cast<const bf16*>(w),
-                                                    static_cast<bf16*>(out), g);
-      return static_cast<int>(cudaGetLastError());
-    }
-  }
-  conv_fma_kernel<TX, TW><<<grid, kFmaThreads, 0, st>>>(static_cast<const TX*>(x),
-                                                        static_cast<const TW*>(w),
-                                                        static_cast<TX*>(out), g);
+  conv_fma_kernel<TX, TW><<<static_cast<unsigned>(blocks), kFmaThreads, 0, st>>>(
+      static_cast<const TX*>(x), static_cast<const TW*>(w), static_cast<TX*>(out), g);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -297,16 +291,19 @@ int launch(const void* x, const void* w, void* out, int B, int H, int W, int C, 
 
 // x [B, H, W, C], w [KH, KW, C, O], out [B, H - KH + 1, W - KW + 1, O], all
 // contiguous; x and out of xdtype, w of wdtype (0 = float32, 1 = bfloat16).
-// block_h: output rows of a block's pixel patch, 1, 2, 4 or 8, or 0 for the
-// kernel's choice. Returns cudaGetLastError() after the launch, -1 for a
-// block_h or a shape the kernel does not take, -2 for an unsupported dtype.
+// route: the body (Route; kernels/conv2d.py::ROUTES), wgmma for bf16 x and
+// w with C and O multiples of 8 (x, w and out 16-byte aligned), fma for any
+// types and shape. block_h: output rows of a block's pixel patch, 1, 2, 4 or
+// 8, or 0 for the kernel's choice. Returns cudaGetLastError() after the
+// launch, -1 for a route, block_h or shape the kernel does not take, -2 for
+// an unsupported dtype.
 extern "C" int repro_conv2d(const void* x, const void* w, void* out, int B, int H, int W, int C,
-                            int KH, int KW, int O, int block_h, int xdtype, int wdtype,
+                            int KH, int KW, int O, int block_h, int xdtype, int wdtype, int route,
                             void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define REPRO_CONV(XC, TX, WC, TW) \
   if (xdtype == XC && wdtype == WC) \
-    return launch<TX, TW>(x, w, out, B, H, W, C, KH, KW, O, block_h, st);
+    return launch<TX, TW>(route, x, w, out, B, H, W, C, KH, KW, O, block_h, st);
   REPRO_CONV(repro::kF32, float, repro::kF32, float)
   REPRO_CONV(repro::kBF16, bf16, repro::kBF16, bf16)
   REPRO_CONV(repro::kBF16, bf16, repro::kF32, float)

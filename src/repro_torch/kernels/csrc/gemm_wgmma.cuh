@@ -1,0 +1,538 @@
+// Hopper's tensor-core building blocks and one warp-specialised GEMM
+// mainloop on them, shared by flash_attention.cu, matmul.cu and conv2d.cu.
+//
+// - wgmma (warpgroup matrix multiply, bf16 in, f32 accumulate) from shared-
+//   memory descriptors (wgmma_ss_*: A and B in shared memory; wgmma_rs_*: A
+//   in registers), with its fence / commit / wait and fence_operand;
+// - smem_desc, the descriptor of a tile in the 128-byte-swizzled layout;
+// - mbarriers (full/empty rings) and TMA loads of 2-, 3- and 4-D boxes;
+// - encode_map (host): a bf16 tensor map of 128-byte-swizzled boxes,
+//   cuTensorMapEncodeTiled looked up through the runtime (no -lcuda).
+//
+// The mainloop (gemm_wgmma_kernel) computes one 128 x BN output tile of
+// C = A B (A [M, K] K-major, B [K, N] N-major, bf16, f32 sums) over a range
+// of 64-deep K steps:
+// - one producer warp keeps TMA loads of the A and B tiles of the next
+//   k-steps in flight in a ring of kStages stages of dynamic shared memory,
+//   each stage guarded by a full barrier (TMA bytes landed) and an empty
+//   barrier (every consumer thread done reading);
+// - two consumer warpgroups each own 64 rows of the tile and issue four
+//   wgmma m64nBNk16 a k-step from descriptors: A K-major (a 16-column step
+//   is +32 bytes inside the swizzle atom), B MN-major (64-column blocks of
+//   64 k-rows, LBO their stride), one k-step's wgmmas kept in flight while
+//   the next waits for its data, its stage released once they retire;
+// - the epilogue writes bf16 (or, for a K split, f32 partials to a plane of
+//   its own) straight from the accumulator registers, masked per row by the
+//   policy and per column at N.
+// What is loaded, from where, and where a tile row lands is the policy's
+// (the template parameter P): a plain GEMM reads A as 2-D boxes of 128 rows
+// (GemmTiles in matmul.cu); the implicit GEMM of a convolution reads each
+// tap's pixel patch as one 4-D box of x (ConvTiles in conv2d.cu). P
+// provides, for the block at blockIdx:
+//   int k_steps() const;                       // its 64-deep K steps
+//   template <int BN> void load(int i, uint8_t* sa, uint8_t* sb,
+//                               uint64_t* bar, int n0) const;  // TMA of step i
+//   int64_t out_row(int r) const;              // out offset of tile row r, or -1
+//   int64_t plane() const;                     // elements of one split's partial
+//   int N;                                     // output columns
+// No setmaxnreg: the producer is a single warp (288 threads a block), and
+// the 128 x 256 tile's 128 accumulator registers a thread fit the cap.
+#pragma once
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace repro {
+
+// ------------------------------------------------------------------ wgmma
+
+// d[32] (+)= A (64 x 16, shared, K-major) * B (16 x 64, shared; K-major for
+// TB = 0, MN-major for TB = 1)
+template <int TB>
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TB));
+}
+
+// d[64] (+)= A (64 x 16, shared, K-major) * B (16 x 128, shared; K-major for
+// TB = 0, MN-major for TB = 1)
+template <int TB>
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TB));
+}
+
+// d[128] (+)= A (64 x 16, shared, K-major) * B (16 x 256, shared; K-major for
+// TB = 0, MN-major for TB = 1)
+template <int TB>
+__device__ __forceinline__ void wgmma_ss_n256(float (&d)[128], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, %131;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
+        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
+        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+        "+f"(d[126]), "+f"(d[127])
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TB));
+}
+
+// d[8] += A (64 x 16, registers) * B (16 x 16, shared, MN-major)
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d[16] += A (64 x 16, registers) * B (16 x 32, shared, MN-major)
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d[32] += A (64 x 16, registers) * B (16 x 64, shared, MN-major)
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d[40] += A (64 x 16, registers) * B (16 x 80, shared, MN-major)
+__device__ __forceinline__ void wgmma_rs_n80(float (&d)[40], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39"
+      "}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d[64] += A (64 x 16, registers) * B (16 x 128, shared, MN-major)
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <int N, int TB = 0>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t b, int scale_d) {
+  if constexpr (N == 64) wgmma_ss_n64<TB>(d, a, b, scale_d);
+  else if constexpr (N == 128) wgmma_ss_n128<TB>(d, a, b, scale_d);
+  else wgmma_ss_n256<TB>(d, a, b, scale_d);
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b) {
+  if constexpr (N == 16) wgmma_rs_n16(d, a, b);
+  else if constexpr (N == 32) wgmma_rs_n32(d, a, b);
+  else if constexpr (N == 64) wgmma_rs_n64(d, a, b);
+  else if constexpr (N == 80) wgmma_rs_n80(d, a, b);
+  else wgmma_rs_n128(d, a, b);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// Waits until at most N committed wgmma groups of this warpgroup are pending.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Keeps the compiler from moving reads of an accumulator across the wait,
+// and an A operand's registers live (unreused) until the wgmma reading them
+// has retired.
+template <int N>
+__device__ __forceinline__ void fence_operand(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_operand(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// A wgmma shared-memory descriptor of the 128-byte swizzle (layout type 1):
+// the start address, the leading and the stride byte offsets, each in
+// 16-byte units. K-major tiles (rows of 64 bf16, 128 bytes): SBO = 1024,
+// the 8-row groups; LBO is unused. MN-major tiles (64-column blocks of k
+// rows): LBO = the stride of the 64-column blocks, SBO = 1024, the 8-row
+// groups of k.
+__device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo, uint32_t sbo) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  return static_cast<uint64_t>((a & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+// ------------------------------------------------------- mbarriers and TMA
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+// Waits until the barrier's phase `parity` has completed. A wait that
+// outlasts ~2^32 cycles (seconds) traps: a lost arrival fails the launch
+// instead of holding the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const uint32_t a = smem_addr(bar);
+  const long long t0 = clock64();
+  while (true) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (clock64() - t0 > (1ll << 32)) __trap();
+  }
+}
+// One TMA box of a 2-, 3- or 4-D tensor map (coordinates innermost first,
+// elements; zero-filled past every edge) into shared memory, counted on
+// `bar` in bytes.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
+                                         int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
+                                         int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
+                                         int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
+      : "memory");
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled of libcuda, looked up through the runtime (no -lcuda).
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) !=
+            cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      p = nullptr;
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// A bf16 tensor of `rank` dimensions (dims innermost first, in elements;
+// strides of dims 1.. in bytes, multiples of 16) as boxes of `box` elements,
+// the innermost 64 wide (128 bytes, the swizzle's row), 128-byte swizzled as
+// the wgmma descriptors read them, zero-filled past every edge.
+inline bool encode_map(CUtensorMap* map, const void* ptr, int rank, const cuuint64_t* dims,
+                       const cuuint64_t* strides, const cuuint32_t* box) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr), dims, strides,
+                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+         CUDA_SUCCESS;
+}
+
+// Raises a kernel's dynamic shared memory limit once per device (outside
+// any stream capture that starts after the first call); `raised` is the
+// caller's flags for this kernel.
+template <typename Kernel>
+inline cudaError_t raise_smem(Kernel kernel, int bytes, bool (&raised)[64]) {
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 64 && raised[dev]) return cudaSuccess;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess && dev < 64) raised[dev] = true;
+  return err;
+}
+
+// ----------------------------------------------------------- the mainloop
+
+constexpr int kGemmBM = 128;  // output rows of a tile: two consumer warpgroups of 64
+constexpr int kGemmBK = 64;   // K per step: one 128-byte swizzle row of bf16
+constexpr int kGemmConsumers = 256;
+constexpr int kGemmThreads = kGemmConsumers + 32;  // and one producer warp
+
+template <int BN>
+struct GemmSmem {
+  static_assert(BN == 128 || BN == 256, "BN is 128 or 256");
+  static constexpr int kA = kGemmBM * 128;  // A stage: 128 rows x 64 bf16
+  static constexpr int kB = BN * 128;       // B stage: BN / 64 blocks of 64 k-rows x 128 bytes
+  static constexpr int kStage = kA + kB;
+  static constexpr int kStages = BN == 256 ? 4 : 6;  // 192 KB of stages either way
+  // the stages, their full and empty barriers, and room to align the base
+  // to 1024 bytes (the swizzle's atom)
+  static constexpr int kBytes = kStages * kStage + 2 * kStages * 8 + 1024;
+};
+
+template <int BN, class P>
+__global__ void __launch_bounds__(kGemmThreads, 1)
+gemm_wgmma_kernel(const __grid_constant__ P p, __nv_bfloat16* __restrict__ out,
+                  float* __restrict__ ws) {
+  using Sm = GemmSmem<BN>;
+  constexpr int S = Sm::kStages;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  uint8_t* base = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + S * Sm::kStage);
+  uint64_t* empty = full + S;
+  const int tid = threadIdx.x;
+  const int n0 = blockIdx.y * BN;
+  const int nk = p.k_steps();
+
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kGemmConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= kGemmConsumers) {
+    // the producer warp: one lane keeps the ring full
+    if (tid == kGemmConsumers) {
+      for (int i = 0; i < nk; ++i) {
+        const int st = i % S;
+        mbar_wait(&empty[st], ((i / S) & 1) ^ 1);  // the first round passes
+        mbar_expect_tx(&full[st], Sm::kStage);
+        uint8_t* sa = base + st * Sm::kStage;
+        p.template load<BN>(i, sa, sa + Sm::kA, &full[st], n0);
+      }
+    }
+    return;
+  }
+
+  // the consumers: warpgroup wg owns rows 64 wg .. 64 wg + 63 of the tile
+  const int wg = tid >> 7;
+  float acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < nk; ++i) {
+    const int st = i % S;
+    mbar_wait(&full[st], (i / S) & 1);
+    const uint8_t* sa = base + st * Sm::kStage + wg * 64 * 128;
+    const uint8_t* sb = base + st * Sm::kStage + Sm::kA;
+    fence_operand(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kGemmBK / 16; ++kk)
+      wgmma_ss<BN, 1>(acc, smem_desc(sa + kk * 32, 16, 1024),
+                      smem_desc(sb + kk * 16 * 128, 64 * 128, 1024), 1);
+    wgmma_commit();
+    wgmma_wait<1>();  // step i - 1's wgmmas have retired: its stage is free
+    fence_operand(acc);
+    if (i > 0) mbar_arrive(&empty[(i - 1) % S]);
+  }
+  wgmma_wait<0>();
+  fence_operand(acc);
+
+  // the accumulator layout: warp w of the warpgroup holds rows 16 w .. 16 w
+  // + 15, lane l rows l / 4 and l / 4 + 8, and columns 8 j + 2 (l % 4) +
+  // {0, 1} of every 8-column block j
+  const int warp = (tid >> 5) & 3, lane = tid & 31;
+  const int r0 = wg * 64 + warp * 16 + (lane >> 2);
+  const int c0 = n0 + 2 * (lane & 3);
+  const bool split = gridDim.z > 1;
+  float* part = split ? ws + blockIdx.z * p.plane() : nullptr;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int64_t off = p.out_row(r0 + 8 * h);
+    if (off < 0) continue;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int col = c0 + 8 * j;
+      if (col >= p.N) continue;  // N % 8 == 0: col + 1 is inside too
+      const float x0 = acc[4 * j + 2 * h], x1 = acc[4 * j + 2 * h + 1];
+      if (split)
+        *reinterpret_cast<float2*>(part + off + col) = make_float2(x0, x1);
+      else
+        *reinterpret_cast<__nv_bfloat162*>(out + off + col) = __floats2bfloat162_rn(x0, x1);
+    }
+  }
+}
+
+// Launches the mainloop over `grid` (x, y: tiles; z: K splits, each writing
+// its plane of ws) on `stream`. Returns cudaGetLastError() after the launch.
+template <int BN, class P>
+int launch_gemm_wgmma(const P& p, dim3 grid, __nv_bfloat16* out, float* ws, cudaStream_t stream) {
+  auto kernel = gemm_wgmma_kernel<BN, P>;
+  static bool raised[64] = {};  // once per device and instantiation
+  const cudaError_t err = raise_smem(kernel, GemmSmem<BN>::kBytes, raised);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<grid, kGemmThreads, GemmSmem<BN>::kBytes, stream>>>(p, out, ws);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace repro

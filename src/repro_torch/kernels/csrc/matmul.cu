@@ -15,10 +15,11 @@
 // tile must be the only weight traffic and is widened in registers; at
 // M >= ~300 (bf16) the 2 * M * K * N flops, which only tensor cores deliver.
 //
-// Simple design, three paths picked on the host from M and the operands:
-// - M <= 8 (decode at up to 8 slots): a split-K GEMV. Block (x, y) owns a
-//   strip of 128 columns and a slice of the K rows, sliced so that the
-//   blocks fill whole waves of two per SM; its slice of the M activation
+// Five bodies; the wrapper (kernels/matmul.py::route) picks one from M, K,
+// N and the operand types alone and passes it in:
+// - gemv (M <= 8: decode at up to 8 slots): a split-K GEMV. Block (x, y)
+//   owns a strip of 128 columns and a slice of the K rows, sliced so that
+//   the blocks fill whole waves of two per SM; its slice of the M activation
 //   rows is staged once in shared memory as f32 (32 KB). Each warp reads
 //   whole 128-column row segments (lane i: 4 columns, one vector load,
 //   neighbouring lanes on neighbouring addresses) of every 8th 4-row quad;
@@ -30,25 +31,36 @@
 //   last block of a strip to finish (an atomic ticket) adds the slices'
 //   partials in slice order, so the sum does not depend on timing. MR is M
 //   rounded up to 4 or 8.
-// - M > 8, bf16 activations (wider decode, packs, admissions, prefill):
-//   64 x 64 output tiles, four warps of 32 x 32 on mma.sync m16n8k16 (bf16
-//   in, f32 accumulate). When K % 8 == 0 and N is a multiple of 16 bytes of
-//   weights, the A and B tiles of 32-deep K steps stream through a 4-stage
-//   cp.async ring in shared memory (zero-filled past the edges) and the raw
-//   int8 weight is widened to bf16 as the B fragments are built (exact:
-//   every int8 is a bf16); K is split across blocks where that fills the
-//   card's waves better, and a second kernel adds the f32 partials in a
-//   fixed order. Other shapes take a synchronous tile that widens while
-//   staging.
-// - M > 8, f32 activations (the small parity model): a CUDA-core FMA tile
-//   (256 threads of 4 x 4 outputs over 16-deep K steps), so f32 stays f32.
-// The number of K splits is the autotuner's knob (split_k: 0, the default,
-// is the wave-filling choice above; 1, 2, 4 or 8 force it).
-// wgmma, TMA and tensor cores for the decode GEMV are later work.
+// - wgmma (M > 8, bf16 @ bf16 unscaled, K % 8 == 0 and N % 8 == 0, TMA's
+//   16-byte strides): gemm_wgmma.cuh's warp-specialised mainloop, 128 x 256
+//   or 128 x 128 tiles (block_n) on wgmma m64nBNk16, A [M, K] as K-major
+//   2-D TMA boxes of 128 rows x 64, B [K, N] as MN-major boxes of 64 k-rows
+//   x 64 columns (the way flash attention reads V), zero-filled past every
+//   edge. The grid runs the M tiles of one B panel side by side, so they
+//   share it through L2. K splits write f32 partials that
+//   split_reduce_kernel adds in split order.
+// - mma_pipe (M > 8, bf16 @ int8 scaled, K % 8 == 0 and N % 16 == 0): 64 x
+//   64 output tiles, four warps of 32 x 32 on mma.sync m16n8k16 (bf16 in,
+//   f32 accumulate); the A and B tiles of 32-deep K steps stream through a
+//   4-stage cp.async ring in shared memory (zero-filled past the edges) and
+//   the raw int8 weight is widened to bf16 as the B fragments are built
+//   (exact: every int8 is a bf16); K is split across blocks where that
+//   fills the card's waves better, and split_reduce_kernel adds the f32
+//   partials in a fixed order.
+// - mma_tile (M > 8, bf16 activations, other K or N): the same mma.sync
+//   tile staged synchronously, widened to bf16 on the way.
+// - fma (M > 8, f32 activations, the small parity model): a CUDA-core FMA
+//   tile (256 threads of 4 x 4 outputs over 16-deep K steps), so f32 stays
+//   f32 (wgmma would read it as TF32).
+// The K splits (split_k: 0, the default, is the kernel's choice; 1, 2, 4 or
+// 8 force it) and the wgmma tile (block_m x block_n: 0 x 0, the kernel's
+// choice, 128 x 128 or 128 x 256) are the autotuner's knobs.
+// A tensor-core GEMV for the decode path is later work.
 
 #include <algorithm>
 
 #include "attention_common.cuh"
+#include "gemm_wgmma.cuh"
 #include "mma_common.cuh"
 
 namespace repro {
@@ -408,8 +420,8 @@ __device__ __forceinline__ void store_tile(const float (&acc)[2][4][4], const fl
   }
 }
 
-// The pipelined tile: needs K % 8 == 0 and N * sizeof(TB) % 16 == 0 (every
-// 16-byte chunk wholly inside or outside the matrix).
+// The pipelined tile of bf16 @ int8 (pipelined(K, N): every 16-byte chunk
+// wholly inside or outside the matrix).
 // With gridDim.z = S > 1 (split K) block z sums its share of the K steps and
 // stores the unscaled f32 partial to ws[z] ([M, N]); split_reduce_kernel
 // adds the S partials in order (deterministic) and flushes.
@@ -418,6 +430,7 @@ __global__ void __launch_bounds__(kMmaThreads)
 mma_pipe_kernel(const bf16* __restrict__ a, const TB* __restrict__ b,
                 const float* __restrict__ scale, bf16* __restrict__ out,
                 float* __restrict__ ws, int M, int K, int N) {
+  static_assert(sizeof(TB) == 1, "the pipelined tile widens int8 weights");
   constexpr int kBRow = kBN * static_cast<int>(sizeof(TB)) + 16;  // staged B row, bytes
   constexpr int kBChunks = kBN * static_cast<int>(sizeof(TB)) / 16;  // 16-byte chunks per row
   constexpr int kBElems = 16 / static_cast<int>(sizeof(TB));         // elements per chunk
@@ -479,14 +492,8 @@ mma_pipe_kernel(const bf16* __restrict__ a, const TB* __restrict__ b,
 #pragma unroll
         for (int h = 0; h < 2; ++h) {  // rows k + 8h and k + 8h + 1 of column col
           const int kr = k + 8 * h;
-          if constexpr (sizeof(TB) == 1) {
-            bfr[nt][h] = pack_int_bf16x2(i8_bits_to_f32(sb[st][kr][col]),
-                                         i8_bits_to_f32(sb[st][kr + 1][col]));
-          } else {
-            const uint32_t lo = *reinterpret_cast<const uint16_t*>(&sb[st][kr][col * 2]);
-            const uint32_t hi = *reinterpret_cast<const uint16_t*>(&sb[st][kr + 1][col * 2]);
-            bfr[nt][h] = lo | (hi << 16);
-          }
+          bfr[nt][h] = pack_int_bf16x2(i8_bits_to_f32(sb[st][kr][col]),
+                                       i8_bits_to_f32(sb[st][kr + 1][col]));
         }
       }
 #pragma unroll
@@ -550,11 +557,8 @@ int split_count(int M, int K, int N, int split_k) {
   return best;
 }
 
-// The path launch() takes for a bf16 @ TB product with M > kGemvMaxM.
-template <typename TB>
-bool pipelined(int K, int N) {
-  return K % 8 == 0 && (static_cast<int64_t>(N) * sizeof(TB)) % 16 == 0;
-}
+// The shapes the pipelined bf16 @ int8 tile takes (kernels/matmul.py::route).
+bool pipelined(int K, int N) { return K % 8 == 0 && N % 16 == 0; }
 
 // Any shape: the tiles staged synchronously, widened to bf16 on the way.
 template <typename TB, bool kScaled>
@@ -613,6 +617,125 @@ mma_tile_kernel(const bf16* __restrict__ a, const TB* __restrict__ b,
     __syncthreads();
   }
   store_tile<kScaled>(acc, scale, out, m0 + wm, n0 + wn, g, t4, M, N);
+}
+
+// --------------------------------------------- bf16 @ bf16: the wgmma tile
+
+using repro::kGemmBK;
+using repro::kGemmBM;
+
+// gemm_wgmma.cuh's policy for C = A B: block (x, y, z) computes rows
+// [128 x, 128 x + 128) and columns [BN y, BN y + BN) over K split z's steps
+// [z per, (z + 1) per).
+struct GemmTiles {
+  CUtensorMap a;  // A [M, K]: boxes of 64 k x 128 rows, K-major
+  CUtensorMap b;  // B [K, N]: boxes of 64 columns x 64 k, MN-major
+  int M, N, ktotal, per;
+
+  __device__ __forceinline__ int k_steps() const {
+    const int beg = blockIdx.z * per;
+    return max(0, min(ktotal, beg + per) - beg);
+  }
+  template <int BN>
+  __device__ __forceinline__ void load(int i, uint8_t* sa, uint8_t* sb, uint64_t* bar,
+                                       int n0) const {
+    const int k0 = (blockIdx.z * per + i) * kGemmBK;
+    repro::tma_load(sa, &a, bar, k0, blockIdx.x * kGemmBM);
+#pragma unroll
+    for (int j = 0; j < BN / 64; ++j)
+      repro::tma_load(sb + j * 64 * 128, &b, bar, n0 + 64 * j, k0);
+  }
+  __device__ __forceinline__ int64_t out_row(int r) const {
+    const int m = blockIdx.x * kGemmBM + r;
+    return m < M ? static_cast<int64_t>(m) * N : -1;
+  }
+  __device__ __forceinline__ int64_t plane() const { return static_cast<int64_t>(M) * N; }
+};
+
+struct WgPlan {
+  int bn, splits;  // the tile's columns; K splits (each one at least one K step)
+};
+
+// The wgmma tile's columns and K splits, each as forced (block_n, split_k)
+// or chosen:
+// - block_n 256 where its tiles fill a third of the SMs or more (one such
+//   tile streams its B panel faster than two 128-wide ones; on the H100 at
+//   M 16-300 over N 13440), else 128;
+// - split_k from 1 to 8 (at least 4 K steps each), the one a roofline
+//   estimate of the launch prefers: max(waves x one block's time, the main
+//   kernel's bytes at the 3.35 TB/s of HBM: A, B, and C or the f32
+//   partials), plus 2 us a wave, plus, for a split, the reduce's bytes and
+//   3 us. A block's time is the longer of its wgmma work at 90% of an SM's
+//   share of the 989 TFLOP/s and its A and B tiles' bytes at 70 GB/s an SM
+//   (what a block streams from L2 and HBM). A split must beat the one
+//   before it by 2%.
+WgPlan wgmma_plan(int M, int K, int N, int split_k, int block_n) {
+  const int ktotal = (K + kGemmBK - 1) / kGemmBK;
+  const int sms = device_sms();
+  const int64_t m_tiles = (M + kGemmBM - 1) / kGemmBM;
+  const int bn = block_n != 0                                ? block_n
+                 : 3 * m_tiles * ((N + 255) / 256) >= sms ? 256
+                                                            : 128;
+  const int64_t tiles = m_tiles * ((N + bn - 1) / bn);
+  const double mn = static_cast<double>(M) * N;
+  const int lo = split_k > 0 ? std::min(split_k, ktotal) : 1;
+  const int hi = split_k > 0 ? lo : std::max(1, std::min(8, ktotal / 4));
+  WgPlan best{bn, 1};
+  double best_cost = 1e300;
+  for (int s = lo; s <= hi; ++s) {
+    const int per = (ktotal + s - 1) / s;
+    const int eff = (ktotal + per - 1) / per;
+    const int64_t waves = (tiles * eff + sms - 1) / sms;
+    const double t_mma = (2.0 * kGemmBM * bn * per * kGemmBK) / (0.9 * 989e6 / 132);
+    const double t_tiles = 2.0 * (std::min(M, kGemmBM) + bn) * per * kGemmBK / 70e3;
+    const double out = eff > 1 ? 4.0 * eff * mn : 2.0 * mn;
+    const double t_hbm = (2.0 * M * K + 2.0 * K * N + out) / 3.35e6;
+    double cost = std::max(waves * std::max(t_mma, t_tiles), t_hbm) + 2.0 * waves;
+    if (eff > 1) cost += (4.0 * eff * mn + 2.0 * mn) / 3.35e6 + 3.0;
+    if (cost < 0.98 * best_cost) {
+      best_cost = cost;
+      best = {bn, eff};
+    }
+  }
+  return best;
+}
+
+template <int BN>
+int launch_wgmma_bn(const bf16* a, const bf16* b, bf16* out, float* ws, int M, int K, int N,
+                    int splits, cudaStream_t st) {
+  GemmTiles t;
+  const cuuint64_t a_dims[2] = {static_cast<cuuint64_t>(K), static_cast<cuuint64_t>(M)};
+  const cuuint64_t a_strides[1] = {static_cast<cuuint64_t>(K) * 2};
+  const cuuint32_t a_box[2] = {kGemmBK, kGemmBM};
+  const cuuint64_t b_dims[2] = {static_cast<cuuint64_t>(N), static_cast<cuuint64_t>(K)};
+  const cuuint64_t b_strides[1] = {static_cast<cuuint64_t>(N) * 2};
+  const cuuint32_t b_box[2] = {64, kGemmBK};
+  if (!repro::encode_map(&t.a, a, 2, a_dims, a_strides, a_box) ||
+      !repro::encode_map(&t.b, b, 2, b_dims, b_strides, b_box))
+    return static_cast<int>(cudaErrorInvalidValue);
+  t.M = M;
+  t.N = N;
+  t.ktotal = (K + kGemmBK - 1) / kGemmBK;
+  t.per = (t.ktotal + splits - 1) / splits;
+  const dim3 grid((M + kGemmBM - 1) / kGemmBM, (N + BN - 1) / BN, splits);
+  if (grid.y > 65535 || grid.z > 65535) return -1;
+  const int rc = repro::launch_gemm_wgmma<BN>(t, grid, out, splits > 1 ? ws : nullptr, st);
+  if (rc != 0 || splits == 1) return rc;
+  const int64_t total = static_cast<int64_t>(M) * N;
+  const int blocks = static_cast<int>(std::min<int64_t>((total + 255) / 256, 4096));
+  split_reduce_kernel<false><<<blocks, 256, 0, st>>>(ws, splits, nullptr, out, M, N);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_wgmma(const bf16* a, const bf16* b, bf16* out, float* ws, int M, int K, int N,
+                 int split_k, int block_m, int block_n, cudaStream_t st) {
+  if (K % 8 || N % 8 || (block_m != 0 && block_m != kGemmBM) ||
+      (block_n != 0 && block_n != 128 && block_n != 256) || (block_m == 0) != (block_n == 0))
+    return -1;
+  const WgPlan plan = wgmma_plan(M, K, N, split_k, block_n);
+  if (plan.splits > 1 && ws == nullptr) return -3;
+  return plan.bn == 256 ? launch_wgmma_bn<256>(a, b, out, ws, M, K, N, plan.splits, st)
+                        : launch_wgmma_bn<128>(a, b, out, ws, M, K, N, plan.splits, st);
 }
 
 // f32 activations: CUDA-core FMA, 256 threads of 4 x 4 outputs.
@@ -675,14 +798,19 @@ fma_tile_kernel(const float* __restrict__ a, const TB* __restrict__ b,
   }
 }
 
+// The bodies, as kernels/matmul.py::route names them.
+enum Route { kGemv = 0, kWgmma = 1, kMmaPipe = 2, kMmaTile = 3, kFma = 4 };
+
 template <typename TA, typename TB, bool kScaled>
-int launch(const void* a_, const void* b_, const void* scale_, void* out_, void* ws, int* counters,
-           int M, int K, int N, int split_k, cudaStream_t st) {
+int launch(int route, const void* a_, const void* b_, const void* scale_, void* out_, void* ws,
+           int* counters, int M, int K, int N, int split_k, int block_m, int block_n,
+           cudaStream_t st) {
   const TA* a = static_cast<const TA*>(a_);
   const TB* b = static_cast<const TB*>(b_);
   const float* scale = static_cast<const float*>(scale_);
   TA* out = static_cast<TA*>(out_);
-  if (M <= kGemvMaxM) {
+  if (route == kGemv) {
+    if (M > kGemvMaxM) return -1;
     const int slice = gemv_slice(M, K, N, split_k);
     const int splits = (K + slice - 1) / slice;
     if (splits > 1 && (ws == nullptr || counters == nullptr)) return -3;
@@ -699,23 +827,36 @@ int launch(const void* a_, const void* b_, const void* scale_, void* out_, void*
 #undef REPRO_GEMV
     return static_cast<int>(cudaGetLastError());
   }
+  if (M <= kGemvMaxM) return -1;
   const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
   if constexpr (std::is_same_v<TA, bf16>) {
-    if (pipelined<TB>(K, N)) {
-      const int splits = ws ? split_count(M, K, N, split_k) : 1;
-      const dim3 grid3(grid.x, grid.y, splits);
-      mma_pipe_kernel<TB, kScaled><<<grid3, kMmaThreads, 0, st>>>(
-          a, b, scale, out, static_cast<float*>(ws), M, K, N);
-      if (splits > 1) {
-        const int64_t total = static_cast<int64_t>(M) * N;
-        const int blocks = static_cast<int>(std::min<int64_t>((total + 255) / 256, 4096));
-        split_reduce_kernel<kScaled><<<blocks, 256, 0, st>>>(static_cast<const float*>(ws),
-                                                              splits, scale, out, M, N);
-      }
-    } else {
-      mma_tile_kernel<TB, kScaled><<<grid, kMmaThreads, 0, st>>>(a, b, scale, out, M, K, N);
+    if (route == kWgmma) {
+      if constexpr (std::is_same_v<TB, bf16> && !kScaled)
+        return launch_wgmma(a, b, out, static_cast<float*>(ws), M, K, N, split_k, block_m,
+                            block_n, st);
+      return -1;
     }
+    if (route == kMmaPipe) {
+      if constexpr (std::is_same_v<TB, int8_t>) {
+        if (!pipelined(K, N)) return -1;
+        const int splits = ws ? split_count(M, K, N, split_k) : 1;
+        const dim3 grid3(grid.x, grid.y, splits);
+        mma_pipe_kernel<TB, kScaled><<<grid3, kMmaThreads, 0, st>>>(
+            a, b, scale, out, static_cast<float*>(ws), M, K, N);
+        if (splits > 1) {
+          const int64_t total = static_cast<int64_t>(M) * N;
+          const int blocks = static_cast<int>(std::min<int64_t>((total + 255) / 256, 4096));
+          split_reduce_kernel<kScaled><<<blocks, 256, 0, st>>>(static_cast<const float*>(ws),
+                                                                splits, scale, out, M, N);
+        }
+        return static_cast<int>(cudaGetLastError());
+      }
+      return -1;
+    }
+    if (route != kMmaTile) return -1;
+    mma_tile_kernel<TB, kScaled><<<grid, kMmaThreads, 0, st>>>(a, b, scale, out, M, K, N);
   } else {
+    if (route != kFma) return -1;
     fma_tile_kernel<TB, kScaled><<<grid, kFmaThreads, 0, st>>>(a, b, scale, out, M, K, N);
   }
   return static_cast<int>(cudaGetLastError());
@@ -723,50 +864,52 @@ int launch(const void* a_, const void* b_, const void* scale_, void* out_, void*
 
 }  // namespace
 
-// f32 elements of scratch repro_matmul needs for these operands and this
-// split_k: the K-split partials of the GEMV or the pipelined bf16 tile, 0
-// when the product is not split.
-extern "C" long long repro_matmul_workspace(int M, int K, int N, int adtype, int bdtype,
-                                            int split_k) {
-  if (M <= kGemvMaxM) {
+// f32 elements of scratch repro_matmul needs for this route, these shapes
+// and knobs: the K-split partials of the GEMV, the wgmma tile or the
+// pipelined int8 tile, 0 when the product is not split.
+extern "C" long long repro_matmul_workspace(int M, int K, int N, int route, int split_k,
+                                            int block_n) {
+  long long splits = 1;
+  if (route == kGemv) {
     const int slice = gemv_slice(M, K, N, split_k);
-    const long long splits = (K + slice - 1) / slice;
-    return splits > 1 ? splits * M * N : 0;
+    splits = (K + slice - 1) / slice;
+  } else if (route == kWgmma) {
+    splits = wgmma_plan(M, K, N, split_k, block_n).splits;
+  } else if (route == kMmaPipe && pipelined(K, N)) {
+    splits = split_count(M, K, N, split_k);
   }
-  if (adtype != repro::kBF16) return 0;
-  const bool pipe = bdtype == repro::kI8 ? pipelined<int8_t>(K, N)
-                    : bdtype == repro::kBF16 ? pipelined<bf16>(K, N) : false;
-  const int splits = pipe ? split_count(M, K, N, split_k) : 1;
-  return splits > 1 ? static_cast<long long>(splits) * M * N : 0;
+  return splits > 1 ? splits * M * N : 0;
 }
 
-// adtype: the type of a and out; bdtype: the type of b (repro::DType codes).
-// scale: null for matmul, f32 [N] for matmul_q8. ws: the f32 scratch
-// repro_matmul_workspace asks for (null when it asks for none); counters:
-// int32 zeros, one per 128 columns (ceil(N / 128)), left zero again. The
-// served combinations are f32 @ f32 and bf16 @ bf16 unscaled, f32 @ int8 and
-// bf16 @ int8 scaled. split_k: 0 lets the kernel split K to fill the card's
-// waves; 1, 2, 4, 8, ... force that many K splits where the path splits (the
-// GEMV, at least as many as its shared memory needs; the pipelined tile, at
-// most one per K step); the other tiles never split. Returns
-// cudaGetLastError() after the launches, -2 for any other combination, -3
-// for a missing scratch.
+// route: the body (Route; kernels/matmul.py::ROUTES). adtype: the type of a
+// and out; bdtype: the type of b (repro::DType codes). scale: null for
+// matmul, f32 [N] for matmul_q8. ws: the f32 scratch repro_matmul_workspace
+// asks for (null when it asks for none); counters: int32 zeros, one per 128
+// columns (ceil(N / 128)), left zero again. The served combinations are f32
+// @ f32 and bf16 @ bf16 unscaled, f32 @ int8 and bf16 @ int8 scaled.
+// split_k: 0 lets the kernel split K; 1, 2, 4, 8, ... force that many K
+// splits where the body splits (the GEMV, at least as many as its shared
+// memory needs; the wgmma and the pipelined tiles, at most one per K step);
+// block_m x block_n: the wgmma tile, 0 x 0 for the kernel's choice, 128 x
+// 128 or 128 x 256. Returns cudaGetLastError() after the launches, -1 for a
+// route or knob the operands do not take, -2 for any other combination of
+// types, -3 for a missing scratch.
 extern "C" int repro_matmul(const void* a, const void* b, const void* scale, void* ws,
                             void* counters_, void* out, int M, int K, int N, int adtype,
-                            int bdtype, int split_k, void* stream) {
+                            int bdtype, int route, int split_k, int block_m, int block_n,
+                            void* stream) {
   int* counters = static_cast<int*>(counters_);
   using repro::kBF16;
   using repro::kF32;
   using repro::kI8;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool scaled = scale != nullptr;
-  if (adtype == kF32 && bdtype == kF32 && !scaled)
-    return launch<float, float, false>(a, b, scale, out, ws, counters, M, K, N, split_k, st);
-  if (adtype == kF32 && bdtype == kI8 && scaled)
-    return launch<float, int8_t, true>(a, b, scale, out, ws, counters, M, K, N, split_k, st);
-  if (adtype == kBF16 && bdtype == kBF16 && !scaled)
-    return launch<bf16, bf16, false>(a, b, scale, out, ws, counters, M, K, N, split_k, st);
-  if (adtype == kBF16 && bdtype == kI8 && scaled)
-    return launch<bf16, int8_t, true>(a, b, scale, out, ws, counters, M, K, N, split_k, st);
+#define REPRO_MM(TA, TB, S) \
+  launch<TA, TB, S>(route, a, b, scale, out, ws, counters, M, K, N, split_k, block_m, block_n, st)
+  if (adtype == kF32 && bdtype == kF32 && !scaled) return REPRO_MM(float, float, false);
+  if (adtype == kF32 && bdtype == kI8 && scaled) return REPRO_MM(float, int8_t, true);
+  if (adtype == kBF16 && bdtype == kBF16 && !scaled) return REPRO_MM(bf16, bf16, false);
+  if (adtype == kBF16 && bdtype == kI8 && scaled) return REPRO_MM(bf16, int8_t, true);
+#undef REPRO_MM
   return -2;
 }

@@ -1,6 +1,7 @@
-// Tensor-core and asynchronous-copy primitives shared by the tiled kernels
-// (matmul.cu, conv2d.cu): mma.sync m16n8k16 with bf16 inputs and an f32
-// accumulator, and 16-byte cp.async copies from global to shared memory.
+// Tensor-core and asynchronous-copy primitives of matmul.cu's mma.sync
+// tiles (the int8-weight tile and bf16 shapes outside the wgmma tile's
+// domain): mma.sync m16n8k16 with bf16 inputs and an f32 accumulator, and
+// 16-byte cp.async copies from global to shared memory.
 #pragma once
 
 #include <stdint.h>

@@ -3,10 +3,23 @@
 ``::matmul`` (``_matmul_kernel``).
 
 CUDA tensors only: :mod:`repro_torch.kernels.ops` routes CPU tensors to
-``ref.matmul`` / ``ref.matmul_q8``. ``launches`` counts ``matmul`` launches,
-``launches_q8`` ``matmul_q8`` launches. ``split_k`` is the autotuner's knob
-of ``matmul`` (0: the kernel splits K to fill the card's waves; 1, 2, 4, 8:
-that many K splits); ``matmul_q8``, on the serving path, keeps 0.
+``ref.matmul`` / ``ref.matmul_q8``. :func:`route` picks the kernel body from
+M, K, N and the operand types alone (:data:`ROUTES`). ``launches`` counts
+``matmul`` launches, ``launches_q8`` ``matmul_q8`` launches, and
+``launches_<route>`` the launches of each body by either op.
+
+The autotuner's knobs of ``matmul``: ``split_k`` (0: the kernel splits K
+as it sees fit; 1, 2, 4, 8: that many K splits) and the wgmma tile
+``block_m`` x ``block_n`` (0 x 0: the kernel's choice; or one of
+:data:`TILES`), the names of the JAX tuner's knobs; the other bodies ignore
+the tile. ``matmul_q8``, on the serving path, keeps the kernel's choice.
+
+Scratch has one owner per stream: the split-K partials are taken per call
+from PyTorch's caching allocator on the caller's stream (stream-ordered;
+inside a CUDA graph capture they come from the graph's pool), and the
+GEMV's ticket counters are kept per (device, stream), sized once for every
+N the GEMV takes, and left zero by the kernel after each call — no memset
+per call.
 """
 
 from __future__ import annotations
@@ -20,44 +33,64 @@ from repro_torch.kernels import _build, _checks
 
 launches = 0
 launches_q8 = 0
+launches_gemv = 0
+launches_wgmma = 0
+launches_mma_pipe = 0
+launches_mma_tile = 0
+launches_fma = 0
+
+# the bodies, in matmul.cu's Route order
+ROUTES = ("gemv", "wgmma", "mma_pipe", "mma_tile", "fma")
+SPLIT_K = (0, 1, 2, 4, 8)  # the autotuner's K splits
+TILES = ((128, 128), (128, 256))  # the wgmma tiles (block_m, block_n); (0, 0): the kernel's
 
 _GEMV_COLS = 128  # columns per GEMV block: one split-K ticket counter each
-_counters: dict = {}  # device -> int32 zeros the kernels leave zero
-_scratch: dict = {}  # device -> f32 buffer for split-K partials, grown as needed
-SPLIT_K = (0, 1, 2, 4, 8)  # the autotuner's candidates
+_TICKETS = 1 << 16  # counters per stream: a GEMV of up to 2^23 columns
+_tickets: dict = {}  # (device index, stream handle) -> int32 zeros the GEMV leaves zero
 
 
-def _ticket_counters(device: torch.device, n: int) -> torch.Tensor:
-    """At least ``ceil(n / 128)`` int32 zeros on ``device``, kept across calls
-    (the GEMV's last block of each column strip resets its own)."""
-    need = -(-n // _GEMV_COLS)
-    buf = _counters.get(device)
-    if buf is None or buf.numel() < need:
-        buf = torch.zeros(max(need, 1024), dtype=torch.int32, device=device)
-        _counters[device] = buf
-    return buf
+def route(m: int, k: int, n: int, a_dtype: torch.dtype, b_dtype: torch.dtype) -> str:
+    """The body that computes [m, k] @ [k, n] for these operand types (b
+    int8 is ``matmul_q8``): the GEMV at M <= 8; above it the wgmma tile for
+    bf16 @ bf16 with K and N multiples of 8 (TMA's 16-byte strides), the
+    pipelined mma.sync tile for bf16 @ int8 with K % 8 == 0 and N % 16 ==
+    0, the synchronous mma.sync tile for other bf16 shapes, and the CUDA-core
+    FMA tile for f32 activations."""
+    if m <= 8:
+        return "gemv"
+    if a_dtype == torch.float32:
+        return "fma"
+    if b_dtype == torch.bfloat16:
+        return "wgmma" if k % 8 == 0 and n % 8 == 0 else "mma_tile"
+    return "mma_pipe" if k % 8 == 0 and n % 16 == 0 else "mma_tile"
 
 
-def _partials(device: torch.device, n: int) -> torch.Tensor:
-    """An f32 buffer of at least ``n`` elements on ``device``, kept across
-    calls: launches on one stream run in order, so each call's partials are
-    consumed before the next call writes them."""
-    buf = _scratch.get(device)
-    if buf is None or buf.numel() < n:
-        buf = torch.empty(n, dtype=torch.float32, device=device)
-        _scratch[device] = buf
+def _ticket_counters(device: torch.device, stream: int) -> torch.Tensor:
+    """The GEMV ticket counters of raw stream handle ``stream`` on
+    ``device``: made once, before the stream's first GEMV, at the size of
+    every N the GEMV takes, so a captured launch never sees them replaced."""
+    key = (device.index, stream)
+    buf = _tickets.get(key)
+    if buf is None:
+        buf = torch.zeros(_TICKETS, dtype=torch.int32, device=device)
+        _tickets[key] = buf
     return buf
 
 
 @functools.lru_cache(maxsize=256)
-def _workspace_elems(m: int, k: int, n: int, a_code: int, b_code: int, split_k: int) -> int:
+def _workspace_elems(m: int, k: int, n: int, route_code: int, split_k: int, block_n: int) -> int:
     """f32 elements of scratch the kernels need for the partials of a K-split
     GEMV or tile of this shape (0 when it does not split)."""
-    return _build.load().repro_matmul_workspace(m, k, n, a_code, b_code, split_k)
+    return _build.load().repro_matmul_workspace(m, k, n, route_code, split_k, block_n)
 
 
-def _launch(name: str, a: torch.Tensor, b: torch.Tensor,
-            scale: Optional[torch.Tensor], split_k: int = 0) -> torch.Tensor:
+def _launch(name: str, a: torch.Tensor, b: torch.Tensor, scale: Optional[torch.Tensor],
+            split_k: int = 0, block_m: int = 0, block_n: int = 0) -> torch.Tensor:
+    if split_k < 0:
+        raise ValueError(f"{name}: split_k must be >= 0, got {split_k}")
+    if (block_m, block_n) != (0, 0) and (block_m, block_n) not in TILES:
+        raise ValueError(f"{name}: (block_m, block_n) must be (0, 0) or one of {TILES}, got "
+                         f"{(block_m, block_n)}")
     operands = [a, b] if scale is None else [a, b, scale]
     _checks.cuda_operands(name, *operands)
     if a.ndim != 2 or b.ndim != 2 or a.shape[1] != b.shape[0]:
@@ -72,29 +105,37 @@ def _launch(name: str, a: torch.Tensor, b: torch.Tensor,
             raise ValueError(f"{name}: a, b and out must be 16-byte aligned")
     if out.numel() == 0:
         return out
+    body = route(m, k, n, a.dtype, b.dtype)
+    code = ROUTES.index(body)
+    if body == "gemv" and n > _TICKETS * _GEMV_COLS:
+        raise ValueError(f"{name}: the GEMV takes N up to {_TICKETS * _GEMV_COLS}, got {n}")
     lib = _build.load()
-    codes = (_checks.DTYPE_CODES[a.dtype], _checks.DTYPE_CODES.get(b.dtype, -1))
-    if split_k < 0:
-        raise ValueError(f"{name}: split_k must be >= 0, got {split_k}")
-    n_ws = _workspace_elems(m, k, n, *codes, split_k)
-    ws = _partials(a.device, n_ws) if n_ws else None
+    n_ws = _workspace_elems(m, k, n, code, split_k, block_n)
+    # the partials of this call, on the caller's stream: no other call shares them
+    ws = torch.empty(n_ws, dtype=torch.float32, device=a.device) if n_ws else None
+    stream = _checks.stream(a)
+    counters = _ticket_counters(a.device, stream) if body == "gemv" else None
     rc = lib.repro_matmul(
-        a.data_ptr(), b.data_ptr(), _checks.ptr(scale), _checks.ptr(ws),
-        _ticket_counters(a.device, n).data_ptr(), out.data_ptr(), m, k, n, *codes, split_k,
-        _checks.stream(a),
+        a.data_ptr(), b.data_ptr(), _checks.ptr(scale), _checks.ptr(ws), _checks.ptr(counters),
+        out.data_ptr(), m, k, n, _checks.DTYPE_CODES[a.dtype], _checks.DTYPE_CODES.get(b.dtype, -1),
+        code, split_k, block_m, block_n, stream,
     )
     _build.check(rc, name)
+    globals()[f"launches_{body}"] += 1
     return out
 
 
-def matmul(a: torch.Tensor, b: torch.Tensor, *, split_k: int = 0) -> torch.Tensor:
+def matmul(a: torch.Tensor, b: torch.Tensor, *, split_k: int = 0, block_m: int = 0,
+           block_n: int = 0) -> torch.Tensor:
     """a [M, K] @ b [K, N], both f32 or both bf16, f32 accumulation; returns
     [M, N] in a's dtype on a's device and stream, without synchronising.
-    ``split_k``: 0 lets the kernel choose the K splits, n > 0 forces n."""
+    ``split_k``: 0 lets the kernel choose the K splits, n > 0 forces n;
+    ``block_m`` x ``block_n``: the wgmma tile, (0, 0) for the kernel's
+    choice or one of :data:`TILES`."""
     global launches
     if b.dtype != a.dtype:
         raise TypeError(f"matmul: a and b must share one dtype, got {a.dtype} and {b.dtype}")
-    out = _launch("matmul", a, b, None, split_k)
+    out = _launch("matmul", a, b, None, split_k, block_m, block_n)
     if out.numel():
         launches += 1
     return out

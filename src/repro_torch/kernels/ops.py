@@ -89,15 +89,19 @@ def _on_cuda(t: torch.Tensor) -> bool:
     raise ValueError(f"no kernel path for device {t.device}")
 
 
-def matmul(a, b, *, split_k: Optional[int] = None):
+def matmul(a, b, *, split_k: Optional[int] = None, block_m: Optional[int] = None,
+           block_n: Optional[int] = None):
     """[M, K] @ [K, N] with f32 accumulation, in a's dtype (f32 or bf16; b
     of the same dtype). ``split_k`` pins the kernel's K splits (0: its own
-    choice); by default the tuner's plan."""
+    choice), ``block_m`` x ``block_n`` its wgmma tile (0 x 0: its own
+    choice, else one of ``matmul.TILES``); the tuner's plan fills the gaps."""
     if not _on_cuda(a):
         return ref.matmul(a, b)
-    if split_k is None:
-        split_k = _blocks("matmul", (a.shape[0], a.shape[1], b.shape[1]), a.dtype)["split_k"]
-    return _matmul_k.matmul(a.contiguous(), b.contiguous(), split_k=split_k)
+    knobs = {"split_k": split_k, "block_m": block_m, "block_n": block_n}
+    if None in knobs.values():
+        plan = _blocks("matmul", (a.shape[0], a.shape[1], b.shape[1]), a.dtype)
+        knobs = {name: plan[name] if v is None else v for name, v in knobs.items()}
+    return _matmul_k.matmul(a.contiguous(), b.contiguous(), **knobs)
 
 
 def matmul_q8(a, b_q8, b_scale):

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import autotune, ops
+from repro_torch.kernels import matmul as mmk
 from repro_torch.kernels.autotune import Autotuner, bucket_shape, cache_key
 
 
@@ -63,7 +64,7 @@ def test_cache_round_trip_no_resweep(tuner_path):
 
 def test_shape_bucket_collision(tuner_path):
     t = Autotuner(tuner_path, sweep=False)
-    win = {"split_k": 4}
+    win = {"block_m": 128, "block_n": 128, "split_k": 4}
     t.store("matmul", (100, 70, 130), torch.float32, "cuda", win)
     # (100, 70, 130) and (128, 128, 200) share the (128, 128, 256) bucket
     assert bucket_shape((100, 70, 130)) == bucket_shape((128, 128, 200))
@@ -158,9 +159,10 @@ def test_sweep_skips_and_logs_a_failing_candidate(tuner_path):
 
     t = Autotuner(tuner_path, sweep=True)
     assert t.get("matmul", (4, 4096, 13440), torch.bfloat16, "cuda", measure=measure) == {
-        "split_k": 8}
+        "block_m": 0, "block_n": 0, "split_k": 8}
     failed = [(cfg, err) for cfg, sec, err in t.last_sweep if err is not None]
-    assert failed == [({"split_k": 0}, "ValueError: not instantiated")]
+    assert failed == [({"block_m": m, "block_n": n, "split_k": 0}, "ValueError: not instantiated")
+                      for m, n in ((0, 0),) + mmk.TILES]
     assert len(t.last_sweep) == len(autotune.CANDIDATES["matmul"])
 
 
@@ -197,21 +199,24 @@ def test_plan_sweeps_only_when_enabled(tmp_path, monkeypatch):
     winner; with sweeping off the measure is never built."""
     built = []
 
+    winner = {"block_m": 128, "block_n": 256, "split_k": 2}
+
     def fake_measure_for(op, shape, dtype, backend):
         built.append((op, shape, dtype, backend))
-        return lambda cfg: float(cfg["split_k"] != 2)
+        return lambda cfg: float(cfg != winner)
 
     monkeypatch.setattr(autotune, "measure_for", fake_measure_for)
     path = str(tmp_path / "c.json")
     autotune.set_tuner(Autotuner(path, sweep=False))
     try:
-        assert ops._blocks("matmul", (64, 256, 512), torch.bfloat16) == {"split_k": 0}
+        assert ops._blocks("matmul", (64, 256, 512), torch.bfloat16) == {
+            "block_m": 0, "block_n": 0, "split_k": 0}
         assert built == []
         autotune.set_tuner(Autotuner(path, sweep=True))
-        assert ops._blocks("matmul", (64, 256, 512), torch.bfloat16) == {"split_k": 2}
+        assert ops._blocks("matmul", (64, 256, 512), torch.bfloat16) == winner
         assert built == [("matmul", (64, 256, 512), "bfloat16", "cuda")]
         assert Autotuner(path, sweep=False).lookup(
-            "matmul", (64, 256, 512), "bfloat16", "cuda") == {"split_k": 2}
+            "matmul", (64, 256, 512), "bfloat16", "cuda") == winner
     finally:
         autotune.set_tuner(None)
 
@@ -261,7 +266,8 @@ def test_cache_file_written_by_jax_reads_in_the_port(jtune, tuner_path):
 
     jt = jtune.Autotuner(tuner_path, sweep=False)
     entries = [
-        ("matmul", (100, 70, 130), jnp.float32, "cuda", {"split_k": 4}, None),
+        ("matmul", (100, 70, 130), jnp.float32, "cuda",
+         {"block_m": 128, "block_n": 256, "split_k": 4}, None),
         ("flash_attention", (32, 1024, 128), jnp.bfloat16, "cuda",
          {"block_q": 64, "block_k": 64}, None),
         ("matmul", (4, 4096, 13440), jnp.bfloat16, "interpret",
@@ -289,7 +295,8 @@ def test_cache_file_written_by_the_port_reads_in_jax(jtune, tuner_path):
 
     t = Autotuner(tuner_path, sweep=False)
     entries = [
-        ("matmul", (64, 256, 512), torch.bfloat16, jnp.bfloat16, {"split_k": 2}),
+        ("matmul", (64, 256, 512), torch.bfloat16, jnp.bfloat16,
+         {"block_m": 128, "block_n": 128, "split_k": 2}),
         ("flash_attention", (6, 96, 16), torch.float32, jnp.float32,
          {"block_q": 32, "block_k": 32}),
         ("rmsnorm", (2048, 4096), torch.bfloat16, jnp.bfloat16, {"block_rows": 4}),

@@ -507,7 +507,9 @@ def test_cuda_conv2d_mixed_dtypes(block_h, xdt, wdt, xs, ws):
     dev = _cuda()
     torch.backends.cudnn.allow_tf32 = False
     x, w = _randn(dev, 0, *xs, dtype=xdt), _randn(dev, 1, *ws, dtype=wdt)
+    n0 = cvk.launches_fma
     got = cvk.conv2d(x, w, block_h=block_h)
+    assert cvk.launches_fma == n0 + 1  # mixed dtypes: the FMA tile
     want = ref.conv2d(x, w)
     torch.cuda.synchronize()
     assert got.dtype == xdt

@@ -169,7 +169,7 @@ def _fake_cuda(monkeypatch, module, fn_name, plain):
 @pytest.mark.parametrize("op,tuned,pinned", [
     ("softmax", {"block_rows": 4}, {"block_rows": 2}),
     ("rmsnorm", {"block_rows": 8}, {"block_rows": 1}),
-    ("matmul", {"split_k": 4}, {"split_k": 0}),
+    ("matmul", {"block_m": 128, "block_n": 256, "split_k": 4}, {"split_k": 0}),
     ("flash_attention", {"block_q": 64, "block_k": 64}, {"block_q": 32}),
     ("axpy", {"block": 4096}, {"block": 1024}),
     ("dotp", {"block": 16384}, {"block": 0}),
@@ -353,16 +353,19 @@ def test_cuda_softmax_vs_plain(rows, dtype, r, c):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("m,k,n", [(4, 4096, 1000), (256, 4096, 512), (37, 1000, 136)])
 def test_cuda_matmul_forced_split_vs_default(split_k, dtype, m, k, n):
-    """Forced K splits against the default plan: the same product within the
-    matmul tolerance of phase 2 (the split changes the summation order)."""
+    """Forced K splits, at every wgmma tile, against the default plan: the
+    same product within the matmul tolerance of phase 2 (the split changes
+    the summation order). The tile reaches only the bf16 wgmma body (M 256
+    and 37 here); the GEMV and the FMA tile ignore it."""
     dev = _cuda()
     a, b = _randn(dev, 6, m, k, dtype=dtype), _randn(dev, 7, k, n, dtype=dtype)
-    got = mmk.matmul(a, b, split_k=split_k)
     want = mmk.matmul(a, b)
-    scale = ref.matmul(a, b).float().abs().max().item()
-    rel = 1e-5 if dtype == torch.float32 else 1e-2
-    assert _err(got, want) <= rel * scale
-    assert _err(got, ref.matmul(a, b)) <= rel * scale
+    for bm, bn in ((0, 0),) + mmk.TILES:
+        got = mmk.matmul(a, b, split_k=split_k, block_m=bm, block_n=bn)
+        scale = ref.matmul(a, b).float().abs().max().item()
+        rel = 1e-5 if dtype == torch.float32 else 1e-2
+        assert _err(got, want) <= rel * scale
+        assert _err(got, ref.matmul(a, b)) <= rel * scale
 
 
 @pytest.mark.cuda

@@ -339,12 +339,16 @@ def test_cuda_fft_vs_plain(dtype, b, n, rows):
     (2, 20, 19, 32, 24, 3, 3), (2, 13, 9, 4, 8, 3, 3), (1, 8, 8, 4, 4, 1, 1),
     (1, 70, 9, 16, 72, 3, 2), (2, 11, 12, 24, 40, 3, 3)])
 def test_cuda_conv2d_vs_plain(block_h, dtype, b, h, w, c, o, kh, kw):
-    """bf16 with C and O multiples of 8 takes the tensor-core tile, the rest
-    the FMA tile; tails in H, W and O."""
+    """bf16 with C and O multiples of 8 takes the wgmma body, the rest the
+    FMA tile; tails in H, W and O."""
     dev = _cuda()
     x = _randn(dev, 6, b, h, w, c, dtype=dtype)
     wt = _randn(dev, 7, kh, kw, c, o, dtype=dtype)
+    body = cvk.route(dtype, dtype, c, o)
+    assert body == ("wgmma" if dtype == torch.bfloat16 and c % 8 == 0 and o % 8 == 0 else "fma")
+    n0 = getattr(cvk, f"launches_{body}")
     got = cvk.conv2d(x, wt, block_h=block_h)
+    assert getattr(cvk, f"launches_{body}") == n0 + 1
     torch.backends.cudnn.allow_tf32 = False
     want = ref.conv2d(x, wt).float()
     assert got.shape == want.shape
