@@ -7,14 +7,16 @@ Phases (each raises on failure, so the script exits non-zero):
 
 0. device — fail without CUDA; print the card's name and power limit.
 1. build — compile the hand-written CUDA kernels from ``csrc/`` (eleven
-   sources over the shared Hopper header ``gemm_wgmma.cuh``, eighteen kernel
+   sources over the shared Hopper header ``gemm_wgmma.cuh``, twenty kernel
    bodies: decode, ragged and paged attention over a plain or a quantized
    store, flash attention (GQA, and flat as a group of one; bf16 on wgmma,
    f32 on CUDA cores), the matmul and int8-weight matmul (the bf16 tile on
-   the header's wgmma + TMA mainloop), RMSNorm, row softmax, axpy, the
-   partial dot products, the Stockham FFT and its four-step transposes, and
-   the implicit-GEMM conv2d on the same mainloop); print the build's
-   seconds.
+   the header's wgmma + TMA mainloop), RMSNorm, row softmax (rows held in
+   registers, a row split over a thread-block cluster, and the two-pass
+   body), axpy, the partial dot products, the Stockham FFT (radix-16 passes
+   in registers, persistent blocks prefetching their next tile by TMA bulk
+   copies) and its four-step transposes, and the implicit-GEMM conv2d on
+   the same mainloop); print the build's seconds.
 2. kernels — each kernel body against its plain PyTorch version on the card,
    at the serving path's shapes (codeqwen1.5-7b: KV=32, G=1, d=128, 4 slots
    x 1024 positions; a 64-token ragged pack; 64- and 37-token prefill; an
@@ -68,7 +70,8 @@ Phases (each raises on failure, so the script exits non-zero):
    into a JSON cache under build/ that a fresh tuner re-reads without
    measuring, tuned outputs against the default plan's; the four ops driven
    once through ``ops`` between the counts' reset and read (the M = 256
-   matmul must launch the wgmma body); each new kernel timed beside its
+   matmul must launch the wgmma body, the 92,416-wide softmax the cluster
+   body and the f32 scores the rows body); each new kernel timed beside its
    bound, plain version and library call, the M = 256 matmul as a row of
    its own (``matmul_tile``).
 8. the paper's kernel suite — axpy, dotp, the Stockham FFT and conv2d at
@@ -89,7 +92,8 @@ Phases (each raises on failure, so the script exits non-zero):
    between the counts' reset and read (conv2d must launch its wgmma body),
    each output held against its plain version; each op timed beside its
    bound, plain version and library call, conv2d on the wgmma body beside
-   cuDNN.
+   cuDNN, the FFT's radix-pass body at its three shapes and the four-step
+   rows beside cuFFT.
 9. a ``{"kernels": [...], "to_port": []}`` JSON line (every row of PERF.md's
    kernel table), then the result line.
 
@@ -1287,6 +1291,8 @@ def kernel_api(dev, counters):
                 run = lambda: smk.softmax(x, block_rows=rows)  # noqa: E731
             case = f"R={r} C={c} {dname(dtype)} w={dname(wdtype) if w is not None else '-'} " \
                    f"block_rows={rows}"
+            if w is None:
+                case += f" ({smk.route(r, c, dtype, rows)})"
             err = held(name, case, run(), want, tol_of(name, dtype))
             ms = time_ms(run)
             cand_ms[(name, r, c, dtype, rows)] = ms
@@ -1395,6 +1401,16 @@ def kernel_api(dev, counters):
             ("softmax", SOFTMAX_MAIN, bf16), ("softmax", SOFTMAX_SCORES, f32)] + [
             ("matmul", shape, bf16) for shape in MATMUL_API]}
         print(f"  plans at the main shapes: {plans}")
+        # the vocabulary's logits are the only call of the run that may take
+        # the cluster body, the f32 scores the only one that may take the rows
+        bodies = {shape: smk.route(*shape, dt, plans[("softmax", shape)]["block_rows"])
+                  for shape, dt in ((SOFTMAX_MAIN, bf16), (SOFTMAX_SCORES, f32))}
+        print(f"  softmax bodies at the main shapes: {bodies}")
+        if bodies != {SOFTMAX_MAIN: "cluster", SOFTMAX_SCORES: "rows"} or \
+                launches["softmax_cluster"] != 1 or launches["softmax_rows"] != 1:
+            raise AssertionError(f"softmax: the main shape must run the cluster body and the "
+                                 f"scores the rows body once each, got {bodies}, cluster "
+                                 f"{launches['softmax_cluster']}, rows {launches['softmax_rows']}")
     finally:
         for key, val in saved.items():
             if val is None:
@@ -1770,11 +1786,11 @@ def kernel_suite(dev, counters):
     rows_ = plans["fft"]["block_rows"]
     b, n_ = FFT_MAIN
     z = torch.complex(re, im)
-    twr, twi = ffk.twiddles(n_, re.device)
+    tw = ffk.twiddles(n_, re.device)
     row("fft", outs["fft"], ref.fft(re, im), lambda: ffk.fft(re, im, block_rows=rows_),
         lambda: ref.fft(re, im), lambda: torch.fft.fft(z, dim=-1),
         "torch.fft.fft (cuFFT) over a complex64 tensor made beforehand",
-        2 * nbytes(re, im) + nbytes(twr, twi), 5 * b * n_ * int(np.log2(n_)), f32)
+        2 * nbytes(re, im) + nbytes(tw), 5 * b * n_ * int(np.log2(n_)), f32)
     del re, im, z, outs["fft"]
     torch.cuda.empty_cache()
     b, n_ = FFT_LONG[0]
@@ -1784,6 +1800,17 @@ def kernel_suite(dev, counters):
         "torch.fft.fft (cuFFT) over a complex64 tensor made beforehand",
         2 * nbytes(lre, lim), 5 * b * n_ * int(np.log2(n_)), f32)
     del lre, lim, z, outs["fft_long"]
+    torch.cuda.empty_cache()
+    for (b, n_), dtype in ((FFT_CASES[0], f32), (FFT_CASES[1], f32), (FFT_CASES[2], bf16),
+                           (FFT_LONG[0], f32)):
+        fre, fim = randn(b, n_, dtype=dtype), randn(b, n_, dtype=dtype)
+        z = torch.complex(fre.float(), fim.float())
+        print(f"  fft [{b}, {n_}] {dname(dtype)}, the kernel's own block_rows: "
+              f"ms={time_ms(lambda: ffk.fft(fre, fim), reps=SUITE_REPS):.4f} bound="
+              f"{bound(2 * nbytes(fre, fim), 5 * b * n_ * int(np.log2(n_)), f32)[0]:.5f} "
+              f"cuFFT={time_ms(lambda: torch.fft.fft(z, dim=-1), reps=SUITE_REPS):.4f}",
+              flush=True)
+        del fre, fim, z
     torch.cuda.empty_cache()
     bh = plans["conv2d"]["block_h"]
     (bb, hh, ww, cc), (kh, kw, _, oo) = CONV_MAIN
@@ -1889,7 +1916,8 @@ def main() -> int:
 
     phase("7 kernel API and autotuner")
     counters7 = {"flash_attention": (fk, "launches_flat"), "rmsnorm": (rnk, "launches"),
-                 "softmax": (smk, "launches"), "matmul": (mmk, "launches"),
+                 "softmax": (smk, "launches"), "softmax_cluster": (smk, "launches_cluster"),
+                 "softmax_rows": (smk, "launches_rows"), "matmul": (mmk, "launches"),
                  "matmul_tile": (mmk, "launches_wgmma")}
     timed7, launches7 = kernel_api(dev, counters7)
     timed.update(timed7)
@@ -1958,6 +1986,9 @@ def main() -> int:
             kernels[-1]["config"] = t["config"]
         if name == "conv2d":  # of its launches, those of the wgmma body
             kernels[-1]["launches_wgmma"] = launches["conv2d_wgmma"]
+        if name == "softmax":  # of its launches, those of the cluster and rows bodies
+            kernels[-1]["launches_cluster"] = launches["softmax_cluster"]
+            kernels[-1]["launches_rows"] = launches["softmax_rows"]
     print(json.dumps({"kernels": kernels, "to_port": []}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -49,14 +49,14 @@ SIGNATURES = {
     "repro_matmul_workspace": [_I] * 6,
     # x, w, out, R, C, eps, rows, xdtype, wdtype, stream
     "repro_rmsnorm": [_P] * 3 + [_I] * 2 + [ctypes.c_float] + [_I] * 3 + [_P],
-    # x, out, R, C, rows, dtype, stream
-    "repro_softmax": [_P] * 2 + [_I] * 4 + [_P],
+    # x, out, R, C, rows, dtype, route, stream
+    "repro_softmax": [_P] * 2 + [_I] * 5 + [_P],
     # x, y, out, alpha, R, C, block, dtype, stream
     "repro_axpy": [_P] * 3 + [ctypes.c_float] + [_I] * 4 + [_P],
     # x, y, out, R, C, block, dtype, stream
     "repro_dotp": [_P] * 3 + [_I] * 4 + [_P],
-    # re, im, twr, twi, out_re, out_im, B, N, rows, dtype, stream
-    "repro_fft": [_P] * 6 + [_I] * 4 + [_P],
+    # re, im, tw, out_re, out_im, B, N, rows, dtype, stream
+    "repro_fft": [_P] * 5 + [_I] * 4 + [_P],
     # re, im, out_re, out_im, B, R, C, tw_n, in_dtype, out_dtype, stream
     "repro_fft_transpose": [_P] * 4 + [_I] * 3 + [ctypes.c_longlong] + [_I] * 2 + [_P],
     # x, w, out, B, H, W, C, KH, KW, O, block_h, xdtype, wdtype, route, stream

@@ -4,125 +4,348 @@
 // Replaces the TPU kernel repro/kernels/fft.py::fft (_fft_kernel): re, im
 // [B, N] of one type (f32 or bf16), N = 2^k from 2 to 16,384 in fft_kernel
 // (longer rows: the four-step transposes at the end of this file around two
-// batches of fft_kernel, composed by kernels/fft.py); out re, im
-// [B, N] in that type; all math in f32. Stage s (L = 2^s) views each half of
-// the row as [N / 2L, L], multiplies the second half by the stage's row of
-// the twiddle table ([log2 N, N / 2] re and im, ref.fft_twiddles: the TPU
-// kernel's table, read from global memory, where it stays in L2) and writes
-// [e + t, e - t] side by side. The products and sums round as the plain
-// Stockham version's separate operations do (__fmul_rn, no contraction).
-// Row s of the table repeats with period L (entry p is W_2L^(p mod L)), so a
-// stage stages its L distinct entries in shared memory with one coalesced
-// load, and its butterflies read them there: read pair by pair from L2, the
-// twiddles left a 16-pair thread waiting on one L2 round trip per pair.
+// batches of fft_kernel, composed by kernels/fft.py); out re, im [B, N] in
+// that type; all math in f32. Stage s (L = 2^s) views each half of the row
+// as [N / 2L, L], multiplies the second half by W_2L^j (j = p mod L) and
+// writes [e + t, e - t] side by side. The products and sums round as the
+// plain Stockham version's separate operations do (__fmul_rn, __fadd_rn, no
+// contraction), on the same twiddle bits, so at f32 the result equals
+// ref.fft_stockham.
 //
 // What bounds it on the H100: the bytes — each row read once and written
 // once (0.641 ms at B = 8192, N = 16,384 f32 at 3.35 TB/s); 5 N log2 N
-// flops per row are a fifth of that at the f32 rate.
+// flops per row are a fifth of that at the f32 rate, but the butterflies
+// round each product alone (no FMA), so they take about half of it.
 //
-// Simple design, the TPU kernel's point kept: a CUDA block holds `rows`
-// whole rows in shared memory through all log2 N stages, so no stage goes
-// back to global memory. A ping-pong pair of planar f32 rows would take 16 N
-// bytes — 256 KiB at N = 16,384, more than a block may have — so each stage
-// runs in place: every thread reads its butterfly pairs into registers, the
-// block synchronises, every thread writes its two outputs per pair, and the
-// block synchronises again. That keeps 8 N bytes per row (128 KiB at N =
-// 16,384, dynamic shared memory above 48 KB), beside 4 N bytes for a
-// stage's twiddles. Up to 512 threads (1,024 at N = 16,384), each owning
-// PP = rows * N / 2 / threads pairs (at most 8, in registers). rows * N may not pass 16,384; `rows` is
-// the autotuner's knob (block_rows: 1, 2, 4 or 8, or 0 for the kernel's
-// choice, the most rows up to 8 within 4,096 elements).
+// Design (ref.fft_stockham_passes is its plain twin):
+// - Passes of four stages in registers. In index bits, stage s takes the
+//   top bit of the row index, pairs over it and writes the result bit at
+//   position s; the bits below s stay, the bits between shift up. So the 16
+//   points t * N / 16 + q (t < 16; q = m * 2^s + j, j < 2^s) go through
+//   stages s .. s + 3 among themselves and land at m * 2^(s+4) + u * 2^s + j
+//   (u < 16). A thread holds 16 points and runs such a radix-16 group (or,
+//   in the last pass of R = log2 N - 4 * (passes - 1) stages, 16 / 2^R
+//   radix-2^R groups) through its stages in registers. A 16,384-point row
+//   takes four passes (4 + 4 + 4 + 2 stages), 1,024 threads, and three
+//   exchanges through shared memory (13 barriers a row), where a stage at a
+//   time took 14 stages and 42 barriers.
+// - Registers are the limit: 1,024 threads may hold 64 each, and a group
+//   takes 32. log2 N is a template parameter, so every stride of a pass is
+//   a compile-time constant and a group's loads, stores and twiddle reads
+//   are one base address plus immediate offsets; and a pass reads
+//   threadIdx.x anew (tid()), so its offsets are computed where they are
+//   used instead of kept live across the row. Without the first the
+//   addresses outnumbered the points and the passes spilled (at 128
+//   registers with 32 points a thread too); without the second the
+//   bulk-copy kernels still spilled about 550 bytes a thread a row, more
+//   than L1 holds beside 192 KB of shared memory, so the spills went to L2.
+// - One twiddle table of N - 1 entries: stage s's distinct L = 2^s entries
+//   W_2L^p at offset L - 1 (ref.fft_twiddle_stages), each the TPU table's
+//   entry bit for bit (read from its last row at p * N / 2L, an exact power
+//   of two apart in angle), re and im interleaved: one 8-byte load a
+//   twiddle, a warp's loads one or two 128-byte lines in every pass (128 KB
+//   at N = 16,384, through the read-only cache). Read from the last row
+//   with its stride N / 2L instead, a warp's twiddle loads in the middle
+//   passes touch 32 lines each and the passes wait on L2.
+// - Two buffers. The tile lands, dense and in its own type, in two landing
+//   planes; the passes exchange through one f32 exchange plane, re then im
+//   (four barriers an exchange). So the landing planes are free once the
+//   first pass has read them.
+// - The exchange plane is swizzled: word i lives at i ^ g(i / 32), g(r) =
+//   (r & 15) | ((r & 8) << 1), a permutation inside each 32-word row. A pass
+//   reads 32 consecutive words a warp (any layout of that kind is
+//   conflict-free), and the writes of the passes at s = 0 (16 consecutive
+//   words a thread) and s = 4 (two 16-word runs 256 apart a warp), 16- and
+//   2-way bank conflicts in a plain layout, become conflict-free; from s = 5
+//   on the writes are runs of 32.
+// - Persistent blocks overlap the HBM traffic with the passes: as many
+//   blocks as fit an SM walk the tiles of `rows` rows. A tile lands by two
+//   cp.async.bulk (TMA bulk) copies, one a plane, completed on an mbarrier;
+//   as soon as every thread has read the first pass's inputs, one thread
+//   issues the bulk copies of the block's next tile into the landing planes,
+//   so that load runs during the later passes; the last pass writes its
+//   outputs from registers straight to global memory, group by group. Rows
+//   whose bytes or pointers are not 16-byte aligned (N * sizeof(T) % 16 !=
+//   0, an offset view) are copied in by the threads instead, at the top of
+//   each tile.
+// `rows` is the autotuner's knob (block_rows: 1, 2, 4 or 8 with rows * N <=
+// 16,384, or 0 for the kernel's choice, the most rows up to 8 within 4,096
+// elements). A block has max(32, rows * N / 16) threads and (2 sizeof(T) +
+// 4) rows * N bytes of shared memory (192 KiB for one f32 row of 16,384).
 
 #include <algorithm>
 
-#include "row_common.cuh"
+#include "attention_common.cuh"
+#include "gemm_wgmma.cuh"
 
 namespace {
 
-constexpr int kMaxElems = 16384;  // rows * N of one block: 128 KiB of f32 re and im
-// shared memory of a block: its rows' re and im, and a stage's twiddles (N / 2 re and im)
-__host__ __device__ constexpr size_t smem_bytes(int rows, int n) {
-  return sizeof(float) * (2 * static_cast<size_t>(rows) * n + n);
+constexpr int kMaxElems = 16384;  // rows * N of one block
+constexpr int kPoints = 16;       // complex points a thread holds
+constexpr int kMaxThreads = kMaxElems / kPoints;
+
+// dynamic shared memory of a block: the landing re and im planes of T, the
+// f32 exchange plane and the mbarrier
+__host__ __device__ constexpr int smem_bytes(int cap, int tsize) {
+  return (2 * tsize + static_cast<int>(sizeof(float))) * cap + 16;
 }
-constexpr int kMaxThreads = 1024;
 
-template <typename T, int PP, int VEC>
-__global__ void __launch_bounds__(kMaxThreads)
-fft_kernel(const T* __restrict__ re, const T* __restrict__ im, const float* __restrict__ twr,
-           const float* __restrict__ twi, T* __restrict__ ore, T* __restrict__ oim, int B,
-           int log2n, int rows) {
-  extern __shared__ __align__(16) float smem[];
-  const int n = 1 << log2n, half = n >> 1;
-  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * rows;
-  const int nrows = static_cast<int>(min(static_cast<int64_t>(rows), B - row0));
-  const int total = nrows * n;
-  float* sr = smem;
-  float* si = smem + rows * n;
-  float* swr = si + rows * n;  // the stage's L distinct twiddles
-  float* swi = swr + half;
-  const int64_t off = row0 * n;
+// word i of the exchange plane (see the design note)
+__device__ __forceinline__ int swz(int i) {
+  const int r = i >> 5;
+  return i ^ ((r & 15) | ((r & 8) << 1));
+}
 
-#pragma unroll 4
-  for (int i = threadIdx.x * VEC; i < total; i += blockDim.x * VEC) {
-    float v[VEC];
-    repro::load_row<VEC>(re + off + i, v);
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(repro::smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes),
+      "r"(repro::smem_addr(bar))
+      : "memory");
+}
+
+// The rows and sizes of a launch.
+template <typename T>
+struct Rows {
+  const T* re;
+  const T* im;
+  T* ore;
+  T* oim;
+  const float2* tw;  // the stage twiddles, N - 1 entries (re, im)
+  int B, rows, cap;  // cap = rows * N, the elements of a full tile
+};
+
+// threadIdx.x, read anew at each use: a pass's offsets are then computed
+// where they are used instead of kept live (and spilled) across the row.
+__device__ __forceinline__ int tid() {
+  int t;
+  asm volatile("mov.u32 %0, %%tid.x;\n" : "=r"(t));
+  return t;
+}
+
+// The pass of R stages from stage S over rows of 2^LOG2N points: a thread's
+// groups q = threadIdx.x + g * blockDim.x (g < kGroups) of the tile's valid
+// groups; group q = (row, m * 2^S + j) reads its element t at in0 + t *
+// 2^(LOG2N - R) and writes its output u at out0 + u * 2^S. Every stride is a
+// compile-time constant, so a group's loads and stores are one base address
+// plus immediate offsets.
+template <int LOG2N, int S, int R>
+struct Pass {
+  static constexpr int kRadix = 1 << R, kGroups = kPoints / kRadix, kLog2G = LOG2N - R;
+  int groups;
+  __device__ explicit Pass(int valid) : groups(valid >> R) {}
+  __device__ static int q(int g) { return tid() + g * blockDim.x; }
+  __device__ bool live(int g) const { return q(g) < groups; }
+  __device__ static int j(int g) { return q(g) & ((1 << S) - 1); }
+  __device__ static int in0(int g) {
+    return ((q(g) >> kLog2G) << LOG2N) + (q(g) & ((1 << kLog2G) - 1));
+  }
+  __device__ static int out0(int g) {
+    const int qp = q(g) & ((1 << kLog2G) - 1);
+    return ((q(g) >> kLog2G) << LOG2N) + ((qp >> S) << (S + R)) + (qp & ((1 << S) - 1));
+  }
+};
+
+// Element e0 + off of the exchange plane, sw0 = swz(e0): a stride of 512
+// words or more leaves the swizzle's bits alone, so the offset stays an
+// immediate.
+template <int kLog2Stride>
+__device__ __forceinline__ int swz_at(int e0, int sw0, int off) {
+  if constexpr (kLog2Stride >= 9) return sw0 + off;
+  return swz(e0 + off);
+}
+
+// Stage S + K of the radix-2^R group at registers xr[o ..], xi[o ..], then
+// the group's later stages. The group sits at local index (remaining input
+// bits << K) | produced bits; the stage pairs over the top local bit, and
+// its twiddle for produced bits p is W_2L^(p * 2^S + j), L = 2^(S + K):
+// entry L - 1 + p * 2^S + j of the stage table.
+template <int LOG2N, int S, int R, int K>
+__device__ __forceinline__ void radix_stages(float (&xr)[kPoints], float (&xi)[kPoints], int o,
+                                             int j, const float2* __restrict__ tw) {
+  constexpr int kHalf = 1 << (R - 1);
+  const float2* twj = tw + ((1 << (S + K)) - 1) + j;  // the stage's entries
+  float nr[1 << R], ni[1 << R];
 #pragma unroll
-    for (int e = 0; e < VEC; ++e) sr[i + e] = v[e];
-    repro::load_row<VEC>(im + off + i, v);
+  for (int p = 0; p < (1 << K); ++p) {
+    const float2 w = __ldg(twj + (p << S));
 #pragma unroll
-    for (int e = 0; e < VEC; ++e) si[i + e] = v[e];
+    for (int rp = 0; rp < (kHalf >> K); ++rp) {
+      const int l = (rp << K) | p;  // e at l, o at l + kHalf
+      const float er = xr[o + l], ei = xi[o + l], orr = xr[o + l + kHalf],
+                  oi = xi[o + l + kHalf];
+      const float t_r = __fsub_rn(__fmul_rn(orr, w.x), __fmul_rn(oi, w.y));
+      const float t_i = __fadd_rn(__fmul_rn(orr, w.y), __fmul_rn(oi, w.x));
+      const int lo = (rp << (K + 1)) | p;
+      nr[lo] = __fadd_rn(er, t_r);
+      ni[lo] = __fadd_rn(ei, t_i);
+      nr[lo | (1 << K)] = __fsub_rn(er, t_r);
+      ni[lo | (1 << K)] = __fsub_rn(ei, t_i);
+    }
+  }
+#pragma unroll
+  for (int l = 0; l < (1 << R); ++l) {
+    xr[o + l] = nr[l];
+    xi[o + l] = ni[l];
+  }
+  if constexpr (K + 1 < R) radix_stages<LOG2N, S, R, K + 1>(xr, xi, o, j, tw);
+}
+
+// The first pass's inputs, from the landed tile (T, dense).
+template <int LOG2N, int S, int R, typename T>
+__device__ __forceinline__ void load_landed(float (&xr)[kPoints], float (&xi)[kPoints],
+                                            const Pass<LOG2N, S, R>& ps, const T* lre,
+                                            const T* lim) {
+  using P = Pass<LOG2N, S, R>;
+#pragma unroll
+  for (int g = 0; g < P::kGroups; ++g) {
+    if (!ps.live(g)) continue;
+    const int e0 = P::in0(g);
+#pragma unroll
+    for (int t = 0; t < P::kRadix; ++t) {
+      xr[g * P::kRadix + t] = repro::to_f32(lre[e0 + (t << P::kLog2G)]);
+      xi[g * P::kRadix + t] = repro::to_f32(lim[e0 + (t << P::kLog2G)]);
+    }
+  }
+}
+
+template <int LOG2N, int S, int R>
+__device__ __forceinline__ void butterflies(float (&xr)[kPoints], float (&xi)[kPoints],
+                                            const Pass<LOG2N, S, R>& ps, const float2* tw) {
+  using P = Pass<LOG2N, S, R>;
+#pragma unroll
+  for (int g = 0; g < P::kGroups; ++g)
+    if (ps.live(g)) radix_stages<LOG2N, S, R, 0>(xr, xi, g * P::kRadix, P::j(g), tw);
+}
+
+// One plane of the registers from pass a's outputs to pass b's inputs
+// through the exchange plane xs (swizzled), in place in the registers.
+template <int LOG2N, int SA, int RA, int SB, int RB>
+__device__ __forceinline__ void exchange_plane(float (&x)[kPoints],
+                                               const Pass<LOG2N, SA, RA>& a,
+                                               const Pass<LOG2N, SB, RB>& b, float* xs) {
+  using A = Pass<LOG2N, SA, RA>;
+  using B = Pass<LOG2N, SB, RB>;
+  __syncthreads();  // the plane is free: every thread has read its last use
+#pragma unroll
+  for (int g = 0; g < A::kGroups; ++g) {
+    if (!a.live(g)) continue;
+    const int e0 = A::out0(g), sw0 = swz(e0);
+#pragma unroll
+    for (int u = 0; u < A::kRadix; ++u) xs[swz_at<SA>(e0, sw0, u << SA)] = x[g * A::kRadix + u];
   }
   __syncthreads();
+#pragma unroll
+  for (int g = 0; g < B::kGroups; ++g) {
+    if (!b.live(g)) continue;
+    const int e0 = B::in0(g), sw0 = swz(e0);
+#pragma unroll
+    for (int t = 0; t < B::kRadix; ++t)
+      x[g * B::kRadix + t] = xs[swz_at<B::kLog2G>(e0, sw0, t << B::kLog2G)];
+  }
+}
 
-  const int pairs = nrows * half;
-  for (int s = 0; s < log2n; ++s) {
-    const int L = 1 << s;
-    for (int j = threadIdx.x; j < L; j += blockDim.x) {
-      swr[j] = __ldg(twr + static_cast<int64_t>(s) * half + j);
-      swi[j] = __ldg(twi + static_cast<int64_t>(s) * half + j);
-    }
-    __syncthreads();  // the stage's twiddles are in place
-    float ar[PP], ai[PP], br[PP], bi[PP];
+// The last pass's butterflies, each group written to global memory as soon
+// as its stages are done.
+template <int LOG2N, int S, int R, typename T>
+__device__ __forceinline__ void butterflies_out(float (&xr)[kPoints], float (&xi)[kPoints],
+                                                const Pass<LOG2N, S, R>& ps, const float2* tw,
+                                                T* ore, T* oim) {
+  using P = Pass<LOG2N, S, R>;
 #pragma unroll
-    for (int k = 0; k < PP; ++k) {
-      const int q = threadIdx.x + k * blockDim.x;
-      if (q >= pairs) continue;
-      const int base = (q >> (log2n - 1)) << log2n, p = q & (half - 1);
-      const float er = sr[base + p], ei = si[base + p];
-      const float orr = sr[base + half + p], oi = si[base + half + p];
-      const float wr = swr[p & (L - 1)], wi = swi[p & (L - 1)];
-      const float t_r = __fsub_rn(__fmul_rn(orr, wr), __fmul_rn(oi, wi));
-      const float t_i = __fadd_rn(__fmul_rn(orr, wi), __fmul_rn(oi, wr));
-      ar[k] = er + t_r;
-      ai[k] = ei + t_i;
-      br[k] = er - t_r;
-      bi[k] = ei - t_i;
-    }
-    __syncthreads();  // every pair is in registers: the stage may overwrite the rows
+  for (int g = 0; g < P::kGroups; ++g) {
+    if (!ps.live(g)) continue;
+    radix_stages<LOG2N, S, R, 0>(xr, xi, g * P::kRadix, P::j(g), tw);
+    T* pr = ore + P::out0(g);
+    T* pi = oim + P::out0(g);
 #pragma unroll
-    for (int k = 0; k < PP; ++k) {
-      const int q = threadIdx.x + k * blockDim.x;
-      if (q >= pairs) continue;
-      const int base = (q >> (log2n - 1)) << log2n, p = q & (half - 1);
-      // pair p = g * L + j lands at g * 2L + j (e + t) and L further (e - t)
-      const int o = base + 2 * p - (p & (L - 1));
-      sr[o] = ar[k];
-      si[o] = ai[k];
-      sr[o + L] = br[k];
-      si[o + L] = bi[k];
+    for (int u = 0; u < P::kRadix; ++u) {
+      repro::store_f32(pr + (u << S), xr[g * P::kRadix + u]);
+      repro::store_f32(pi + (u << S), xi[g * P::kRadix + u]);
     }
-    __syncthreads();  // the rows and the twiddle slots are free for the next stage
+  }
+}
+
+// The passes from stage S on; the registers hold the outputs of the
+// radix-16 pass from stage S - 4.
+template <int LOG2N, int S, typename T>
+__device__ __forceinline__ void passes_from(float (&xr)[kPoints], float (&xi)[kPoints],
+                                            int valid, float* xs, const float2* tw, T* ore,
+                                            T* oim) {
+  constexpr int R = LOG2N - S < 4 ? LOG2N - S : 4;
+  const Pass<LOG2N, S - 4, 4> prev(valid);
+  const Pass<LOG2N, S, R> cur(valid);
+  exchange_plane(xr, prev, cur, xs);
+  exchange_plane(xi, prev, cur, xs);
+  if constexpr (S + R == LOG2N) {
+    butterflies_out(xr, xi, cur, tw, ore, oim);
+  } else {
+    butterflies(xr, xi, cur, tw);
+    passes_from<LOG2N, S + 4>(xr, xi, valid, xs, tw, ore, oim);
+  }
+}
+
+// Rows of 2^LOG2N points; kBulk: tiles land by TMA bulk copies (16-byte
+// aligned rows and pointers), else by the threads.
+template <typename T, int LOG2N, bool kBulk>
+__global__ void __launch_bounds__(kMaxThreads, 1) fft_kernel(const Rows<T> a) {
+  constexpr int n = 1 << LOG2N, R0 = LOG2N < 4 ? LOG2N : 4;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* lre = reinterpret_cast<T*>(smem);
+  T* lim = lre + a.cap;
+  float* xs = reinterpret_cast<float*>(lim + a.cap);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(xs + a.cap);
+  const int tiles = (a.B + a.rows - 1) / a.rows;
+
+  // the bulk copies of tile `tile` into the landing planes (one thread)
+  auto issue = [&](int tile) {
+    const int nrows = min(a.rows, a.B - tile * a.rows);
+    const uint32_t bytes = static_cast<uint32_t>(nrows) * n * sizeof(T);
+    const int64_t off = static_cast<int64_t>(tile) * a.rows * n;
+    repro::mbar_expect_tx(bar, 2 * bytes);
+    bulk_load(lre, a.re + off, bytes, bar);
+    bulk_load(lim, a.im + off, bytes, bar);
+  };
+  if constexpr (kBulk) {
+    if (threadIdx.x == 0) {
+      repro::mbar_init(bar, 1);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+      issue(blockIdx.x);
+    }
+    __syncthreads();
   }
 
-#pragma unroll 4
-  for (int i = threadIdx.x * VEC; i < total; i += blockDim.x * VEC) {
-    float v[VEC];
-#pragma unroll
-    for (int e = 0; e < VEC; ++e) v[e] = sr[i + e];
-    repro::store_row<VEC>(ore + off + i, v);
-#pragma unroll
-    for (int e = 0; e < VEC; ++e) v[e] = si[i + e];
-    repro::store_row<VEC>(oim + off + i, v);
+  int it = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++it) {
+    const int valid = min(a.rows, a.B - tile * a.rows) << LOG2N;
+    const int64_t off = static_cast<int64_t>(tile) * a.rows * n;
+    if constexpr (kBulk) {
+      repro::mbar_wait(bar, it & 1);
+    } else {
+      for (int e = threadIdx.x; e < valid; e += blockDim.x) {
+        lre[e] = a.re[off + e];
+        lim[e] = a.im[off + e];
+      }
+      __syncthreads();
+    }
+    float xr[kPoints], xi[kPoints];
+    const Pass<LOG2N, 0, R0> first(valid);
+    load_landed(xr, xi, first, lre, lim);
+    // the first pass's reads are done: the landing planes take the next
+    // tile. A warp may reach the barrier with its loads of them still in
+    // flight; the proxy fence orders them before the async proxy's writes.
+    if constexpr (kBulk) asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    if constexpr (kBulk) {
+      if (threadIdx.x == 0 && tile + static_cast<int>(gridDim.x) < tiles) issue(tile + gridDim.x);
+    }
+    if constexpr (R0 == LOG2N) {
+      butterflies_out(xr, xi, first, a.tw, a.ore + off, a.oim + off);
+    } else {
+      butterflies(xr, xi, first, a.tw);
+      passes_from<LOG2N, 4>(xr, xi, valid, xs, a.tw, a.ore + off, a.oim + off);
+    }
   }
 }
 
@@ -133,63 +356,64 @@ int auto_rows(int n) {
   return rows;
 }
 
-template <typename T, int PP, int VEC>
-int launch_pp(const void* re, const void* im, const float* twr, const float* twi, void* ore,
-              void* oim, int B, int log2n, int rows, int threads, cudaStream_t st) {
-  const size_t smem = smem_bytes(rows, 1 << log2n);
-  auto kernel = fft_kernel<T, PP, VEC>;
-  static bool raised[64] = {};  // the attribute, once per instantiation and device
-  int dev = 0;
-  cudaGetDevice(&dev);
-  if (dev >= 64 || !raised[dev]) {
-    const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               static_cast<int>(smem_bytes(1, kMaxElems)));
-    if (e != cudaSuccess) return static_cast<int>(e);
-    if (dev < 64) raised[dev] = true;
+int sm_count() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (sms <= 0) sms = 132;
   }
-  const dim3 grid((B + rows - 1) / rows);
-  kernel<<<grid, threads, smem, st>>>(static_cast<const T*>(re), static_cast<const T*>(im), twr,
-                                      twi, static_cast<T*>(ore), static_cast<T*>(oim), B, log2n,
-                                      rows);
+  return sms;
+}
+
+template <typename T, int LOG2N, bool kBulk>
+int launch_kernel(const Rows<T>& a, cudaStream_t st) {
+  static bool raised[64] = {};
+  auto kernel = fft_kernel<T, LOG2N, kBulk>;
+  cudaError_t e = repro::raise_smem(kernel, smem_bytes(kMaxElems, sizeof(T)), raised);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int threads = std::max(32, a.cap / kPoints);
+  const int smem = smem_bytes(a.cap, sizeof(T));
+  int per_sm = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const int tiles = (a.B + a.rows - 1) / a.rows;
+  const int grid = std::min(tiles, per_sm * sm_count());
+  kernel<<<grid, threads, smem, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int VEC>
-int launch_vec(const void* re, const void* im, const float* twr, const float* twi, void* ore,
-               void* oim, int B, int log2n, int rows, cudaStream_t st) {
-  const int pairs = (rows << log2n) / 2;  // a power of two, 1 .. kMaxElems / 2
-  // 512 threads or fewer, each with up to 8 pairs; 1,024 only where 512
-  // would need 16 (N = 16,384), which spilled at 512 threads' 128 registers
-  const int threads = std::max({32, std::min(512, pairs), pairs / 8});
-  switch (std::max(1, pairs / threads)) {
-#define REPRO_FFT(PP) \
-  case PP: return launch_pp<T, PP, VEC>(re, im, twr, twi, ore, oim, B, log2n, rows, threads, st);
-    REPRO_FFT(1)
-    REPRO_FFT(2)
-    REPRO_FFT(4)
-    REPRO_FFT(8)
+template <typename T, bool kBulk>
+int launch_n(const Rows<T>& a, int log2n, cudaStream_t st) {
+  switch (log2n) {
+#define REPRO_FFT(L) \
+  case L: return launch_kernel<T, L, kBulk>(a, st);
+    REPRO_FFT(1) REPRO_FFT(2) REPRO_FFT(3) REPRO_FFT(4) REPRO_FFT(5) REPRO_FFT(6) REPRO_FFT(7)
+    REPRO_FFT(8) REPRO_FFT(9) REPRO_FFT(10) REPRO_FFT(11) REPRO_FFT(12) REPRO_FFT(13)
+    REPRO_FFT(14)
 #undef REPRO_FFT
     default: return -1;
   }
 }
 
 template <typename T>
-int launch(const void* re, const void* im, const float* twr, const float* twi, void* ore,
-           void* oim, int B, int N, int rows, cudaStream_t st) {
+int launch(const void* re, const void* im, const float2* tw, void* ore, void* oim, int B, int N,
+           int rows, cudaStream_t st) {
   int log2n = 0;
   while ((2 << log2n) <= N) ++log2n;
   if (N < 2 || (1 << log2n) != N || N > kMaxElems) return -1;
   if (rows == 0) rows = auto_rows(N);
   if ((rows != 1 && rows != 2 && rows != 4 && rows != 8) || rows * N > kMaxElems) return -1;
+  if (B < 0) return -1;
   if (B == 0) return 0;
-  constexpr int kVec = 16 / sizeof(T);
-  const bool vec = N % kVec == 0 &&
-                   reinterpret_cast<uintptr_t>(re) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(im) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(ore) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(oim) % 16 == 0;
-  if (vec) return launch_vec<T, kVec>(re, im, twr, twi, ore, oim, B, log2n, rows, st);
-  return launch_vec<T, 1>(re, im, twr, twi, ore, oim, B, log2n, rows, st);
+  const Rows<T> a{static_cast<const T*>(re), static_cast<const T*>(im), static_cast<T*>(ore),
+                  static_cast<T*>(oim), tw, B, rows, rows * N};
+  const bool bulk = (static_cast<size_t>(N) * sizeof(T)) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(re) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(im) % 16 == 0;
+  return bulk ? launch_n<T, true>(a, log2n, st) : launch_n<T, false>(a, log2n, st);
 }
 
 // ------------------------------------------------ rows longer than a block
@@ -283,17 +507,16 @@ extern "C" int repro_fft_transpose(const void* re, const void* im, void* ore, vo
 }
 
 // re, im, ore, oim: [B, N] contiguous of one dtype (0 = float32, 1 =
-// bfloat16); twr, twi: the f32 twiddle table [log2 N, N / 2]. rows: rows per
-// block, 1, 2, 4 or 8 with rows * N <= 16384, or 0 for the kernel's choice.
-// Returns cudaGetLastError() after the launch, -1 for an N or rows the
-// kernel does not take, -2 for an unsupported dtype.
-extern "C" int repro_fft(const void* re, const void* im, const void* twr, const void* twi,
-                         void* ore, void* oim, int B, int N, int rows, int dtype, void* stream) {
+// bfloat16); tw: the f32 stage twiddles [N - 1, 2] (ref.fft_twiddle_stages,
+// re and im interleaved). rows: rows per block, 1, 2, 4 or 8 with rows * N <=
+// 16384, or 0 for the kernel's choice. Returns cudaGetLastError() after the
+// launch, -1 for an N or rows the kernel does not take, -2 for an
+// unsupported dtype.
+extern "C" int repro_fft(const void* re, const void* im, const void* tw, void* ore, void* oim,
+                         int B, int N, int rows, int dtype, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* tr = static_cast<const float*>(twr);
-  const float* ti = static_cast<const float*>(twi);
-  if (dtype == repro::kF32) return launch<float>(re, im, tr, ti, ore, oim, B, N, rows, st);
-  if (dtype == repro::kBF16)
-    return launch<__nv_bfloat16>(re, im, tr, ti, ore, oim, B, N, rows, st);
+  const float2* t = static_cast<const float2*>(tw);
+  if (dtype == repro::kF32) return launch<float>(re, im, t, ore, oim, B, N, rows, st);
+  if (dtype == repro::kBF16) return launch<__nv_bfloat16>(re, im, t, ore, oim, B, N, rows, st);
   return -2;
 }

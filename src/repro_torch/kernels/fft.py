@@ -9,7 +9,9 @@ transposes and its row passes: five per call up to 2^28 points, nine at
 2^29 and thirteen at 2^30, where a row pass recurses).
 
 A row of up to :data:`MAX_ROW_N` points lives in one block's shared memory
-through all its stages. A longer row runs the four-step FFT
+through all its stages, run in passes of four stages in registers
+(``ref.fft_stockham_passes`` is the plain twin) by persistent blocks that
+prefetch their next tile. A longer row runs the four-step FFT
 (:func:`four_step`): N = N1 * N2, a transpose, N1-row FFTs of N2 points, a
 twiddle-and-transpose, N2-row FFTs of N1 points and a last transpose, all
 hand-written kernels of ``csrc/fft.cu``, with f32 intermediates. From 2^29
@@ -22,6 +24,7 @@ from __future__ import annotations
 import functools
 import math
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import _build, _checks, ref
@@ -36,7 +39,7 @@ MAX_N = 2**30  # every power of two a C int dimension takes (_checks.c_int_dims)
 # MAX_ROW_N, so above it only 0 (the four-step path) is taken
 BLOCK_ROWS = (0, 1, 2, 4, 8)
 
-_twiddles: dict = {}  # (n, device) -> the f32 table (re, im) on the card
+_twiddles: dict = {}  # (n, device) -> the f32 stage twiddles [n - 1, 2] on the card
 
 
 def fits(n: int, block_rows: int) -> bool:
@@ -52,12 +55,14 @@ def split(n: int) -> tuple[int, int]:
     return n // n2, n2
 
 
-def twiddles(n: int, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
-    """``ref.fft_twiddles(n)`` on ``device``, copied there once."""
+def twiddles(n: int, device: torch.device) -> torch.Tensor:
+    """``ref.fft_twiddle_stages(n)`` (every stage's distinct entries of the
+    TPU kernel's table, read from its last row) as one f32 [n - 1, 2]
+    tensor of (re, im) pairs on ``device``, copied there once."""
     key = (n, device)
     if key not in _twiddles:
-        tw_re, tw_im = ref.fft_twiddles(n)
-        _twiddles[key] = (torch.from_numpy(tw_re).to(device), torch.from_numpy(tw_im).to(device))
+        tw_re, tw_im = ref.fft_twiddle_stages(n)
+        _twiddles[key] = torch.from_numpy(np.stack([tw_re, tw_im], -1)).to(device)
     return _twiddles[key]
 
 
@@ -113,11 +118,11 @@ def _row_kernel(re, im, block_rows: int = 0, long: bool = False
     ``launches_long`` when it is a row pass of the four-step path."""
     global launches, launches_long
     b, n = re.shape
-    twr, twi = twiddles(n, re.device)
+    tw = twiddles(n, re.device)
     ore, oim = torch.empty_like(re), torch.empty_like(im)
     rc = _build.load().repro_fft(
-        re.data_ptr(), im.data_ptr(), twr.data_ptr(), twi.data_ptr(), ore.data_ptr(),
-        oim.data_ptr(), b, n, block_rows, _checks.DTYPE_CODES[re.dtype], _checks.stream(re),
+        re.data_ptr(), im.data_ptr(), tw.data_ptr(), ore.data_ptr(), oim.data_ptr(), b, n,
+        block_rows, _checks.DTYPE_CODES[re.dtype], _checks.stream(re),
     )
     _build.check(rc, "fft")
     if long:
@@ -132,7 +137,7 @@ def fft(re: torch.Tensor, im: torch.Tensor, *, block_rows: int = 0
     """re, im: [B, N] of one dtype, f32 or bf16, N a power of two from 2 to
     2^30. Returns the FFT of each row (f32 math) as (re, im) in that dtype,
     on re's device and stream, without synchronising (the first call at a
-    row length copies its twiddle table to the card). ``block_rows``: one of
+    row length copies its stage twiddles to the card). ``block_rows``: one of
     :data:`BLOCK_ROWS` with ``block_rows * N <= 16384`` (0 above)."""
     name = "fft"
     _checks.c_int_dims(name, re, im)

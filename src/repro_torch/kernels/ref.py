@@ -309,6 +309,100 @@ def fft_twiddles(n: int) -> tuple[np.ndarray, np.ndarray]:
     return tw_re, tw_im
 
 
+def fft_twiddle_row(n: int) -> tuple[np.ndarray, np.ndarray]:
+    """The last row of :func:`fft_twiddles` (re, im) [n // 2], W_n^j, with
+    the same f32 bits. Stage s's entry p is this row's entry
+    ``(p mod L) * n / (2L)`` (L = 2**s), bit for bit: the two float64
+    angles differ by a power of two, which scales exactly."""
+    if n < 2 or n & (n - 1):
+        raise ValueError(f"n={n} must be a power of 2")
+    l = n // 2
+    ang = -2.0 * np.pi * np.arange(l) / (2 * l)
+    return np.cos(ang).astype(np.float32), np.sin(ang).astype(np.float32)
+
+
+def fft_twiddle_stages(n: int) -> tuple[np.ndarray, np.ndarray]:
+    """The distinct entries of every stage of :func:`fft_twiddles`, packed
+    (re, im) [n - 1]: stage s's L = 2**s entries W_2L^p (p < L) at offset
+    L - 1, each read from :func:`fft_twiddle_row` at p * n / (2L), so bit
+    for bit the TPU kernel's. A stage's consecutive p are consecutive here,
+    where the row holds them n / 2L apart."""
+    row_re, row_im = fft_twiddle_row(n)
+    idx = np.concatenate([np.arange(2**s) * (n // 2 ** (s + 1))
+                          for s in range(n.bit_length() - 1)])
+    return row_re[idx], row_im[idx]
+
+
+def fft_stockham_passes(re: torch.Tensor, im: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`fft_stockham` computed as ``csrc/fft.cu`` moves the data: the
+    log2 N stages in passes of four (the last pass takes the rest), each a
+    radix-2^R group of points ``t * N / 2^R + q`` (t < 2^R) run through R
+    stages in place, its twiddles read from :func:`fft_twiddle_stages`. A
+    pass starting at stage s leaves group q = m * 2^s + j's output u at
+    ``m * 2^(s+R) + u * 2^s + j``. Every butterfly is the step-by-step
+    version's, on the same twiddle bits, so the result is equal bit for bit.
+    """
+    b, n = re.shape
+    log2n = n.bit_length() - 1
+    tab_re, tab_im = (torch.from_numpy(t).to(re.device) for t in fft_twiddle_stages(n))
+    xr, xi = re.float(), im.float()
+    s = 0
+    while s < log2n:
+        r = min(4, log2n - s)
+        radix, g = 1 << r, n >> r
+        # [b, local index, group]; local index l = (remaining input bits << k) | produced bits
+        vr, vi = xr.reshape(b, radix, g), xi.reshape(b, radix, g)
+        j = torch.arange(g, device=re.device) % (1 << s)
+        half = radix // 2
+        for k in range(r):  # stage s + k, L = 2^(s+k); the pair differs in the top local bit
+            p = torch.arange(half, device=re.device) % (1 << k)
+            idx = (1 << (s + k)) - 1 + (p[:, None] << s) + j[None, :]
+            wr, wi = tab_re[idx], tab_im[idx]
+            er, ei, orr, oi = vr[:, :half], vi[:, :half], vr[:, half:], vi[:, half:]
+            tr = orr * wr - oi * wi
+            ti = orr * wi + oi * wr
+            # (r' 2^k + p, e +/- t) -> local (r' << (k+1)) | (h << k) | p
+            shape = (b, half >> k, 1 << k, g)
+            vr = torch.stack([(er + tr).reshape(shape), (er - tr).reshape(shape)], 2)
+            vi = torch.stack([(ei + ti).reshape(shape), (ei - ti).reshape(shape)], 2)
+            vr, vi = vr.reshape(b, radix, g), vi.reshape(b, radix, g)
+        # local u, group q = m 2^s + j -> m 2^(s+R) + u 2^s + j
+        out = (b, radix, g >> s, 1 << s)
+        xr = vr.reshape(out).permute(0, 2, 1, 3).reshape(b, n)
+        xi = vi.reshape(out).permute(0, 2, 1, 3).reshape(b, n)
+        s += r
+    return xr.to(re.dtype), xi.to(im.dtype)
+
+
+def softmax_split(x: torch.Tensor, parts: int) -> torch.Tensor:
+    """Row softmax as ``csrc/softmax.cu``'s cluster body computes it: each
+    row cut into ``parts`` slices of ceil(C / parts) columns, each slice's
+    (max m_r, sum s_r of exp(x - m_r)) taken alone, then merged in rank
+    order, M = max m_r and S = sum over r of s_r * exp(m_r - M), and each
+    element written as exp(x - M) / S. An empty or all -inf slice is (the
+    finite floor -FLT_MAX, 0). f32 math, in x's dtype."""
+    xf = x.float()
+    c = x.shape[-1]
+    width = -(-c // parts)
+    floor = torch.finfo(torch.float32).min
+    pairs = []
+    for r in range(parts):
+        sl = xf[..., r * width:(r + 1) * width]
+        if sl.shape[-1] == 0:
+            m = torch.full(x.shape[:-1], floor, device=x.device)
+            pairs.append((m, torch.zeros_like(m)))
+            continue
+        m = sl.amax(-1).clamp_min(floor)
+        pairs.append((m, torch.exp(sl - m[..., None]).sum(-1)))
+    big = pairs[0][0]
+    for m, _ in pairs[1:]:
+        big = torch.maximum(big, m)
+    total = torch.zeros_like(big)
+    for m, s in pairs:
+        total = total + s * torch.exp(m - big)
+    return (torch.exp(xf - big[..., None]) / total[..., None]).to(x.dtype)
+
+
 def fft_stockham(re: torch.Tensor, im: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Stockham radix-2 over the last dim of [B, N], step by step: the
     algorithm of the TPU kernel and of ``csrc/fft.cu``, with the same twiddle

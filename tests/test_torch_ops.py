@@ -103,6 +103,52 @@ def test_softmax_vs_jax(jx, r, c, dtype):
     _held_softmax(got, jref.softmax(jxx).astype(np.float32), x.dtype)
 
 
+@pytest.mark.parametrize("parts", [1, 3, 8])
+@pytest.mark.parametrize("r,c", [(16, 64), (37, 1000), (3, 5)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_softmax_split_vs_jax(jx, parts, r, c, dtype):
+    """The cluster body's arithmetic (per-slice (max, sum) pairs merged in
+    rank order), C below the number of slices included, against the Pallas
+    body and the JAX oracle; a row with -inf entries (a masked half) too."""
+    _, jref, jops = jx
+    (x,), (jxx,) = _inputs(jx, dtype, (r, c), seed=12)
+    got = ref.softmax_split(x, parts)
+    assert got.dtype == x.dtype
+    _close(got, jops.softmax(jxx, mode="interpret", block_rows=16), jref.softmax(jxx),
+           dtype=dtype)
+    _held_softmax(got, jref.softmax(jxx).astype(np.float32), x.dtype)
+    x[0, : (c + 1) // 2] = -float("inf")
+    masked = jx[0].asarray(x.float().numpy()).astype(jxx.dtype)
+    _held_softmax(ref.softmax_split(x, parts), jref.softmax(masked).astype(np.float32), x.dtype)
+
+
+@pytest.mark.parametrize("r,c,dtype,block_rows,body", [
+    (64, 92416, torch.bfloat16, 0, "cluster"),  # phase 7's vocabulary logits
+    (4096, 1024, torch.float32, 0, "rows"),  # phase 7's attention scores
+    (37, 92416, torch.bfloat16, 0, "cluster"), (37, 1000, torch.float32, 0, "rows"),
+    (1, 16384, torch.float32, 0, "rows"), (1, 16385, torch.float32, 0, "cluster"),
+    (3, 131072, torch.bfloat16, 0, "cluster"), (3, 131073, torch.bfloat16, 0, "wide"),
+    (2, 10**6, torch.float32, 0, "wide"),
+    (64, 92416, torch.bfloat16, 1, "wide"), (64, 16384, torch.bfloat16, 1, "rows"),
+    (4096, 1024, torch.float32, 8, "rows"), (4096, 2048, torch.float32, 8, "rows"),
+    (4096, 2049, torch.float32, 8, "wide"), (10, 8192, torch.float32, 2, "rows"),
+    (10, 8193, torch.float32, 2, "wide"), (2**28, 20000, torch.float32, 0, "wide"),
+])
+def test_softmax_route(r, c, dtype, block_rows, body):
+    """rows while a row fits its group's registers (256 / rows threads x 64
+    elements), a cluster of 8 at block_rows 0 up to 131,072 columns, the
+    two-pass body past them (and where R x 8 CTAs would pass a grid)."""
+    assert smk.route(r, c, dtype, block_rows) == body
+    assert body in smk.ROUTES
+
+
+def test_softmax_route_refuses_what_no_body_takes():
+    with pytest.raises(ValueError, match="block_rows"):
+        smk.route(4, 64, torch.float32, 3)
+    with pytest.raises(TypeError):
+        smk.route(4, 64, torch.float16, 0)
+
+
 @pytest.mark.parametrize("r,c", [(16, 64), (40, 256), (37, 96)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_rmsnorm_vs_jax(jx, r, c, dtype):
@@ -346,6 +392,59 @@ def test_cuda_softmax_vs_plain(rows, dtype, r, c):
     dev = _cuda()
     x = _randn(dev, 5, r, c, dtype=dtype) * 4
     _held_softmax(smk.softmax(x, block_rows=rows), ref.softmax(x), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("r,c", [(1, 5), (3, 1000), (2, 16384 // 8), (2, 16384), (5, 16385),
+                                 (1, 50001), (64, 92416), (3, 131072), (2, 99999)])
+def test_cuda_softmax_cluster_body(dtype, r, c):
+    """The cluster body, forced where the route would not take it too: C
+    below the cluster's 8 slices, at and around one slice, up to a whole
+    cluster's registers, C % 8 != 0, R = 1, a row with -inf entries (a
+    masked first half: whole slices of -inf), and an offset view (element
+    loads); each launch counted on ``launches_cluster``."""
+    dev = _cuda()
+    base = _randn(dev, 13, r * c + 1, dtype=dtype) * 4
+    for x in (base[: r * c].view(r, c).clone(), base[1:].view(r, c)):
+        if r > 1:
+            x[1, : c // 2] = -float("inf")
+        n0, n_c = smk.launches, smk.launches_cluster
+        got = smk.softmax(x, body="cluster")
+        assert (smk.launches, smk.launches_cluster) == (n0 + 1, n_c + 1)
+        _held_softmax(got, ref.softmax(x), dtype)
+        _held_softmax(got, ref.softmax_split(x, smk.CLUSTER), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("r,c,block_rows", [
+    (64, 92416, 0), (4096, 1024, 0), (37, 1000, 0), (37, 1000, 8), (10, 333, 4), (1, 16384, 0),
+    (64, 92416, 1), (3, 200003, 0), (5, 16385, 0), (9, 2048, 8), (9, 2049, 8)])
+def test_cuda_softmax_routes_are_counted_on_their_body(dtype, r, c, block_rows):
+    """Each shape runs the body route() names and adds one to that body's
+    count and to ``launches``, no other; the result held against plain."""
+    dev = _cuda()
+    x = _randn(dev, 14, r, c, dtype=dtype) * 4
+    body = smk.route(r, c, dtype, block_rows)
+    counts = {b: getattr(smk, f"launches_{b}") for b in smk.ROUTES}
+    n0 = smk.launches
+    got = smk.softmax(x, block_rows=block_rows)
+    assert smk.launches == n0 + 1
+    assert {b: getattr(smk, f"launches_{b}") - counts[b] for b in smk.ROUTES} == {
+        b: int(b == body) for b in smk.ROUTES}
+    _held_softmax(got, ref.softmax(x), dtype)
+
+
+@pytest.mark.cuda
+def test_cuda_softmax_bodies_refuse_rows_past_their_registers():
+    dev = _cuda()
+    with pytest.raises(ValueError, match="instantiated"):
+        smk.softmax(_randn(dev, 15, 2, 131073), body="cluster")
+    with pytest.raises(ValueError, match="instantiated"):
+        smk.softmax(_randn(dev, 15, 2, 2049), block_rows=8, body="rows")
+    with pytest.raises(ValueError, match="instantiated"):
+        smk.softmax(_randn(dev, 15, 2, 2048), block_rows=2, body="cluster")
 
 
 @pytest.mark.cuda

@@ -202,6 +202,62 @@ def test_fft_stockham_vs_jax(jx):
     assert _fft_err(sr, fr) < 1e-5 and _fft_err(si, fi) < 1e-5
 
 
+@pytest.mark.parametrize("log2n", range(1, 15))
+def test_fft_stage_rows_are_the_last_row_strided(log2n):
+    """The last twiddle row holds every stage's table: stage s's entry p is
+    entry (p mod L) * N / 2L of the last row, bit for bit (the float64
+    angles differ by a power of two); so the packed stage table the CUDA
+    kernel reads (stage s's L distinct entries at offset L - 1) is the TPU
+    kernel's, bit for bit."""
+    n = 2**log2n
+    tab_re, tab_im = ref.fft_twiddles(n)
+    row_re, row_im = ref.fft_twiddle_row(n)
+    np.testing.assert_array_equal(row_re.view(np.uint32), tab_re[-1].view(np.uint32))
+    np.testing.assert_array_equal(row_im.view(np.uint32), tab_im[-1].view(np.uint32))
+    p = np.arange(n // 2)
+    for s in range(log2n):
+        idx = (p % 2**s) * (n // 2 ** (s + 1))
+        np.testing.assert_array_equal(row_re[idx].view(np.uint32), tab_re[s].view(np.uint32))
+        np.testing.assert_array_equal(row_im[idx].view(np.uint32), tab_im[s].view(np.uint32))
+    st_re, st_im = ref.fft_twiddle_stages(n)
+    assert st_re.shape == st_im.shape == (n - 1,)
+    for s in range(log2n):
+        seg = slice(2**s - 1, 2 ** (s + 1) - 1)
+        np.testing.assert_array_equal(st_re[seg].view(np.uint32), tab_re[s][: 2**s].view(np.uint32))
+        np.testing.assert_array_equal(st_im[seg].view(np.uint32), tab_im[s][: 2**s].view(np.uint32))
+
+
+@pytest.mark.parametrize("log2n", range(1, 15))
+def test_fft_stockham_passes_bitwise_equal_to_stages(log2n):
+    """The kernel's data movement (radix-16 passes, one twiddle row) leaves
+    every butterfly as the stage-by-stage version computes it."""
+    n = 2**log2n
+    rng = np.random.default_rng(log2n)
+    b = max(1, 4096 // n)
+    re, im = (torch.from_numpy(rng.standard_normal((b, n)).astype(np.float32)) for _ in range(2))
+    sr, si = ref.fft_stockham(re, im)
+    pr, pi = ref.fft_stockham_passes(re, im)
+    assert torch.equal(pr, sr) and torch.equal(pi, si)
+
+
+@pytest.mark.parametrize("b,n", [(4, 64), (2, 256), (6, 1024)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fft_stockham_passes_vs_jax(jx, b, n, dtype):
+    """On test_fft_vs_jax's inputs: within 1e-5 of the Pallas body (the
+    same algorithm in f32) at either dtype, the inputs rounded alike."""
+    _, jref, jops, _ = jx
+    (re, im), (jre, jim) = _inputs(jx, dtype, (b, n), (b, n), seed=6)
+    pr, pi = ref.fft_stockham_passes(re.float(), im.float())
+    wr, wi = jops.fft(jre.astype(jx[0].float32), jim.astype(jx[0].float32), mode="interpret",
+                      block_rows=2)
+    assert _fft_err(pr, wr) < 1e-5 and _fft_err(pi, wi) < 1e-5
+    gr, gi = ref.fft_stockham_passes(re, im)
+    assert gr.dtype == re.dtype
+    tol = 1e-5 if dtype == "float32" else 1e-2
+    for wr, wi in (jops.fft(jre, jim, mode="interpret", block_rows=2), jref.fft(jre, jim)):
+        assert _fft_err(gr, wr) < tol and _fft_err(gi, wi) < tol
+
+
 @pytest.mark.parametrize("b,h,w,c,o,kh", [
     (2, 12, 10, 8, 16, 3), (1, 8, 8, 4, 4, 1), (2, 10, 9, 4, 8, 3), (2, 13, 9, 4, 8, 3)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -330,6 +386,39 @@ def test_cuda_fft_vs_plain(dtype, b, n, rows):
         sr, si = ref.fft_stockham(re, im)
         assert ((gr - sr).abs().max() / scale).item() < 1e-6
         assert ((gi - si).abs().max() / scale).item() < 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("log2n", range(1, 15))
+def test_cuda_fft_passes_every_n(dtype, log2n):
+    """The radix-16 pass body at every N from 2 to 16,384 and every
+    block_rows that fits: a batch that leaves the persistent loop a tail
+    (more tiles than the grid's blocks, the last tile short), and an offset
+    view (the threads' copy-in instead of the bulk copies), each counted on
+    ``launches``; at f32 within 1e-6 of ref.fft_stockham."""
+    dev = _cuda()
+    n = 2**log2n
+    b = 3 * 132 * max(1, 4096 // n) + 3  # > one wave of blocks, not a multiple of 8 rows
+    for offset in (0, 1):
+        base_re = _randn(dev, 20 + log2n, b * n + offset, dtype=dtype)
+        base_im = _randn(dev, 40 + log2n, b * n + offset, dtype=dtype)
+        re, im = base_re[offset:].view(b, n), base_im[offset:].view(b, n)
+        wr, wi = ref.fft(re, im)
+        scale = torch.maximum(wr.float().abs().max(), wi.float().abs().max())
+        sr, si = ref.fft_stockham(re, im)
+        for rows in ffk.BLOCK_ROWS:
+            if not ffk.fits(n, rows):
+                continue
+            n0 = ffk.launches
+            gr, gi = ffk.fft(re, im, block_rows=rows)
+            assert ffk.launches == n0 + 1
+            tol = 1e-5 if dtype == torch.float32 else 1e-2
+            assert ((gr.float() - wr.float()).abs().max() / scale).item() < tol, (rows, offset)
+            assert ((gi.float() - wi.float()).abs().max() / scale).item() < tol, (rows, offset)
+            if dtype == torch.float32:
+                assert ((gr - sr).abs().max() / scale).item() < 1e-6, (rows, offset)
+                assert ((gi - si).abs().max() / scale).item() < 1e-6, (rows, offset)
 
 
 @pytest.mark.cuda
