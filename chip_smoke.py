@@ -7,10 +7,14 @@ Phases (each raises on failure, so the script exits non-zero):
 
 0. device — fail without CUDA; print the card's name and power limit.
 1. build — compile the hand-written CUDA kernels from ``csrc/`` (eleven
-   sources over the shared Hopper header ``gemm_wgmma.cuh``, twenty kernel
-   bodies: decode, ragged and paged attention over a plain or a quantized
+   sources over the shared Hopper header ``gemm_wgmma.cuh``, twenty-one
+   kernel bodies: decode attention (split-KV: the position range split over
+   blocks that stream K/V through a cp.async ring, partials merged in split
+   order), ragged and paged attention over a plain or a quantized
    store, flash attention (GQA, and flat as a group of one; bf16 on wgmma,
-   f32 on CUDA cores), the matmul and int8-weight matmul (the bf16 tile on
+   f32 on CUDA cores), the matmul and int8-weight matmul (the decode GEMV
+   on tensor cores, mma.sync over a cp.async ring, for bf16 activations;
+   the CUDA-core GEMV for f32 and the tails; the bf16 tile on
    the header's wgmma + TMA mainloop), RMSNorm, row softmax (rows held in
    registers, a row split over a thread-block cluster, and the two-pass
    body), axpy, the partial dot products, the Stockham FFT (radix-16 passes
@@ -28,7 +32,8 @@ Phases (each raises on failure, so the script exits non-zero):
    tails, f32 and bf16 activations, each printed with the body it took;
    decode, ragged and paged attention at
    the new (head_dim, group) pairs (16, 1), (16, 4), (80, 2), (128, 5) and
-   (128, 12) over bf16 and scaled int8 stores; GQA flash at every bf16 tile
+   (128, 12) over bf16 and scaled int8 stores; decode at 1, 2 and 4 forced
+   splits beside the kernel's own; GQA flash at every bf16 tile
    and head width. Times each kernel, its plain version and
    a one-call PyTorch yardstick (where one exists) as device time (CUDA events
    around one CUDA-graph replay of 30 calls, so the wrappers' host time is
@@ -42,19 +47,22 @@ Phases (each raises on failure, so the script exits non-zero):
 4. full width — codeqwen1.5-7b, 32 layers, bf16, random weights from a seed,
    4 slots x 1024 positions; about 12 greedy requests whose prompts straddle
    the prefill budget, so fused admissions, ragged packs and decode chunks
-   all run; each PR-11 kernel's launch count over this run must be > 0.
+   all run; each PR-11 kernel's launch count over this run must be > 0,
+   and decode must have run the split body.
 5. full width, paged and quantized — the same weights behind (a) a paged
    engine with prefix reuse serving a shared 512-token system prompt, (b)
    the same traffic over an int8 pool of (a)'s bytes, (c) phase 4's traffic
    over a dense int8 cache; in each run the counts are set to 0 just before
    the measured requests and read just after, the kernels that run drives
-   must have launched, the prefix cache must hit, and each run's stream must
+   must have launched (in (c) the split decode body), the prefix cache must
+   hit, and each run's stream must
    agree with ``LM.prefill`` teacher-forced.
 6. full width, int8 weights — phase 4's weights quantized on the card
    (``ServeEngine(weight_dtype="int8")``) serving (a) phase 4's traffic on a
    dense bf16 cache and (b) phase 5 (b)'s traffic on the paged int8 pool with
    prefix reuse; in each run ``matmul_q8`` must launch between the counts'
-   reset and read, the stream must agree with the quantized model's
+   reset and read (in (a) on the tensor-core GEMV), the stream must agree
+   with the quantized model's
    ``LM.prefill`` teacher-forced, and the int8 block stack must take at most
    0.51x the bf16 one's bytes. Prints the int8 model's top-1 agreement with
    the bf16 model at clear margins (not gated).
@@ -70,7 +78,8 @@ Phases (each raises on failure, so the script exits non-zero):
    into a JSON cache under build/ that a fresh tuner re-reads without
    measuring, tuned outputs against the default plan's; the four ops driven
    once through ``ops`` between the counts' reset and read (the M = 256
-   matmul must launch the wgmma body, the 92,416-wide softmax the cluster
+   matmul must launch the wgmma body, the M = 4 one the tensor-core GEMV,
+   the 92,416-wide softmax the cluster
    body and the f32 scores the rows body); each new kernel timed beside its
    bound, plain version and library call, the M = 256 matmul as a row of
    its own (``matmul_tile``).
@@ -95,7 +104,8 @@ Phases (each raises on failure, so the script exits non-zero):
    cuDNN, the FFT's radix-pass body at its three shapes and the four-step
    rows beside cuFFT.
 9. a ``{"kernels": [...], "to_port": []}`` JSON line (every row of PERF.md's
-   kernel table), then the result line.
+   kernel table; the decode, matmul and matmul_q8 rows name the body their
+   timed case ran and its launches), then the result line.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -243,6 +253,14 @@ def check_kernels(dev):
             )
             timed["bound_ms"], timed["bound_by"] = bound(by, fl, dtype)
         report("decode_attention", f"B={B} S={S} KV={kv} G={g} {dtype} win={window}", dtype, err, timed)
+        if main:  # the split body at the kernel's own and at forced split counts
+            sms = torch.cuda.get_device_properties(dev).multi_processor_count
+            own = dk.split_count(S, B, kv, g, sms)
+            for splits in (1, 2, 4):
+                err = (dk.decode_attention(q, k, v, cl, splits=splits).float()
+                       - want.float()).abs().max().item()
+                span = dk.split_span(S, splits)[0]
+                report("decode_attention", f"splits={splits} (span {span}; own {own})", dtype, err)
 
     # ---- ragged attention: a 64-token pack over 2 slots, as the engine builds it
     ts = torch.tensor(PACK_SLOTS, dtype=torch.int32, device=dev)
@@ -1002,7 +1020,8 @@ def paged_and_quantized(dev, model, params, counters):
         eng.submit(r)
     stats = eng.run()
     runs.append(read_counts(counters, "(c: dense int8)",
-                            ["decode_attention_q8", "ragged_attention_q8"]))
+                            ["decode_attention_q8", "ragged_attention_q8",
+                             "decode_attention_q8_split"]))
     check_finished(reqs, max_new, cfg.vocab_size)
     print(f"  (c: dense int8) kv_bytes_resident {stats.kv_bytes_resident}")
     print_stats(stats)
@@ -1085,7 +1104,8 @@ def int8_weights(dev, model, params, counters, num_blocks_b: int):
         eng.submit(r)
     stats = eng.run()
     la = read_counts(counters, "(a: int8 weights, dense bf16 KV)",
-                     ["matmul_q8", "decode_attention", "ragged_attention", "gqa_flash_attention"])
+                     ["matmul_q8", "matmul_q8_gemv_tc", "decode_attention", "ragged_attention",
+                      "gqa_flash_attention"])
     check_finished(reqs, max_new, cfg.vocab_size)
     print_stats(stats)
     a = resident("a", eng.params)
@@ -1893,24 +1913,29 @@ def main() -> int:
 
     phase("4 full width codeqwen1.5-7b")
     counters4 = {"decode_attention": (dk, "launches"), "ragged_attention": (rk, "launches"),
-                 "gqa_flash_attention": (fk, "launches")}
+                 "gqa_flash_attention": (fk, "launches"),
+                 "decode_attention_split": (dk, "launches_split")}
     launches, model, params = full_width(dev, counters4)
 
     phase("5 full width, paged + prefix and quantized KV")
     counters5 = {"paged_attention": (pk, "launches"), "paged_attention_q8": (pk, "launches_q8"),
                  "decode_attention_q8": (dk, "launches_q8"),
-                 "ragged_attention_q8": (rk, "launches_q8")}
+                 "ragged_attention_q8": (rk, "launches_q8"),
+                 "decode_attention_q8_split": (dk, "launches_split")}
     launches5, serving = paged_and_quantized(dev, model, params, counters5)
     launches.update(launches5)
 
     phase("6 full width, int8 weights")
+    # one name for the split decode body's count (phase 4's), whichever store runs it
     counters6 = {"matmul_q8": (mmk, "launches_q8"), "matmul": (mmk, "launches"),
-                 **counters4, **counters5}
+                 "matmul_q8_gemv_tc": (mmk, "launches_gemv_tc"), **counters4,
+                 **{k: v for k, v in counters5.items() if k != "decode_attention_q8_split"}}
     launches6, serving6 = int8_weights(dev, model, params, counters6,
                                        serving["b"]["num_blocks"])
     # no serving path calls matmul (the dense projections are torch.matmul, as
     # the JAX package's are XLA's): its launches are phase 7's
-    launches.update(matmul_q8=launches6["matmul_q8"])
+    launches.update(matmul_q8=launches6["matmul_q8"],
+                    matmul_q8_gemv_tc=launches6["matmul_q8_gemv_tc"])
     serving["int8_weights"] = serving6
     print(json.dumps({"serving": serving}))
 
@@ -1918,7 +1943,8 @@ def main() -> int:
     counters7 = {"flash_attention": (fk, "launches_flat"), "rmsnorm": (rnk, "launches"),
                  "softmax": (smk, "launches"), "softmax_cluster": (smk, "launches_cluster"),
                  "softmax_rows": (smk, "launches_rows"), "matmul": (mmk, "launches"),
-                 "matmul_tile": (mmk, "launches_wgmma")}
+                 "matmul_tile": (mmk, "launches_wgmma"),
+                 "matmul_gemv_tc": (mmk, "launches_gemv_tc")}
     timed7, launches7 = kernel_api(dev, counters7)
     timed.update(timed7)
     launches.update(launches7)
@@ -1989,6 +2015,15 @@ def main() -> int:
         if name == "softmax":  # of its launches, those of the cluster and rows bodies
             kernels[-1]["launches_cluster"] = launches["softmax_cluster"]
             kernels[-1]["launches_rows"] = launches["softmax_rows"]
+        # the body each row's timed case ran, and its launches on the main path
+        if name in ("decode_attention", "decode_attention_q8"):
+            kernels[-1]["body"] = "split"
+            kernels[-1]["launches_split"] = launches[f"{name}_split"]
+        if name in ("matmul_q8", "matmul"):  # the timed case: M = 4
+            kernels[-1]["body"] = "gemv_tc"
+            kernels[-1]["launches_gemv_tc"] = launches[f"{name}_gemv_tc"]
+        if name == "matmul_tile":
+            kernels[-1]["body"] = "wgmma"
     print(json.dumps({"kernels": kernels, "to_port": []}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

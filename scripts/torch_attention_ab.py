@@ -2,7 +2,8 @@
 """Time the port's decode, ragged, paged and GQA flash attention kernels at
 the serving path's main shapes (``chip_smoke.py`` phase 2's dense shapes and
 timer: codeqwen1.5-7b, bf16, KV=32, G=1, d=128, 4 slots x 1024 positions; a
-64-token pack; a 64-token prefill of 32 KV rows), decode, ragged and paged
+64-token pack; a 64-token prefill of 32 KV rows; the grouped decode at KV=8,
+G=8 over the same slots), decode, ragged and paged
 attention over the same cache as int8 rows with their scales (the paged
 pool: the cache's rows as 32-position blocks under a reversed table), and
 the flat flash attention of phase 7 (32 heads of 1024 tokens, causal) at
@@ -63,6 +64,8 @@ def main() -> int:
     q_dec, q_rag = randn(cs.SLOTS, KV, 1, D), randn(len(cs.PACK_SLOTS), KV, 1, D)
     cur, slots, poss = ints(cs.DECODE_POS), ints(cs.PACK_SLOTS), ints(cs.PACK_POS)
     q_pre, k_pre, v_pre = randn(KV, 1, 64, D), randn(KV, 64, D), randn(KV, 64, D)
+    q_grp = randn(cs.SLOTS, 8, 8, D)
+    k_grp, v_grp = randn(cs.SLOTS, cs.S_MAX, 8, D), randn(cs.SLOTS, cs.S_MAX, 8, D)
     q_api, k_api, v_api = randn(32, 1024, D), randn(32, 1024, D), randn(32, 1024, D)
     (k8, ks), (v8, vs) = quantize_rows(k.float(), torch.int8), quantize_rows(v.float(), torch.int8)
     sc = dict(k_scale=ks, v_scale=vs)
@@ -83,6 +86,8 @@ def main() -> int:
         "paged_attention_q8": lambda: pk.paged_attention(q_rag, pk8, pv8, slots, poss, tables,
                                                          **psc),
         "gqa_flash_attention": lambda: fk.gqa_flash_attention(q_pre, k_pre, v_pre),
+        # the grouped decode (KV 8, G 8) over the same slots
+        "decode_attention G=8": lambda: dk.decode_attention(q_grp, k_grp, v_grp, cur),
     }
     # the tiles a checkout has (a tuple of tiles before they differed by dtype)
     tiles = fk.TILES[torch.bfloat16] if isinstance(fk.TILES, dict) else fk.TILES

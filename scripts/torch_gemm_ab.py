@@ -3,7 +3,10 @@
 one card: the bf16 matmul at M = 16, 37, 64 and 256 live tokens over
 codeqwen1.5-7b's w_in shape (K 4096, N 13440; ``chip_smoke.py``'s MATMUL_M
 above 8), the int8-weight matmul (``matmul_q8``, the serving path's GEMV at
-M = 4 and its mma.sync tile at M = 16) over the same shape, and conv2d at
+M = 1, 4 and 8 and its mma.sync tile at M = 16) over the same shape, the
+GEMVs (int8 and bf16 weights) at M = 1, 4 and 8 over w_in and the down
+projection (K 13440, N 4096) with ``torch.matmul`` timed beside the bf16
+ones, and conv2d at
 ``chip_smoke.CONV_MAIN`` (bf16 [4, 512, 512, 256] x [3, 3, 256, 256]), each
 with the kernel's own choice of knobs:
 
@@ -60,13 +63,29 @@ def main() -> int:
     b = randn(K, N)
     q8 = torch.randint(-127, 128, (K, N), generator=gen, device=dev, dtype=torch.int8)
     scale = torch.rand(N, generator=gen, device=dev) * 0.01
-    # the serving path's int8 GEMV first, in a fresh process: timed after the
+    # the down projection's weights (K 13440, N 4096)
+    b_dn = randn(N, K)
+    q8_dn = torch.randint(-127, 128, (N, K), generator=gen, device=dev, dtype=torch.int8)
+    scale_dn = torch.rand(K, generator=gen, device=dev) * 0.01
+    # the serving path's int8 GEMVs first, in a fresh process: timed after the
     # bf16 tiles it read 4% apart between two checkouts whose GEMV is the same
     kernels = {}  # name -> (kernel, plain, kind)
-    for m in (4, 16):
+    for m in (1, 4, 8, 16):
         a = randn(m, K)
         kernels[f"matmul_q8 M={m}"] = (lambda a=a: mmk.matmul_q8(a, q8, scale),
                                        lambda a=a: ref.matmul_q8(a, q8, scale), "matmul")
+    for m in (1, 4, 8):
+        a = randn(m, N)
+        kernels[f"matmul_q8 M={m} down"] = (lambda a=a: mmk.matmul_q8(a, q8_dn, scale_dn),
+                                            lambda a=a: ref.matmul_q8(a, q8_dn, scale_dn),
+                                            "matmul")
+    # the bf16 GEMV at decode widths, and cuBLAS beside it (torch.matmul)
+    for m in (1, 4, 8):
+        for tag, a, w in ((f"M={m}", randn(m, K), b), (f"M={m} down", randn(m, N), b_dn)):
+            kernels[f"matmul {tag}"] = (lambda a=a, w=w: mmk.matmul(a, w),
+                                        lambda a=a, w=w: ref.matmul(a, w), "matmul")
+            kernels[f"torch.matmul {tag}"] = (lambda a=a, w=w: torch.matmul(a, w),
+                                              lambda a=a, w=w: ref.matmul(a, w), "matmul")
     for m in M_TILE:
         a = randn(m, K)
         kernels[f"matmul M={m}"] = (lambda a=a: mmk.matmul(a, b), lambda a=a: ref.matmul(a, b),

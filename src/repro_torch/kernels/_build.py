@@ -32,8 +32,9 @@ NVCC_FLAGS = (
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C entry points: name -> argtypes (pointers and the stream as c_void_p)
 SIGNATURES = {
-    # q, k, v, k_scale, v_scale, cur_len, out, B, S, KV, G, D, window, qdtype, sdtype, stream
-    "repro_decode_attention": [_P] * 7 + [_I] * 8 + [_P],
+    # q, k, v, k_scale, v_scale, cur_len, workspace, counters, out, B, S, KV, G, D, window,
+    # span, qdtype, sdtype, stream
+    "repro_decode_attention": [_P] * 9 + [_I] * 9 + [_P],
     # q, k, v, k_scale, v_scale, tok_slot, tok_pos, out, T, S, KV, G, D, window, qdtype,
     # sdtype, stream
     "repro_ragged_attention": [_P] * 8 + [_I] * 8 + [_P],
@@ -45,8 +46,8 @@ SIGNATURES = {
     # a, b, scale, workspace, counters, out, M, K, N, adtype, bdtype, route, split_k,
     # block_m, block_n, stream
     "repro_matmul": [_P] * 6 + [_I] * 9 + [_P],
-    # M, K, N, route, split_k, block_n -> f32 elements of workspace repro_matmul needs
-    "repro_matmul_workspace": [_I] * 6,
+    # M, K, N, route, split_k, block_n, bdtype -> f32 elements of workspace repro_matmul needs
+    "repro_matmul_workspace": [_I] * 7,
     # x, w, out, R, C, eps, rows, xdtype, wdtype, stream
     "repro_rmsnorm": [_P] * 3 + [_I] * 2 + [ctypes.c_float] + [_I] * 3 + [_P],
     # x, out, R, C, rows, dtype, route, stream

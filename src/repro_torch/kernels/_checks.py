@@ -93,6 +93,25 @@ def int32_vector(name: str, what: str, t: torch.Tensor, n: int) -> None:
                          f"{t.dtype} {tuple(t.shape)}")
 
 
+TICKETS = 1 << 16  # ticket counters per (device, stream)
+_tickets: dict = {}  # (device index, stream handle) -> int32 zeros the kernels leave zero
+
+
+def tickets(device: torch.device, stream: int) -> torch.Tensor:
+    """The split kernels' ticket counters of raw stream handle ``stream`` on
+    ``device`` (the split GEMVs: one per 128-column strip; split decode: one
+    per (slot, KV head, chunk of the group)): made once, before the stream's
+    first split launch, at a fixed size, so a captured launch never sees
+    them replaced. Each kernel leaves them zero, and launches on one stream
+    run in order, so every split kernel of the stream shares them."""
+    key = (device.index, stream)
+    buf = _tickets.get(key)
+    if buf is None:
+        buf = torch.zeros(TICKETS, dtype=torch.int32, device=device)
+        _tickets[key] = buf
+    return buf
+
+
 def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     """A tensor's device address for ctypes, None (a null pointer) for None."""
     return None if t is None else t.data_ptr()

@@ -12,14 +12,25 @@
 // What bounds it on the H100: at the serving path's decode shapes (M = 4-16
 // live tokens, K and N of 4096 or 13440) the weight bytes, K * N of them for
 // int8 (0.0165 ms at M = 4, K = 4096, N = 13440 at 3.35 TB/s), so the int8
-// tile must be the only weight traffic and is widened in registers; at
+// tile must be the only weight traffic and is widened on chip; at
 // M >= ~300 (bf16) the 2 * M * K * N flops, which only tensor cores deliver.
 //
-// Five bodies; the wrapper (kernels/matmul.py::route) picks one from M, K,
+// Six bodies; the wrapper (kernels/matmul.py::route) picks one from M, K,
 // N and the operand types alone and passes it in:
-// - gemv (M <= 8: decode at up to 8 slots): a split-K GEMV. Block (x, y)
-//   owns a strip of 128 columns and a slice of the K rows, sliced so that
-//   the blocks fill whole waves of two per SM; its slice of the M activation
+// - gemv_tc (M <= 8, bf16 activations, bf16 or int8 weights, K % 16 == 0
+//   and N % 16 == 0: decode at up to 8 slots): the tensor-core GEMV. The
+//   weight panel streams through a 5-stage cp.async ring in shared memory
+//   (32 KB of weights in flight a block, K split so that two blocks or
+//   fewer share an SM), the weights' stored layout ([K, N] row-major) kept;
+//   the fragments come from ldmatrix .trans and the products go to mma.sync
+//   m16n8k16 as out^T = b^T a^T, the int8 weight widened to bf16 exactly on
+//   the way (three integer ops and one bf16x2 fma a pair); split-K partials
+//   added in slice order by the last block of a strip (details at
+//   gemv_tc_kernel).
+// - gemv (M <= 8, f32 activations or K/N tails): a split-K GEMV on CUDA
+//   cores. Block (x, y) owns a strip of 128 columns and a slice of the K
+//   rows, sliced so that the blocks fill whole waves of two per SM; its
+//   slice of the M activation
 //   rows is staged once in shared memory as f32 (32 KB). Each warp reads
 //   whole 128-column row segments (lane i: 4 columns, one vector load,
 //   neighbouring lanes on neighbouring addresses) of every 8th 4-row quad;
@@ -55,7 +66,6 @@
 // The K splits (split_k: 0, the default, is the kernel's choice; 1, 2, 4 or
 // 8 force it) and the wgmma tile (block_m x block_n: 0 x 0, the kernel's
 // choice, 128 x 128 or 128 x 256) are the autotuner's knobs.
-// A tensor-core GEMV for the decode path is later work.
 
 #include <algorithm>
 
@@ -560,6 +570,265 @@ int split_count(int M, int K, int N, int split_k) {
 // The shapes the pipelined bf16 @ int8 tile takes (kernels/matmul.py::route).
 bool pipelined(int K, int N) { return K % 8 == 0 && N % 16 == 0; }
 
+// --------------------------------------- tensor-core GEMV, M <= 8, bf16 a
+
+// outT = bT aT on mma.sync m16n8k16: 16 weight columns are the mma's rows,
+// the <= 8 tokens its n8 columns, so nothing is padded but the tokens past M.
+// Block (x, y) owns the 128 columns [128 x, 128 x + 128) (a warp 32 of
+// them, two mma tiles of 16) over the K steps [y per, (y + 1) per) of KS
+// rows each (64 int8 or 32 bf16 rows: 8 KB of weights a step). The weight
+// panel and the activations' slice stream through a kTcStages-deep cp.async
+// ring; rows past K and columns past N are zero-filled.
+//
+// Fragments come from the row-major [k][n] tile by ldmatrix .trans, which
+// hands each lane two consecutive k-rows of one 16-bit column: for bf16 that
+// is one weight column, exactly a register of the mma's A fragment (row =
+// column n, k pair), so a tile's fragment is one ldmatrix.x4. For int8 a
+// 16-bit column is two weight columns: lane (g, t) gets the 2 x 2 bytes
+// (k 2t, 2t + 1) x (n 2g, 2g + 1); the even bytes are column 2g's pair, the
+// odd bytes (shifted down by 8) column 2g + 1's, which become the mma rows g
+// and g + 8 of a tile, and each pair is widened to bf16 exactly (i8_bf16x2).
+// The activations' fragment (token g, k pair) is one ldmatrix.x2 of the
+// staged [m][k] slice. A 16-byte chunk c of staged weight row r sits at
+// chunk c ^ (r & 7), so the eight rows an ldmatrix reads fall in eight
+// different groups of four banks; the activation rows are padded to 36 or
+// 20 words for the same reason.
+//
+// The accumulators of lane (g, t) are tokens 2t and 2t + 1 at the columns
+// tc_col gives. With gridDim.y = 1 they are scaled and stored; otherwise the
+// f32 partial goes to ws[y] ([M, N]) and the last block of a strip (a ticket
+// in counters[x], reset by that block) adds the partials in slice order,
+// scales once and stores.
+constexpr int kTcWarps = 4;
+constexpr int kTcThreads = kTcWarps * 32;
+constexpr int kTcCols = kTcWarps * 32;  // 128 columns a block, 32 a warp
+constexpr int kTcStepBytes = 8192;      // weight bytes a K step
+constexpr int kTcStages = 5;            // ring depth: 4 steps (32 KB of weights) in flight
+constexpr int kTcAPad = 8;              // bf16 elements of padding a staged activation row
+
+template <typename TB>
+__host__ __device__ constexpr int tc_rows() {  // K rows a step: 64 int8, 32 bf16
+  return kTcStepBytes / (kTcCols * static_cast<int>(sizeof(TB)));
+}
+
+// Dynamic shared memory of a block: the weight ring, then the activations'.
+template <typename TB>
+constexpr int tc_smem_bytes() {
+  return kTcStages * (kTcStepBytes + kGemvMaxM * (tc_rows<TB>() + kTcAPad) * 2);
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* smem) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
+}
+
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const void* smem) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(s));
+}
+
+// bf16x2 of the two int8 bytes at bits [7:0] and [23:16] of w (other bits
+// ignored), exactly: 0x4300 | (b & 0x7F) is 128 + (b & 0x7F), 0xC300 | (b &
+// 0x80) is -(128 + (b & 0x80)), and their sum is b.
+__device__ __forceinline__ uint32_t i8_bf16x2(uint32_t w) {
+  const uint32_t hi = (w & 0x007F007Fu) | 0x43004300u;
+  const uint32_t lo = (w & 0x00800080u) | 0xC300C300u;
+  uint32_t d;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(d) : "r"(hi), "r"(0x3F803F80u), "r"(lo));
+  return d;
+}
+
+// The column of accumulator e of a lane's tile (tile 0 or 1) in its warp's
+// 32: rows g (e < 2) and g + 8 (e >= 2) of the mma are columns 2g and 2g + 1
+// (int8) or g and g + 8 (bf16) of the tile's 16.
+template <typename TB>
+__device__ __forceinline__ int tc_col(int tile, int e, int g) {
+  const int half = e >> 1;
+  return 16 * tile + (sizeof(TB) == 1 ? 2 * g + half : 8 * half + g);
+}
+
+// The two tiles' A fragments of a warp at step row kk of a staged weight
+// panel (row-major, kRowBytes a row, chunks swizzled).
+template <typename TB, int kRowBytes>
+__device__ __forceinline__ void tc_fragments(const uint8_t* panel, int kk, int warp, int lane,
+                                             uint32_t (&f0)[4], uint32_t (&f1)[4]) {
+  const int j = lane >> 3, i = lane & 7;  // this lane's matrix and row of it
+  if constexpr (sizeof(TB) == 1) {
+    // matrix j: k-rows kk + 8 (j & 1) + 0..7, bytes 16 (j >> 1) .. + 15 of the warp's 32
+    const int row = kk + 8 * (j & 1) + i;
+    const int chunk = 2 * warp + (j >> 1);
+    uint32_t r[4];
+    ldsm_x4_trans(r, panel + row * kRowBytes + ((chunk ^ (row & 7)) << 4));
+    f0[0] = i8_bf16x2(r[0]);
+    f0[1] = i8_bf16x2(r[0] >> 8);
+    f0[2] = i8_bf16x2(r[1]);
+    f0[3] = i8_bf16x2(r[1] >> 8);
+    f1[0] = i8_bf16x2(r[2]);
+    f1[1] = i8_bf16x2(r[2] >> 8);
+    f1[2] = i8_bf16x2(r[3]);
+    f1[3] = i8_bf16x2(r[3] >> 8);
+  } else {
+    // tile q, matrix j: k-rows kk + 8 (j >> 1) + 0..7, columns 16 q + 8 (j & 1) + 0..7
+    const int row = kk + 8 * (j >> 1) + i;
+    const int chunk = 4 * warp + (j & 1);
+    ldsm_x4_trans(f0, panel + row * kRowBytes + ((chunk ^ (row & 7)) << 4));
+    ldsm_x4_trans(f1, panel + row * kRowBytes + (((chunk + 2) ^ (row & 7)) << 4));
+  }
+}
+
+template <typename TB, bool kScaled>
+__global__ void __launch_bounds__(kTcThreads)
+gemv_tc_kernel(const bf16* __restrict__ a, const TB* __restrict__ b,
+               const float* __restrict__ scale, bf16* __restrict__ out, float* __restrict__ ws,
+               int* __restrict__ counters, int M, int K, int N, int per) {
+  constexpr int KS = tc_rows<TB>();
+  constexpr int kRowBytes = kTcCols * static_cast<int>(sizeof(TB));  // a staged weight row
+  constexpr int kRowChunks = kRowBytes / 16;
+  constexpr int kElems = 16 / static_cast<int>(sizeof(TB));  // weights a 16-byte chunk
+  constexpr int kARow = KS + kTcAPad;                        // a staged activation row
+  constexpr int kWCopies = KS * kRowChunks / kTcThreads;     // weight chunks a thread a step
+  static_assert(kRowChunks % 8 == 0 && KS % 16 == 0, "the swizzle permutes groups of 8 chunks");
+  static_assert(KS * kRowChunks % kTcThreads == 0, "a step is whole copies per thread");
+  extern __shared__ __align__(128) uint8_t tc_smem[];  // tc_smem_bytes<TB>()
+  auto sb = reinterpret_cast<uint8_t (*)[KS * kRowBytes]>(tc_smem);  // [kTcStages]
+  auto sa = reinterpret_cast<uint16_t (*)[kGemvMaxM][kARow]>(        // [kTcStages]
+      tc_smem + kTcStages * KS * kRowBytes);
+  __shared__ int last;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int n0 = blockIdx.x * kTcCols;
+  const int ktotal = (K + KS - 1) / KS;
+  const int kbeg = blockIdx.y * per;
+  const int steps = max(0, min(ktotal, kbeg + per) - kbeg);
+
+  // this thread's copies, the same in every step but for the step's first row
+  int64_t w_src[kWCopies];
+  int w_dst[kWCopies], w_row[kWCopies];
+  bool w_col[kWCopies];
+#pragma unroll
+  for (int c = 0; c < kWCopies; ++c) {
+    const int x = tid + c * kTcThreads;
+    const int r = x / kRowChunks, ch = x % kRowChunks;
+    const int col = n0 + ch * kElems;
+    w_col[c] = col < N;
+    w_row[c] = r;
+    w_src[c] = static_cast<int64_t>(r) * N + col;
+    w_dst[c] = r * kRowBytes + ((ch ^ (r & 7)) << 4);
+  }
+  const int a_m = tid / (KS / 8), a_k = (tid % (KS / 8)) * 8;  // 8 bf16 a copy
+  const bool a_on = a_m < M;
+  const int64_t a_src = static_cast<int64_t>(a_m) * K + a_k;
+  // token rows past M stay zero (no copy writes them)
+  for (int x = tid; x < kTcStages * (kGemvMaxM - M) * kARow; x += kTcThreads) {
+    const int per_stage = (kGemvMaxM - M) * kARow;
+    sa[x / per_stage][M + (x % per_stage) / kARow][x % kARow] = 0;
+  }
+
+  auto load_step = [&](int st, int i) {
+    const int k0 = (kbeg + i) * KS;
+    const TB* bk = b + static_cast<int64_t>(k0) * N;
+#pragma unroll
+    for (int c = 0; c < kWCopies; ++c) {
+      const bool ok = w_col[c] && k0 + w_row[c] < K;
+      cp_async16(&sb[st][w_dst[c]], ok ? bk + w_src[c] : b, ok);
+    }
+    if (a_on) {
+      const bool ok = k0 + a_k < K;
+      cp_async16(&sa[st][a_m][a_k], ok ? a + a_src + k0 : a, ok);
+    }
+  };
+
+  float acc[2][4] = {};  // [tile][accumulator]
+#pragma unroll
+  for (int s = 0; s < kTcStages - 1; ++s) {
+    if (s < steps) load_step(s, s);
+    cp_async_commit();
+  }
+  for (int i = 0; i < steps; ++i) {
+    cp_async_wait<kTcStages - 2>();  // step i has landed (this thread's copies)
+    __syncthreads();                 // ... and everyone's; step i - 1's stage is free
+    const int nxt = i + kTcStages - 1;
+    if (nxt < steps) load_step(nxt % kTcStages, nxt);
+    cp_async_commit();
+    const int st = i % kTcStages;
+#pragma unroll
+    for (int kk = 0; kk < KS; kk += 16) {
+      uint32_t bfr[2], f0[4], f1[4];
+      ldsm_x2(bfr, &sa[st][lane & 7][kk + 8 * ((lane >> 3) & 1)]);
+      tc_fragments<TB, kRowBytes>(sb[st], kk, warp, lane, f0, f1);
+      mma_16816(acc[0], f0, bfr);
+      mma_16816(acc[1], f1, bfr);
+    }
+  }
+  cp_async_wait<0>();
+  const int splits = gridDim.y;
+  const int c0 = n0 + 32 * warp;  // the warp's columns; N % 16 == 0: a tile is all in or out
+#pragma unroll
+  for (int tile = 0; tile < 2; ++tile) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int m = 2 * t + (e & 1), col = c0 + tc_col<TB>(tile, e, g);
+      if (m >= M || col >= N) continue;
+      if (splits > 1) {
+        ws[(static_cast<int64_t>(blockIdx.y) * M + m) * N + col] = acc[tile][e];
+        continue;
+      }
+      float s = acc[tile][e];
+      if constexpr (kScaled) s *= scale[col];
+      out[static_cast<int64_t>(m) * N + col] = __float2bfloat16(s);
+    }
+  }
+  if (splits == 1) return;
+  __threadfence();  // this block's partial is visible before its ticket
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(&counters[blockIdx.x], 1) == splits - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  for (int idx = tid; idx < M * (kTcCols / 4); idx += kTcThreads) {  // 4 columns a thread
+    const int m = idx / (kTcCols / 4), c = n0 + 4 * (idx % (kTcCols / 4));
+    if (c >= N) continue;
+    float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int z = 0; z < splits; ++z) {  // in slice order: the sum does not depend on timing
+      const float4 p =
+          __ldcg(reinterpret_cast<const float4*>(ws + (static_cast<int64_t>(z) * M + m) * N + c));
+      s.x += p.x;
+      s.y += p.y;
+      s.z += p.z;
+      s.w += p.w;
+    }
+    float r[4] = {s.x, s.y, s.z, s.w};
+    if constexpr (kScaled) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) r[e] *= scale[c + e];
+    }
+    *reinterpret_cast<uint2*>(out + static_cast<int64_t>(m) * N + c) =
+        make_uint2(pack_bf16(r[0], r[1]), pack_bf16(r[2], r[3]));
+  }
+  if (tid == 0) counters[blockIdx.x] = 0;  // ready for the next launch
+}
+
+// K splits of the tensor-core GEMV over steps of ks rows: forced (split_k >
+// 0, at most one a step), or as many as keep the blocks at two an SM or
+// fewer (at most 32). Fewer, longer block streams read the weight faster
+// than more, shorter ones on the H100 at the serving widths
+// (scripts/torch_gemm_ab.py; a forced-split sweep at M 1, 4 and 8): the
+// blocks of a split read the rows of one K range together.
+int gemv_tc_splits(int K, int N, int ks, int split_k) {
+  const int ktotal = (K + ks - 1) / ks;
+  const int strips = (N + kTcCols - 1) / kTcCols;
+  const int want = split_k > 0 ? split_k : std::min(32, std::max(1, 2 * device_sms() / strips));
+  const int per = (ktotal + std::min(want, ktotal) - 1) / std::min(want, ktotal);
+  return (ktotal + per - 1) / per;
+}
+
+// The shapes the tensor-core GEMV takes (kernels/matmul.py::route).
+bool tc_shape(int M, int K, int N) { return M <= kGemvMaxM && K > 0 && K % 16 == 0 && N % 16 == 0; }
+
 // Any shape: the tiles staged synchronously, widened to bf16 on the way.
 template <typename TB, bool kScaled>
 __global__ void __launch_bounds__(kMmaThreads)
@@ -799,7 +1068,7 @@ fma_tile_kernel(const float* __restrict__ a, const TB* __restrict__ b,
 }
 
 // The bodies, as kernels/matmul.py::route names them.
-enum Route { kGemv = 0, kWgmma = 1, kMmaPipe = 2, kMmaTile = 3, kFma = 4 };
+enum Route { kGemv = 0, kWgmma = 1, kMmaPipe = 2, kMmaTile = 3, kFma = 4, kGemvTc = 5 };
 
 template <typename TA, typename TB, bool kScaled>
 int launch(int route, const void* a_, const void* b_, const void* scale_, void* out_, void* ws,
@@ -826,6 +1095,26 @@ int launch(int route, const void* a_, const void* b_, const void* scale_, void* 
     }
 #undef REPRO_GEMV
     return static_cast<int>(cudaGetLastError());
+  }
+  if (route == kGemvTc) {
+    if constexpr (std::is_same_v<TA, bf16> && (std::is_same_v<TB, int8_t> ||
+                                                std::is_same_v<TB, bf16>)) {
+      if (!tc_shape(M, K, N)) return -1;
+      constexpr int ks = tc_rows<TB>();
+      const int splits = gemv_tc_splits(K, N, ks, split_k);
+      if (splits > 1 && (ws == nullptr || counters == nullptr)) return -3;
+      const int ktotal = (K + ks - 1) / ks;
+      const dim3 grid((N + kTcCols - 1) / kTcCols, splits);
+      constexpr int bytes = tc_smem_bytes<TB>();
+      static bool raised[64];
+      const cudaError_t err = repro::raise_smem(gemv_tc_kernel<TB, kScaled>, bytes, raised);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      gemv_tc_kernel<TB, kScaled><<<grid, kTcThreads, bytes, st>>>(
+          a, b, scale, out, static_cast<float*>(ws), counters, M, K, N,
+          (ktotal + splits - 1) / splits);
+      return static_cast<int>(cudaGetLastError());
+    }
+    return -1;
   }
   if (M <= kGemvMaxM) return -1;
   const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
@@ -864,15 +1153,19 @@ int launch(int route, const void* a_, const void* b_, const void* scale_, void* 
 
 }  // namespace
 
-// f32 elements of scratch repro_matmul needs for this route, these shapes
-// and knobs: the K-split partials of the GEMV, the wgmma tile or the
-// pipelined int8 tile, 0 when the product is not split.
+// f32 elements of scratch repro_matmul needs for this route, these shapes,
+// knobs and weight type (bdtype, a repro::DType code): the K-split partials
+// of either GEMV, the wgmma tile or the pipelined int8 tile, 0 when the
+// product is not split.
 extern "C" long long repro_matmul_workspace(int M, int K, int N, int route, int split_k,
-                                            int block_n) {
+                                            int block_n, int bdtype) {
   long long splits = 1;
   if (route == kGemv) {
     const int slice = gemv_slice(M, K, N, split_k);
     splits = (K + slice - 1) / slice;
+  } else if (route == kGemvTc) {
+    const int ks = bdtype == repro::kI8 ? tc_rows<int8_t>() : tc_rows<bf16>();
+    if (tc_shape(M, K, N)) splits = gemv_tc_splits(K, N, ks, split_k);
   } else if (route == kWgmma) {
     splits = wgmma_plan(M, K, N, split_k, block_n).splits;
   } else if (route == kMmaPipe && pipelined(K, N)) {

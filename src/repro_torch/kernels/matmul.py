@@ -17,9 +17,9 @@ the tile. ``matmul_q8``, on the serving path, keeps the kernel's choice.
 Scratch has one owner per stream: the split-K partials are taken per call
 from PyTorch's caching allocator on the caller's stream (stream-ordered;
 inside a CUDA graph capture they come from the graph's pool), and the
-GEMV's ticket counters are kept per (device, stream), sized once for every
-N the GEMV takes, and left zero by the kernel after each call — no memset
-per call.
+GEMVs' ticket counters are kept per (device, stream)
+(:func:`repro_torch.kernels._checks.tickets`), sized once for every N a GEMV
+takes, and left zero by the kernel after each call — no memset per call.
 """
 
 from __future__ import annotations
@@ -38,26 +38,29 @@ launches_wgmma = 0
 launches_mma_pipe = 0
 launches_mma_tile = 0
 launches_fma = 0
+launches_gemv_tc = 0
 
 # the bodies, in matmul.cu's Route order
-ROUTES = ("gemv", "wgmma", "mma_pipe", "mma_tile", "fma")
+ROUTES = ("gemv", "wgmma", "mma_pipe", "mma_tile", "fma", "gemv_tc")
 SPLIT_K = (0, 1, 2, 4, 8)  # the autotuner's K splits
 TILES = ((128, 128), (128, 256))  # the wgmma tiles (block_m, block_n); (0, 0): the kernel's
 
-_GEMV_COLS = 128  # columns per GEMV block: one split-K ticket counter each
-_TICKETS = 1 << 16  # counters per stream: a GEMV of up to 2^23 columns
-_tickets: dict = {}  # (device index, stream handle) -> int32 zeros the GEMV leaves zero
+_GEMV_COLS = 128  # columns per GEMV block (either body): one split-K ticket counter each
 
 
 def route(m: int, k: int, n: int, a_dtype: torch.dtype, b_dtype: torch.dtype) -> str:
     """The body that computes [m, k] @ [k, n] for these operand types (b
-    int8 is ``matmul_q8``): the GEMV at M <= 8; above it the wgmma tile for
+    int8 is ``matmul_q8``): at M <= 8 the tensor-core GEMV for bf16
+    activations with K and N multiples of 16 (bf16 or int8 weights), the
+    CUDA-core GEMV for f32 activations (tensor cores would read them as
+    TF32) and the K/N tails; above it the wgmma tile for
     bf16 @ bf16 with K and N multiples of 8 (TMA's 16-byte strides), the
     pipelined mma.sync tile for bf16 @ int8 with K % 8 == 0 and N % 16 ==
     0, the synchronous mma.sync tile for other bf16 shapes, and the CUDA-core
     FMA tile for f32 activations."""
     if m <= 8:
-        return "gemv"
+        tc = a_dtype == torch.bfloat16 and k > 0 and k % 16 == 0 and n % 16 == 0
+        return "gemv_tc" if tc else "gemv"
     if a_dtype == torch.float32:
         return "fma"
     if b_dtype == torch.bfloat16:
@@ -65,23 +68,12 @@ def route(m: int, k: int, n: int, a_dtype: torch.dtype, b_dtype: torch.dtype) ->
     return "mma_pipe" if k % 8 == 0 and n % 16 == 0 else "mma_tile"
 
 
-def _ticket_counters(device: torch.device, stream: int) -> torch.Tensor:
-    """The GEMV ticket counters of raw stream handle ``stream`` on
-    ``device``: made once, before the stream's first GEMV, at the size of
-    every N the GEMV takes, so a captured launch never sees them replaced."""
-    key = (device.index, stream)
-    buf = _tickets.get(key)
-    if buf is None:
-        buf = torch.zeros(_TICKETS, dtype=torch.int32, device=device)
-        _tickets[key] = buf
-    return buf
-
-
 @functools.lru_cache(maxsize=256)
-def _workspace_elems(m: int, k: int, n: int, route_code: int, split_k: int, block_n: int) -> int:
+def _workspace_elems(m: int, k: int, n: int, route_code: int, split_k: int, block_n: int,
+                     b_code: int) -> int:
     """f32 elements of scratch the kernels need for the partials of a K-split
-    GEMV or tile of this shape (0 when it does not split)."""
-    return _build.load().repro_matmul_workspace(m, k, n, route_code, split_k, block_n)
+    GEMV or tile of this shape and weight type (0 when it does not split)."""
+    return _build.load().repro_matmul_workspace(m, k, n, route_code, split_k, block_n, b_code)
 
 
 def _launch(name: str, a: torch.Tensor, b: torch.Tensor, scale: Optional[torch.Tensor],
@@ -107,17 +99,19 @@ def _launch(name: str, a: torch.Tensor, b: torch.Tensor, scale: Optional[torch.T
         return out
     body = route(m, k, n, a.dtype, b.dtype)
     code = ROUTES.index(body)
-    if body == "gemv" and n > _TICKETS * _GEMV_COLS:
-        raise ValueError(f"{name}: the GEMV takes N up to {_TICKETS * _GEMV_COLS}, got {n}")
+    gemv = body in ("gemv", "gemv_tc")
+    if gemv and n > _checks.TICKETS * _GEMV_COLS:
+        raise ValueError(f"{name}: the GEMV takes N up to {_checks.TICKETS * _GEMV_COLS}, got {n}")
     lib = _build.load()
-    n_ws = _workspace_elems(m, k, n, code, split_k, block_n)
+    b_code = _checks.DTYPE_CODES.get(b.dtype, -1)
+    n_ws = _workspace_elems(m, k, n, code, split_k, block_n, b_code)
     # the partials of this call, on the caller's stream: no other call shares them
     ws = torch.empty(n_ws, dtype=torch.float32, device=a.device) if n_ws else None
     stream = _checks.stream(a)
-    counters = _ticket_counters(a.device, stream) if body == "gemv" else None
+    counters = _checks.tickets(a.device, stream) if gemv else None
     rc = lib.repro_matmul(
         a.data_ptr(), b.data_ptr(), _checks.ptr(scale), _checks.ptr(ws), _checks.ptr(counters),
-        out.data_ptr(), m, k, n, _checks.DTYPE_CODES[a.dtype], _checks.DTYPE_CODES.get(b.dtype, -1),
+        out.data_ptr(), m, k, n, _checks.DTYPE_CODES[a.dtype], b_code,
         code, split_k, block_m, block_n, stream,
     )
     _build.check(rc, name)
@@ -141,10 +135,13 @@ def matmul(a: torch.Tensor, b: torch.Tensor, *, split_k: int = 0, block_m: int =
     return out
 
 
-def matmul_q8(a: torch.Tensor, b_q8: torch.Tensor, b_scale: torch.Tensor) -> torch.Tensor:
+def matmul_q8(a: torch.Tensor, b_q8: torch.Tensor, b_scale: torch.Tensor, *,
+              split_k: int = 0) -> torch.Tensor:
     """a [M, K] (f32 or bf16) @ int8 b_q8 [K, N], times the f32 per-column
-    scales b_scale [N] at the flush; f32 accumulation. Returns [M, N] in a's
-    dtype on a's device and stream, without synchronising."""
+    scales b_scale [N] at the flush; f32 accumulation. ``split_k``: 0 (the
+    serving path's) lets the kernel choose the K splits, n > 0 forces n.
+    Returns [M, N] in a's dtype on a's device and stream, without
+    synchronising."""
     global launches_q8
     name = "matmul_q8"
     if b_q8.dtype != torch.int8:
@@ -152,7 +149,7 @@ def matmul_q8(a: torch.Tensor, b_q8: torch.Tensor, b_scale: torch.Tensor) -> tor
     if b_scale.dtype != torch.float32 or b_scale.shape != (b_q8.shape[-1],):
         raise ValueError(f"{name}: b_scale must be f32 of shape ({b_q8.shape[-1]},), got "
                          f"{b_scale.dtype} {tuple(b_scale.shape)}")
-    out = _launch(name, a, b_q8, b_scale)
+    out = _launch(name, a, b_q8, b_scale, split_k)
     if out.numel():
         launches_q8 += 1
     return out

@@ -37,6 +37,32 @@ def matmul_q8(a: torch.Tensor, b_q8: torch.Tensor, b_scale: torch.Tensor) -> tor
     return (acc * b_scale.reshape(1, -1).float()).to(a.dtype)
 
 
+def matmul_slices(a: torch.Tensor, b: torch.Tensor, b_scale: Optional[torch.Tensor],
+                  rows: int) -> torch.Tensor:
+    """[M, K] @ [K, N] as the split-K GEMVs of ``csrc/matmul.cu`` add it:
+    the f32 partial of each ``rows``-row slice of K taken alone (a times the
+    widened b), the partials added in slice order, the per-column f32
+    scales ``b_scale`` [N] (None: unscaled) applied once to the finished
+    sum, cast to a's dtype."""
+    total = torch.zeros(a.shape[0], b.shape[1], device=a.device)
+    for lo in range(0, a.shape[1], rows):
+        total = total + a[:, lo:lo + rows].float() @ b[lo:lo + rows].float()
+    if b_scale is not None:
+        total = total * b_scale.reshape(1, -1).float()
+    return total.to(a.dtype)
+
+
+def int8_bf16_bits(x: torch.Tensor) -> torch.Tensor:
+    """The bf16 bit patterns (int16) the tensor-core GEMV builds from int8
+    weights, by its integer recipe: 0x4300 | (b & 0x7F) is the bf16 128 +
+    (b & 0x7F), 0xC300 | (b & 0x80) the bf16 -(128 + (b & 0x80)), and one
+    bf16 add of the two gives b. Exact: every int8 is a bf16."""
+    u = x.to(torch.int32) & 0xFF
+    hi = ((u & 0x7F) | 0x4300).to(torch.int16).view(torch.bfloat16)
+    lo = ((u & 0x80) | 0xC300).to(torch.int16).view(torch.bfloat16)
+    return (hi.float() + lo.float()).to(torch.bfloat16).view(torch.int16)
+
+
 def flash_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True
 ) -> torch.Tensor:
@@ -124,6 +150,67 @@ def decode_attention(
     scores = scores.masked_fill(~valid[:, None, None, :], NEG_INF)
     p = torch.softmax(scores, dim=-1)
     return torch.einsum("bkgt,btkd->bkgd", p, v.float()).to(q.dtype)
+
+
+def decode_attention_split(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    cur_len: torch.Tensor,
+    splits: int,
+    *,
+    window: int = 0,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+    block_s: int = 256,
+) -> torch.Tensor:
+    """Decode attention as ``csrc/decode_attention.cu``'s split body
+    computes it (shapes and masks of :func:`decode_attention`). The
+    positions are cut into spans of ceil(S_max / splits) rounded up to a
+    multiple of ``block_s``; each span's partial (m, l, acc) is taken alone
+    over its valid keys, with the row scales folded into the math (s = ks *
+    (q . k) / sqrt(d), acc += (p * vs) * v) and (m, l, acc) = (-1e30, 0, 0)
+    for a span with none; the partials are merged in span order, M = max m,
+    L = sum l * exp(m - M), out = sum acc * exp(m - M) / max(L, 1e-30). A
+    query with no valid key in any span gets zeros (where
+    :func:`decode_attention`'s softmax gives the mean of the rows). f32 math,
+    in q's dtype."""
+    b, kvh, g, d = q.shape
+    s_max = k.shape[1]
+    if s_max == 0:
+        return torch.zeros_like(q)
+    per = -(-s_max // splits)
+    span = -(-per // block_s) * block_s
+    scores = torch.einsum("bkgd,btkd->bkgt", q.float(), k.float()) * d**-0.5
+    vf = v.float()
+    if k_scale is not None:
+        scores = scores * k_scale.float().permute(0, 2, 1)[:, :, None, :]
+    kpos = torch.arange(s_max, device=q.device)[None, :]
+    cur = torch.as_tensor(cur_len, device=q.device).broadcast_to((b,))[:, None]
+    valid = kpos <= cur
+    if window:
+        valid &= kpos > cur - window
+    valid = valid[:, None, None, :]
+    parts = []
+    for lo in range(0, s_max, span):
+        sc, ok = scores[..., lo:lo + span], valid[..., lo:lo + span]
+        sc = sc.masked_fill(~ok, NEG_INF)
+        m = sc.amax(-1)
+        p = torch.where(ok, torch.exp(sc - m[..., None]), 0.0)
+        l_ = p.sum(-1)
+        if v_scale is not None:
+            p = p * v_scale.float().permute(0, 2, 1)[:, :, None, lo:lo + span]
+        parts.append((m, l_, torch.einsum("bkgt,btkd->bkgd", p, vf[:, lo:lo + span])))
+    big = parts[0][0]
+    for m, _, _ in parts[1:]:
+        big = torch.maximum(big, m)
+    total = torch.zeros_like(big)
+    acc = torch.zeros(b, kvh, g, d, device=q.device)
+    for m, l_, a in parts:
+        e = torch.exp(m - big)
+        total = total + l_ * e
+        acc = acc + a * e[..., None]
+    return (acc / total.clamp_min(1e-30)[..., None]).to(q.dtype)
 
 
 def ragged_valid_mask(

@@ -13,8 +13,9 @@ CUDA (``-m cuda``, skipped without a card; ``python3 chip_smoke.py`` runs
 the main shapes): the wgmma matmul at every M of ``chip_smoke.MATMUL_M``
 above 8 and M 129 and 300, over ``MATMUL_KN`` with its tails, at every
 tile and K split; conv2d at C in {8, 72, 256}, O in {8, 136, 256}, 1 x 1
-and 3 x 3 taps over a ragged image, at every block_h; and split-K matmul
-and the split GEMV on two streams at once, bitwise equal to serial runs.
+and 3 x 3 taps over a ragged image, at every block_h; and split-K matmul,
+both split GEMVs and split decode attention on two streams at once,
+bitwise equal to serial runs.
 
 Tolerances are ``chip_smoke.py``'s: the matmul within MATMUL_REL_TOL (1e-2
 at bf16: both sides sum exact products in f32 and round once) of max
@@ -67,9 +68,15 @@ def _close(got, *wants, dtype):
 
 
 @pytest.mark.parametrize("m,k,n,a_dt,b_dt,body", [
-    (4, 4096, 13440, torch.bfloat16, torch.bfloat16, "gemv"),
+    (4, 4096, 13440, torch.bfloat16, torch.bfloat16, "gemv_tc"),
     (8, 4100, 4104, torch.float32, torch.float32, "gemv"),
-    (4, 4096, 13440, torch.bfloat16, torch.int8, "gemv"),
+    (4, 4096, 13440, torch.bfloat16, torch.int8, "gemv_tc"),
+    (1, 13440, 4096, torch.bfloat16, torch.int8, "gemv_tc"),  # the down projection
+    (8, 4096, 4096, torch.bfloat16, torch.bfloat16, "gemv_tc"),
+    (4, 4096, 13440, torch.float32, torch.int8, "gemv"),  # f32 stays off the tensor cores
+    (4, 4100, 4096, torch.bfloat16, torch.int8, "gemv"),  # K % 16 != 0
+    (4, 4096, 4104, torch.bfloat16, torch.int8, "gemv"),  # N % 16 != 0
+    (4, 4104, 4096, torch.bfloat16, torch.bfloat16, "gemv"),  # K % 16 == 8
     (9, 4096, 13440, torch.bfloat16, torch.bfloat16, "wgmma"),
     (256, 4096, 13440, torch.bfloat16, torch.bfloat16, "wgmma"),
     (300, 4104, 4104, torch.bfloat16, torch.bfloat16, "wgmma"),
@@ -270,11 +277,17 @@ def test_cuda_conv2d_wgmma_vs_plain(c, o, kh, block_h):
 
 @pytest.mark.cuda
 def test_cuda_split_scratch_has_one_owner_per_stream():
-    """Split-K matmul (forced split_k 2 and 4 at M 256, wgmma tile) and the
-    split GEMV (matmul_q8 at M 4, K 13440) on two streams at once give
-    bitwise the serial results: each call's partials are its own, each
-    stream's ticket counters its own, and both reductions add the partials
-    in a fixed order."""
+    """Split-K matmul (forced split_k 2 and 4 at M 256, wgmma tile), the
+    split GEMVs (matmul_q8 at M 4, K 13440, on the tensor-core GEMV; at f32
+    activations on the CUDA-core GEMV; the bf16 matmul at M 4 on the
+    tensor-core GEMV) and split decode attention (4 slots x 1024 positions,
+    32 KV heads, bf16 and int8 stores) on two streams at once give bitwise
+    the serial results: each call's partials are its own, each stream's
+    ticket counters its own, and every reduction adds the partials in a
+    fixed order."""
+    from repro_torch.dist.compression import quantize_rows
+    from repro_torch.kernels import decode_attention as dk
+
     dev = _cuda()
     a, b = _randn(dev, 0, 256, 4096), _randn(dev, 1, 4096, 13440)
     x = _randn(dev, 2, 4, 13440)
@@ -282,15 +295,27 @@ def test_cuda_split_scratch_has_one_owner_per_stream():
                        .manual_seed(3), device=dev, dtype=torch.int8)
     scale = torch.rand(4096, generator=torch.Generator(device=dev).manual_seed(4),
                        device=dev) * 0.01
+    x32, xb = x.float(), _randn(dev, 5, 4, 4096)
+    q, k, v = _randn(dev, 6, 4, 32, 1, 128), _randn(dev, 7, 4, 1024, 32, 128), \
+        _randn(dev, 8, 4, 1024, 32, 128)
+    (k8, ks), (v8, vs) = quantize_rows(k.float(), torch.int8), quantize_rows(v.float(), torch.int8)
+    cl = torch.tensor([0, 333, 700, 1023], dtype=torch.int32, device=dev)
     calls = {
         "split 2": lambda: mmk.matmul(a, b, split_k=2),
         "split 4": lambda: mmk.matmul(a, b, split_k=4),
         "gemv": lambda: mmk.matmul_q8(x, q8, scale),
+        "gemv f32": lambda: mmk.matmul_q8(x32, q8, scale),
+        "gemv bf16": lambda: mmk.matmul(xb, b),
+        "decode": lambda: dk.decode_attention(q, k, v, cl, splits=4),
+        "decode int8": lambda: dk.decode_attention(q, k8, v8, cl, k_scale=ks, v_scale=vs,
+                                                   splits=4),
     }
     serial = {name: fn() for name, fn in calls.items()}
     torch.cuda.synchronize()
     assert mmk.route(256, 4096, 13440, a.dtype, b.dtype) == "wgmma"
-    assert mmk.route(4, 13440, 4096, x.dtype, q8.dtype) == "gemv"
+    assert mmk.route(4, 13440, 4096, x.dtype, q8.dtype) == "gemv_tc"
+    assert mmk.route(4, 13440, 4096, x32.dtype, q8.dtype) == "gemv"
+    assert mmk.route(4, 4096, 13440, xb.dtype, b.dtype) == "gemv_tc"
     streams = (torch.cuda.Stream(), torch.cuda.Stream())
     outs = []
     for rep in range(6):
