@@ -6,14 +6,16 @@
 Phases (each raises on failure, so the script exits non-zero):
 
 0. device — fail without CUDA; print the card's name and power limit.
-1. build — compile the hand-written CUDA kernels from ``csrc/`` (eleven
-   sources over the shared Hopper header ``gemm_wgmma.cuh``, twenty-one
-   kernel bodies: decode attention (split-KV: the position range split over
-   blocks that stream K/V through a cp.async ring, partials merged in split
-   order), ragged and paged attention over a plain or a quantized
-   store, flash attention (GQA, and flat as a group of one; bf16 on wgmma,
+1. build — compile the hand-written CUDA kernels from ``csrc/`` (twelve
+   sources over the shared headers ``gemm_wgmma.cuh`` and
+   ``split_attention.cuh``, twenty-two kernel bodies: decode and paged
+   attention (split-KV: the position range split over blocks that stream
+   K/V through a cp.async ring, partials merged in split order; paged packs
+   in tiles of tokens that share the staged rows), ragged attention over a
+   plain or a quantized store, flash attention (GQA, and flat as a group of one; bf16 on wgmma,
    f32 on CUDA cores), the matmul and int8-weight matmul (the decode GEMV
-   on tensor cores, mma.sync over a cp.async ring, for bf16 activations;
+   on tensor cores, mma.sync over a cp.async ring, for bf16 activations, and
+   its multi-row form for int8 weights at 9-64 rows;
    the CUDA-core GEMV for f32 and the tails; the bf16 tile on
    the header's wgmma + TMA mainloop), RMSNorm, row softmax (rows held in
    registers, a row split over a thread-block cluster, and the two-pass
@@ -27,9 +29,13 @@ Phases (each raises on failure, so the script exits non-zero):
    8-sequence paged decode over a fragmented pool with a shared prefix,
    block sizes 16 and 32), plus the GQA shape KV=8, G=8, a sliding window,
    f32 and bf16 queries, int8, fp8 and scaled f32 stores (bf16 queries over
-   a scaled f32 store: the identity KV lane of a bf16 model); the matmuls at
-   M = 4-256 live tokens over codeqwen's (K, N) and a shape with K and N
-   tails, f32 and bf16 activations, each printed with the body it took;
+   a scaled f32 store: the identity KV lane of a bf16 model), paged at
+   block sizes 8, 16 and 32, G 4 and 12, a pack whose tiles span two
+   sequences, and the split paged body over D 16-128 x G 1/4/8/12 x bs
+   8/16/32 with and without a window; the matmuls at M = 4-256 live tokens
+   (9 and 65 the edges of the multi-row GEMV) over codeqwen's (K, N) and a
+   shape with K and N tails, f32 and bf16 activations, each printed with
+   the body it took;
    decode, ragged and paged attention at
    the new (head_dim, group) pairs (16, 1), (16, 4), (80, 2), (128, 5) and
    (128, 12) over bf16 and scaled int8 stores; decode at 1, 2 and 4 forced
@@ -54,14 +60,17 @@ Phases (each raises on failure, so the script exits non-zero):
    the same traffic over an int8 pool of (a)'s bytes, (c) phase 4's traffic
    over a dense int8 cache; in each run the counts are set to 0 just before
    the measured requests and read just after, the kernels that run drives
-   must have launched (in (c) the split decode body), the prefix cache must
-   hit, and each run's stream must
+   must have launched (in (c) the split decode body; in (a) and (b) every
+   paged launch on the split body, decodes and packs counted apart, both
+   run), the prefix cache must hit, and each run's stream must
    agree with ``LM.prefill`` teacher-forced.
 6. full width, int8 weights — phase 4's weights quantized on the card
    (``ServeEngine(weight_dtype="int8")``) serving (a) phase 4's traffic on a
    dense bf16 cache and (b) phase 5 (b)'s traffic on the paged int8 pool with
    prefix reuse; in each run ``matmul_q8`` must launch between the counts'
-   reset and read (in (a) on the tensor-core GEMV), the stream must agree
+   reset and read, every launch on a tensor-core GEMV (``gemv_tc`` at M <= 8,
+   ``gemv_tc_rows`` above, which both runs must launch) and none on
+   ``mma_pipe``, the stream must agree
    with the quantized model's
    ``LM.prefill`` teacher-forced, and the int8 block stack must take at most
    0.51x the bf16 one's bytes. Prints the int8 model's top-1 agreement with
@@ -104,8 +113,9 @@ Phases (each raises on failure, so the script exits non-zero):
    cuDNN, the FFT's radix-pass body at its three shapes and the four-step
    rows beside cuFFT.
 9. a ``{"kernels": [...], "to_port": []}`` JSON line (every row of PERF.md's
-   kernel table; the decode, matmul and matmul_q8 rows name the body their
-   timed case ran and its launches), then the result line.
+   kernel table; the decode, paged, matmul and matmul_q8 rows name the body
+   their timed case ran and its launches; paged packs and matmul_q8 at M = 16
+   have entries of their own), then the result line.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -136,12 +146,14 @@ TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # by at most one bf16 step (2^-8 relative) of the largest output
 MATMUL_REL_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 # phase 2's matmul shapes: M live tokens (decode 4-16, packs and admissions
-# up to 64, longer prefills), codeqwen's (K, N) of the projections and the
-# MLP, and one shape with K and N tails; the main case is a 4-slot decode
-# step's w_in / w_gate product
-MATMUL_M = (4, 16, 37, 64, 256)
+# up to 64, longer prefills; 9 and 65 the edges of the multi-row GEMV),
+# codeqwen's (K, N) of the projections and the MLP, and one shape with K and
+# N tails; the main case is a 4-slot decode step's w_in / w_gate product, and
+# the multi-row GEMV's (matmul_q8 above 8 rows) a 16-slot step's
+MATMUL_M = (4, 9, 16, 37, 64, 65, 256)
 MATMUL_KN = ((4096, 4096), (4096, 13440), (13440, 4096), (4100, 4104))
 MATMUL_MAIN = (4, 4096, 13440)
+MATMUL_ROWS_MAIN = (16, 4096, 13440)
 # teacher-forced top-1 agreement floor of phases 4 and 5: a random-weight
 # bf16 model over a 92k vocab has top-2 logit gaps of ~0.2 while bf16 logits
 # near 4 are spaced 0.03 apart, so near-ties flip between two matmul/attention
@@ -155,9 +167,46 @@ AGREE_FLOOR = 0.5
 # and a full slot; a 64-token pack of 40 prompt tokens of slot 1, 16 of slot
 # 3 and 8 padding tokens (tok_pos = S_MAX) riding slot 1
 SLOTS, S_MAX = 4, 1024
+# phase 2's paged sequences (phase 5's traffic: the first four share a
+# 512-token prefix), their positions in table rows of S_MAX
+PAGED_CUR = [540, 560, 580, 600, 5, 300, 700, S_MAX - 1]
+# the paged body's launch counts, decode (one token a tile) and pack apart:
+# every paged launch of phases 5 and 6 is one of them
+PAGED_SPLIT = ("paged_attention_split_decode", "paged_attention_split_pack")
 DECODE_POS = [0, 333, 700, S_MAX - 1]
 PACK_SLOTS = [1] * 40 + [3] * 16 + [1] * 8
 PACK_POS = list(range(0, 40)) + list(range(600, 616)) + [S_MAX] * 8
+
+
+def paged_pool_tables(rs, cur, bs: int, s_max: int = S_MAX) -> tuple[int, np.ndarray]:
+    """(num_blocks, tables) of phase 2's paged pool for sequences at ``cur``
+    in table rows of ``s_max`` positions: each sequence's blocks drawn from a
+    pool shuffled by ``rs``, the shared 512-token prefix's blocks named by
+    sequences 0-3; unallocated entries hold the sentinel num_blocks (the
+    pool's scratch block)."""
+    maxb = s_max // bs
+    nb = len(cur) * maxb
+    free = list(rs.permutation(nb))
+    shared = [int(free.pop()) for _ in range(512 // bs)]
+    tab = np.full((len(cur), maxb), nb, np.int32)
+    for i, c in enumerate(cur):
+        n = min(c, s_max - 1) // bs + 1
+        own = shared if i < 4 else []
+        tab[i, :n] = (own + [int(free.pop()) for _ in range(n - len(own))])[:n]
+    return nb, tab
+
+
+def paged_tokens(kind: str, cur, s_max: int) -> tuple[list, list]:
+    """(tok_seq, tok_pos) of phase 2's paged cases over the sequences at
+    ``cur``: a decode (one token per sequence at its cur), a 64-token pack (40
+    prompt tokens of sequence 6, 16 of sequence 1, 8 padding tokens at
+    s_max), or "pack2": 37 tokens of sequence 6 and 19 of sequence 1, so a
+    tile of 8 (and at G <= 4 one of 2) spans both, and 8 padding tokens."""
+    if kind == "decode":
+        return list(range(len(cur))), list(cur)
+    n6 = 40 if kind == "pack" else 37
+    seqs = [6] * n6 + [1] * (56 - n6) + [6] * 8
+    return seqs, list(range(600, 600 + n6)) + list(range(545, 601 - n6)) + [s_max] * 8
 
 
 def phase(name: str) -> None:
@@ -418,6 +467,65 @@ def check_attention_domain(dev):
     torch.cuda.synchronize()
 
 
+def check_paged_split(dev):
+    """Phase 2 for the split paged body over its domain: every head width,
+    G 1, 4, 8 and 12, blocks of 8, 16 and 32 positions, with and without a
+    window, over a bf16 pool and a scaled int8 one under bf16 queries (4 KV
+    heads, phase 2's paged pool and tables at each block size): a decode
+    (one token a tile) and a pack whose tiles span two sequences, with
+    padding tokens, each against the plain version; padding rows must be
+    zero."""
+    import torch
+
+    from repro_torch.dist.compression import quantize_rows
+    from repro_torch.kernels import paged_attention as pk
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    rs = np.random.default_rng(4)
+    bf16, kv, S = torch.bfloat16, 4, S_MAX
+    tol = TOL["bfloat16"]
+    cur = PAGED_CUR
+    worst = 0.0
+    for bs in (8, 16, 32):
+        nb, tab_h = paged_pool_tables(rs, cur, bs)
+        tab = torch.from_numpy(tab_h).to(dev)
+        for d in (16, 32, 64, 80, 128):
+            for store in ("bf16", "int8"):
+                k, v = (torch.randn(nb + 1, bs, kv, d, generator=gen, device=dev) for _ in "kv")
+                if store == "bf16":
+                    k, v, sc = k.to(bf16), v.to(bf16), {}
+                else:
+                    (k, ks), (v, vs) = quantize_rows(k, torch.int8), quantize_rows(v, torch.int8)
+                    sc = dict(k_scale=ks, v_scale=vs)
+                for g in (1, 4, 8, 12):
+                    for window in (0, 100):
+                        for kind in ("decode", "pack2"):
+                            seqs, poss = paged_tokens(kind, cur, S)
+                            ts = torch.tensor(seqs, dtype=torch.int32, device=dev)
+                            tp = torch.tensor(poss, dtype=torch.int32, device=dev)
+                            q = torch.randn(len(seqs), kv, g, d, generator=gen,
+                                            device=dev).to(bf16)
+                            got = pk.paged_attention(q, k, v, ts, tp, tab, window=window,
+                                                     decode=kind == "decode", **sc)
+                            want = ref.paged_ragged_attention(q, k, v, ts, tp, tab,
+                                                              window=window, **sc)
+                            real = tp < S
+                            if got[~real].any():
+                                raise AssertionError(f"paged split {kind} bs={bs} d={d} g={g}: "
+                                                     "padding rows are not zero")
+                            err = (got[real].float() - want[real].float()).abs().max().item()
+                            worst = max(worst, err)
+                            if not err <= tol:
+                                raise AssertionError(
+                                    f"paged split {kind} bs={bs} d={d} g={g} {store} "
+                                    f"win={window}: max_abs_err {err} above {tol}")
+    torch.cuda.synchronize()
+    print(f"  paged split body: decode and a pack with tiles across two sequences at d "
+          f"16-128 x G 1/4/8/12 x bs 8/16/32 x window 0/100 x bf16/int8 pools, worst "
+          f"max_abs_err {worst:.2e} tol={tol:g}", flush=True)
+
+
 def check_paged_and_quant_kernels(dev):
     """Phase 2 for the paged kernel and the quantized-store bodies of the
     decode, ragged and paged kernels. Every case is checked and timed; the
@@ -462,7 +570,7 @@ def check_paged_and_quant_kernels(dev):
         return range(max(0, pos - window + 1) if window else 0, min(pos, S - 1) + 1)
 
     def measure(name, case, qdtype, got, want, real, kernel, plain, rows, ops_, row_bytes,
-                extra_bytes, library=None, main=False):
+                extra_bytes, library=None, main=None):
         """Check one case against its plain version, time it, print both."""
         tol = TOL[str(qdtype).split(".")[-1]]
         err = (got[real].float() - want[real].float()).abs().max().item()
@@ -479,30 +587,18 @@ def check_paged_and_quant_kernels(dev):
               flush=True)
         if not err <= tol:
             raise AssertionError(f"{name} {case}: max_abs_err {err} above {tol}")
-        if main:
-            results[name] = dict(timed, max_abs_err=err, tol=tol)
+        if main:  # True: the results key is the name; a str: that key
+            results[name if main is True else main] = dict(timed, max_abs_err=err, tol=tol)
 
     def kv_row_bytes(k, kv, scaled):
         return kv * (D * k.element_size() + (4 if scaled else 0)) * 2  # K and V
 
     # ---- paged: an 8-sequence decode over a fragmented pool whose first four
     # sequences share a 512-token prefix (phase 5's traffic), and 64-token packs
-    cur = [540, 560, 580, 600, 5, 300, 700, S - 1]
+    cur = PAGED_CUR
 
     def pool_tables(bs):
-        """(num_blocks, tables): each sequence's blocks drawn from a shuffled
-        pool, the shared prefix's blocks named by sequences 0-3; unallocated
-        entries hold the sentinel num_blocks (the pool's scratch block)."""
-        maxb = S // bs
-        nb = len(cur) * maxb
-        free = list(rs.permutation(nb))
-        shared = [int(free.pop()) for _ in range(512 // bs)]
-        tab = np.full((len(cur), maxb), nb, np.int32)
-        for i, c in enumerate(cur):
-            n = min(c, S - 1) // bs + 1
-            own = shared if i < 4 else []
-            tab[i, :n] = (own + [int(free.pop()) for _ in range(n - len(own))])[:n]
-        return nb, tab
+        return paged_pool_tables(rs, cur, bs)
 
     def paged_sdpa(q, k, v, seqs, poss, tab, nb, bs, window):
         """SDPA over the whole pool, each token masked to its sequence's
@@ -522,44 +618,52 @@ def check_paged_and_quant_kernels(dev):
         return (lambda: F.scaled_dot_product_attention(q, kf, vf, attn_mask=mask),
                 "SDPA over the whole pool, masked")
 
+    # each case: (KV, G, bs, query dtype, window, kind, the results key of a
+    # main case or None); "pack2": a pack whose tile of 8 (2 at G <= 4)
+    # tokens spans two sequences
     for name, store, cases in [
         ("paged_attention", None, [
-            (32, 1, 32, bf16, 0, "decode", True), (32, 1, 16, f32, 0, "decode", False),
-            (8, 8, 16, bf16, 0, "decode", False), (8, 8, 32, f32, 0, "decode", False),
-            (32, 1, 32, bf16, 0, "pack", False), (32, 1, 16, bf16, 100, "pack", False),
+            (32, 1, 32, bf16, 0, "decode", "paged_attention"),
+            (32, 1, 16, f32, 0, "decode", None), (32, 1, 8, bf16, 0, "decode", None),
+            (8, 8, 16, bf16, 0, "decode", None), (8, 8, 32, f32, 0, "decode", None),
+            (8, 4, 8, bf16, 0, "decode", None), (8, 12, 16, bf16, 50, "decode", None),
+            (32, 1, 32, bf16, 0, "pack", "paged_attention_pack"),
+            (32, 1, 16, bf16, 100, "pack", None), (32, 1, 8, bf16, 0, "pack2", None),
+            (8, 4, 16, bf16, 0, "pack2", None), (8, 12, 32, f32, 30, "pack2", None),
         ]),
         ("paged_attention_q8", "int8", [
-            (32, 1, 32, bf16, 0, "decode", True), (32, 1, 16, f32, 0, "decode", False),
-            (8, 8, 16, bf16, 0, "decode", False), (32, 1, 32, bf16, 0, "pack", False),
-            (8, 8, 32, f32, 77, "pack", False),
+            (32, 1, 32, bf16, 0, "decode", "paged_attention_q8"),
+            (32, 1, 16, f32, 0, "decode", None), (8, 8, 16, bf16, 0, "decode", None),
+            (32, 1, 32, bf16, 0, "pack", "paged_attention_q8_pack"),
+            (8, 8, 32, f32, 77, "pack", None), (32, 1, 8, bf16, 60, "pack2", None),
+            (8, 4, 16, bf16, 0, "pack2", None),
         ]),
         ("paged_attention_q8", "fp8", [
-            (32, 1, 32, bf16, 0, "decode", False), (8, 8, 16, f32, 0, "decode", False),
-            (32, 1, 16, bf16, 100, "pack", False),
+            (32, 1, 32, bf16, 0, "decode", None), (8, 8, 16, f32, 0, "decode", None),
+            (32, 1, 16, bf16, 100, "pack", None),
         ]),
         ("paged_attention_q8", "f32", [
-            (32, 1, 32, bf16, 0, "decode", False), (32, 1, 32, bf16, 0, "pack", False),
+            (32, 1, 32, bf16, 0, "decode", None), (32, 1, 32, bf16, 0, "pack", None),
         ]),
         ("paged_attention_q8", "f32 rand", [
-            (32, 1, 32, bf16, 0, "decode", False), (8, 8, 16, bf16, 0, "pack", False),
+            (32, 1, 32, bf16, 0, "decode", None), (8, 8, 16, bf16, 0, "pack", None),
         ]),
     ]:
-        for kv, g, bs, dtype, window, kind, main in cases:
+        for kv, g, bs, dtype, window, kind, key in cases:
             nb, tab_h = pool_tables(bs)
             tab = torch.from_numpy(tab_h).to(dev)
             k, v, scales = store_kv((nb + 1, bs, kv, D), store, dtype)
-            if kind == "decode":
-                seqs, poss = list(range(len(cur))), cur
-            else:  # 40 prompt tokens of seq 6, 16 of seq 1, 8 padding tokens
-                seqs = [6] * 40 + [1] * 16 + [6] * 8
-                poss = list(range(600, 640)) + list(range(545, 561)) + [S] * 8
+            seqs, poss = paged_tokens(kind, cur, S)
             ts = torch.tensor(seqs, dtype=torch.int32, device=dev)
             tp = torch.tensor(poss, dtype=torch.int32, device=dev)
             q = randn(len(seqs), kv, g, D, dtype=dtype)
-            counter = "launches_q8" if scales else "launches"
-            n0 = getattr(pk, counter)
-            got = pk.paged_attention(q, k, v, ts, tp, tab, window=window, **scales)
-            if getattr(pk, counter) != n0 + 1:
+            decode = kind == "decode"
+            counters = ("launches_q8" if scales else "launches",
+                        "launches_split_decode" if decode else "launches_split_pack")
+            n0 = [getattr(pk, c_) for c_ in counters]
+            got = pk.paged_attention(q, k, v, ts, tp, tab, window=window, decode=decode,
+                                     **scales)
+            if [getattr(pk, c_) for c_ in counters] != [n_ + 1 for n_ in n0]:
                 raise AssertionError(f"{name}: the wrapper did not count its launch")
             want = ref.paged_ragged_attention(q, k, v, ts, tp, tab, window=window, **scales)
             real = tp < S  # padding rows: zeros from the kernel, never read
@@ -571,16 +675,17 @@ def check_paged_and_quant_kernels(dev):
             extra = nbytes(q, q, ts, tp) + len({blk for blk, _ in rows}) * 4
             plain = (
                 (lambda: ref.paged_decode_attention(q, k, v, tp, tab, window=window, **scales))
-                if kind == "decode" else
+                if decode else
                 (lambda: ref.paged_ragged_attention(q, k, v, ts, tp, tab, window=window,
                                                     **scales))
             )
             library = None if scales else paged_sdpa(q, k, v, seqs, poss, tab_h, nb, bs, window)
             measure(name, f"{kind} T={len(seqs)} KV={kv} G={g} bs={bs} {store or dtype} "
                     f"q={str(dtype)[6:]} win={window}", dtype, got, want, real,
-                    lambda: pk.paged_attention(q, k, v, ts, tp, tab, window=window, **scales),
+                    lambda: pk.paged_attention(q, k, v, ts, tp, tab, window=window,
+                                               decode=decode, **scales),
                     plain, len(rows), n_keys * kv * g * D * 4, kv_row_bytes(k, kv, bool(scales)),
-                    extra, library, main)
+                    extra, library, key)
 
     # ---- decode and ragged over a quantized dense cache (phase 5 (c))
     B, dcur = SLOTS, DECODE_POS
@@ -676,6 +781,7 @@ def check_matmul_kernels(dev):
             for m in MATMUL_M:
                 a = torch.randn(m, k, generator=gen, device=dev).to(dtype)
                 main = (m, k, n) == MATMUL_MAIN and dtype == bf16
+                rows_main = (m, k, n) == MATMUL_ROWS_MAIN and dtype == bf16
                 for name, kernel, plain, by in [
                     ("matmul_q8", lambda: mmk.matmul_q8(a, q8, scale),
                      lambda: ref.matmul_q8(a, q8, scale), nbytes(a, q8, scale)),
@@ -697,7 +803,7 @@ def check_matmul_kernels(dev):
                     else:
                         fn, timed["library"] = int8_pack_yardstick(a, q8, scale, want, tol)
                         timed["library_ms"] = time_ms(fn) if fn is not None else None
-                        if main:
+                        if main or rows_main:
                             two = time_ms(lambda: a @ (q8.to(dtype) * scale.to(dtype)))
                             extra = f" (dequant + torch.matmul, two calls: {two:.4f} ms)"
                     lib = (f"{timed['library_ms']:.4f}" if timed["library_ms"] is not None
@@ -712,10 +818,11 @@ def check_matmul_kernels(dev):
                     if not err <= tol:
                         raise AssertionError(f"{name} M={m} K={k} N={n} {dname}: max_abs_err "
                                              f"{err} above {tol}")
-                    if main:
-                        results[name] = dict(timed, max_abs_err=err, tol=tol)
+                    if main or (rows_main and name == "matmul_q8"):
+                        key = name if main else "matmul_q8_rows"
+                        results[key] = dict(timed, max_abs_err=err, tol=tol, body=body)
                         if timed["library_ms"] is None:
-                            print(f"  {name} yardstick: {timed['library']}")
+                            print(f"  {key} yardstick: {timed['library']}")
     torch.cuda.synchronize()
     return results
 
@@ -949,6 +1056,11 @@ def serve_shared(dev, model, params, counters, label, expect, **kw):
         eng.submit(r)
     stats = eng.run()
     launches = read_counts(counters, f"({label})", expect)
+    paged = launches["paged_attention"] + launches["paged_attention_q8"]
+    split = sum(launches[c_] for c_ in PAGED_SPLIT)
+    if split != paged:
+        raise AssertionError(f"({label}) {paged} paged launches, {split} of them on the split "
+                             "body")
     check_finished(reqs, max_new, cfg.vocab_size)
     hits = eng.prefix.stats().hit_tokens - hits0
     peak_blocks = stats.kv_bytes_resident // eng.pool.bytes_per_block
@@ -996,12 +1108,13 @@ def paged_and_quantized(dev, model, params, counters):
 
     # (a) bf16 pool at byte parity with a dense 8 x 1024 cache: 256 blocks
     la, a, _ = serve_shared(dev, model, params, counters, "a: paged bf16 + prefix",
-                            ["paged_attention"], batch_slots=8)
+                            ["paged_attention", *PAGED_SPLIT], batch_slots=8)
     # (b) int8 pool of (a)'s bytes, twice the slots
     L, KV, hd = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
     int8_block = L * bs * KV * (hd + 4) * 2
     lb, b, _ = serve_shared(dev, model, params, counters, "b: paged int8 + prefix",
-                            ["paged_attention_q8"], batch_slots=16, kv_dtype="int8",
+                            ["paged_attention_q8", *PAGED_SPLIT], batch_slots=16,
+                            kv_dtype="int8",
                             num_blocks=a["num_blocks"] * a["bytes_per_block"] // int8_block)
     runs += [la, lb]
     if b["bytes_per_block"] != int8_block:
@@ -1034,6 +1147,10 @@ def paged_and_quantized(dev, model, params, counters):
     del eng
     torch.cuda.empty_cache()
     launches = {name: sum(run[name] for run in runs) for name in counters}
+    # the paged body's launches per store (a: bf16, b: int8) and per tile
+    for store, run in (("paged_attention", la), ("paged_attention_q8", lb)):
+        launches[f"{store}_decode"] = run["paged_attention_split_decode"]
+        launches[f"{store}_pack"] = run["paged_attention_split_pack"]
     print(f"  launches during phase 5's three measured runs: {launches}")
     return launches, {"a": a, "b": b, "c": c}
 
@@ -1081,6 +1198,15 @@ def int8_weights(dev, model, params, counters, num_blocks_b: int):
     dense_bytes = pytree_bytes(params["blocks"])
     head_bytes = pytree_bytes(params["embed"].get("head"))
 
+    def q8_bodies(label, run) -> None:
+        """Every matmul_q8 launch of a serving run (M <= 64) on a tensor-core
+        GEMV: gemv_tc at M <= 8, the multi-row body above; none on mma_pipe."""
+        gemv = run["matmul_q8_gemv_tc"] + run["matmul_q8_rows"]
+        if run["matmul_q8_mma_pipe"] or gemv != run["matmul_q8"]:
+            raise AssertionError(f"({label}) {run['matmul_q8']} matmul_q8 launches: "
+                                 f"{run['matmul_q8_gemv_tc']} gemv_tc, {run['matmul_q8_rows']} "
+                                 f"gemv_tc_rows, {run['matmul_q8_mma_pipe']} mma_pipe")
+
     def resident(label, qparams) -> dict:
         q_bytes = pytree_bytes(qparams["blocks"])
         ratio = q_bytes / dense_bytes
@@ -1104,8 +1230,9 @@ def int8_weights(dev, model, params, counters, num_blocks_b: int):
         eng.submit(r)
     stats = eng.run()
     la = read_counts(counters, "(a: int8 weights, dense bf16 KV)",
-                     ["matmul_q8", "matmul_q8_gemv_tc", "decode_attention", "ragged_attention",
-                      "gqa_flash_attention"])
+                     ["matmul_q8", "matmul_q8_gemv_tc", "matmul_q8_rows", "decode_attention",
+                      "ragged_attention", "gqa_flash_attention"])
+    q8_bodies("a", la)
     check_finished(reqs, max_new, cfg.vocab_size)
     print_stats(stats)
     a = resident("a", eng.params)
@@ -1124,9 +1251,11 @@ def int8_weights(dev, model, params, counters, num_blocks_b: int):
     # (b) phase 5 (b)'s traffic: paged int8 KV + prefix, 16 slots — fully quantized
     lb, b, qparams = serve_shared(dev, model, params, counters,
                                   "b: int8 weights, paged int8 KV + prefix",
-                                  ["matmul_q8", "paged_attention_q8"], batch_slots=16,
+                                  ["matmul_q8", "matmul_q8_rows", "paged_attention_q8",
+                                   *PAGED_SPLIT], batch_slots=16,
                                   kv_dtype="int8", num_blocks=num_blocks_b, weight_dtype="int8",
                                   floor_ms=floor_ms)
+    q8_bodies("b", lb)
     b.update(resident("b", qparams))
     del qparams
     torch.cuda.empty_cache()
@@ -1907,6 +2036,7 @@ def main() -> int:
     timed.update(check_paged_and_quant_kernels(dev))
     timed.update(check_matmul_kernels(dev))
     check_attention_domain(dev)
+    check_paged_split(dev)
 
     phase("3 kernel path vs plain path, end to end, f32")
     small_model_streams(dev)
@@ -1919,6 +2049,8 @@ def main() -> int:
 
     phase("5 full width, paged + prefix and quantized KV")
     counters5 = {"paged_attention": (pk, "launches"), "paged_attention_q8": (pk, "launches_q8"),
+                 "paged_attention_split_decode": (pk, "launches_split_decode"),
+                 "paged_attention_split_pack": (pk, "launches_split_pack"),
                  "decode_attention_q8": (dk, "launches_q8"),
                  "ragged_attention_q8": (rk, "launches_q8"),
                  "decode_attention_q8_split": (dk, "launches_split")}
@@ -1928,14 +2060,18 @@ def main() -> int:
     phase("6 full width, int8 weights")
     # one name for the split decode body's count (phase 4's), whichever store runs it
     counters6 = {"matmul_q8": (mmk, "launches_q8"), "matmul": (mmk, "launches"),
-                 "matmul_q8_gemv_tc": (mmk, "launches_gemv_tc"), **counters4,
+                 "matmul_q8_gemv_tc": (mmk, "launches_gemv_tc"),
+                 "matmul_q8_rows": (mmk, "launches_gemv_tc_rows"),
+                 "matmul_q8_mma_pipe": (mmk, "launches_mma_pipe"), **counters4,
                  **{k: v for k, v in counters5.items() if k != "decode_attention_q8_split"}}
     launches6, serving6 = int8_weights(dev, model, params, counters6,
                                        serving["b"]["num_blocks"])
     # no serving path calls matmul (the dense projections are torch.matmul, as
     # the JAX package's are XLA's): its launches are phase 7's
     launches.update(matmul_q8=launches6["matmul_q8"],
-                    matmul_q8_gemv_tc=launches6["matmul_q8_gemv_tc"])
+                    matmul_q8_gemv_tc=launches6["matmul_q8_gemv_tc"],
+                    matmul_q8_rows=launches6["matmul_q8_rows"],
+                    matmul_q8_mma_pipe=launches6["matmul_q8_mma_pipe"])
     serving["int8_weights"] = serving6
     print(json.dumps({"serving": serving}))
 
@@ -1967,11 +2103,16 @@ def main() -> int:
         "gqa_flash_attention": ("flash_attention.cu", "src/repro/kernels/flash_attention.py:197"),
         "paged_attention": ("paged_attention.cu", "src/repro/kernels/ragged_attention.py:342"),
         "paged_attention_q8": ("paged_attention.cu", "src/repro/kernels/ragged_attention.py:342"),
+        "paged_attention_pack": ("paged_attention.cu",
+                                 "src/repro/kernels/ragged_attention.py:342"),
+        "paged_attention_q8_pack": ("paged_attention.cu",
+                                    "src/repro/kernels/ragged_attention.py:342"),
         "decode_attention_q8": ("decode_attention.cu",
                                 "src/repro/kernels/decode_attention.py:186"),
         "ragged_attention_q8": ("ragged_attention.cu",
                                 "src/repro/kernels/ragged_attention.py:253"),
         "matmul_q8": ("matmul.cu", "src/repro/kernels/matmul.py:100"),
+        "matmul_q8_rows": ("matmul.cu", "src/repro/kernels/matmul.py:100"),
         "matmul": ("matmul.cu", "src/repro/kernels/matmul.py:138"),
         "matmul_tile": ("matmul.cu", "src/repro/kernels/matmul.py:138"),
         "flash_attention": ("flash_attention.cu", "src/repro/kernels/flash_attention.py:126"),
@@ -1986,8 +2127,9 @@ def main() -> int:
     # PERF.md's row of each kernel
     rows = {"decode_attention": 1, "ragged_attention": 2, "gqa_flash_attention": 3,
             "decode_attention_q8": 4, "ragged_attention_q8": 5, "paged_attention": 6,
-            "paged_attention_q8": 6, "flash_attention": 7, "matmul": 8, "matmul_tile": 8,
-            "matmul_q8": 9,
+            "paged_attention_q8": 6, "paged_attention_pack": 6, "paged_attention_q8_pack": 6,
+            "flash_attention": 7, "matmul": 8, "matmul_tile": 8, "matmul_q8": 9,
+            "matmul_q8_rows": 9,
             "rmsnorm": 10, "softmax": 11, "axpy": 12, "dotp": 13, "fft": 14, "fft_long": 14,
             "conv2d": 15}
     kernels = []
@@ -2022,6 +2164,17 @@ def main() -> int:
         if name in ("matmul_q8", "matmul"):  # the timed case: M = 4
             kernels[-1]["body"] = "gemv_tc"
             kernels[-1]["launches_gemv_tc"] = launches[f"{name}_gemv_tc"]
+        if name == "matmul_q8":  # of its serving launches, those above 8 rows
+            kernels[-1]["launches_gemv_tc_rows"] = launches["matmul_q8_rows"]
+            kernels[-1]["launches_mma_pipe"] = launches["matmul_q8_mma_pipe"]
+        if name == "matmul_q8_rows":  # the timed case: M = 16, on the multi-row GEMV
+            kernels[-1]["body"] = t["body"]
+        if name in ("paged_attention", "paged_attention_q8"):  # the timed case: a decode
+            kernels[-1]["body"] = "split"
+            kernels[-1]["launches_split_decode"] = launches[f"{name}_decode"]
+            kernels[-1]["launches_split_pack"] = launches[f"{name}_pack"]
+        if name in ("paged_attention_pack", "paged_attention_q8_pack"):  # a 64-token pack
+            kernels[-1]["body"] = "split"
         if name == "matmul_tile":
             kernels[-1]["body"] = "wgmma"
     print(json.dumps({"kernels": kernels, "to_port": []}))

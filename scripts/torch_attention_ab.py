@@ -5,9 +5,15 @@ timer: codeqwen1.5-7b, bf16, KV=32, G=1, d=128, 4 slots x 1024 positions; a
 64-token pack; a 64-token prefill of 32 KV rows; the grouped decode at KV=8,
 G=8 over the same slots), decode, ragged and paged
 attention over the same cache as int8 rows with their scales (the paged
-pool: the cache's rows as 32-position blocks under a reversed table), and
+pool: the cache's rows as 32-position blocks under a reversed table), paged
+attention at phase 2's paged shapes (phase 5's traffic: an 8-sequence
+decode through ``ops.paged_decode_attention`` over a shuffled pool of
+32-position blocks, bf16 and int8, and the grouped one at KV=8, G=8 over
+16-position blocks; a 64-token pack over the same pools), and
 the flat flash attention of phase 7 (32 heads of 1024 tokens, causal) at
-each bf16 tile of the checkout, for an A/B of two checkouts on one card:
+each bf16 tile of the checkout, for an A/B of two checkouts on one card.
+Each kernel's output is digested (sha256 of its bytes), so two checkouts
+whose kernels should agree bit for bit can be compared:
 
     python scripts/torch_attention_ab.py --src path/to/checkout/src
 
@@ -21,6 +27,7 @@ between launches is not counted; L2 warm). Needs a CUDA device.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import statistics
 import subprocess
@@ -43,7 +50,10 @@ def main() -> int:
 
     from repro_torch.dist.compression import quantize_rows
     from repro_torch.kernels import decode_attention as dk
+    import numpy as np
+
     from repro_torch.kernels import flash_attention as fk
+    from repro_torch.kernels import ops
     from repro_torch.kernels import paged_attention as pk
     from repro_torch.kernels import ragged_attention as rk
 
@@ -89,6 +99,27 @@ def main() -> int:
         # the grouped decode (KV 8, G 8) over the same slots
         "decode_attention G=8": lambda: dk.decode_attention(q_grp, k_grp, v_grp, cur),
     }
+    # phase 2's paged shapes: 8 sequences over a shuffled pool, a decode and a pack
+    cur_p = ints(cs.PAGED_CUR)
+    seqs, poss = (ints(x) for x in cs.paged_tokens("pack", cs.PAGED_CUR, cs.S_MAX))
+    for tag, kv, g, bs, quant in (("", KV, 1, 32, False), (" int8", KV, 1, 32, True),
+                                  (" G=8", 8, 8, 16, False)):
+        nb, tab = cs.paged_pool_tables(np.random.default_rng(1), cs.PAGED_CUR, bs)
+        tab = torch.from_numpy(tab).to(dev)
+        pk_p, pv_p = randn(nb + 1, bs, kv, D), randn(nb + 1, bs, kv, D)
+        psc_p = {}
+        if quant:
+            (pk_p, ks_p), (pv_p, vs_p) = (quantize_rows(t.float(), torch.int8)
+                                          for t in (pk_p, pv_p))
+            psc_p = dict(k_scale=ks_p, v_scale=vs_p)
+        qd = randn(len(cs.PAGED_CUR), kv * g, D)
+        qp = randn(seqs.numel(), kv, g, D)
+        kernels[f"paged decode{tag}"] = (
+            lambda qd=qd, k_=pk_p, v_=pv_p, t_=tab, s_=psc_p:
+            ops.paged_decode_attention(qd, k_, v_, cur_p, t_, **s_))
+        kernels[f"paged pack{tag}"] = (
+            lambda qp=qp, k_=pk_p, v_=pv_p, t_=tab, s_=psc_p:
+            pk.paged_attention(qp, k_, v_, seqs, poss, t_, **s_))
     # the tiles a checkout has (a tuple of tiles before they differed by dtype)
     tiles = fk.TILES[torch.bfloat16] if isinstance(fk.TILES, dict) else fk.TILES
     for tq, tk in tiles:
@@ -96,8 +127,12 @@ def main() -> int:
             lambda tq=tq, tk=tk: fk.flash_attention(q_api, k_api, v_api, block_q=tq, block_k=tk))
     out = {}
     for name, fn in kernels.items():
+        res = fn().contiguous()
+        torch.cuda.synchronize()
+        digest = hashlib.sha256(res.view(torch.uint8).cpu().numpy().tobytes()).hexdigest()[:16]
         times = [cs.time_ms(fn, reps=REPS, warmup=WARMUP) for _ in range(ROUNDS)]
-        out[name] = {"median_ms": statistics.median(times), "rounds_ms": times}
+        out[name] = {"median_ms": statistics.median(times), "rounds_ms": times,
+                     "sha256": digest}
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,

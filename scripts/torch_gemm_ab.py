@@ -2,15 +2,18 @@
 """Time the port's matmul and conv2d kernels for an A/B of two checkouts on
 one card: the bf16 matmul at M = 16, 37, 64 and 256 live tokens over
 codeqwen1.5-7b's w_in shape (K 4096, N 13440; ``chip_smoke.py``'s MATMUL_M
-above 8), the int8-weight matmul (``matmul_q8``, the serving path's GEMV at
-M = 1, 4 and 8 and its mma.sync tile at M = 16) over the same shape, the
-GEMVs (int8 and bf16 weights) at M = 1, 4 and 8 over w_in and the down
-projection (K 13440, N 4096) with ``torch.matmul`` timed beside the bf16
-ones, and conv2d at
-``chip_smoke.CONV_MAIN`` (bf16 [4, 512, 512, 256] x [3, 3, 256, 256]), each
-with the kernel's own choice of knobs:
+above 8), the int8-weight matmul (``matmul_q8``: the serving path's GEMV at
+M = 1, 4 and 8, and at M = 16, 37 and 64 the body the checkout routes
+there) over w_in and the down projection (K 13440, N 4096), the bf16 GEMV
+at M = 1, 4 and 8 over both with ``torch.matmul`` timed beside it, and
+conv2d at ``chip_smoke.CONV_MAIN`` (bf16 [4, 512, 512, 256] x [3, 3, 256,
+256]), each with the kernel's own choice of knobs:
 
     python scripts/torch_gemm_ab.py --src path/to/checkout/src
+
+``--splits`` times ``matmul_q8`` at M = 16, 37 and 64 over w_in, the down
+projection and K = N = 4096 at every forced ``split_k`` of 1, 2, 4, 8 and
+16 instead (the K-split rule's sweep).
 
 Run it alternately for two checkouts on one card, one after the other (A, B,
 B, A): each process builds that checkout's kernels at first use, then prints
@@ -32,12 +35,15 @@ from pathlib import Path
 ROUNDS, WARMUP = 7, 3
 REPS = {"matmul": 100, "conv2d": 10}
 M_TILE = (16, 37, 64, 256)
+M_ROWS = (16, 37, 64)  # matmul_q8 above the decode GEMV's 8 rows
 K, N = 4096, 13440
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", required=True, help="the src/ directory of the checkout to time")
+    ap.add_argument("--splits", action="store_true",
+                    help="sweep matmul_q8's forced split_k at M 16, 37 and 64 instead")
     args = ap.parse_args()
     sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
     import chip_smoke as cs
@@ -70,29 +76,44 @@ def main() -> int:
     # the serving path's int8 GEMVs first, in a fresh process: timed after the
     # bf16 tiles it read 4% apart between two checkouts whose GEMV is the same
     kernels = {}  # name -> (kernel, plain, kind)
-    for m in (1, 4, 8, 16):
+    if args.splits:
+        q8_sq = torch.randint(-127, 128, (K, K), generator=gen, device=dev, dtype=torch.int8)
+        weights = {"w_in": (q8, scale), "down": (q8_dn, scale_dn),
+                   "4096x4096": (q8_sq, scale_dn)}
+        for m in M_ROWS:
+            for tag, (w, sc) in weights.items():
+                a = randn(m, w.shape[0])
+                for split_k in (1, 2, 4, 8, 16):
+                    kernels[f"matmul_q8 M={m} {tag} split_k={split_k}"] = (
+                        lambda a=a, w=w, sc=sc, split_k=split_k: mmk.matmul_q8(
+                            a, w, sc, split_k=split_k),
+                        lambda a=a, w=w, sc=sc: ref.matmul_q8(a, w, sc), "matmul")
+    m_q8 = M_ROWS if args.splits else (1, 4, 8) + M_ROWS  # the kernel's own K splits
+    for m in m_q8:
         a = randn(m, K)
         kernels[f"matmul_q8 M={m}"] = (lambda a=a: mmk.matmul_q8(a, q8, scale),
                                        lambda a=a: ref.matmul_q8(a, q8, scale), "matmul")
-    for m in (1, 4, 8):
+    for m in m_q8:
         a = randn(m, N)
         kernels[f"matmul_q8 M={m} down"] = (lambda a=a: mmk.matmul_q8(a, q8_dn, scale_dn),
                                             lambda a=a: ref.matmul_q8(a, q8_dn, scale_dn),
                                             "matmul")
     # the bf16 GEMV at decode widths, and cuBLAS beside it (torch.matmul)
-    for m in (1, 4, 8):
+    for m in () if args.splits else (1, 4, 8):
         for tag, a, w in ((f"M={m}", randn(m, K), b), (f"M={m} down", randn(m, N), b_dn)):
             kernels[f"matmul {tag}"] = (lambda a=a, w=w: mmk.matmul(a, w),
                                         lambda a=a, w=w: ref.matmul(a, w), "matmul")
             kernels[f"torch.matmul {tag}"] = (lambda a=a, w=w: torch.matmul(a, w),
                                               lambda a=a, w=w: ref.matmul(a, w), "matmul")
-    for m in M_TILE:
+    for m in () if args.splits else M_TILE:
         a = randn(m, K)
         kernels[f"matmul M={m}"] = (lambda a=a: mmk.matmul(a, b), lambda a=a: ref.matmul(a, b),
                                     "matmul")
-    (xs, ws) = cs.CONV_MAIN
-    x, w = randn(*xs), randn(*ws)
-    kernels["conv2d CONV_MAIN"] = (lambda: cvk.conv2d(x, w), lambda: ref.conv2d(x, w), "conv2d")
+    if not args.splits:
+        (xs, ws) = cs.CONV_MAIN
+        x, w = randn(*xs), randn(*ws)
+        kernels["conv2d CONV_MAIN"] = (lambda: cvk.conv2d(x, w), lambda: ref.conv2d(x, w),
+                                       "conv2d")
     out = {}
     for name, (fn, plain, kind) in kernels.items():
         got, want = fn().float(), plain().float()
@@ -107,6 +128,9 @@ def main() -> int:
         del got, want
         times = [cs.time_ms(fn, reps=REPS[kind], warmup=WARMUP) for _ in range(ROUNDS)]
         out[name] = {"median_ms": statistics.median(times), "rounds_ms": times}
+        if name.startswith("matmul_q8"):  # the body this checkout routes M to
+            m_ = int(name.split("M=")[1].split()[0])
+            out[name]["body"] = mmk.route(m_, K, N, torch.bfloat16, torch.int8)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,

@@ -99,8 +99,9 @@ _tickets: dict = {}  # (device index, stream handle) -> int32 zeros the kernels 
 
 def tickets(device: torch.device, stream: int) -> torch.Tensor:
     """The split kernels' ticket counters of raw stream handle ``stream`` on
-    ``device`` (the split GEMVs: one per 128-column strip; split decode: one
-    per (slot, KV head, chunk of the group)): made once, before the stream's
+    ``device`` (the split GEMVs: one per 128-column strip; split decode and
+    paged attention: one per (tile, KV head, chunk of the group)): made once,
+    before the stream's
     first split launch, at a fixed size, so a captured launch never sees
     them replaced. Each kernel leaves them zero, and launches on one stream
     run in order, so every split kernel of the stream shares them."""

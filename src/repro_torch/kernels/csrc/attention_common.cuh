@@ -1,18 +1,22 @@
-// Shared device code of the decode, ragged and paged attention kernels.
+// Shared device code of the serving attention kernels: decode, ragged and
+// paged attention.
 //
 // All three compute, for one query token and one KV head, softmax(q k^T /
 // sqrt(D)) v over the contiguous key range [lo, hi] of one sequence, for the
 // G query heads that share the KV head. Decode is the special case "token b
 // reads slot b at position cur_len[b]"; ragged reads (tok_slot[t],
 // tok_pos[t]); paged reads (tok_seq[t], tok_pos[t]) through a block table.
+// Decode and paged attention run split_attention.cuh's split-KV body over
+// this file's loads and ranges; ragged runs attention_kernel below.
 //
 // The domain is every head width D of 16, 32, 64, 80 or 128 (the cases of
-// launch_attention) with every group G from 1 to kMaxGroup (16): the group
-// runs in chunks of 1, 4 or 8 rows held in registers, one chunk per block
-// along gridDim.z, so 5 widths x 3 chunk sizes cover it (kernels/_checks.py
-// states the same domain). D stays a template parameter: with D a runtime
-// value the int8 ragged kernel ran 14% slower (its address arithmetic; one
-// A/B of scripts/torch_attention_ab.py on an H100).
+// launch_attention and launch_split) with every group G from 1 to kMaxGroup
+// (16): the group runs in chunks of 1, 4 or 8 rows held in registers, one
+// chunk per block along gridDim.z, so 5 widths x 3 chunk sizes cover it
+// (kernels/_checks.py states the same domain). D stays a template
+// parameter: with D a runtime value the int8 ragged kernel ran 14% slower
+// (its address arithmetic; one A/B of scripts/torch_attention_ab.py on an
+// H100).
 //
 // Three things vary, each resolved where it costs nothing in the key loop:
 // - the query/output type TQ (f32 or bf16, the model dtype) and the K/V
@@ -22,13 +26,13 @@
 //   quantized cache): a null pointer means unscaled. The host picks the
 //   scaled or the unscaled instantiation from that pointer, so an unscaled
 //   kernel carries no scale pointers, loads or registers in its key loop;
-// - how key t maps to a cache row (the Rows functor): contiguous in one
-//   slot for the dense cache, block by block through a table row for the
-//   paged pool.
+// - how key t maps to a cache row: contiguous in one slot for the dense
+//   cache (DenseRows here, DenseSlots in decode_attention.cu), block by
+//   block through a table row for the paged pool (PagedTable in
+//   paged_attention.cu).
 //
-// The kernel itself (attention_kernel) and its launch (launch_attention) are
-// shared too: each source defines only an Index policy (token t's key range
-// and Rows) and its C entry point.
+// The ragged kernel (attention_kernel) and its launch (launch_attention)
+// take an Index policy (token t's key range and Rows).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -124,22 +128,6 @@ __device__ __forceinline__ float warp_max(float x) {
 struct DenseRows {
   int64_t base;  // slot * S_max
   __device__ __forceinline__ int64_t operator()(int t) const { return base + t; }
-};
-
-// Key t of a paged sequence: offset t % bs of pool block table[t / bs]. The
-// table entry is one broadcast load per key (every lane reads the same word,
-// served from L1 after the first key of the block). Entries past the pool
-// (the unallocated sentinel) clamp to its last block, as the TPU kernel's
-// index map does; the position bound keeps such keys out of every range.
-struct PagedRows {
-  const int* __restrict__ table;  // this sequence's [max_blocks] row
-  int bs;
-  int last_block;  // NB - 1
-  __device__ __forceinline__ int64_t operator()(int t) const {
-    const int i = t / bs;
-    const int blk = min(__ldg(table + i), last_block);
-    return static_cast<int64_t>(blk) * bs + (t - i * bs);
-  }
 };
 
 // Attention of gn query rows (q: [gn, D]) over keys lo..hi of one sequence

@@ -9,13 +9,13 @@
 // applied once to the finished sum (the TPU kernel's flush multiply), the K,
 // M and N tails masked.
 //
-// What bounds it on the H100: at the serving path's decode shapes (M = 4-16
+// What bounds it on the H100: at the serving path's decode shapes (M = 4-64
 // live tokens, K and N of 4096 or 13440) the weight bytes, K * N of them for
 // int8 (0.0165 ms at M = 4, K = 4096, N = 13440 at 3.35 TB/s), so the int8
 // tile must be the only weight traffic and is widened on chip; at
 // M >= ~300 (bf16) the 2 * M * K * N flops, which only tensor cores deliver.
 //
-// Six bodies; the wrapper (kernels/matmul.py::route) picks one from M, K,
+// Seven bodies; the wrapper (kernels/matmul.py::route) picks one from M, K,
 // N and the operand types alone and passes it in:
 // - gemv_tc (M <= 8, bf16 activations, bf16 or int8 weights, K % 16 == 0
 //   and N % 16 == 0: decode at up to 8 slots): the tensor-core GEMV. The
@@ -27,6 +27,10 @@
 //   the way (three integer ops and one bf16x2 fma a pair); split-K partials
 //   added in slice order by the last block of a strip (details at
 //   gemv_tc_kernel).
+// - gemv_tc_rows (8 < M <= 64, bf16 activations, int8 weights, K % 16 == 0
+//   and N % 16 == 0: decode at 9-64 slots, packs and admissions within the
+//   prefill budget): the same kernel staging 16, 32 or 64 token rows, each
+//   widened weight fragment feeding one mma per 8 tokens.
 // - gemv (M <= 8, f32 activations or K/N tails): a split-K GEMV on CUDA
 //   cores. Block (x, y) owns a strip of 128 columns and a slice of the K
 //   rows, sliced so that the blocks fill whole waves of two per SM; its
@@ -50,9 +54,10 @@
 //   edge. The grid runs the M tiles of one B panel side by side, so they
 //   share it through L2. K splits write f32 partials that
 //   split_reduce_kernel adds in split order.
-// - mma_pipe (M > 8, bf16 @ int8 scaled, K % 8 == 0 and N % 16 == 0): 64 x
-//   64 output tiles, four warps of 32 x 32 on mma.sync m16n8k16 (bf16 in,
-//   f32 accumulate); the A and B tiles of 32-deep K steps stream through a
+// - mma_pipe (bf16 @ int8 scaled, K % 8 == 0 and N % 16 == 0, at M > 64 or
+//   where gemv_tc_rows does not take K): 64 x 64 output tiles, four warps
+//   of 32 x 32 on mma.sync m16n8k16 (bf16 in, f32 accumulate); the A and B
+//   tiles of 32-deep K steps stream through a
 //   4-stage cp.async ring in shared memory (zero-filled past the edges) and
 //   the raw int8 weight is widened to bf16 as the B fragments are built
 //   (exact: every int8 is a bf16); K is split across blocks where that
@@ -391,6 +396,10 @@ constexpr int kStages = 4;   // cp.async ring depth
 using repro::cp_async16;
 using repro::cp_async_commit;
 using repro::cp_async_wait;
+using repro::i8_bf16x2;
+using repro::ldsm_x2;
+using repro::ldsm_x4;
+using repro::ldsm_x4_trans;
 using repro::mma_16816;
 
 // The A fragments of the warp's two m16 tiles at k offset kk of a staged
@@ -570,15 +579,17 @@ int split_count(int M, int K, int N, int split_k) {
 // The shapes the pipelined bf16 @ int8 tile takes (kernels/matmul.py::route).
 bool pipelined(int K, int N) { return K % 8 == 0 && N % 16 == 0; }
 
-// --------------------------------------- tensor-core GEMV, M <= 8, bf16 a
+// ------------------------------- tensor-core GEMV, M <= 64, bf16 a
 
 // outT = bT aT on mma.sync m16n8k16: 16 weight columns are the mma's rows,
-// the <= 8 tokens its n8 columns, so nothing is padded but the tokens past M.
-// Block (x, y) owns the 128 columns [128 x, 128 x + 128) (a warp 32 of
-// them, two mma tiles of 16) over the K steps [y per, (y + 1) per) of KS
-// rows each (64 int8 or 32 bf16 rows: 8 KB of weights a step). The weight
-// panel and the activations' slice stream through a kTcStages-deep cp.async
-// ring; rows past K and columns past N are zero-filled.
+// the tokens its n8 columns, MR of them (8 at M <= 8: decode; 16, 32 or 64
+// at 8 < M <= 64: wider decode steps, packs and admissions), so nothing is
+// padded but the tokens past M. Block (x, y) owns the 128 columns [128 x,
+// 128 x + 128) (a warp 32 of them, two mma tiles of 16) over the K steps
+// [y per, (y + 1) per) of KS rows each (64 int8 or 32 bf16 rows: 8 KB of
+// weights a step). The weight panel and the activations' slice stream
+// through a kTcStages-deep cp.async ring; rows past K and columns past N
+// are zero-filled.
 //
 // Fragments come from the row-major [k][n] tile by ldmatrix .trans, which
 // hands each lane two consecutive k-rows of one 16-bit column: for bf16 that
@@ -588,58 +599,43 @@ bool pipelined(int K, int N) { return K % 8 == 0 && N % 16 == 0; }
 // (k 2t, 2t + 1) x (n 2g, 2g + 1); the even bytes are column 2g's pair, the
 // odd bytes (shifted down by 8) column 2g + 1's, which become the mma rows g
 // and g + 8 of a tile, and each pair is widened to bf16 exactly (i8_bf16x2).
-// The activations' fragment (token g, k pair) is one ldmatrix.x2 of the
-// staged [m][k] slice. A 16-byte chunk c of staged weight row r sits at
-// chunk c ^ (r & 7), so the eight rows an ldmatrix reads fall in eight
-// different groups of four banks; the activation rows are padded to 36 or
-// 20 words for the same reason.
+// A weight fragment is loaded and widened once a 16-row step and feeds the
+// MR / 8 mmas of the token tiles. The activations' fragment (token g, k
+// pair) of token tile j is one ldmatrix.x2 of the staged [MR][k] slice, or
+// half of an ldmatrix.x4 that serves tiles j and j + 1. A 16-byte chunk c of
+// staged weight row r sits at chunk c ^ (r & 7), so the eight rows an
+// ldmatrix reads fall in eight different groups of four banks; the
+// activation rows are padded to 36 or 20 words for the same reason.
 //
-// The accumulators of lane (g, t) are tokens 2t and 2t + 1 at the columns
-// tc_col gives. With gridDim.y = 1 they are scaled and stored; otherwise the
-// f32 partial goes to ws[y] ([M, N]) and the last block of a strip (a ticket
-// in counters[x], reset by that block) adds the partials in slice order,
-// scales once and stores.
+// The accumulators of lane (g, t) in token tile j are tokens 8j + 2t and 8j
+// + 2t + 1 at the columns tc_col gives. With gridDim.y = 1 they are scaled
+// and stored; otherwise the f32 partial goes to ws[y] ([M, N]) and the last
+// block of a strip (a ticket in counters[x], reset by that block) adds the
+// partials in slice order, scales once and stores.
 constexpr int kTcWarps = 4;
 constexpr int kTcThreads = kTcWarps * 32;
 constexpr int kTcCols = kTcWarps * 32;  // 128 columns a block, 32 a warp
 constexpr int kTcStepBytes = 8192;      // weight bytes a K step
 constexpr int kTcStages = 5;            // ring depth: 4 steps (32 KB of weights) in flight
 constexpr int kTcAPad = 8;              // bf16 elements of padding a staged activation row
+constexpr int kTcMaxRows = 64;          // the most tokens a block stages
 
 template <typename TB>
 __host__ __device__ constexpr int tc_rows() {  // K rows a step: 64 int8, 32 bf16
   return kTcStepBytes / (kTcCols * static_cast<int>(sizeof(TB)));
 }
 
-// Dynamic shared memory of a block: the weight ring, then the activations'.
-template <typename TB>
+// Dynamic shared memory of a block: the weight ring, then the activations'
+// (a stage of MR rows: 17 KB at MR 64 over int8, so two blocks share an SM).
+template <typename TB, int MR>
 constexpr int tc_smem_bytes() {
-  return kTcStages * (kTcStepBytes + kGemvMaxM * (tc_rows<TB>() + kTcAPad) * 2);
+  return kTcStages * (kTcStepBytes + MR * (tc_rows<TB>() + kTcAPad) * 2);
 }
 
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* smem) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
-}
-
-__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const void* smem) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(s));
-}
-
-// bf16x2 of the two int8 bytes at bits [7:0] and [23:16] of w (other bits
-// ignored), exactly: 0x4300 | (b & 0x7F) is 128 + (b & 0x7F), 0xC300 | (b &
-// 0x80) is -(128 + (b & 0x80)), and their sum is b.
-__device__ __forceinline__ uint32_t i8_bf16x2(uint32_t w) {
-  const uint32_t hi = (w & 0x007F007Fu) | 0x43004300u;
-  const uint32_t lo = (w & 0x00800080u) | 0xC300C300u;
-  uint32_t d;
-  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(d) : "r"(hi), "r"(0x3F803F80u), "r"(lo));
-  return d;
+// The tokens a block stages for M live ones: 8 (M <= 8), 16, 32 or 64; 0
+// past kTcMaxRows.
+__host__ __device__ constexpr int tc_token_rows(int M) {
+  return M <= 8 ? 8 : M <= 16 ? 16 : M <= 32 ? 32 : M <= kTcMaxRows ? 64 : 0;
 }
 
 // The column of accumulator e of a lane's tile (tile 0 or 1) in its warp's
@@ -680,22 +676,50 @@ __device__ __forceinline__ void tc_fragments(const uint8_t* panel, int kk, int w
   }
 }
 
-template <typename TB, bool kScaled>
+// The B fragments of the NT token tiles at step row kk of a staged [MR][kARow]
+// activation slice: tile j's registers are (token 8j + g, k kk + 2t, + 1) and
+// (token 8j + g, k kk + 8 + 2t, + 1). One ldmatrix.x2 serves a lone tile
+// (lanes 0-15 address its 16 rows of 8 k), one ldmatrix.x4 a pair (lanes
+// 16-31 address tile j + 1's).
+template <int NT, int kARow>
+__device__ __forceinline__ void tc_token_fragments(const uint16_t* slice, int kk, int lane,
+                                                   uint32_t (&bfr)[NT][2]) {
+  const int col = kk + 8 * ((lane >> 3) & 1);
+  if constexpr (NT == 1) {
+    ldsm_x2(bfr[0], slice + (lane & 7) * kARow + col);
+  } else {
+#pragma unroll
+    for (int j = 0; j < NT; j += 2) {
+      uint32_t r[4];
+      ldsm_x4(r, slice + (8 * (j + (lane >> 4)) + (lane & 7)) * kARow + col);
+      bfr[j][0] = r[0];
+      bfr[j][1] = r[1];
+      bfr[j + 1][0] = r[2];
+      bfr[j + 1][1] = r[3];
+    }
+  }
+}
+
+template <typename TB, bool kScaled, int MR>
 __global__ void __launch_bounds__(kTcThreads)
 gemv_tc_kernel(const bf16* __restrict__ a, const TB* __restrict__ b,
                const float* __restrict__ scale, bf16* __restrict__ out, float* __restrict__ ws,
                int* __restrict__ counters, int M, int K, int N, int per) {
   constexpr int KS = tc_rows<TB>();
+  constexpr int NT = MR / 8;                                         // token tiles
   constexpr int kRowBytes = kTcCols * static_cast<int>(sizeof(TB));  // a staged weight row
   constexpr int kRowChunks = kRowBytes / 16;
   constexpr int kElems = 16 / static_cast<int>(sizeof(TB));  // weights a 16-byte chunk
   constexpr int kARow = KS + kTcAPad;                        // a staged activation row
   constexpr int kWCopies = KS * kRowChunks / kTcThreads;     // weight chunks a thread a step
+  constexpr int kAChunks = KS / 8;                           // 16-byte chunks a token a step
+  constexpr int kACopies = (MR * kAChunks + kTcThreads - 1) / kTcThreads;
   static_assert(kRowChunks % 8 == 0 && KS % 16 == 0, "the swizzle permutes groups of 8 chunks");
   static_assert(KS * kRowChunks % kTcThreads == 0, "a step is whole copies per thread");
-  extern __shared__ __align__(128) uint8_t tc_smem[];  // tc_smem_bytes<TB>()
+  static_assert(MR % 8 == 0 && (NT == 1 || NT % 2 == 0), "token tiles come alone or in pairs");
+  extern __shared__ __align__(128) uint8_t tc_smem[];  // tc_smem_bytes<TB, MR>()
   auto sb = reinterpret_cast<uint8_t (*)[KS * kRowBytes]>(tc_smem);  // [kTcStages]
-  auto sa = reinterpret_cast<uint16_t (*)[kGemvMaxM][kARow]>(        // [kTcStages]
+  auto sa = reinterpret_cast<uint16_t (*)[MR][kARow]>(               // [kTcStages]
       tc_smem + kTcStages * KS * kRowBytes);
   __shared__ int last;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -719,12 +743,16 @@ gemv_tc_kernel(const bf16* __restrict__ a, const TB* __restrict__ b,
     w_src[c] = static_cast<int64_t>(r) * N + col;
     w_dst[c] = r * kRowBytes + ((ch ^ (r & 7)) << 4);
   }
-  const int a_m = tid / (KS / 8), a_k = (tid % (KS / 8)) * 8;  // 8 bf16 a copy
-  const bool a_on = a_m < M;
-  const int64_t a_src = static_cast<int64_t>(a_m) * K + a_k;
+  int a_m[kACopies], a_k[kACopies];  // 8 bf16 a copy: token a_m, k a_k of the step
+#pragma unroll
+  for (int c = 0; c < kACopies; ++c) {
+    const int x = tid + c * kTcThreads;
+    a_m[c] = x / kAChunks;
+    a_k[c] = (x % kAChunks) * 8;
+  }
   // token rows past M stay zero (no copy writes them)
-  for (int x = tid; x < kTcStages * (kGemvMaxM - M) * kARow; x += kTcThreads) {
-    const int per_stage = (kGemvMaxM - M) * kARow;
+  for (int x = tid; x < kTcStages * (MR - M) * kARow; x += kTcThreads) {
+    const int per_stage = (MR - M) * kARow;
     sa[x / per_stage][M + (x % per_stage) / kARow][x % kARow] = 0;
   }
 
@@ -736,13 +764,16 @@ gemv_tc_kernel(const bf16* __restrict__ a, const TB* __restrict__ b,
       const bool ok = w_col[c] && k0 + w_row[c] < K;
       cp_async16(&sb[st][w_dst[c]], ok ? bk + w_src[c] : b, ok);
     }
-    if (a_on) {
-      const bool ok = k0 + a_k < K;
-      cp_async16(&sa[st][a_m][a_k], ok ? a + a_src + k0 : a, ok);
+#pragma unroll
+    for (int c = 0; c < kACopies; ++c) {
+      if (a_m[c] >= M) continue;
+      const bool ok = k0 + a_k[c] < K;
+      cp_async16(&sa[st][a_m[c]][a_k[c]],
+                 ok ? a + static_cast<int64_t>(a_m[c]) * K + k0 + a_k[c] : a, ok);
     }
   };
 
-  float acc[2][4] = {};  // [tile][accumulator]
+  float acc[2][NT][4] = {};  // [weight tile][token tile][accumulator]
 #pragma unroll
   for (int s = 0; s < kTcStages - 1; ++s) {
     if (s < steps) load_step(s, s);
@@ -757,11 +788,14 @@ gemv_tc_kernel(const bf16* __restrict__ a, const TB* __restrict__ b,
     const int st = i % kTcStages;
 #pragma unroll
     for (int kk = 0; kk < KS; kk += 16) {
-      uint32_t bfr[2], f0[4], f1[4];
-      ldsm_x2(bfr, &sa[st][lane & 7][kk + 8 * ((lane >> 3) & 1)]);
+      uint32_t bfr[NT][2], f0[4], f1[4];
+      tc_token_fragments<NT, kARow>(&sa[st][0][0], kk, lane, bfr);
       tc_fragments<TB, kRowBytes>(sb[st], kk, warp, lane, f0, f1);
-      mma_16816(acc[0], f0, bfr);
-      mma_16816(acc[1], f1, bfr);
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        mma_16816(acc[0][j], f0, bfr[j]);
+        mma_16816(acc[1][j], f1, bfr[j]);
+      }
     }
   }
   cp_async_wait<0>();
@@ -770,16 +804,19 @@ gemv_tc_kernel(const bf16* __restrict__ a, const TB* __restrict__ b,
 #pragma unroll
   for (int tile = 0; tile < 2; ++tile) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int m = 2 * t + (e & 1), col = c0 + tc_col<TB>(tile, e, g);
-      if (m >= M || col >= N) continue;
-      if (splits > 1) {
-        ws[(static_cast<int64_t>(blockIdx.y) * M + m) * N + col] = acc[tile][e];
-        continue;
+    for (int j = 0; j < NT; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int m = 8 * j + 2 * t + (e & 1), col = c0 + tc_col<TB>(tile, e, g);
+        if (m >= M || col >= N) continue;
+        if (splits > 1) {
+          ws[(static_cast<int64_t>(blockIdx.y) * M + m) * N + col] = acc[tile][j][e];
+          continue;
+        }
+        float s = acc[tile][j][e];
+        if constexpr (kScaled) s *= scale[col];
+        out[static_cast<int64_t>(m) * N + col] = __float2bfloat16(s);
       }
-      float s = acc[tile][e];
-      if constexpr (kScaled) s *= scale[col];
-      out[static_cast<int64_t>(m) * N + col] = __float2bfloat16(s);
     }
   }
   if (splits == 1) return;
@@ -816,8 +853,10 @@ gemv_tc_kernel(const bf16* __restrict__ a, const TB* __restrict__ b,
 // 0, at most one a step), or as many as keep the blocks at two an SM or
 // fewer (at most 32). Fewer, longer block streams read the weight faster
 // than more, shorter ones on the H100 at the serving widths
-// (scripts/torch_gemm_ab.py; a forced-split sweep at M 1, 4 and 8): the
-// blocks of a split read the rows of one K range together.
+// (scripts/torch_gemm_ab.py; a forced-split sweep at M 1, 4 and 8, and with
+// --splits at M 16, 37 and 64, where this rule's count was the fastest or
+// within 1% of it at every staged width): the blocks of a split read the
+// rows of one K range together.
 int gemv_tc_splits(int K, int N, int ks, int split_k) {
   const int ktotal = (K + ks - 1) / ks;
   const int strips = (N + kTcCols - 1) / kTcCols;
@@ -826,8 +865,28 @@ int gemv_tc_splits(int K, int N, int ks, int split_k) {
   return (ktotal + per - 1) / per;
 }
 
-// The shapes the tensor-core GEMV takes (kernels/matmul.py::route).
-bool tc_shape(int M, int K, int N) { return M <= kGemvMaxM && K > 0 && K % 16 == 0 && N % 16 == 0; }
+// The shapes the tensor-core GEMV takes (kernels/matmul.py::route): M <= 8
+// (gemv_tc) or 8 < M <= 64 (gemv_tc_rows), K and N multiples of 16.
+bool tc_shape(int M, int K, int N) {
+  return tc_token_rows(M) > 0 && K > 0 && K % 16 == 0 && N % 16 == 0;
+}
+
+template <typename TB, bool kScaled, int MR>
+int launch_gemv_tc(const bf16* a, const TB* b, const float* scale, bf16* out, float* ws,
+                   int* counters, int M, int K, int N, int split_k, cudaStream_t st) {
+  constexpr int ks = tc_rows<TB>();
+  const int splits = gemv_tc_splits(K, N, ks, split_k);
+  if (splits > 1 && (ws == nullptr || counters == nullptr)) return -3;
+  const int ktotal = (K + ks - 1) / ks;
+  const dim3 grid((N + kTcCols - 1) / kTcCols, splits);
+  constexpr int bytes = tc_smem_bytes<TB, MR>();
+  static bool raised[64];
+  const cudaError_t err = repro::raise_smem(gemv_tc_kernel<TB, kScaled, MR>, bytes, raised);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  gemv_tc_kernel<TB, kScaled, MR><<<grid, kTcThreads, bytes, st>>>(
+      a, b, scale, out, ws, counters, M, K, N, (ktotal + splits - 1) / splits);
+  return static_cast<int>(cudaGetLastError());
+}
 
 // Any shape: the tiles staged synchronously, widened to bf16 on the way.
 template <typename TB, bool kScaled>
@@ -1068,7 +1127,9 @@ fma_tile_kernel(const float* __restrict__ a, const TB* __restrict__ b,
 }
 
 // The bodies, as kernels/matmul.py::route names them.
-enum Route { kGemv = 0, kWgmma = 1, kMmaPipe = 2, kMmaTile = 3, kFma = 4, kGemvTc = 5 };
+enum Route {
+  kGemv = 0, kWgmma = 1, kMmaPipe = 2, kMmaTile = 3, kFma = 4, kGemvTc = 5, kGemvTcRows = 6
+};
 
 template <typename TA, typename TB, bool kScaled>
 int launch(int route, const void* a_, const void* b_, const void* scale_, void* out_, void* ws,
@@ -1096,23 +1157,33 @@ int launch(int route, const void* a_, const void* b_, const void* scale_, void* 
 #undef REPRO_GEMV
     return static_cast<int>(cudaGetLastError());
   }
-  if (route == kGemvTc) {
+  if (route == kGemvTc || route == kGemvTcRows) {
+    // gemv_tc stages 8 tokens at M <= 8; gemv_tc_rows 16, 32 or 64 at 8 < M
+    // <= 64, over int8 weights only (bf16 weights take the wgmma tile there)
     if constexpr (std::is_same_v<TA, bf16> && (std::is_same_v<TB, int8_t> ||
                                                 std::is_same_v<TB, bf16>)) {
-      if (!tc_shape(M, K, N)) return -1;
-      constexpr int ks = tc_rows<TB>();
-      const int splits = gemv_tc_splits(K, N, ks, split_k);
-      if (splits > 1 && (ws == nullptr || counters == nullptr)) return -3;
-      const int ktotal = (K + ks - 1) / ks;
-      const dim3 grid((N + kTcCols - 1) / kTcCols, splits);
-      constexpr int bytes = tc_smem_bytes<TB>();
-      static bool raised[64];
-      const cudaError_t err = repro::raise_smem(gemv_tc_kernel<TB, kScaled>, bytes, raised);
-      if (err != cudaSuccess) return static_cast<int>(err);
-      gemv_tc_kernel<TB, kScaled><<<grid, kTcThreads, bytes, st>>>(
-          a, b, scale, out, static_cast<float*>(ws), counters, M, K, N,
-          (ktotal + splits - 1) / splits);
-      return static_cast<int>(cudaGetLastError());
+      if (!tc_shape(M, K, N) || (route == kGemvTc) != (M <= kGemvMaxM)) return -1;
+      float* part = static_cast<float*>(ws);
+      switch (tc_token_rows(M)) {
+        case 8:
+          return launch_gemv_tc<TB, kScaled, 8>(a, b, scale, out, part, counters, M, K, N,
+                                                split_k, st);
+        case 16:
+          if constexpr (std::is_same_v<TB, int8_t>)
+            return launch_gemv_tc<TB, kScaled, 16>(a, b, scale, out, part, counters, M, K, N,
+                                                   split_k, st);
+          break;
+        case 32:
+          if constexpr (std::is_same_v<TB, int8_t>)
+            return launch_gemv_tc<TB, kScaled, 32>(a, b, scale, out, part, counters, M, K, N,
+                                                   split_k, st);
+          break;
+        case 64:
+          if constexpr (std::is_same_v<TB, int8_t>)
+            return launch_gemv_tc<TB, kScaled, 64>(a, b, scale, out, part, counters, M, K, N,
+                                                   split_k, st);
+          break;
+      }
     }
     return -1;
   }
@@ -1163,7 +1234,7 @@ extern "C" long long repro_matmul_workspace(int M, int K, int N, int route, int 
   if (route == kGemv) {
     const int slice = gemv_slice(M, K, N, split_k);
     splits = (K + slice - 1) / slice;
-  } else if (route == kGemvTc) {
+  } else if (route == kGemvTc || route == kGemvTcRows) {
     const int ks = bdtype == repro::kI8 ? tc_rows<int8_t>() : tc_rows<bf16>();
     if (tc_shape(M, K, N)) splits = gemv_tc_splits(K, N, ks, split_k);
   } else if (route == kWgmma) {

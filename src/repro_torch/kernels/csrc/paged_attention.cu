@@ -20,49 +20,43 @@
 // bytes) of each real token's valid prefix, plus one 4-byte table entry per
 // block of that prefix.
 //
-// Simple design: the ragged kernel (attention_common.cuh's attention_kernel)
-// with a paged index: one block per (packed token, KV head, chunk of the
-// group). The block reads its own (seq, pos), then walks its valid key range
-// in the shared in-block loop with paged addressing: key p reads the table
-// entry of block p / bs (one broadcast load, L1-resident for the bs keys of
-// the block) and the rows
-// at offset p % bs, which are contiguous per head within a block exactly as
-// in the dense cache. The block size bs is a runtime argument (the engine
-// uses 8, 16 or 32). Quantized rows are widened in registers with their
-// scales folded into the math.
+// The design: split_attention.cuh's split-KV body with a paged row policy.
+// A decode (ops.paged_decode_attention) takes one token a tile, as the
+// dense decode; a pack takes tiles of 8 / GC consecutive tokens, whose rows
+// share every staged K/V row of their sequence, so a pack reads each
+// sequence's prefix once per tile instead of once per token. A block loads
+// the table entries of its span (span / bs words) into shared memory once
+// and addresses every stage's 16-byte copies from them. The block size bs
+// is a runtime argument (the engine uses 8, 16 or 32). The span and the
+// tile come from host values only (kernels/paged_attention.py).
 
-#include "attention_common.cuh"
-
-namespace {
-
-// Token t at position tok_pos[t] of table row tok_seq[t]; the row covers
-// max_blocks * bs positions.
-struct PagedIndex {
-  const int* __restrict__ tok_seq;
-  const int* __restrict__ tok_pos;
-  const int* __restrict__ tables;
-  int NB, bs, max_blocks;
-  __device__ __forceinline__ void range(int t, int window, int* lo, int* hi) const {
-    repro::token_key_range(tok_pos[t], max_blocks * bs, window, lo, hi);
-  }
-  __device__ __forceinline__ repro::PagedRows rows(int t) const {
-    return {tables + static_cast<int64_t>(tok_seq[t]) * max_blocks, bs, NB - 1};
-  }
-};
-
-}  // namespace
+#include "paged_table.cuh"
 
 // qdtype: the type of q and out; sdtype: the K/V store (repro::DType codes).
-// k_scale/v_scale: null for an unscaled store. Returns as
-// repro::launch_attention.
+// k_scale/v_scale: null for an unscaled store. span: positions per split
+// (kernels/decode_attention.py::split_span over max_blocks * bs positions);
+// tile_tokens: 1 (a decode: one token a tile) or 0 (a pack: 8 / GC tokens a
+// tile); ws: f32 scratch of T * KV * G * splits * (D + 2) elements and
+// counters: int32 zeros, one per (tile, KV head, chunk of the group), left
+// zero — both may be null when splits == 1. Returns as
+// repro::splitkv::launch_split, and -1 for another tile_tokens.
 extern "C" int repro_paged_attention(const void* q, const void* k, const void* v,
                                      const void* k_scale, const void* v_scale,
                                      const void* tok_seq, const void* tok_pos,
-                                     const void* tables, void* out, int T, int NB, int bs,
-                                     int max_blocks, int KV, int G, int D, int window,
-                                     int qdtype, int sdtype, void* stream) {
-  const PagedIndex index{static_cast<const int*>(tok_seq), static_cast<const int*>(tok_pos),
+                                     const void* tables, void* ws, void* counters, void* out,
+                                     int T, int NB, int bs, int max_blocks, int KV, int G, int D,
+                                     int window, int span, int tile_tokens, int qdtype,
+                                     int sdtype, void* stream) {
+  using repro::splitkv::PagedTable;
+  const PagedTable table{static_cast<const int*>(tok_seq), static_cast<const int*>(tok_pos),
                          static_cast<const int*>(tables), NB, bs, max_blocks};
-  return repro::launch_attention(q, k, v, k_scale, v_scale, index, out, T, KV, G, D, window,
-                                 qdtype, sdtype, stream);
+  const int S = max_blocks * bs;
+  if (tile_tokens != 0 && tile_tokens != 1) return -1;
+  if (tile_tokens == 1 || G > 4)  // a pack's tile at G >= 5 is one token, as a decode's
+    return repro::splitkv::launch_split<false>(q, k, v, k_scale, v_scale, table, out, ws,
+                                               counters, T, S, KV, G, D, window, span, qdtype,
+                                               sdtype, stream);
+  return repro::splitkv::launch_paged_pack(q, k, v, k_scale, v_scale, table, out, ws, counters,
+                                           T, S, KV, G, D, window, span, qdtype, sdtype,
+                                           stream);
 }

@@ -6,7 +6,8 @@ CUDA tensors only: :mod:`repro_torch.kernels.ops` routes CPU tensors to
 ``ref.decode_attention``. ``launches`` counts launches over an unscaled
 store, ``launches_q8`` over a scaled one (int8, fp8, or the f32 lane), and
 ``launches_split`` every launch of the kernel's one body, the split-KV body
-(one split is its single-block case).
+of ``csrc/split_attention.cuh`` under a dense row policy (one split is its
+single-block case; paged attention runs the same body over block tables).
 
 The body splits each (slot, KV head, chunk of the group)'s positions over
 :func:`split_count` blocks, spans of :data:`BLOCK_S` positions or a multiple

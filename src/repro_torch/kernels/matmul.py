@@ -39,13 +39,15 @@ launches_mma_pipe = 0
 launches_mma_tile = 0
 launches_fma = 0
 launches_gemv_tc = 0
+launches_gemv_tc_rows = 0
 
 # the bodies, in matmul.cu's Route order
-ROUTES = ("gemv", "wgmma", "mma_pipe", "mma_tile", "fma", "gemv_tc")
+ROUTES = ("gemv", "wgmma", "mma_pipe", "mma_tile", "fma", "gemv_tc", "gemv_tc_rows")
+GEMV_TC_ROWS = 64  # the most tokens the tensor-core GEMV stages (gemv_tc_rows above 8)
 SPLIT_K = (0, 1, 2, 4, 8)  # the autotuner's K splits
 TILES = ((128, 128), (128, 256))  # the wgmma tiles (block_m, block_n); (0, 0): the kernel's
 
-_GEMV_COLS = 128  # columns per GEMV block (either body): one split-K ticket counter each
+_GEMV_COLS = 128  # columns per GEMV block (every GEMV body): one split-K ticket counter each
 
 
 def route(m: int, k: int, n: int, a_dtype: torch.dtype, b_dtype: torch.dtype) -> str:
@@ -53,18 +55,21 @@ def route(m: int, k: int, n: int, a_dtype: torch.dtype, b_dtype: torch.dtype) ->
     int8 is ``matmul_q8``): at M <= 8 the tensor-core GEMV for bf16
     activations with K and N multiples of 16 (bf16 or int8 weights), the
     CUDA-core GEMV for f32 activations (tensor cores would read them as
-    TF32) and the K/N tails; above it the wgmma tile for
-    bf16 @ bf16 with K and N multiples of 8 (TMA's 16-byte strides), the
-    pipelined mma.sync tile for bf16 @ int8 with K % 8 == 0 and N % 16 ==
-    0, the synchronous mma.sync tile for other bf16 shapes, and the CUDA-core
-    FMA tile for f32 activations."""
+    TF32) and the K/N tails; above it the CUDA-core FMA tile for f32
+    activations, the wgmma tile for bf16 @ bf16 with K and N multiples of 8
+    (TMA's 16-byte strides), for bf16 @ int8 the tensor-core GEMV over 16,
+    32 or 64 staged tokens at M <= 64 with K and N multiples of 16
+    (``gemv_tc_rows``), else the pipelined mma.sync tile with K % 8 == 0 and
+    N % 16 == 0, and the synchronous mma.sync tile for other bf16 shapes."""
+    tc = a_dtype == torch.bfloat16 and k > 0 and k % 16 == 0 and n % 16 == 0
     if m <= 8:
-        tc = a_dtype == torch.bfloat16 and k > 0 and k % 16 == 0 and n % 16 == 0
         return "gemv_tc" if tc else "gemv"
     if a_dtype == torch.float32:
         return "fma"
     if b_dtype == torch.bfloat16:
         return "wgmma" if k % 8 == 0 and n % 8 == 0 else "mma_tile"
+    if tc and m <= GEMV_TC_ROWS:
+        return "gemv_tc_rows"
     return "mma_pipe" if k % 8 == 0 and n % 16 == 0 else "mma_tile"
 
 
@@ -99,7 +104,7 @@ def _launch(name: str, a: torch.Tensor, b: torch.Tensor, scale: Optional[torch.T
         return out
     body = route(m, k, n, a.dtype, b.dtype)
     code = ROUTES.index(body)
-    gemv = body in ("gemv", "gemv_tc")
+    gemv = body in ("gemv", "gemv_tc", "gemv_tc_rows")
     if gemv and n > _checks.TICKETS * _GEMV_COLS:
         raise ValueError(f"{name}: the GEMV takes N up to {_checks.TICKETS * _GEMV_COLS}, got {n}")
     lib = _build.load()

@@ -331,7 +331,7 @@ def paged_decode_attention(
     version gathers the dense view and runs the dense decode oracle —
     bit-identical to the unpaged path; the card runs the paged kernel with
     one descriptor (b, cur_len[b]) per sequence, as the JAX package does on
-    the TPU. Returns [B, H, d]."""
+    the TPU, one token a tile (``decode=True``). Returns [B, H, d]."""
     b, h, d = q.shape
     kvh = k.shape[2]
     if h % kvh:
@@ -342,7 +342,8 @@ def paged_decode_attention(
             k_scale=k_scale, v_scale=v_scale,
         )
         return out.reshape(b, h, d)
-    return paged_ragged_attention(
-        q, k, v, _seq_ids(b, q.device), cur_len, block_tables, window=window,
-        k_scale=k_scale, v_scale=v_scale,
+    out = _paged_k.paged_attention(
+        q.reshape(b, kvh, h // kvh, d).contiguous(), k, v, _seq_ids(b, q.device), cur_len,
+        block_tables, window=window, k_scale=k_scale, v_scale=v_scale, decode=True,
     )
+    return out.reshape(b, h, d)

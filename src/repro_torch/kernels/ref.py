@@ -175,21 +175,33 @@ def decode_attention_split(
     query with no valid key in any span gets zeros (where
     :func:`decode_attention`'s softmax gives the mean of the rows). f32 math,
     in q's dtype."""
-    b, kvh, g, d = q.shape
-    s_max = k.shape[1]
+    b, s_max = k.shape[0], k.shape[1]
     if s_max == 0:
         return torch.zeros_like(q)
-    per = -(-s_max // splits)
-    span = -(-per // block_s) * block_s
-    scores = torch.einsum("bkgd,btkd->bkgt", q.float(), k.float()) * d**-0.5
-    vf = v.float()
-    if k_scale is not None:
-        scores = scores * k_scale.float().permute(0, 2, 1)[:, :, None, :]
     kpos = torch.arange(s_max, device=q.device)[None, :]
     cur = torch.as_tensor(cur_len, device=q.device).broadcast_to((b,))[:, None]
     valid = kpos <= cur
     if window:
         valid &= kpos > cur - window
+    return _split_merge(q, k, v, valid, _span(s_max, splits, block_s), k_scale, v_scale)
+
+
+def _span(s_max: int, splits: int, block_s: int) -> int:
+    """Positions a split: ceil(s_max / splits) rounded up to block_s."""
+    per = -(-s_max // splits)
+    return -(-per // block_s) * block_s
+
+
+def _split_merge(q, k, v, valid, span, k_scale, v_scale) -> torch.Tensor:
+    """The split bodies' arithmetic: q [B, KV, G, d] over the rows of k/v
+    [B, S, KV, d] where valid [B, S] holds, per span of ``span`` positions,
+    merged in span order (:func:`decode_attention_split`)."""
+    b, kvh, g, d = q.shape
+    s_max = k.shape[1]
+    scores = torch.einsum("bkgd,btkd->bkgt", q.float(), k.float()) * d**-0.5
+    vf = v.float()
+    if k_scale is not None:
+        scores = scores * k_scale.float().permute(0, 2, 1)[:, :, None, :]
     valid = valid[:, None, None, :]
     parts = []
     for lo in range(0, s_max, span):
@@ -324,6 +336,48 @@ def paged_ragged_attention(
         tok_seq, tok_pos, window=window, valid=valid,
         k_scale=_gather_opt(k_scale, block_tables), v_scale=_gather_opt(v_scale, block_tables),
     )
+
+
+def paged_attention_split(
+    q: torch.Tensor,
+    pool_k: torch.Tensor,
+    pool_v: torch.Tensor,
+    tok_seq: torch.Tensor,
+    tok_pos: torch.Tensor,
+    block_tables: torch.Tensor,
+    splits: int,
+    *,
+    window: int = 0,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+    block_s: int = 256,
+) -> torch.Tensor:
+    """Paged attention as ``csrc/paged_attention.cu``'s split body computes
+    it, decode or pack (shapes of :func:`paged_ragged_attention`): token t
+    reads table row ``tok_seq[t]`` over the keys p <= tok_pos[t] (p >
+    tok_pos[t] - window when window > 0) of its ``max_blocks * bs``
+    positions, cut into spans as :func:`decode_attention_split` cuts them
+    and merged in span order, the sentinel entries clamped as
+    :func:`paged_gather` clamps them. A padding token (tok_pos >= max_blocks
+    * bs) has no key and gets zeros. The kernel's tiles (several tokens of a
+    pack a block, a pass per sequence) decide which rows share a staged key,
+    not a row's arithmetic, so this twin takes each token alone. f32 math,
+    in q's dtype."""
+    s_max = block_tables.shape[1] * pool_k.shape[1]
+    if q.shape[0] == 0:
+        return torch.zeros_like(q)
+    rows = block_tables.long()[tok_seq.long()]  # each token's table row
+
+    def view(pool):
+        return None if pool is None else paged_gather(pool, rows)
+
+    kpos = torch.arange(s_max, device=q.device)[None, :]
+    pos = tok_pos.long()[:, None]
+    valid = (kpos <= pos) & (pos < s_max)
+    if window:
+        valid &= kpos > pos - window
+    return _split_merge(q, view(pool_k), view(pool_v), valid, _span(s_max, splits, block_s),
+                        view(k_scale), view(v_scale))
 
 
 # ---------------------------------------------------------------- kernel suite

@@ -82,7 +82,10 @@ def _close(got, *wants, dtype):
     (300, 4104, 4104, torch.bfloat16, torch.bfloat16, "wgmma"),
     (129, 4100, 4104, torch.bfloat16, torch.bfloat16, "mma_tile"),  # K % 8 != 0
     (37, 4096, 4100, torch.bfloat16, torch.bfloat16, "mma_tile"),  # N % 8 != 0
-    (16, 4096, 13440, torch.bfloat16, torch.int8, "mma_pipe"),
+    (16, 4096, 13440, torch.bfloat16, torch.int8, "gemv_tc_rows"),  # the multi-row GEMV
+    (64, 13440, 4096, torch.bfloat16, torch.int8, "gemv_tc_rows"),  # its widest
+    (65, 4096, 13440, torch.bfloat16, torch.int8, "mma_pipe"),  # past it: the tile
+    (37, 4104, 4096, torch.bfloat16, torch.int8, "mma_pipe"),  # K % 16 == 8
     (16, 4096, 4104, torch.bfloat16, torch.int8, "mma_tile"),  # N % 16 != 0
     (256, 4096, 13440, torch.float32, torch.float32, "fma"),
     (16, 4096, 13440, torch.float32, torch.int8, "fma"),
