@@ -6,13 +6,13 @@
 Phases (each raises on failure, so the script exits non-zero):
 
 0. device — fail without CUDA; print the card's name and power limit.
-1. build — compile the hand-written CUDA kernels from ``csrc/`` (twelve
+1. build — compile the hand-written CUDA kernels from ``csrc/`` (thirteen
    sources over the shared headers ``gemm_wgmma.cuh`` and
-   ``split_attention.cuh``, twenty-two kernel bodies: decode and paged
-   attention (split-KV: the position range split over blocks that stream
-   K/V through a cp.async ring, partials merged in split order; paged packs
-   in tiles of tokens that share the staged rows), ragged attention over a
-   plain or a quantized store, flash attention (GQA, and flat as a group of one; bf16 on wgmma,
+   ``split_attention.cuh``, twenty-one kernel bodies: decode, ragged and
+   paged attention over a plain or a quantized store (one split-KV body: the
+   position range split over blocks that stream K/V through a cp.async
+   ring, partials merged in split order; ragged and paged packs in tiles of
+   tokens that share the staged rows), flash attention (GQA, and flat as a group of one; bf16 on wgmma,
    f32 on CUDA cores), the matmul and int8-weight matmul (the decode GEMV
    on tensor cores, mma.sync over a cp.async ring, for bf16 activations, and
    its multi-row form for int8 weights at 9-64 rows;
@@ -38,8 +38,9 @@ Phases (each raises on failure, so the script exits non-zero):
    the body it took;
    decode, ragged and paged attention at
    the new (head_dim, group) pairs (16, 1), (16, 4), (80, 2), (128, 5) and
-   (128, 12) over bf16 and scaled int8 stores; decode at 1, 2 and 4 forced
-   splits beside the kernel's own; GQA flash at every bf16 tile
+   (128, 12) over bf16 and scaled int8 stores; decode and the ragged pack
+   at 1, 2 and 4 forced splits beside the kernel's own, and a ragged pack of
+   decode singletons; GQA flash at every bf16 tile
    and head width. Times each kernel, its plain version and
    a one-call PyTorch yardstick (where one exists) as device time (CUDA events
    around one CUDA-graph replay of 30 calls, so the wrappers' host time is
@@ -54,13 +55,14 @@ Phases (each raises on failure, so the script exits non-zero):
    4 slots x 1024 positions; about 12 greedy requests whose prompts straddle
    the prefill budget, so fused admissions, ragged packs and decode chunks
    all run; each PR-11 kernel's launch count over this run must be > 0,
-   and decode must have run the split body.
+   and decode and every ragged launch must have run the split body.
 5. full width, paged and quantized — the same weights behind (a) a paged
    engine with prefix reuse serving a shared 512-token system prompt, (b)
    the same traffic over an int8 pool of (a)'s bytes, (c) phase 4's traffic
    over a dense int8 cache; in each run the counts are set to 0 just before
    the measured requests and read just after, the kernels that run drives
-   must have launched (in (c) the split decode body; in (a) and (b) every
+   must have launched (in (c) the split decode body, and every ragged
+   launch on the split body; in (a) and (b) every
    paged launch on the split body, decodes and packs counted apart, both
    run), the prefix cache must hit, and each run's stream must
    agree with ``LM.prefill`` teacher-forced.
@@ -113,7 +115,7 @@ Phases (each raises on failure, so the script exits non-zero):
    cuDNN, the FFT's radix-pass body at its three shapes and the four-step
    rows beside cuFFT.
 9. a ``{"kernels": [...], "to_port": []}`` JSON line (every row of PERF.md's
-   kernel table; the decode, paged, matmul and matmul_q8 rows name the body
+   kernel table; the decode, ragged, paged, matmul and matmul_q8 rows name the body
    their timed case ran and its launches; paged packs and matmul_q8 at M = 16
    have entries of their own), then the result line.
 
@@ -176,6 +178,19 @@ PAGED_SPLIT = ("paged_attention_split_decode", "paged_attention_split_pack")
 DECODE_POS = [0, 333, 700, S_MAX - 1]
 PACK_SLOTS = [1] * 40 + [3] * 16 + [1] * 8
 PACK_POS = list(range(0, 40)) + list(range(600, 616)) + [S_MAX] * 8
+# phase 2's ragged cases over that pack (also timed by
+# scripts/torch_attention_ab.py), the first of each list the main one:
+# (KV, G, query dtype, window) over a plain store, and (store, KV, G, query
+# dtype, window) over a scaled one ("f32": the identity lane, scales of 1;
+# "f32 rand": an f32 store under random scales)
+RAGGED_CASES = [(32, 1, "bfloat16", 0), (32, 1, "float32", 0), (8, 8, "bfloat16", 0),
+                (8, 8, "float32", 0), (32, 1, "bfloat16", 100), (8, 8, "float32", 24)]
+RAGGED_Q8_CASES = [("int8", 32, 1, "bfloat16", 0), ("int8", 32, 1, "float32", 0),
+                   ("fp8", 32, 1, "bfloat16", 0), ("int8", 8, 8, "bfloat16", 0),
+                   ("fp8", 8, 8, "float32", 24), ("f32", 32, 1, "bfloat16", 0),
+                   ("f32 rand", 32, 1, "bfloat16", 0)]
+# a ragged pack of decode singletons, one token from each of 4 slots
+SINGLE_POS = [1023, 0, 511, 700]
 
 
 def paged_pool_tables(rs, cur, bs: int, s_max: int = S_MAX) -> tuple[int, np.ndarray]:
@@ -314,21 +329,27 @@ def check_kernels(dev):
     # ---- ragged attention: a 64-token pack over 2 slots, as the engine builds it
     ts = torch.tensor(PACK_SLOTS, dtype=torch.int32, device=dev)
     tp = torch.tensor(PACK_POS, dtype=torch.int32, device=dev)
-    for kv, g, dtype, window, main in [
-        (32, 1, bf16, 0, True), (32, 1, f32, 0, False), (8, 8, bf16, 0, False),
-        (8, 8, f32, 0, False), (32, 1, bf16, 100, False), (8, 8, f32, 24, False),
-    ]:
+    real = tp < S
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def ragged_err(got, want, real, case):
+        # padding rows (tok_pos = S) are never read: the kernel reads no key
+        # for them and writes zeros, the plain version attends the whole slot
+        if got[~real].any():
+            raise AssertionError(f"ragged_attention {case}: padding rows are not zero")
+        return (got[real].float() - want[real].float()).abs().max().item()
+
+    for kv, g, dname, window in RAGGED_CASES:
+        dtype, main = getattr(torch, dname), (kv, g, dname, window) == RAGGED_CASES[0]
         T = ts.numel()
         q, k, v = randn(T, kv, g, 128, dtype=dtype), randn(B, S, kv, 128, dtype=dtype), \
             randn(B, S, kv, 128, dtype=dtype)
+        n0 = rk.launches_split
         got = rk.ragged_attention(q, k, v, ts, tp, window=window)
+        if rk.launches_split != n0 + 1:
+            raise AssertionError("ragged_attention: the wrapper did not count its launch")
         want = ref.ragged_attention(q, k, v, ts, tp, window=window)
-        # padding rows (tok_pos = S) are never read: the kernel reads no key
-        # for them and writes zeros, the plain version attends the whole slot
-        real = tp < S
-        err = (got[real].float() - want[real].float()).abs().max().item()
-        if got[~real].any():
-            raise AssertionError("ragged_attention: padding rows are not zero")
+        err = ragged_err(got, want, real, "")
         timed = None
         if main:
             # bytes and flops of the real tokens only: padding reads no key
@@ -350,6 +371,22 @@ def check_kernels(dev):
             )
             timed["bound_ms"], timed["bound_by"] = bound(by, fl, dtype)
         report("ragged_attention", f"T={T} S={S} KV={kv} G={g} {dtype} win={window}", dtype, err, timed)
+        if main:  # the split body at the kernel's own and at forced split counts
+            tt, _, own = rk.plan(S, T, kv, g, sms, rk.one_token_tiles(dtype, dtype))
+            for splits in (1, 2, 4):
+                err = ragged_err(rk.ragged_attention(q, k, v, ts, tp, splits=splits), want, real,
+                                 f"splits={splits}")
+                span = dk.split_span(S, splits)[0]
+                report("ragged_attention", f"splits={splits} (span {span}; own {own}, "
+                       f"{tt} tokens a tile)", dtype, err)
+            # a pack of decode singletons, one token from each slot
+            ts1 = torch.arange(B, dtype=torch.int32, device=dev)
+            tp1 = torch.tensor(SINGLE_POS, dtype=torch.int32, device=dev)
+            q1 = randn(B, kv, g, 128, dtype=dtype)
+            err = ragged_err(rk.ragged_attention(q1, k, v, ts1, tp1),
+                             ref.ragged_attention(q1, k, v, ts1, tp1), tp1 < S, "singletons")
+            report("ragged_attention", f"T={B} singletons of {B} slots at {SINGLE_POS}", dtype,
+                   err)
 
     # ---- GQA flash attention (prefill): B*KV rows, G heads per row
     for bkv, g, s, dtype, main in [
@@ -713,12 +750,9 @@ def check_paged_and_quant_kernels(dev):
     slots, poss = PACK_SLOTS, PACK_POS
     ts = torch.tensor(slots, dtype=torch.int32, device=dev)
     tp = torch.tensor(poss, dtype=torch.int32, device=dev)
-    for store, kv, g, dtype, window, main in [
-        ("int8", 32, 1, bf16, 0, True), ("int8", 32, 1, f32, 0, False),
-        ("fp8", 32, 1, bf16, 0, False), ("int8", 8, 8, bf16, 0, False),
-        ("fp8", 8, 8, f32, 24, False), ("f32", 32, 1, bf16, 0, False),
-        ("f32 rand", 32, 1, bf16, 0, False),
-    ]:
+    for store, kv, g, dname, window in RAGGED_Q8_CASES:
+        dtype = getattr(torch, dname)
+        main = (store, kv, g, dname, window) == RAGGED_Q8_CASES[0]
         q = randn(len(slots), kv, g, D, dtype=dtype)
         k, v, scales = store_kv((B, S, kv, D), store, dtype)
         got = rk.ragged_attention(q, k, v, ts, tp, window=window, **scales)
@@ -933,6 +967,22 @@ def read_counts(counters, run: str, expect=None) -> dict:
     return launches
 
 
+def ragged_counts() -> tuple[int, int, int]:
+    """The ragged wrapper's (plain, q8, split body) launch counts."""
+    from repro_torch.kernels import ragged_attention as rk
+
+    return rk.launches, rk.launches_q8, rk.launches_split
+
+
+def ragged_all_split(before, run: str) -> None:
+    """Every ragged launch since ``before`` (a ragged_counts()) ran on the
+    split body, and there was one: split == plain + q8 > 0."""
+    plain, q8, split = (a - b for a, b in zip(ragged_counts(), before))
+    print(f"  {run}: {plain} plain + {q8} scaled ragged launches, {split} on the split body")
+    if split <= 0 or split != plain + q8:
+        raise AssertionError(f"{run}: {plain} + {q8} ragged launches, {split} on the split body")
+
+
 def teacher_forced(model, params, req, dev, label: str) -> float:
     """LM.prefill (flash kernel, unquantized bf16 cache) over prompt +
     generated must predict the engine's stream; returns the agreement."""
@@ -994,10 +1044,12 @@ def full_width(dev, counters):
     ]
     torch.cuda.reset_peak_memory_stats()
     reset_counts(counters)
+    ragged0 = ragged_counts()
     for r in reqs:
         eng.submit(r)
     stats = eng.run()
     launches = read_counts(counters, "phase 4")
+    ragged_all_split(ragged0, "phase 4")
     check_finished(reqs, max_new, cfg.vocab_size)
     peak = torch.cuda.max_memory_allocated()
     print_stats(stats, f"; peak memory {peak / 2**30:.2f} GiB")
@@ -1129,12 +1181,14 @@ def paged_and_quantized(dev, model, params, counters):
     reqs = [Request(rid=i, prompt=p_, params=SamplingParams(max_new=max_new))
             for i, p_ in enumerate(phase4_prompts(cfg))]
     reset_counts(counters)
+    ragged0 = ragged_counts()
     for r in reqs:
         eng.submit(r)
     stats = eng.run()
     runs.append(read_counts(counters, "(c: dense int8)",
                             ["decode_attention_q8", "ragged_attention_q8",
-                             "decode_attention_q8_split"]))
+                             "decode_attention_q8_split", "ragged_attention_q8_split"]))
+    ragged_all_split(ragged0, "(c: dense int8)")
     check_finished(reqs, max_new, cfg.vocab_size)
     print(f"  (c: dense int8) kv_bytes_resident {stats.kv_bytes_resident}")
     print_stats(stats)
@@ -2044,7 +2098,8 @@ def main() -> int:
     phase("4 full width codeqwen1.5-7b")
     counters4 = {"decode_attention": (dk, "launches"), "ragged_attention": (rk, "launches"),
                  "gqa_flash_attention": (fk, "launches"),
-                 "decode_attention_split": (dk, "launches_split")}
+                 "decode_attention_split": (dk, "launches_split"),
+                 "ragged_attention_split": (rk, "launches_split")}
     launches, model, params = full_width(dev, counters4)
 
     phase("5 full width, paged + prefix and quantized KV")
@@ -2053,7 +2108,8 @@ def main() -> int:
                  "paged_attention_split_pack": (pk, "launches_split_pack"),
                  "decode_attention_q8": (dk, "launches_q8"),
                  "ragged_attention_q8": (rk, "launches_q8"),
-                 "decode_attention_q8_split": (dk, "launches_split")}
+                 "decode_attention_q8_split": (dk, "launches_split"),
+                 "ragged_attention_q8_split": (rk, "launches_split")}
     launches5, serving = paged_and_quantized(dev, model, params, counters5)
     launches.update(launches5)
 
@@ -2063,7 +2119,8 @@ def main() -> int:
                  "matmul_q8_gemv_tc": (mmk, "launches_gemv_tc"),
                  "matmul_q8_rows": (mmk, "launches_gemv_tc_rows"),
                  "matmul_q8_mma_pipe": (mmk, "launches_mma_pipe"), **counters4,
-                 **{k: v for k, v in counters5.items() if k != "decode_attention_q8_split"}}
+                 **{k: v for k, v in counters5.items()
+                    if k not in ("decode_attention_q8_split", "ragged_attention_q8_split")}}
     launches6, serving6 = int8_weights(dev, model, params, counters6,
                                        serving["b"]["num_blocks"])
     # no serving path calls matmul (the dense projections are torch.matmul, as
@@ -2158,7 +2215,8 @@ def main() -> int:
             kernels[-1]["launches_cluster"] = launches["softmax_cluster"]
             kernels[-1]["launches_rows"] = launches["softmax_rows"]
         # the body each row's timed case ran, and its launches on the main path
-        if name in ("decode_attention", "decode_attention_q8"):
+        if name in ("decode_attention", "decode_attention_q8", "ragged_attention",
+                    "ragged_attention_q8"):
             kernels[-1]["body"] = "split"
             kernels[-1]["launches_split"] = launches[f"{name}_split"]
         if name in ("matmul_q8", "matmul"):  # the timed case: M = 4

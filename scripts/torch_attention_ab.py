@@ -9,7 +9,11 @@ pool: the cache's rows as 32-position blocks under a reversed table), paged
 attention at phase 2's paged shapes (phase 5's traffic: an 8-sequence
 decode through ``ops.paged_decode_attention`` over a shuffled pool of
 32-position blocks, bf16 and int8, and the grouped one at KV=8, G=8 over
-16-position blocks; a 64-token pack over the same pools), and
+16-position blocks; a 64-token pack over the same pools), every ragged
+case of phase 2 (``chip_smoke.RAGGED_CASES`` and ``RAGGED_Q8_CASES``: f32
+queries, the grouped shape, windows, fp8 and scaled f32 stores; and the
+main packs, bf16 and int8, and a 64-token chunk at positions 900-963, at 1,
+2 and 4 splits where the checkout's wrapper takes ``splits``), and
 the flat flash attention of phase 7 (32 heads of 1024 tokens, causal) at
 each bf16 tile of the checkout, for an A/B of two checkouts on one card.
 Each kernel's output is digested (sha256 of its bytes), so two checkouts
@@ -28,6 +32,7 @@ from __future__ import annotations
 
 import argparse
 import hashlib
+import inspect
 import json
 import statistics
 import subprocess
@@ -101,7 +106,9 @@ def main() -> int:
     }
     # phase 2's paged shapes: 8 sequences over a shuffled pool, a decode and a pack
     cur_p = ints(cs.PAGED_CUR)
-    seqs, poss = (ints(x) for x in cs.paged_tokens("pack", cs.PAGED_CUR, cs.S_MAX))
+    # (named apart from the dense pack's slots/poss, which the lambdas above
+    # read when they run)
+    seqs_p, poss_p = (ints(x) for x in cs.paged_tokens("pack", cs.PAGED_CUR, cs.S_MAX))
     for tag, kv, g, bs, quant in (("", KV, 1, 32, False), (" int8", KV, 1, 32, True),
                                   (" G=8", 8, 8, 16, False)):
         nb, tab = cs.paged_pool_tables(np.random.default_rng(1), cs.PAGED_CUR, bs)
@@ -113,13 +120,46 @@ def main() -> int:
                                           for t in (pk_p, pv_p))
             psc_p = dict(k_scale=ks_p, v_scale=vs_p)
         qd = randn(len(cs.PAGED_CUR), kv * g, D)
-        qp = randn(seqs.numel(), kv, g, D)
+        qp = randn(seqs_p.numel(), kv, g, D)
         kernels[f"paged decode{tag}"] = (
             lambda qd=qd, k_=pk_p, v_=pv_p, t_=tab, s_=psc_p:
             ops.paged_decode_attention(qd, k_, v_, cur_p, t_, **s_))
         kernels[f"paged pack{tag}"] = (
             lambda qp=qp, k_=pk_p, v_=pv_p, t_=tab, s_=psc_p:
-            pk.paged_attention(qp, k_, v_, seqs, poss, t_, **s_))
+            pk.paged_attention(qp, k_, v_, seqs_p, poss_p, t_, **s_))
+    # phase 2's ragged cases over the 64-token pack; the main ones at 1, 2
+    # and 4 splits where the wrapper takes splits
+    params = inspect.signature(rk.ragged_attention).parameters
+    for n in ((1, 2, 4) if "splits" in params else ()):
+        kernels[f"ragged_attention splits={n}"] = (
+            lambda n=n: rk.ragged_attention(q_rag, k, v, slots, poss, splits=n))
+        kernels[f"ragged_attention_q8 splits={n}"] = (
+            lambda n=n: rk.ragged_attention(q_rag, k8, v8, slots, poss, splits=n, **sc))
+    # a 64-token chunk deep in one slot (positions 900-963), every tile's
+    # keys past several spans, at the kernel's own and at forced splits
+    deep = ints([2] * 64), ints(list(range(900, 964)))
+    for n in ((None, 1, 2, 4) if "splits" in params else ()):
+        kernels[f"ragged deep chunk splits={n}"] = (
+            lambda n=n: rk.ragged_attention(q_rag, k, v, *deep, splits=n))
+    cases = [(None, *c) for c in cs.RAGGED_CASES] + list(cs.RAGGED_Q8_CASES)
+    for store, kv, g, dname, window in cases:
+        dtype = getattr(torch, dname)
+        q_c = torch.randn(len(cs.PACK_SLOTS), kv, g, D, generator=gen, device=dev).to(dtype)
+        k_c, v_c = (torch.randn(cs.SLOTS, cs.S_MAX, kv, D, generator=gen, device=dev)
+                    for _ in "kv")
+        sc_c = {}
+        if store is None:
+            k_c, v_c = k_c.to(dtype), v_c.to(dtype)
+        elif store == "f32 rand":
+            sc_c = {n: torch.rand(k_c.shape[:-1], generator=gen, device=dev) + 0.5
+                    for n in ("k_scale", "v_scale")}
+        else:
+            kind = {"int8": torch.int8, "fp8": torch.float8_e4m3fn, "f32": torch.float32}[store]
+            (k_c, ks_c), (v_c, vs_c) = quantize_rows(k_c, kind), quantize_rows(v_c, kind)
+            sc_c = dict(k_scale=ks_c, v_scale=vs_c)
+        kernels[f"ragged {store or 'plain'} KV={kv} G={g} q={dname} win={window}"] = (
+            lambda q_=q_c, k_=k_c, v_=v_c, s_=sc_c, w_=window:
+            rk.ragged_attention(q_, k_, v_, slots, poss, window=w_, **s_))
     # the tiles a checkout has (a tuple of tiles before they differed by dtype)
     tiles = fk.TILES[torch.bfloat16] if isinstance(fk.TILES, dict) else fk.TILES
     for tq, tk in tiles:

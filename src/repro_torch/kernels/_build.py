@@ -35,9 +35,9 @@ SIGNATURES = {
     # q, k, v, k_scale, v_scale, cur_len, workspace, counters, out, B, S, KV, G, D, window,
     # span, qdtype, sdtype, stream
     "repro_decode_attention": [_P] * 9 + [_I] * 9 + [_P],
-    # q, k, v, k_scale, v_scale, tok_slot, tok_pos, out, T, S, KV, G, D, window, qdtype,
-    # sdtype, stream
-    "repro_ragged_attention": [_P] * 8 + [_I] * 8 + [_P],
+    # q, k, v, k_scale, v_scale, tok_slot, tok_pos, workspace, counters, out, T, S, KV, G, D,
+    # window, span, tile_tokens, qdtype, sdtype, stream
+    "repro_ragged_attention": [_P] * 10 + [_I] * 10 + [_P],
     # q, k, v, k_scale, v_scale, tok_seq, tok_pos, tables, workspace, counters, out, T, NB,
     # bs, max_blocks, KV, G, D, window, span, tile_tokens, qdtype, sdtype, stream
     "repro_paged_attention": [_P] * 11 + [_I] * 12 + [_P],

@@ -13,7 +13,7 @@ import torch
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2, torch.float8_e4m3fn: 3}
 
 # the (head_dim, group) domain of the decode, ragged and paged attention
-# kernels (csrc/attention_common.cuh: launch_attention's cases) and the head
+# kernels (csrc/split_attention.cuh: launch_split's cases) and the head
 # widths of the flash kernel (csrc/flash_attention.cu)
 HEAD_DIMS = (16, 32, 64, 80, 128)
 MAX_GROUP = 16
@@ -99,12 +99,12 @@ _tickets: dict = {}  # (device index, stream handle) -> int32 zeros the kernels 
 
 def tickets(device: torch.device, stream: int) -> torch.Tensor:
     """The split kernels' ticket counters of raw stream handle ``stream`` on
-    ``device`` (the split GEMVs: one per 128-column strip; split decode and
-    paged attention: one per (tile, KV head, chunk of the group)): made once,
-    before the stream's
-    first split launch, at a fixed size, so a captured launch never sees
-    them replaced. Each kernel leaves them zero, and launches on one stream
-    run in order, so every split kernel of the stream shares them."""
+    ``device`` (the split GEMVs: one per 128-column strip; split decode,
+    ragged and paged attention: one per (tile, KV head, chunk of the group)):
+    made once, before the stream's first split launch, at a fixed size, so a
+    captured launch never sees them replaced. Each kernel leaves them zero,
+    and launches on one stream run in order, so every split kernel of the
+    stream shares them."""
     key = (device.index, stream)
     buf = _tickets.get(key)
     if buf is None:

@@ -33,6 +33,7 @@ using repro::splitkv::launch_split;
 // cache row t * S + p.
 struct DenseSlots {
   static constexpr bool kTable = false;
+  static constexpr bool kMmaRows = false;  // LaneRows' arithmetic, even at 8 rows
   const int* __restrict__ cur_len;
   int S;
   __device__ __forceinline__ int seq(int t) const { return t; }

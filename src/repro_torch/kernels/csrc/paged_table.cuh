@@ -15,6 +15,10 @@ namespace splitkv {
 // (NB and past it) clamped to NB - 1.
 struct PagedTable {
   static constexpr bool kTable = true;
+  static constexpr bool kMmaRows = true;
+  static constexpr int kMmaStageRows = kSubRows;  // the tensor-core rows' ring: the defaults
+  static constexpr int kMmaRingBytes = kRingBytes;
+  static constexpr bool kMmaSplitP = false;
   const int* __restrict__ tok_seq;
   const int* __restrict__ tok_pos;
   const int* __restrict__ tables;

@@ -1,48 +1,54 @@
 // The split-KV body of the serving attention kernels: decode against the
-// dense cache (decode_attention.cu) and paged attention, decode and packs,
-// against the block-paged pool (paged_attention.cu). Each source defines a
-// row policy (which sequence a token reads, its key range, and where
-// position p of that sequence lives) and its C entry point; the kernel and
-// its launch are shared here.
+// dense cache (decode_attention.cu), ragged packs against the dense cache
+// (ragged_attention.cu) and paged attention, decode and packs, against the
+// block-paged pool (paged_attention.cu). Each defines a row policy (which
+// sequence a token reads, its key range, and where position p of that
+// sequence lives) and its C entry point; the kernel and its launch are
+// shared here.
 //
 // The design: split-KV attention (flash-decoding). The grid is (tiles, KV,
 // chunks x splits). A tile is TT consecutive tokens (one for decode; for a
-// pack 8 at G = 1, 2 at G <= 4, 1 at G >= 5), a chunk 1, 4 or 8 rows of the
-// group (the domain of attention_common.cuh), so a block holds TT x GC <= 8
-// query rows, each a (token, group row) pair with its own key range; split
-// s owns the positions [s * span, (s + 1) * span), span a multiple of 256
-// picked from host values only (kernels/decode_attention.py::split_count).
-// A block streams the keys its rows need through a ring of 2 to 8 stages in
-// about 64 KB of dynamic shared memory (16-byte cp.async copies,
-// zero-filled past the range, ~8 KB of K and V rows a stage, so a block
-// keeps up to ~56 KB in flight), and every staged K/V row serves all the
-// block's rows: the tokens of a pack tile read their sequence's prefix
-// once. Its warps take a stage's keys a few at a time, each warp keeping its
-// own online softmax (m, l, acc) for the block's rows in registers; a key
+// ragged or paged pack 8 at G = 1, 2 at G <= 4, 1 at G >= 5), a chunk 1, 4
+// or 8 rows of the group (the domain of attention_common.cuh), so a block
+// holds TT x GC <= 8 query rows, each a (token, group row) pair with its own
+// key range; split s owns the positions [s * span, (s + 1) * span), span a
+// multiple of 256 picked from host values only
+// (kernels/decode_attention.py::split_count, ragged_attention.py::plan). A
+// block streams the keys its rows need through a ring of 2 to 8 stages in
+// about 64 KB of dynamic shared memory (16-byte cp.async copies, zero-filled
+// past the range, ~8 KB of K and V rows a stage, so a block keeps up to ~56
+// KB in flight; a policy may shape its tensor-core rows' ring apart: ragged
+// stages 64 positions in 104 KB), and every staged K/V row serves all the
+// block's rows: the tokens of a pack tile read their sequence's prefix once.
+// Its warps take a stage's keys a few at a time, each warp keeping its own
+// online softmax (m, l, acc) for the block's rows in registers; a key
 // outside a row's range weighs 0 for that row, a row scale is folded into
 // the math (s = ks * (q . k) / sqrt(D), acc += (p * vs) * v), and no
 // dequantized row is stored. Two row engines do the products: LaneRows, in
-// f32 on the CUDA cores, four keys a warp with attend_rows' lane layout
-// (lane i holds elements [i*N, i*N + N) of a row; four dot products summed
-// over the warp in one transposing butterfly, warp_sum4: 10 shuffles where
-// four warp_sums take 20), for up to 4 rows, f32 queries or stores, and the
-// dense decode; and MmaRows, 16 keys a warp on mma.sync m16n8k16 (S = Q K^T
-// and O = P V with the 8 rows as M), for 8 rows of bf16 queries over a
-// bf16, int8 or fp8 paged store, where LaneRows' shuffles would take 8
-// times a decode's per key (details at MmaRows). A tile whose tokens belong
-// to two sequences runs one pass per sequence (the engine builds a pack
-// sequence by sequence, so such tiles are rare): a pass stages the union of
-// its tokens' ranges, and the other tokens' rows weigh every key 0. The
-// warps merge through shared memory into the block's partial (m, l,
-// acc[D]) per row. With one split that partial is normalised and stored;
-// otherwise it goes to f32 scratch (the caller's torch.empty, per call)
-// and the last block of its (tile, head, chunk) to arrive (an atomic ticket
-// in per-(device, stream) counters it leaves zero) merges the partials in
-// split order, so the result does not depend on timing. A split past a
-// row's range writes the empty partial (m = -1e30, l = 0); a row whose
-// range is empty in every split gets zeros, as the TPU kernel writes. No
-// host sync, allocation or memset per call, and the grid comes from host
-// values only: the launch can be captured in a CUDA graph.
+// f32 on the CUDA cores, four keys a warp, a key row spread over the lanes
+// (lane i holds elements [i*N, i*N + N), N = 1, 2 or 4 by D, so a row is one
+// coalesced warp-wide read; four dot products summed over the warp in one
+// transposing butterfly, warp_sum4: 10 shuffles where four warp_sums take
+// 20), for up to 4 rows, f32 queries or stores, and the dense decode; and
+// MmaRows, 16 keys a warp on mma.sync m16n8k16 (S = Q K^T and O = P V with
+// the 8 rows as M), for 8 rows of bf16 queries over a bf16, int8 or fp8
+// store of a policy that asks for them (kMmaRows: ragged and paged), where
+// LaneRows' shuffles would take 8 times a decode's per key (details at
+// MmaRows). A tile whose tokens belong to two sequences runs one pass per
+// sequence (the engine builds a pack sequence by sequence, so such tiles are
+// rare): a pass stages the union of its tokens' ranges, and the other
+// tokens' rows weigh every key 0. The warps merge through shared memory into
+// the block's partial (m, l, acc[D]) per row. With one split that partial is
+// normalised and stored; otherwise it goes to f32 scratch (the caller's
+// torch.empty, per call) and the last block of its (tile, head, chunk) to
+// arrive (an atomic ticket in per-(device, stream) counters it leaves zero)
+// merges the partials in split order, so the result does not depend on
+// timing. A split past a row's range writes the empty partial (m = -1e30, l
+// = 0; a block with no key in its span writes it at once, without merging
+// its warps); a row whose range is empty in every split gets zeros, as the
+// TPU kernel writes. No host sync, allocation or memset per call, and the
+// grid comes from host values only: the launch can be captured in a CUDA
+// graph.
 //
 // A paged policy loads the block-table entries of a pass into shared
 // memory once (kTableWords at a time, so a span of any length takes
@@ -57,7 +63,12 @@
 // bytes, sets the time; a deeper ring (96 KB) or larger stages (16 KB)
 // changed nothing. A 64-token pack on LaneRows (8 rows a block) took 0.160
 // ms against a decode's 0.042 over the same pool: its shuffles, not its
-// bytes, bound it.
+// bytes, bound it. A dense ragged pack on the tensor-core rows took 0.0357
+// ms on 32-position stages in 64 KB and 0.0253 on 64-position stages in 104
+// KB (four warps a stage, two blocks an SM), one span each; the merge that
+// issues a split's loads for all of a thread's outputs together, and blocks
+// with no key that skip their warps' merge, took the dense decode at G = 8
+// from 0.0326 to 0.0295 with the same bits.
 #pragma once
 
 #include "attention_common.cuh"
@@ -101,20 +112,21 @@ __device__ __forceinline__ void warp_sum4(const float (&v)[4], float (&out)[4]) 
 }
 
 // The ring of one (store type, scaled, head width): kRows positions a stage
-// (K rows, then V rows, then with kScaled their K and V scales), kStages
-// stages in kRingBytes of dynamic shared memory (two stages at least). A
-// staged row takes kStride bytes: its own, or with kPad one 16-byte chunk
-// more where that makes the stride an odd number of chunks, so that the
-// eight rows an ldmatrix reads fall in eight different groups of four banks
-// (the tensor-core rows read their fragments so).
-template <typename TS, bool kScaled, int D, bool kPad>
+// (K rows, then V rows, then with kScaled their K and V scales; kMinRows at
+// least), kStages stages in kBudget bytes of dynamic shared memory (two
+// stages at least). A staged row takes kStride bytes: its own, or with kPad
+// one 16-byte chunk more where that makes the stride an odd number of
+// chunks, so that the eight rows an ldmatrix reads fall in eight different
+// groups of four banks (the tensor-core rows read their fragments so).
+template <typename TS, bool kScaled, int D, bool kPad, int kMinRows = kSubRows,
+          int kBudget = kRingBytes>
 struct Ring {
   static constexpr int kRow = D * static_cast<int>(sizeof(TS));  // bytes of a K or V row
   static constexpr int kStride = kPad && kRow / 16 % 2 == 0 ? kRow + 16 : kRow;
   static constexpr int kFit = kStageTarget / (2 * kRow) / kSubRows * kSubRows;
-  static constexpr int kRows = kFit > kSubRows ? kFit : kSubRows;
+  static constexpr int kRows = kFit > kMinRows ? kFit : kMinRows;
   static constexpr int kStageBytes = kRows * (2 * kStride + (kScaled ? 8 : 0));
-  static constexpr int kFitStages = kRingBytes / kStageBytes;
+  static constexpr int kFitStages = kBudget / kStageBytes;
   static constexpr int kStages = kFitStages > 8 ? 8 : kFitStages < 2 ? 2 : kFitStages;
   static_assert(kRow % 16 == 0, "a row is whole 16-byte copies");
   static_assert(kStages * kStageBytes <= 227 * 1024, "the ring fits a block's shared memory");
@@ -122,26 +134,35 @@ struct Ring {
 
 // Whether a block of NR rows takes its products on the tensor cores
 // (MmaRows): 8 rows (a pack tile, or a group chunk of 8) of bf16 queries
-// over a bf16, int8 or fp8 paged store, all of which bf16 holds exactly. An
-// f32 query or store keeps f32 products (LaneRows), and the dense decode
-// keeps LaneRows' arithmetic.
+// over a bf16, int8 or fp8 store, all of which bf16 holds exactly, under a
+// policy with kMmaRows (ragged and paged). An f32 query or store keeps f32
+// products (LaneRows), and the dense decode (DenseSlots) keeps LaneRows'
+// arithmetic.
 template <typename TQ, typename TS, int NR, typename Policy>
 __host__ __device__ constexpr bool use_mma() {
-  return NR == 8 && Policy::kTable && std::is_same_v<TQ, __nv_bfloat16> &&
+  return NR == 8 && Policy::kMmaRows && std::is_same_v<TQ, __nv_bfloat16> &&
          !std::is_same_v<TS, float>;
 }
 
-// Blocks an SM must hold: three for one row a block (a decode at G = 1, 64
-// to 80 registers a thread; left free, ptxas took 91 for the dense int8
-// decode and 108 for the paged one, two blocks an SM, 18% slower) and for
-// the tensor-core rows over a bf16 store, two over int8 or fp8 (whose
-// widening spills more at three); the others take the registers they need
-// (scripts/torch_attention_ab.py over variants, H100).
-template <typename TQ, typename TS, int NR, typename Policy>
-struct MinBlocks {
-  static constexpr int kValue = NR == 1 ? 3 : !use_mma<TQ, TS, NR, Policy>() ? 1
-                                : sizeof(TS) == 1 ? 2 : 3;
+// The ring of a block's rows and their P precision: the defaults, or for
+// the tensor-core rows the policy's own (kMmaStageRows positions a stage at
+// least, kMmaRingBytes, kMmaSplitP: MmaRows' kSplitP).
+template <typename Policy, bool kMma>
+struct MmaTraits {
+  static constexpr int kMinRows = kSubRows;
+  static constexpr int kBytes = kRingBytes;
+  static constexpr bool kSplitP = false;
 };
+template <typename Policy>
+struct MmaTraits<Policy, true> {
+  static constexpr int kMinRows = Policy::kMmaStageRows;
+  static constexpr int kBytes = Policy::kMmaRingBytes;
+  static constexpr bool kSplitP = Policy::kMmaSplitP;
+};
+template <typename TQ, typename TS, bool kScaled, int D, int NR, typename Policy,
+          bool kMma = use_mma<TQ, TS, NR, Policy>()>
+using BlockRing = Ring<TS, kScaled, D, kMma, MmaTraits<Policy, kMma>::kMinRows,
+                       MmaTraits<Policy, kMma>::kBytes>;
 
 // Bytes between two of MmaRows' staged query rows (D bf16): an odd number
 // of 16-byte chunks, so that an ldmatrix of 8 rows meets no bank conflict.
@@ -157,11 +178,27 @@ struct SmemLayout {
   static constexpr bool kMma = use_mma<TQ, TS, NR, Policy>();
   static constexpr int kWidth = 32 * (D <= 32 ? 1 : D <= 64 ? 2 : 4);
   static constexpr int kMerge = (2 * kWarps * NR + kWarps * NR * kWidth) * 4;
-  static constexpr int kRing = Ring<TS, kScaled, D, kMma>::kStages *
-                               Ring<TS, kScaled, D, kMma>::kStageBytes;
+  static constexpr int kRing = BlockRing<TQ, TS, kScaled, D, NR, Policy>::kStages *
+                               BlockRing<TQ, TS, kScaled, D, NR, Policy>::kStageBytes;
   static constexpr int kQ = kRing > kMerge ? kRing : kMerge;  // where the queries start
   static constexpr int kTable = kQ + (kMma ? 8 * q_stride(D) : 0);
   static constexpr int kBytes = kTable + (Policy::kTable ? kTableWords * 4 : 0);
+};
+
+// Blocks an SM must hold: three for one row a block (a decode at G = 1, 64
+// to 80 registers a thread; left free, ptxas took 91 for the dense int8
+// decode and 108 for the paged one, two blocks an SM, 18% slower) and for
+// the tensor-core rows over a bf16 store, two over int8 or fp8 (whose
+// widening spills more at three), and never more than the SM's 228 KB of
+// shared memory holds; the others take the registers they need
+// (scripts/torch_attention_ab.py over variants, H100).
+template <typename TQ, typename TS, bool kScaled, int D, int NR, typename Policy>
+struct MinBlocks {
+  static constexpr int kAsked = NR == 1 ? 3 : !use_mma<TQ, TS, NR, Policy>() ? 1
+                                : sizeof(TS) == 1 ? 2 : 3;
+  static constexpr int kFit =
+      228 * 1024 / (SmemLayout<TQ, TS, kScaled, D, NR, Policy>::kBytes + 1024 + 128);
+  static constexpr int kValue = kAsked < kFit ? kAsked : kFit;
 };
 
 // A staged key's validity for a token of the pass: inside [lo, hi]. With one
@@ -173,7 +210,8 @@ __device__ __forceinline__ bool key_ok(int p, int lo, int hi) {
 
 // The block's NR rows on the CUDA cores, in f32: each warp takes kKeys = 4
 // staged keys a sub-step, lane i holds elements [i*N, i*N + N) of a row
-// (attend_rows' layout), and each row's four dot products are summed over
+// (lanes past a row of D = 16 or 80 hold a zero query and read the row's
+// first elements), and each row's four dot products are summed over
 // the warp by warp_sum4; every row keeps its online softmax (m, l, acc) in
 // registers.
 template <typename TQ, typename TS, bool kScaled, int D, int GC, int TT>
@@ -315,11 +353,15 @@ __device__ __forceinline__ uint32_t byte_pair_bf16x2(uint32_t w) {
 // g, l as this lane's share), with the row scales folded as in LaneRows.
 // O += P V on m16n8k16 with the rows as M, 16 keys as K and D / 8 n8 tiles
 // of dims: P's A fragments are the softmax weights of S's accumulators
-// rounded to bf16 (the flash-attention register reuse), V's B fragments
-// ldmatrix .trans loads of the staged V rows (int8 and fp8: a register
-// holds keys 2t, 2t + 1 of dims 2g, 2g + 1, so one matrix feeds the tiles
-// of even and of odd dims).
-template <typename TS, bool kScaled, int D, int GC, int TT>
+// (times the V row scales) rounded to bf16 (the flash-attention register
+// reuse), V's B fragments ldmatrix .trans loads of the staged V rows (int8
+// and fp8: a register holds keys 2t, 2t + 1 of dims 2g, 2g + 1, so one
+// matrix feeds the tiles of even and of odd dims). With kSplitP a second
+// mma adds P's remainder past bf16, so P V is as exact as f32 math: one
+// rounding of P is 2^-9 of the output, a bf16 step of it where a token has
+// few keys and its output is as large as a V row (a ragged pack's first
+// prompt tokens), which the plain version does not round.
+template <typename TS, bool kScaled, int D, int GC, int TT, bool kSplitP>
 struct MmaRows {
   static constexpr int NR = GC * TT;
   static constexpr int kKeys = 16;
@@ -430,6 +472,14 @@ struct MmaRows {
     }
     const uint32_t pa[4] = {pack_bf16x2(p[0][0], p[0][1]), 0u, pack_bf16x2(p[1][0], p[1][1]),
                             0u};
+    uint32_t pl[4] = {0u, 0u, 0u, 0u};  // P - bf16(P), with kSplitP
+    if constexpr (kSplitP) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const float2 h = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&pa[2 * j]));
+        pl[2 * j] = pack_bf16x2(p[j][0] - h.x, p[j][1] - h.y);
+      }
+    }
 #pragma unroll
     for (int s = 0; s < KS; ++s) {  // dims 16 s .. 16 s + 15: two n8 tiles
       uint32_t b[2][2];  // [tile][register]
@@ -450,6 +500,10 @@ struct MmaRows {
       }
       mma_16816_top(acc[2 * s], pa, b[0]);
       mma_16816_top(acc[2 * s + 1], pa, b[1]);
+      if constexpr (kSplitP) {
+        mma_16816_top(acc[2 * s], pl, b[0]);
+        mma_16816_top(acc[2 * s + 1], pl, b[1]);
+      }
     }
   }
 
@@ -484,8 +538,9 @@ struct MmaRows {
   }
 };
 
-// A row policy (DenseSlots in decode_attention.cu, PagedTable in
-// paged_attention.cu) names, for token t, seq(t) (the sequence it reads),
+// A row policy (DenseSlots in decode_attention.cu, RaggedSlots in
+// ragged_slots.cuh, PagedTable in paged_table.cuh) names, for token t,
+// seq(t) (the sequence it reads),
 // range(t, window, &lo, &hi) (its key range), and for a sequence's keys
 // row(seq, p, stab, base) (the cache row of position p: its K/V rows and
 // scales sit at row * KV + h). With kTable true the policy reads its rows
@@ -493,7 +548,8 @@ struct MmaRows {
 // stab) loads those of positions lo..hi and returns the first's index
 // (base), and window_end(lo, hi) is the last position from lo that one
 // window of kTableWords entries covers; with kTable false bind does nothing
-// and window_end(lo, hi) is hi.
+// and window_end(lo, hi) is hi. kMmaRows says whether its 8-row blocks over
+// bf16 queries take MmaRows (use_mma).
 
 // One block per (tile x of TT tokens, KV head h, chunk c of the group,
 // split s): the partials of its rows, (token t0 + i, group row c * GC + j)
@@ -503,15 +559,17 @@ struct MmaRows {
 // G, splits, D] partial sums, then [T, KV, G, splits, 2] (m, l); counters:
 // one ticket per (x, h, c). Both are unused when splits == 1.
 template <typename TQ, typename TS, bool kScaled, int D, int GC, int TT, typename Policy>
-__global__ void __launch_bounds__(kThreads, (MinBlocks<TQ, TS, GC * TT, Policy>::kValue))
+__global__ void __launch_bounds__(kThreads,
+                                  (MinBlocks<TQ, TS, kScaled, D, GC * TT, Policy>::kValue))
 split_kernel(const TQ* __restrict__ q, const TS* __restrict__ k, const TS* __restrict__ v,
              const float* __restrict__ k_scale, const float* __restrict__ v_scale,
              const Policy pol, TQ* __restrict__ out, float* __restrict__ ws,
              int* __restrict__ counters, int T, int KV, int G, int window, int span) {
   constexpr int NR = GC * TT;  // the block's rows
   constexpr bool kMma = use_mma<TQ, TS, NR, Policy>();
-  using R = Ring<TS, kScaled, D, kMma>;
-  using Rows = std::conditional_t<kMma, MmaRows<TS, kScaled, D, GC, TT>,
+  using R = BlockRing<TQ, TS, kScaled, D, NR, Policy>;
+  using Rows = std::conditional_t<kMma,
+                                  MmaRows<TS, kScaled, D, GC, TT, MmaTraits<Policy, kMma>::kSplitP>,
                                   LaneRows<TQ, TS, kScaled, D, GC, TT>>;
   static_assert(NR <= 8, "a block holds at most 8 rows");
   static_assert(R::kRows % Rows::kKeys == 0, "a stage is whole sub-steps of a warp");
@@ -597,18 +655,24 @@ split_kernel(const TQ* __restrict__ q, const TS* __restrict__ k, const TS* __res
           rows.template step<R::kStride>(sk, sv, sks, svs, r0, tb, rlo, rhi, scale);
       }
       cp_async_wait<0>();
-      if constexpr (Policy::kTable) __syncthreads();  // the ring and the window are free again
+      // the ring (and a table window) are free again before the next window
+      // or the tile's next pass refills them
+      if constexpr (Policy::kTable || TT > 1) __syncthreads();
       wlo = whi + 1;
     }
   };
 
+  // whether a row of the block has a key in this span (the same in every
+  // thread); a block with none skips its warps' merge
+  bool any = false;
   if constexpr (TT == 1) {
     int lo, hi;
     pol.range(t0, window, &lo, &hi);
     lo = max(lo, s * span);
     hi = min(hi, s * span + span - 1);
     const int rlo[1] = {lo}, rhi[1] = {hi};
-    if (lo <= hi) pass(pol.seq(t0), lo, hi, rlo, rhi);
+    any = lo <= hi;
+    if (any) pass(pol.seq(t0), lo, hi, rlo, rhi);
   } else {
     __shared__ int tok_seq[TT], tok_lo[TT], tok_hi[TT];  // the tile's tokens in this span
     if (threadIdx.x < TT) {
@@ -625,6 +689,7 @@ split_kernel(const TQ* __restrict__ q, const TS* __restrict__ k, const TS* __res
       tok_hi[i] = hi;
     }
     __syncthreads();
+    for (int i = 0; i < tn; ++i) any |= tok_lo[i] <= tok_hi[i];
     // a pass per sequence, at the first of the tile's tokens with keys here
 #pragma unroll 1
     for (int i = 0; i < tn; ++i) {
@@ -649,27 +714,32 @@ split_kernel(const TQ* __restrict__ q, const TS* __restrict__ k, const TS* __res
   }
 
   // the warps' states meet in shared memory (the ring's, free after the
-  // last barrier); a row with no key here leaves every warp's state empty
-  __syncthreads();
+  // last barrier); a row with no key here leaves every warp's state empty,
+  // and a block with no key at all skips the meeting: its rows' zeros or,
+  // split, their empty partials (m = -1e30, l = 0, sums 0)
   float* sm_m = reinterpret_cast<float*>(smem);  // [kWarps][NR]
   float* sm_l = sm_m + kWarps * NR;              // [kWarps][NR]
   float* sm_acc = sm_l + kWarps * NR;            // [kWarps][NR][kWidth]
-  rows.stash(sm_m, sm_l, sm_acc, kWidth);
-  __syncthreads();
+  if (any) {
+    __syncthreads();
+    rows.stash(sm_m, sm_l, sm_acc, kWidth);
+    __syncthreads();
+  }
   const int64_t rows_total = static_cast<int64_t>(T) * KV * G;
   float* ws_ml = ws + rows_total * splits * D;  // after the sums
   for (int idx = threadIdx.x; idx < NR * D; idx += kThreads) {
     const int r = idx / D, d = idx % D;
     if (!row_ok(r)) continue;
-    float mm = kNegInf;
+    float mm = kNegInf, ll = 0.f, aa = 0.f;
+    if (any) {
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) mm = fmaxf(mm, sm_m[w * NR + r]);
-    float ll = 0.f, aa = 0.f;
+      for (int w = 0; w < kWarps; ++w) mm = fmaxf(mm, sm_m[w * NR + r]);
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      const float e = expf(sm_m[w * NR + r] - mm);
-      ll += sm_l[w * NR + r] * e;
-      aa += sm_acc[(w * NR + r) * kWidth + d] * e;
+      for (int w = 0; w < kWarps; ++w) {
+        const float e = expf(sm_m[w * NR + r] - mm);
+        ll += sm_l[w * NR + r] * e;
+        aa += sm_acc[(w * NR + r) * kWidth + d] * e;
+      }
     }
     if (splits == 1) {
       store_f32(out + q_row(r) * D + d, aa / fmaxf(ll, 1e-30f));
@@ -690,19 +760,42 @@ split_kernel(const TQ* __restrict__ q, const TS* __restrict__ k, const TS* __res
   __syncthreads();
   if (!last) return;
   __threadfence();
-  for (int idx = threadIdx.x; idx < NR * D; idx += kThreads) {
-    const int r = idx / D, d = idx % D;
-    if (!row_ok(r)) continue;
-    const int64_t row = q_row(r) * splits;
-    float mm = kNegInf;
-    for (int z = 0; z < splits; ++z) mm = fmaxf(mm, __ldcg(ws_ml + (row + z) * 2));
-    float ll = 0.f, aa = 0.f;
-    for (int z = 0; z < splits; ++z) {  // in split order: the sum does not depend on timing
-      const float e = expf(__ldcg(ws_ml + (row + z) * 2) - mm);
-      ll += __ldcg(ws_ml + (row + z) * 2 + 1) * e;
-      aa += __ldcg(ws + (row + z) * D + d) * e;
+  // each thread's kPer (row, dim) outputs at once, the loads of a split
+  // issued together: the latency of a split, not of a split per output;
+  // sums in split order, so the result does not depend on timing
+  constexpr int kPer = (NR * D + kThreads - 1) / kThreads;
+  int64_t row[kPer];
+  int dd[kPer];
+  float mm[kPer], ll[kPer], aa[kPer];
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int idx = threadIdx.x + i * kThreads;
+    row[i] = q_row(idx / D) * splits;  // rows past the tile read its first row's
+    dd[i] = idx % D;
+    mm[i] = kNegInf;
+    ll[i] = aa[i] = 0.f;
+  }
+#pragma unroll 4
+  for (int z = 0; z < splits; ++z)
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) mm[i] = fmaxf(mm[i], __ldcg(ws_ml + (row[i] + z) * 2));
+#pragma unroll 4
+  for (int z = 0; z < splits; ++z) {
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const float mz = __ldcg(ws_ml + (row[i] + z) * 2);
+      const float lz = __ldcg(ws_ml + (row[i] + z) * 2 + 1);
+      const float az = __ldcg(ws + (row[i] + z) * D + dd[i]);
+      const float e = expf(mz - mm[i]);
+      ll[i] += lz * e;
+      aa[i] += az * e;
     }
-    store_f32(out + q_row(r) * D + d, aa / fmaxf(ll, 1e-30f));
+  }
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int idx = threadIdx.x + i * kThreads, r = idx / D;
+    if (idx < NR * D && row_ok(r))
+      store_f32(out + q_row(r) * D + dd[i], aa[i] / fmaxf(ll[i], 1e-30f));
   }
   if (threadIdx.x == 0) *ticket = 0;  // ready for the next launch
 }

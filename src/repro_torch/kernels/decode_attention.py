@@ -51,19 +51,19 @@ def split_span(s_max: int, splits: int) -> tuple[int, int]:
 
 
 @functools.lru_cache(maxsize=1024)
-def split_count(s_max: int, b: int, kv: int, g: int, sms: int) -> int:
+def split_count(s_max: int, b: int, kv: int, g: int, sms: int, waves: int = WAVES) -> int:
     """Splits of the position range: the fewest whose B * KV * chunks *
-    splits blocks fill WAVES blocks per SM of ``sms``, at most one a BLOCK_S
-    span; 1 where the (slot, head, chunk) blocks fill them alone or outnumber
-    the ticket counters."""
+    splits blocks fill ``waves`` blocks per SM of ``sms``, at most one a
+    BLOCK_S span; 1 where the (slot, head, chunk) blocks fill them alone or
+    outnumber the ticket counters."""
     blocks = b * kv * -(-g // group_chunk(g))
-    if blocks >= WAVES * sms or blocks > _checks.TICKETS:
+    if blocks >= waves * sms or blocks > _checks.TICKETS:
         return 1
     most = -(-max(s_max, 1) // BLOCK_S)
     n = 1
     for want in range(1, most + 1):
         n = split_span(s_max, want)[1]
-        if blocks * n >= WAVES * sms:
+        if blocks * n >= waves * sms:
             break
     return n
 

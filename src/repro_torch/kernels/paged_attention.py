@@ -120,6 +120,9 @@ def paged_attention(
                          f"{block_tables.dtype} {tuple(block_tables.shape)}")
     _checks.int32_vector(name, "tok_seq", tok_seq, t)
     _checks.int32_vector(name, "tok_pos", tok_pos, t)
+    out = torch.empty_like(q)
+    if t == 0:  # no tiles: split_count would divide by zero blocks
+        return out
     nb, bs = k.shape[0], k.shape[1]
     max_blocks = block_tables.shape[1]
     sms = _dk._sms(q.device.index) if splits is None else 0
@@ -128,9 +131,6 @@ def paged_attention(
     if splits > 1 and tickets > _checks.TICKETS:
         raise ValueError(f"{name}: a split launch takes up to {_checks.TICKETS} (tile, head, "
                          f"chunk) blocks, got {tickets}")
-    out = torch.empty_like(q)
-    if t == 0:
-        return out
     lib = _build.load()
     stream = _checks.stream(q)
     ws = counters = None

@@ -356,14 +356,8 @@ def paged_attention_split(
     it, decode or pack (shapes of :func:`paged_ragged_attention`): token t
     reads table row ``tok_seq[t]`` over the keys p <= tok_pos[t] (p >
     tok_pos[t] - window when window > 0) of its ``max_blocks * bs``
-    positions, cut into spans as :func:`decode_attention_split` cuts them
-    and merged in span order, the sentinel entries clamped as
-    :func:`paged_gather` clamps them. A padding token (tok_pos >= max_blocks
-    * bs) has no key and gets zeros. The kernel's tiles (several tokens of a
-    pack a block, a pass per sequence) decide which rows share a staged key,
-    not a row's arithmetic, so this twin takes each token alone. f32 math,
-    in q's dtype."""
-    s_max = block_tables.shape[1] * pool_k.shape[1]
+    positions, the sentinel entries clamped as :func:`paged_gather` clamps
+    them (:func:`_tokens_split`)."""
     if q.shape[0] == 0:
         return torch.zeros_like(q)
     rows = block_tables.long()[tok_seq.long()]  # each token's table row
@@ -371,13 +365,56 @@ def paged_attention_split(
     def view(pool):
         return None if pool is None else paged_gather(pool, rows)
 
+    return _tokens_split(q, view(pool_k), view(pool_v), tok_pos, splits, window,
+                         view(k_scale), view(v_scale), block_s)
+
+
+def ragged_attention_split(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    tok_slot: torch.Tensor,
+    tok_pos: torch.Tensor,
+    splits: int,
+    *,
+    window: int = 0,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
+    block_s: int = 256,
+) -> torch.Tensor:
+    """Ragged attention as ``csrc/ragged_attention.cu``'s split body
+    computes it (shapes of :func:`ragged_attention`): token t reads cache
+    slot ``tok_slot[t]`` over the keys p <= tok_pos[t] (p > tok_pos[t] -
+    window when window > 0) of its S_max positions (:func:`_tokens_split`)."""
+    if q.shape[0] == 0:
+        return torch.zeros_like(q)
+    rows = tok_slot.long()
+
+    def view(x):
+        return None if x is None else x[rows]
+
+    return _tokens_split(q, view(k), view(v), tok_pos, splits, window, view(k_scale),
+                         view(v_scale), block_s)
+
+
+def _tokens_split(q, k, v, tok_pos, splits, window, k_scale, v_scale, block_s) -> torch.Tensor:
+    """The split body over tokens that each read their own rows: q [T, KV,
+    G, d] against k/v [T, S, KV, d] (scales [T, S, KV]), token t's keys p <=
+    tok_pos[t] (p > tok_pos[t] - window when window > 0), cut into spans as
+    :func:`decode_attention_split` cuts them and merged in span order. A
+    padding token (tok_pos >= S) has no key and gets zeros. The kernel's
+    tiles (several tokens of a pack a block, a pass per sequence) decide
+    which rows share a staged key, not a row's arithmetic, so this twin takes
+    each token alone. f32 math, in q's dtype."""
+    s_max = k.shape[1]
+    if s_max == 0:
+        return torch.zeros_like(q)
     kpos = torch.arange(s_max, device=q.device)[None, :]
     pos = tok_pos.long()[:, None]
     valid = (kpos <= pos) & (pos < s_max)
     if window:
         valid &= kpos > pos - window
-    return _split_merge(q, view(pool_k), view(pool_v), valid, _span(s_max, splits, block_s),
-                        view(k_scale), view(v_scale))
+    return _split_merge(q, k, v, valid, _span(s_max, splits, block_s), k_scale, v_scale)
 
 
 # ---------------------------------------------------------------- kernel suite
