@@ -6,9 +6,11 @@
 Phases (each raises on failure, so the script exits non-zero):
 
 0. device — fail without CUDA; print the card's name and power limit.
-1. build — compile the hand-written CUDA kernels from ``csrc/`` (thirteen
+1. build — compile the hand-written CUDA kernels from ``csrc/`` (fourteen
    sources over the shared headers ``gemm_wgmma.cuh`` and
-   ``split_attention.cuh``, twenty-one kernel bodies: decode, ragged and
+   ``split_attention.cuh``: the latent-MQA ragged attention of multi-head
+   latent attention (heads as the rows of a tile, S and P V on mma.sync at
+   bf16, CUDA cores at f32), and twenty-one kernel bodies: decode, ragged and
    paged attention over a plain or a quantized store (one split-KV body: the
    position range split over blocks that stream K/V through a cp.async
    ring, partials merged in split order; ragged and paged packs in tiles of
@@ -41,7 +43,13 @@ Phases (each raises on failure, so the script exits non-zero):
    (128, 12) over bf16 and scaled int8 stores; decode and the ragged pack
    at 1, 2 and 4 forced splits beside the kernel's own, and a ragged pack of
    decode singletons; GQA flash at every bf16 tile
-   and head width. Times each kernel, its plain version and
+   and head width; a paged pack of a prompt's first 40 tokens over fp8 rows
+   (P's remainder in a second mma); the latent-MQA kernel at minicpm3-4b's
+   widths (latent 256 + rope 32, 40 heads, bf16), deepseek-v2-lite's (512
+   + 64, 16 heads, bf16) and the reduced configs' (32 + 8, 4 heads, f32)
+   over the 64-token pack, a pack of decode singletons and one of padding,
+   and at the domain's edges (1 and 64 heads, f32 at the wide widths), and
+   its refusal of another width. Times each kernel, its plain version and
    a one-call PyTorch yardstick (where one exists) as device time (CUDA events
    around one CUDA-graph replay of 30 calls, so the wrappers' host time is
    not counted), and computes its bound at the card's published peaks.
@@ -49,7 +57,8 @@ Phases (each raises on failure, so the script exits non-zero):
    ServeEngine on the card and on the CPU, dense, paged with prefix reuse,
    over int8 and fp8 caches, and with int8 weights (dense, and paged +
    prefix over an int8 cache), then the reduced codeqwen1.5-7b and
-   qwen3-32b configs (head_dim 16, groups 1 and 4), dense and paged; the
+   qwen3-32b configs (head_dim 16, groups 1 and 4), dense and paged, and
+   the reduced minicpm3-4b (MLA, its packs on the latent-MQA kernel); the
    token streams must be equal.
 4. full width — codeqwen1.5-7b, 32 layers, bf16, random weights from a seed,
    4 slots x 1024 positions; about 12 greedy requests whose prompts straddle
@@ -114,7 +123,14 @@ Phases (each raises on failure, so the script exits non-zero):
    bound, plain version and library call, conv2d on the wgmma body beside
    cuDNN, the FFT's radix-pass body at its three shapes and the four-step
    rows beside cuFFT.
-9. a ``{"kernels": [...], "to_port": []}`` JSON line (every row of PERF.md's
+9. full width, multi-head latent attention — minicpm3-4b, 62 layers, bf16,
+   random weights from a seed (phase 4's weights freed), phase 4's traffic
+   on its dense latent cache (4 slots x 1024 positions); the latent-MQA
+   kernel's launches between the counts' reset and read must be > 0 and
+   equal the MLA packed-attention calls, every request must finish, and the
+   stream agree with ``LM.prefill`` teacher-forced; prints peak memory,
+   tok/s, TTFT, TPOT and a decode-step profile.
+10. a ``{"kernels": [...], "to_port": []}`` JSON line (every row of PERF.md's
    kernel table; the decode, ragged, paged, matmul and matmul_q8 rows name the body
    their timed case ran and its launches; paged packs and matmul_q8 at M = 16
    have entries of their own), then the result line.
@@ -215,10 +231,15 @@ def paged_tokens(kind: str, cur, s_max: int) -> tuple[list, list]:
     """(tok_seq, tok_pos) of phase 2's paged cases over the sequences at
     ``cur``: a decode (one token per sequence at its cur), a 64-token pack (40
     prompt tokens of sequence 6, 16 of sequence 1, 8 padding tokens at
-    s_max), or "pack2": 37 tokens of sequence 6 and 19 of sequence 1, so a
-    tile of 8 (and at G <= 4 one of 2) spans both, and 8 padding tokens."""
+    s_max), "pack0": the same pack with sequence 6's tokens at positions
+    0-39 (a prompt's first chunk: tokens with one to 40 keys, whose outputs
+    are nearly V rows), or "pack2": 37 tokens of sequence 6 and 19 of
+    sequence 1, so a tile of 8 (and at G <= 4 one of 2) spans both, and 8
+    padding tokens."""
     if kind == "decode":
         return list(range(len(cur))), list(cur)
+    if kind == "pack0":  # 40 tokens at positions 0-39 of sequence 6: one to 40 keys each
+        return [6] * 40 + [1] * 16 + [6] * 8, list(range(40)) + list(range(545, 561)) + [s_max] * 8
     n6 = 40 if kind == "pack" else 37
     seqs = [6] * n6 + [1] * (56 - n6) + [6] * 8
     return seqs, list(range(600, 600 + n6)) + list(range(545, 601 - n6)) + [s_max] * 8
@@ -563,6 +584,114 @@ def check_paged_split(dev):
           f"max_abs_err {worst:.2e} tol={tol:g}", flush=True)
 
 
+# phase 2's latent-MQA cases (kv_lora_rank, rope_head_dim, heads, dtype), the
+# first the main one: minicpm3-4b's widths, deepseek-v2-lite's, the reduced
+# configs' (f32, as served); then the domain's edges (head chunks of 1, 2 and
+# 4 blocks, a single head, f32 at the wide widths)
+MLA_CASES = [(256, 32, 40, "bfloat16"), (512, 64, 16, "bfloat16"), (32, 8, 4, "float32"),
+             (256, 32, 64, "bfloat16"), (512, 64, 64, "bfloat16"), (32, 8, 64, "bfloat16"),
+             (256, 32, 1, "bfloat16"), (256, 32, 40, "float32"), (512, 64, 16, "float32"),
+             (32, 8, 4, "bfloat16")]
+MLA_TIMED = 3  # the first three are timed beside their bound, plain version and SDPA
+
+
+def check_mla_kernels(dev):
+    """Phase 2 for the latent-MQA kernel (``csrc/mla_attention.cu``): each of
+    MLA_CASES over phase 2's 64-token pack (4 slots x 1024 positions, 8
+    padding tokens), a pack of decode singletons and a pack that is mostly
+    padding, against ``ref.mla_ragged_attention``; padding rows must be
+    zero. The latent rows are N(0, 1), as after kv_norm. The first
+    MLA_TIMED cases are timed beside their bound, plain version and SDPA
+    over K = [ckv | krope] broadcast to the H heads, V = ckv, under the
+    full-cross mask (row 2's yardstick); the main case is returned."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import mla_attention as mk
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    B, S = SLOTS, S_MAX
+    results = {}
+    packs = {
+        "pack": (PACK_SLOTS, PACK_POS),
+        "singletons": (list(range(B)), SINGLE_POS),
+        "padding": ([2, 2, 0, 2, 2, 2, 0, 2], [S, 5, S, 6, S, S, 1000, S]),
+    }
+    for i, (r, rope, h, dname) in enumerate(MLA_CASES):
+        dtype = getattr(torch, dname)
+        tol = TOL[dname]
+        scale = (r // 4 + rope) ** -0.5  # a nope width of r / 4, as minicpm3's 64 of 256
+        ckv = torch.randn(B, S, r, generator=gen, device=dev).to(dtype)
+        krope = torch.randn(B, S, rope, generator=gen, device=dev).to(dtype)
+        for kind, (slots, poss) in packs.items():
+            ts = torch.tensor(slots, dtype=torch.int32, device=dev)
+            tp = torch.tensor(poss, dtype=torch.int32, device=dev)
+            t = ts.numel()
+            q_eff = torch.randn(t, h, r, generator=gen, device=dev).to(dtype)
+            q_rope = torch.randn(t, h, rope, generator=gen, device=dev).to(dtype)
+            n0 = mk.launches
+            got = mk.mla_attention(q_eff, q_rope, ckv, krope, ts, tp, scale=scale)
+            if mk.launches != n0 + 1:
+                raise AssertionError("mla_attention: the wrapper did not count its launch")
+            want = ref.mla_ragged_attention(q_eff, q_rope, ckv, krope, ts, tp, scale=scale)
+            real = tp < S
+            if got[~real].any():
+                raise AssertionError(f"mla_attention {kind} r={r} h={h}: padding rows not zero")
+            err = (got[real].float() - want[real].float()).abs().max().item()
+            mt, chunks = mk.plan(h, r, dtype)
+            line = (f"  mla_attention        {kind:10s} T={t} r={r} rope={rope} H={h} {dname} "
+                    f"({chunks} x {16 * mt} rows) max_abs_err={err:.3e} tol={tol:g}")
+            if i < MLA_TIMED and kind == "pack":
+                # bytes of the real tokens only, each slot's valid prefix once
+                rs, rp = ts[real].cpu().numpy(), tp[real].cpu().numpy()
+                rows = {}
+                for s_, p_ in zip(rs, rp):
+                    rows[s_] = max(rows.get(s_, 0), p_ + 1)
+                by = (nbytes(q_eff, q_rope, q_eff, ts, tp)
+                      + sum(rows.values()) * (r + rope) * ckv.element_size())
+                fl = int((rp + 1).sum()) * h * (2 * (r + rope) + 2 * r)
+                valid = ref.ragged_valid_mask(ts, tp, B, S)
+                qs = torch.cat([q_eff, q_rope], -1).permute(1, 0, 2)[None].contiguous()
+                ks = torch.cat([ckv, krope], -1).reshape(1, 1, B * S, r + rope).expand(
+                    1, h, B * S, r + rope).contiguous()
+                vs = ckv.reshape(1, 1, B * S, r).expand(1, h, B * S, r).contiguous()
+                mask = valid.reshape(1, 1, t, B * S)
+                timed = dict(
+                    ms=time_ms(lambda: mk.mla_attention(q_eff, q_rope, ckv, krope, ts, tp,
+                                                        scale=scale)),
+                    plain_ms=time_ms(lambda: ref.mla_ragged_attention(
+                        q_eff, q_rope, ckv, krope, ts, tp, scale=scale, valid=valid)),
+                    library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                        qs, ks, vs, attn_mask=mask, scale=scale)),
+                    library="SDPA over [ckv | krope] broadcast to the heads, full-cross mask",
+                )
+                timed["bound_ms"], timed["bound_by"] = bound(by, fl, dtype)
+                line += (f" ms={timed['ms']:.4f} plain={timed['plain_ms']:.3f} "
+                         f"bound={timed['bound_ms']:.5f} ({timed['bound_by']}) "
+                         f"SDPA={timed['library_ms']:.4f}")
+                if i == 0:
+                    results["mla_attention"] = dict(timed, max_abs_err=err, tol=tol)
+            print(line, flush=True)
+            if not err <= tol:
+                raise AssertionError(f"mla_attention {kind} r={r} h={h} {dname}: max_abs_err "
+                                     f"{err} above {tol}")
+    # a width outside the domain is refused before the C call
+    try:
+        mk.mla_attention(*(torch.zeros(1, 4, w, dtype=torch.bfloat16, device=dev)
+                           for w in (64, 8)),
+                         torch.zeros(1, 8, 64, dtype=torch.bfloat16, device=dev),
+                         torch.zeros(1, 8, 8, dtype=torch.bfloat16, device=dev),
+                         torch.zeros(1, dtype=torch.int32, device=dev),
+                         torch.zeros(1, dtype=torch.int32, device=dev), scale=1.0)
+    except ValueError as e:
+        print(f"  mla_attention        refuses r=64: {e}", flush=True)
+    else:
+        raise AssertionError("mla_attention took a width outside its domain")
+    torch.cuda.synchronize()
+    return results
+
+
 def check_paged_and_quant_kernels(dev):
     """Phase 2 for the paged kernel and the quantized-store bodies of the
     decode, ragged and paged kernels. Every case is checked and timed; the
@@ -590,9 +719,10 @@ def check_paged_and_quant_kernels(dev):
     def randn(*shape, dtype=f32):
         return torch.randn(*shape, generator=gen, device=dev).to(dtype)
 
-    def store_kv(shape, store, qdtype):
-        """K/V in the model dtype, or quantized rows with their scales."""
-        k, v = randn(*shape), randn(*shape)
+    def store_kv(shape, store, qdtype, v_gain=1.0):
+        """K/V in the model dtype, or quantized rows with their scales; V
+        rows drawn from N(0, v_gain^2)."""
+        k, v = randn(*shape), randn(*shape) * v_gain
         if store is None:
             return k.to(qdtype), v.to(qdtype), {}
         if store == "f32 rand":
@@ -678,6 +808,11 @@ def check_paged_and_quant_kernels(dev):
         ("paged_attention_q8", "fp8", [
             (32, 1, 32, bf16, 0, "decode", None), (8, 8, 16, f32, 0, "decode", None),
             (32, 1, 16, bf16, 100, "pack", None),
+            # P's remainder (kMmaSplitP): V rows of N(0, 1.5^2), so that
+            # the outputs of tokens with a few keys reach 4-8, where a bf16
+            # step is 0.031 and one rounding of P (2^-9 of a V row) crosses
+            # one (PagedTable before kMmaSplitP: 0.031 off, past 0.02)
+            (32, 1, 32, bf16, 0, "pack0", None),
         ]),
         ("paged_attention_q8", "f32", [
             (32, 1, 32, bf16, 0, "decode", None), (32, 1, 32, bf16, 0, "pack", None),
@@ -689,7 +824,8 @@ def check_paged_and_quant_kernels(dev):
         for kv, g, bs, dtype, window, kind, key in cases:
             nb, tab_h = pool_tables(bs)
             tab = torch.from_numpy(tab_h).to(dev)
-            k, v, scales = store_kv((nb + 1, bs, kv, D), store, dtype)
+            k, v, scales = store_kv((nb + 1, bs, kv, D), store, dtype,
+                                    1.5 if kind == "pack0" else 1.0)
             seqs, poss = paged_tokens(kind, cur, S)
             ts = torch.tensor(seqs, dtype=torch.int32, device=dev)
             tp = torch.tensor(poss, dtype=torch.int32, device=dev)
@@ -940,6 +1076,27 @@ def small_model_streams(dev):
             print(f"  {name} reduced (d_head {rcfg.d_head}, G "
                   f"{rcfg.n_heads // rcfg.n_kv_heads}), {lane}: {len(on_cpu)} greedy streams "
                   f"identical on the card (kernels) and the CPU (plain)", flush=True)
+
+    # reduced minicpm3-4b (MLA: latent 32 + rope 8, 4 heads), f32, on its
+    # dense latent cache: the packs on the latent-MQA kernel at (32, 8, H 4)
+    from repro_torch.kernels import mla_attention as mk
+
+    rcfg = get_arch("minicpm3-4b").reduced()
+    r_cpu = LM(rcfg, device="cpu")
+    r_params = r_cpu.init(torch.Generator().manual_seed(0))
+    r_dev, r_params_dev = LM(rcfg, device=dev), _tree_to(r_params, dev)
+    r_prompts = [p_ % rcfg.vocab_size for p_ in prompts]
+    on_cpu, _ = serve(r_cpu, r_params, "cpu", r_prompts, {})
+    n0 = mk.launches
+    on_dev, _ = serve(r_dev, r_params_dev, dev, r_prompts, {})
+    if on_dev != on_cpu or mk.launches == n0:
+        diff = [rid for rid in on_cpu if on_cpu[rid] != on_dev.get(rid)]
+        raise AssertionError(f"minicpm3-4b reduced: streams differ for rids {diff}; "
+                             f"{mk.launches - n0} latent-MQA launches")
+    print(f"  minicpm3-4b reduced (MLA, latent {rcfg.mla.kv_lora_rank} + rope "
+          f"{rcfg.mla.rope_head_dim}, {rcfg.n_heads} heads): {len(on_cpu)} greedy streams "
+          f"identical on the card ({mk.launches - n0} latent-MQA launches) and the CPU (plain)",
+          flush=True)
 
 
 def _tree_to(tree, dev):
@@ -1358,6 +1515,61 @@ def decode_step_profile(eng, cfg, dev, label: str = "decode step", steps: int = 
     for us, n, key in sorted(kernels, reverse=True)[:8]:
         print(f"    {us / 1e3 / steps:7.3f} ms/step  {n // steps:4d} calls/step  {key[:80]}")
     return dict(wall_ms=wall_ms, busy_ms=busy_ms, kernels=n_kernels, floor_ms=floor_ms)
+
+
+# ----------------------------------------------------------------- phase 9
+
+
+def full_width_mla(dev, counters):
+    """Phase 9: minicpm3-4b (multi-head latent attention: latent 256 + rope
+    32, 40 heads) at full width and depth, bf16, random weights from a seed,
+    serving phase 4's traffic on its dense latent cache (4 slots x 1024):
+    fused admissions (the expanded prefill in plain torch), ragged packs (the
+    latent-MQA kernel) and decode chunks (the absorbed decode in plain
+    torch). The kernel's launches between the counts' reset and read must
+    be > 0 and equal ``mla_packed``'s calls (no pack took the plain
+    version); every request must finish and the stream agree with
+    ``LM.prefill`` teacher-forced."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import LM
+    from repro_torch.models import mla as mla_mod
+    from repro_torch.serve import Request, SamplingParams, ServeEngine
+
+    cfg = get_arch("minicpm3-4b")
+    model = LM(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    print(f"  {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} heads, "
+          f"MLA latent {cfg.mla.kv_lora_rank} + rope {cfg.mla.rope_head_dim}, {cfg.dtype}, "
+          f"{cfg.num_params() / 1e9:.2f}B params, init {time.perf_counter() - t0:.1f} s")
+    eng = ServeEngine(model, params, batch_slots=4, max_len=1024, prefill_budget=64)
+    eng.prewarm()
+    max_new = 32
+    reqs = [Request(rid=i, prompt=p_, params=SamplingParams(max_new=max_new))
+            for i, p_ in enumerate(phase4_prompts(cfg))]
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(counters)
+    mla_mod.packed_calls = 0
+    for r in reqs:
+        eng.submit(r)
+    stats = eng.run()
+    launches = read_counts(counters, "phase 9")
+    calls = mla_mod.packed_calls
+    print(f"  {launches['mla_attention']} latent-MQA launches for {calls} MLA packed-attention "
+          f"calls ({calls // cfg.n_layers} packs x {cfg.n_layers} layers)")
+    if launches["mla_attention"] != calls:
+        raise AssertionError(f"phase 9: {launches['mla_attention']} latent-MQA launches for "
+                             f"{calls} MLA packed-attention calls")
+    check_finished(reqs, max_new, cfg.vocab_size)
+    peak = torch.cuda.max_memory_allocated()
+    print_stats(stats, f"; peak memory {peak / 2**30:.2f} GiB; KV (latent) "
+                f"{eng.kv_bytes_resident() / 2**20:.1f} MiB")
+    teacher_forced(model, params, reqs[5], dev, "minicpm3-4b dense bf16")
+    decode_step_profile(eng, cfg, dev, label="minicpm3-4b decode step")
+    return launches
 
 
 # ----------------------------------------------------------------- phase 7
@@ -2047,6 +2259,7 @@ def main() -> int:
     from repro_torch.kernels import fft as ffk
     from repro_torch.kernels import flash_attention as fk
     from repro_torch.kernels import matmul as mmk
+    from repro_torch.kernels import mla_attention as mk
     from repro_torch.kernels import paged_attention as pk
     from repro_torch.kernels import ragged_attention as rk
     from repro_torch.kernels import rmsnorm as rnk
@@ -2089,6 +2302,7 @@ def main() -> int:
     timed = check_kernels(dev)
     timed.update(check_paged_and_quant_kernels(dev))
     timed.update(check_matmul_kernels(dev))
+    timed.update(check_mla_kernels(dev))
     check_attention_domain(dev)
     check_paged_split(dev)
 
@@ -2151,12 +2365,19 @@ def main() -> int:
     timed8, launches8 = kernel_suite(dev, counters8)
     timed.update(timed8)
     launches.update(launches8)
+    torch.cuda.empty_cache()
 
-    phase("9 the kernel table")
+    phase("9 full width minicpm3-4b (multi-head latent attention)")
+    counters9 = {"mla_attention": (mk, "launches")}
+    launches.update(full_width_mla(dev, counters9))
+
+    phase("10 the kernel table")
     # the pl.pallas_call line of each TPU kernel, as in PERF.md's kernel table
     sources = {
         "decode_attention": ("decode_attention.cu", "src/repro/kernels/decode_attention.py:186"),
         "ragged_attention": ("ragged_attention.cu", "src/repro/kernels/ragged_attention.py:253"),
+        # the same TPU kernel as latent MQA (src/repro/kernels/ops.py:392)
+        "mla_attention": ("mla_attention.cu", "src/repro/kernels/ragged_attention.py:253"),
         "gqa_flash_attention": ("flash_attention.cu", "src/repro/kernels/flash_attention.py:197"),
         "paged_attention": ("paged_attention.cu", "src/repro/kernels/ragged_attention.py:342"),
         "paged_attention_q8": ("paged_attention.cu", "src/repro/kernels/ragged_attention.py:342"),
@@ -2188,7 +2409,7 @@ def main() -> int:
             "flash_attention": 7, "matmul": 8, "matmul_tile": 8, "matmul_q8": 9,
             "matmul_q8_rows": 9,
             "rmsnorm": 10, "softmax": 11, "axpy": 12, "dotp": 13, "fft": 14, "fft_long": 14,
-            "conv2d": 15}
+            "conv2d": 15, "mla_attention": 16}
     kernels = []
     for name, (src, tpu) in sources.items():
         t = timed[name]
@@ -2235,6 +2456,9 @@ def main() -> int:
             kernels[-1]["body"] = "split"
         if name == "matmul_tile":
             kernels[-1]["body"] = "wgmma"
+        if name == "mla_attention":  # the timed case: minicpm3-4b's widths, phase 2's pack
+            kernels[-1]["body"] = "mma_rows"
+            kernels[-1]["launched_in"] = "phase 9: full-width minicpm3-4b serving"
     print(json.dumps({"kernels": kernels, "to_port": []}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,22 +1,35 @@
 """Architecture configs for the PyTorch port: a frozen dataclass + a registry
 keyed by arch id.
 
-A copy of the dense part of ``repro.configs.base`` (the port imports nothing
-of the JAX package). Only the dense family is ported so far, so the MoE, MLA
-and SSM sub-configs are not carried; ``reduced()`` keeps the dense rules
-unchanged, which is what lets the tests hand the same reduced config to both
-packages.
+A copy of the dense part of ``repro.configs.base`` with its MLA sub-config
+(the port imports nothing of the JAX package). The dense family is ported,
+with or without multi-head latent attention (``mla``); the MoE and SSM
+sub-configs are not carried yet. ``reduced()`` keeps the JAX package's rules
+for the fields carried, which is what lets the tests hand the same reduced
+config to both packages.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
+from typing import Optional
+
+
+@dataclass(frozen=True)
+class MLAConfig:
+    """Multi-head latent attention (DeepSeek-V2 / MiniCPM3)."""
+
+    kv_lora_rank: int
+    q_lora_rank: int = 0  # 0 => dense q projection
+    rope_head_dim: int = 64
+    nope_head_dim: int = 128
+    v_head_dim: int = 128
 
 
 @dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str  # only 'dense' is ported
+    family: str  # only 'dense' is ported (with or without ``mla``)
     source: str = ""  # provenance string
 
     n_layers: int = 0
@@ -33,6 +46,8 @@ class ArchConfig:
     tie_embeddings: bool = False
     sliding_window: int = 0  # 0 => full attention
 
+    mla: Optional[MLAConfig] = None
+
     dtype: str = "bfloat16"  # weights and KV cache
 
     @property
@@ -46,7 +61,18 @@ class ArchConfig:
         d, f, v, L = self.d_model, self.d_ff, self.vocab_size, self.n_layers
         hd = self.head_dim
         emb = v * d * (1 if self.tie_embeddings else 2)
-        attn = d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd + self.n_heads * hd * d
+        if self.mla is not None:
+            m = self.mla
+            qk_dim = m.nope_head_dim + m.rope_head_dim
+            if m.q_lora_rank:
+                q_p = d * m.q_lora_rank + m.q_lora_rank * self.n_heads * qk_dim
+            else:
+                q_p = d * self.n_heads * qk_dim
+            kv_p = (d * (m.kv_lora_rank + m.rope_head_dim)
+                    + m.kv_lora_rank * self.n_heads * (m.nope_head_dim + m.v_head_dim))
+            attn = q_p + kv_p + self.n_heads * m.v_head_dim * d
+        else:
+            attn = d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd + self.n_heads * hd * d
         return int(emb + L * (attn + 3 * d * f + 2 * d) + d)
 
     def reduced(self) -> "ArchConfig":
@@ -55,6 +81,14 @@ class ArchConfig:
         if self.n_heads:
             kw["n_heads"] = 4
             kw["n_kv_heads"] = max(1, min(4, 4 * self.n_kv_heads // max(self.n_heads, 1)))
+        if self.mla is not None:
+            kw["mla"] = MLAConfig(
+                kv_lora_rank=32,
+                q_lora_rank=32 if self.mla.q_lora_rank else 0,
+                rope_head_dim=8,
+                nope_head_dim=16,
+                v_head_dim=16,
+            )
         kw["dtype"] = "float32"
         kw["name"] = self.name + "-reduced"
         return replace(self, **kw)

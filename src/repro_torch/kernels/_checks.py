@@ -32,6 +32,22 @@ def attention_domain(name: str, d: int, g: int) -> None:
                          f"(head_dim one of {HEAD_DIMS}, group 1 to {MAX_GROUP})")
 
 
+# the (kv_lora_rank, rope_head_dim) widths of the latent-MQA kernel
+# (csrc/mla_attention.cu: launch_mla's cases) — minicpm3-4b, deepseek-v2-lite
+# and every reduced MLA config — and its heads per token
+MLA_WIDTHS = ((256, 32), (512, 64), (32, 8))
+MLA_MAX_HEADS = 64
+
+
+def mla_domain(r: int, rope: int, h: int) -> None:
+    """Raise unless the latent-MQA kernel takes latent width ``r``, rope
+    width ``rope`` and ``h`` query heads."""
+    if (r, rope) not in MLA_WIDTHS or not 1 <= h <= MLA_MAX_HEADS:
+        raise ValueError(f"mla_ragged_attention: no kernel instantiated for kv_lora_rank {r}, "
+                         f"rope_head_dim {rope} with {h} heads ((kv_lora_rank, rope_head_dim) "
+                         f"one of {MLA_WIDTHS}, heads 1 to {MLA_MAX_HEADS})")
+
+
 def cuda_operands(name: str, *tensors: torch.Tensor) -> None:
     dev = tensors[0].device
     for t in tensors:

@@ -18,7 +18,7 @@ struct PagedTable {
   static constexpr bool kMmaRows = true;
   static constexpr int kMmaStageRows = kSubRows;  // the tensor-core rows' ring: the defaults
   static constexpr int kMmaRingBytes = kRingBytes;
-  static constexpr bool kMmaSplitP = false;
+  static constexpr bool kMmaSplitP = true;  // P V as exact as f32 math (MmaRows), as ragged
   const int* __restrict__ tok_seq;
   const int* __restrict__ tok_pos;
   const int* __restrict__ tables;

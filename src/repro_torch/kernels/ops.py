@@ -7,8 +7,10 @@ tensor runs the hand-written CUDA kernel, anything else raises. The
 quantized store rides the same ops: ``k_scale``/``v_scale`` (f32, one per
 (position, head) row) mark an int8/fp8 cache, widened inside the kernel or
 the plain version, never as a dequantized cache copy. The paged ops take a
-block-paged pool and its block tables. ``matmul_q8`` is the int8-weight
-product of :func:`repro_torch.models.quant.qmatmul`.
+block-paged pool and its block tables. ``mla_ragged_attention`` is the
+packed attention of multi-head latent attention over its latent cache.
+``matmul_q8`` is the int8-weight product of
+:func:`repro_torch.models.quant.qmatmul`.
 
 The kernel API's tuned ops (``matmul``, ``flash_attention``, ``rmsnorm``,
 ``softmax``, and the paper's kernel suite ``axpy``, ``dotp``, ``fft`` and
@@ -35,6 +37,7 @@ from repro_torch.kernels import dotp as _dotp_k
 from repro_torch.kernels import fft as _fft_k
 from repro_torch.kernels import flash_attention as _flash_k
 from repro_torch.kernels import matmul as _matmul_k
+from repro_torch.kernels import mla_attention as _mla_k
 from repro_torch.kernels import paged_attention as _paged_k
 from repro_torch.kernels import ragged_attention as _ragged_k
 from repro_torch.kernels import ref
@@ -287,6 +290,26 @@ def ragged_attention(
             k_scale=k_scale, v_scale=v_scale,
         )
     return out.reshape(t, h, d)
+
+
+def mla_ragged_attention(
+    q_eff, q_rope, ckv, krope, tok_slot, tok_pos, *, scale: float,
+    valid: Optional[torch.Tensor] = None,
+):
+    """Packed ragged attention over the MLA latent cache (latent MQA):
+    q_eff [T, H, r] absorbed queries, q_rope [T, H, rope]; ckv [B, S_max, r]
+    (keys and values) and krope [B, S_max, rope] with the pack's latents
+    already scattered at (tok_slot, tok_pos) ([T] int32); ``scale`` the
+    absorbed softmax scale ((nope + rope)**-0.5). ``valid`` optionally passes
+    a precomputed ``ref.ragged_valid_mask`` to the plain version. Returns
+    [T, H, r]."""
+    if _on_cuda(q_eff):
+        return _mla_k.mla_attention(
+            q_eff.contiguous(), q_rope.contiguous(), ckv, krope, tok_slot, tok_pos, scale=scale,
+        )
+    return ref.mla_ragged_attention(
+        q_eff, q_rope, ckv, krope, tok_slot, tok_pos, scale=scale, valid=valid,
+    )
 
 
 def paged_ragged_attention(

@@ -278,6 +278,43 @@ def ragged_attention(
     return out.reshape(kvh, t, g, d).permute(1, 0, 2, 3).to(q.dtype)
 
 
+def mla_ragged_attention(
+    q_eff: torch.Tensor,
+    q_rope: torch.Tensor,
+    ckv: torch.Tensor,
+    krope: torch.Tensor,
+    tok_slot: torch.Tensor,
+    tok_pos: torch.Tensor,
+    *,
+    scale: float,
+    valid: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Packed ragged attention in MLA latent space (the absorbed form).
+
+    q_eff: [T, H, r] queries absorbed through W_uk (r = kv_lora_rank);
+    q_rope: [T, H, rope]; ckv: [B, S_max, r] latent cache (keys AND values);
+    krope: [B, S_max, rope] shared rope keys; tok_slot/tok_pos: [T] int32;
+    ``scale`` the softmax scale ((nope + rope)**-0.5); ``valid`` optionally
+    a precomputed :func:`ragged_valid_mask`. One shared latent head serves
+    every query head: scores are the latent dot plus the rope dot, and the
+    readout re-reads the latent cache. Full-cross form as the JAX oracle.
+    Returns [T, H, r] in q_eff's dtype."""
+    t, h, r = q_eff.shape
+    b, s_max = ckv.shape[0], ckv.shape[1]
+    if valid is None:
+        valid = ragged_valid_mask(tok_slot, tok_pos, b, s_max)
+    qe = q_eff.permute(1, 0, 2).float()  # [H, T, r]
+    qr = q_rope.permute(1, 0, 2).float()  # [H, T, rope]
+    kl = ckv.reshape(b * s_max, r).float()  # [B*S, r]
+    kr = krope.reshape(b * s_max, krope.shape[-1]).float()
+    scores = (torch.einsum("htr,sr->hts", qe, kl)
+              + torch.einsum("htk,sk->hts", qr, kr)) * scale  # [H, T, B*S]
+    scores = scores.masked_fill(~valid.reshape(t, b * s_max)[None], NEG_INF)
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("hts,sr->htr", p, kl)  # latent-space readout
+    return out.permute(1, 0, 2).to(q_eff.dtype)
+
+
 def paged_gather(pool: torch.Tensor, block_tables: torch.Tensor) -> torch.Tensor:
     """Dense rows from a block-paged pool: pool [NB, bs, ...], block_tables
     [R, max_blocks] int32 -> [R, max_blocks * bs, ...], where position p of

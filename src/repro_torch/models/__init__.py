@@ -1,5 +1,6 @@
-"""The dense decoder of the port (dense or block-paged KV cache, plain or
-quantized rows; dense or int8 weights) and the bridge from JAX params."""
+"""The dense decoder of the port (GQA over a dense or block-paged KV cache,
+plain or quantized rows, dense or int8 weights; or multi-head latent
+attention over its latent cache) and the bridge from JAX params."""
 
 from repro_torch.models.bridge import params_from_jax
 from repro_torch.models.model import LM

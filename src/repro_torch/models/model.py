@@ -1,7 +1,9 @@
 """The dense decoder LM (the ``dense`` branch of ``repro/models/model.py``).
 
-A pre-norm transformer: RMSNorm -> GQA attention (optional qk-norm, RoPE)
--> residual -> RMSNorm -> SwiGLU -> residual, then final norm and unembed.
+A pre-norm transformer: RMSNorm -> GQA attention (optional qk-norm, RoPE),
+or multi-head latent attention where the config has ``mla``
+(``models.mla``) -> residual -> RMSNorm -> SwiGLU -> residual, then final
+norm and unembed.
 Layer params are stacked on a leading ``L`` axis as in the JAX package
 (an int8 weight's ``{"q8", "scale"}`` sub-dict slices per layer like any
 leaf), and a Python loop over layers replaces ``lax.scan``. It serves prefill
@@ -11,7 +13,9 @@ and the packed ragged step of the unified engine (:meth:`LM.packed_step`).
 Caches are updated in place (the JAX package donates them instead). A cache
 is dense (:meth:`LM.init_cache`) or a block-paged pool (:meth:`LM.init_kv_pool`,
 read through block tables), and either may store quantized rows with
-per-(position, head) ``k_scale``/``v_scale`` leaves (``kv_dtype``).
+per-(position, head) ``k_scale``/``v_scale`` leaves (``kv_dtype``). An MLA
+model's cache is the latent one, ``{"ckv": [L, B, S, kv_lora], "krope":
+[L, B, S, rope]}``, dense and unquantized only (``has_positional_kv``).
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ref as _ref
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import mla as mla_mod
 from repro_torch.models.layers import (
     Params,
     dense_init,
@@ -39,7 +44,8 @@ from repro_torch.models.quant import layer_matmul_views
 class LM:
     def __init__(self, cfg: ArchConfig, device=None):
         if cfg.family != "dense":
-            raise NotImplementedError(f"family {cfg.family!r} is not ported (dense only)")
+            raise NotImplementedError(f"family {cfg.family!r} is not ported (dense, with or "
+                                      "without MLA, only)")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = getattr(torch, cfg.dtype)
@@ -60,13 +66,16 @@ class LM:
         def ones(*shape):
             return torch.ones(shape, dtype=dt, device=dev)
 
-        attn = {
-            "wq": w((d, H, hd), d),
-            "wk": w((d, KV, hd), d),
-            "wv": w((d, KV, hd), d),
-            "wo": w((H, hd, d), H * hd),
-        }
-        if cfg.qk_norm:
+        if cfg.mla is not None:
+            attn = mla_mod.mla_init(cfg, generator, dt, dev)
+        else:
+            attn = {
+                "wq": w((d, H, hd), d),
+                "wk": w((d, KV, hd), d),
+                "wv": w((d, KV, hd), d),
+                "wo": w((H, hd, d), H * hd),
+            }
+        if cfg.qk_norm and cfg.mla is None:
             attn["q_norm"] = ones(L, hd)
             attn["k_norm"] = ones(L, hd)
         embed = {"tok": trunc_normal((cfg.vocab_size, d), generator, dt, dev)}
@@ -82,6 +91,27 @@ class LM:
                 "mlp": {"w_in": w((d, f), d), "w_gate": w((d, f), d), "w_out": w((f, d), f)},
             },
         }
+
+    # ------------------------------------------------------------ capabilities
+
+    @property
+    def supports_packed(self) -> bool:
+        """Whether the unified ragged prefill+decode dispatch applies: every
+        ported family (positional K/V rows, or MLA's latent rows)."""
+        return self.cfg.family == "dense"
+
+    @property
+    def has_positional_kv(self) -> bool:
+        """Whether the cache stores one K/V row per (position, head), the
+        precondition for paging and quantized rows. The MLA latent cache is
+        positional but latent-shaped: it neither pages nor quantizes."""
+        return self.cfg.family == "dense" and self.cfg.mla is None
+
+    @property
+    def family_tag(self) -> str:
+        """The family for error messages ('dense+mla' when the attention is
+        latent)."""
+        return f"{self.cfg.family}+mla" if self.cfg.mla is not None else self.cfg.family
 
     def _kv_leaves(self, lead: tuple, kv_dtype: Optional[torch.dtype]) -> Params:
         """Zero K/V leaves [L, *lead, KV, hd] in the model dtype, or in
@@ -103,7 +133,19 @@ class LM:
         """Zero KV cache {k, v}: [L, B, S_max, KV, hd] each, in the model
         dtype. ``kv_dtype`` (f32, int8 or float8_e4m3fn) stores quantized
         rows instead, with f32 ``k_scale``/``v_scale`` leaves [L, B, S_max,
-        KV]; f32 is the identity lane, bit-identical to the plain cache."""
+        KV]; f32 is the identity lane, bit-identical to the plain cache. An
+        MLA model's cache is {ckv: [L, B, S_max, kv_lora], krope: [L, B,
+        S_max, rope]} in the model dtype; it takes no ``kv_dtype``."""
+        if kv_dtype is not None and not self.has_positional_kv:
+            raise ValueError(f"family {self.family_tag!r} has no positional KV to quantize")
+        if self.cfg.mla is not None:
+            m, L = self.cfg.mla, self.cfg.n_layers
+            return {
+                "ckv": torch.zeros((L, batch, max_len, m.kv_lora_rank), dtype=self.dtype,
+                                   device=self.device),
+                "krope": torch.zeros((L, batch, max_len, m.rope_head_dim), dtype=self.dtype,
+                                     device=self.device),
+            }
         return self._kv_leaves((batch, max_len), kv_dtype)
 
     def init_kv_pool(self, num_blocks: int, block_size: int,
@@ -113,7 +155,10 @@ class LM:
         ``kv_dtype``). Blocks 0..num_blocks-1 are the allocator's; block
         ``num_blocks`` — the tables' unallocated sentinel — is a scratch
         block that takes the writes a sentinel entry drops (see
-        ``models.attention``), so no table ever names it."""
+        ``models.attention``), so no table ever names it. Positional-KV
+        families only (``has_positional_kv``)."""
+        if not self.has_positional_kv:
+            raise ValueError(f"family {self.family_tag!r} has no positional KV to page")
         return self._kv_leaves((num_blocks + 1, block_size), kv_dtype)
 
     def _layers(self, params: Params) -> list[Params]:
@@ -156,18 +201,30 @@ class LM:
         positions = torch.arange(s, dtype=torch.int32, device=x.device)
         for li, blk in enumerate(self._layers(params)):
             h = rms_norm(x, blk["norm1"], cfg.norm_eps)
-            a, (k, v) = attn_mod.attention_apply(blk["attn"], cfg, h, positions, return_kv=True)
-            cache["k"][li, slot:slot + b, :s] = k
-            cache["v"][li, slot:slot + b, :s] = v
+            if cfg.mla is not None:
+                a, pieces = mla_mod.mla_apply(blk["attn"], cfg, h, positions, return_kv=True)
+                names = ("ckv", "krope")
+            else:
+                a, pieces = attn_mod.attention_apply(blk["attn"], cfg, h, positions,
+                                                     return_kv=True)
+                names = ("k", "v")
+            for name, piece in zip(names, pieces):
+                cache[name][li, slot:slot + b, :s] = piece
             x = self._mlp_residual(blk, x + a)
         return self._logits(params, x), cache
 
     # ------------------------------------------------------------ decode step
 
-    def _attend(self, fn, li: int, blk: Params, h: torch.Tensor, cache: Params, *args,
-                block_tables: Optional[torch.Tensor]) -> torch.Tensor:
+    def _attend(self, fn, mla_fn, li: int, blk: Params, h: torch.Tensor, cache: Params,
+                *args, block_tables: Optional[torch.Tensor]) -> torch.Tensor:
         """One layer's attention through ``fn`` (decode or packed) over layer
-        ``li`` of the cache, its scale leaves threaded when quantized."""
+        ``li`` of the cache, its scale leaves threaded when quantized; an MLA
+        model's through ``mla_fn`` over its latent leaves."""
+        if self.cfg.mla is not None:
+            if block_tables is not None:
+                raise ValueError(f"family {self.family_tag!r} has no paged path")
+            return mla_fn(blk["attn"], self.cfg, h, cache["ckv"][li], cache["krope"][li],
+                          *args)[0]
         scales = {}
         if "k_scale" in cache:
             scales = {"k_scale": cache["k_scale"][li], "v_scale": cache["v_scale"][li]}
@@ -186,8 +243,8 @@ class LM:
         x = embed_tokens(params["embed"], batch["tokens"])
         for li, blk in enumerate(self._layers(params)):
             h = rms_norm(x, blk["norm1"], cfg.norm_eps)
-            a = self._attend(attn_mod.attention_decode, li, blk, h, cache, cur_len,
-                             block_tables=block_tables)
+            a = self._attend(attn_mod.attention_decode, mla_mod.mla_decode, li, blk, h, cache,
+                             cur_len, block_tables=block_tables)
             x = self._mlp_residual(blk, x + a)
         return self._logits(params, x), cache
 
@@ -225,15 +282,16 @@ class LM:
             # the plain path's mask depends only on the descriptors: build it
             # once for every layer (the CUDA kernel derives its own)
             glob = tok_slot if pack_slots is None else pack_slots[tok_slot.long()]
-            if block_tables is None:
-                b, s_max = cache["k"].shape[1], cache["k"].shape[2]
+            if block_tables is None:  # [L, B, S_max, ...] K rows or MLA latents
+                leaf = cache["ckv"] if cfg.mla is not None else cache["k"]
+                b, s_max = leaf.shape[1], leaf.shape[2]
             else:  # the tables' dense view: S_max = table width * block size
                 b, s_max = block_tables.shape[0], block_tables.shape[1] * cache["k"].shape[2]
             valid = _ref.ragged_valid_mask(glob, tok_pos, b, s_max, cfg.sliding_window)
         for li, blk in enumerate(self._layers(params)):
             h = rms_norm(x, blk["norm1"], cfg.norm_eps)
-            a = self._attend(attn_mod.attention_packed, li, blk, h, cache, tok_slot, tok_pos,
-                             valid, pack_slots, block_tables=block_tables)
+            a = self._attend(attn_mod.attention_packed, mla_mod.mla_packed, li, blk, h, cache,
+                             tok_slot, tok_pos, valid, pack_slots, block_tables=block_tables)
             x = self._mlp_residual(blk, x + a)
         if out_rows is not None:
             x = x[out_rows.long()]

@@ -38,6 +38,11 @@ construction (``models.quant.quantize_params``); every projection and MLP
 product then runs the int8-weight matmul kernel. It combines with every
 cache layout above.
 
+An MLA model (``cfg.mla``: minicpm3-4b) serves on the same three routes over
+its latent cache; it takes neither cache layout above (``ValueError``, as
+the JAX package refuses a family without positional K/V) nor int8 weights
+(``NotImplementedError``).
+
 Paged and quantized admissions always take the pack tier: the packed
 scatter is the one write path that quantizes rows and routes through the
 block tables.
@@ -256,6 +261,14 @@ class ServeEngine:
             raise ValueError(f"model lives on {model.device}, engine on {self.device}")
         if params["final_norm"].device != self.device:
             raise ValueError(f"params live on {params['final_norm'].device}, engine on {self.device}")
+        if not model.has_positional_kv:  # MLA's latent cache: dense and unquantized only
+            if kv_dtype is not None:
+                raise ValueError(f"family {model.family_tag!r} has no positional KV to quantize")
+            if kv_block_size:
+                raise ValueError(f"family {model.family_tag!r} has no positional KV to page")
+        if model.cfg.mla is not None and weight_dtype not in (None, "f32", "float32",
+                                                              torch.float32):
+            raise NotImplementedError("int8 weights are not ported for MLA models")
         self.model = model
         # None keeps the params as given; "int8" rewrites the eligible stacked
         # weights to {"q8", "scale"} leaves (unquantized leaves shared)

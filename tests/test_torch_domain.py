@@ -74,6 +74,9 @@ def _jax(jnp, *ts):
 def test_attention_domain_covers_the_registry(name, reduced):
     cfg = get_arch(name)
     cfg = cfg.reduced() if reduced else cfg
+    if cfg.mla is not None:  # latent MQA: its own kernel's domain (plain-torch prefill)
+        _checks.mla_domain(cfg.mla.kv_lora_rank, cfg.mla.rope_head_dim, cfg.n_heads)
+        return
     g = cfg.n_heads // cfg.n_kv_heads
     assert _checks.in_attention_domain(cfg.d_head, g), (name, cfg.d_head, g)
     assert cfg.d_head in fk.HEAD_DIMS

@@ -28,7 +28,9 @@ CPU (runs anywhere):
   tile, the span and the scratch come from host values only.
 
 CUDA (``-m cuda``, skipped without a card): each body against its plain
-version at the serving shapes and the domain's edges, and both bodies
+version at the serving shapes and the domain's edges (and a paged pack of a
+prompt's first 40 tokens over fp8 rows, within 2e-2 since P's remainder
+rides a second mma), and both bodies
 captured in one CUDA graph and replayed, bitwise equal to eager. Tolerances
 are ``chip_smoke.py``'s: 1e-2 of max |plain| for the matmul, 1e-4 (f32) and
 2e-2 (bf16) absolute for attention.
@@ -616,6 +618,29 @@ def test_cuda_paged_split_whole_domain(d):
             got = pk.paged_attention(q, k, v, ts, tp, tables, splits=2, **sc)
             want = ref.paged_attention_split(q, k, v, ts, tp, tables, 2, **sc)
             _check_paged(got, want, tp, 320, torch.bfloat16)
+
+
+@pytest.mark.cuda
+def test_cuda_paged_pack_at_a_prompts_first_positions_fp8():
+    """``chip_smoke.py`` phase 2's paged fault case: a 64-token pack over
+    fp8 rows whose first 40 tokens sit at positions 0-39 of one sequence
+    (one to 40 keys: outputs nearly V rows), 16 of another, 8 padding, bf16
+    queries, KV 32, d 128, 32-position blocks, V rows of N(0, 1.5^2) so that
+    those outputs reach 4-8, where a bf16 step is 0.031. One bf16 rounding
+    of P (2^-9 of a V row) crossed such a step, 0.031 off the plain
+    version; P's remainder in a second mma (``PagedTable::kMmaSplitP``)
+    keeps it within 2e-2."""
+    dev = _cuda()
+    k, v, _, tables, gen = _paged_case(dev, 7, 8, 32, 32, 32, 1, 128, "plain", torch.float32)
+    (k, ks), (v, vs) = (quantize_rows(t, torch.float8_e4m3fn) for t in (k, v * 1.5))
+    sc = dict(k_scale=ks, v_scale=vs)
+    ts = torch.tensor([6] * 40 + [2] * 16 + [6] * 8, dtype=torch.int32, device=dev)
+    tp = torch.tensor(list(range(40)) + list(range(545, 561)) + [1024] * 8, dtype=torch.int32,
+                      device=dev)
+    q = torch.randn(64, 32, 1, 128, generator=gen, device=dev).to(torch.bfloat16)
+    got = pk.paged_attention(q, k, v, ts, tp, tables, **sc)
+    want = ref.paged_ragged_attention(q, k, v, ts, tp, tables, **sc)
+    _check_paged(got, want, tp, 1024, torch.bfloat16)
 
 
 @pytest.mark.cuda
