@@ -9,8 +9,9 @@ Phases (each raises on failure, so the script exits non-zero):
 1. build — compile the hand-written CUDA kernels from ``csrc/`` (fourteen
    sources over the shared headers ``gemm_wgmma.cuh`` and
    ``split_attention.cuh``: the latent-MQA ragged attention of multi-head
-   latent attention (heads as the rows of a tile, S and P V on mma.sync at
-   bf16, CUDA cores at f32), and twenty-one kernel bodies: decode, ragged and
+   latent attention ((token, head) rows in 64-row tiles on wgmma with
+   TMA-landed latent stages and split-KV spans at bf16, CUDA cores at f32),
+   and twenty-one kernel bodies: decode, ragged and
    paged attention over a plain or a quantized store (one split-KV body: the
    position range split over blocks that stream K/V through a cp.async
    ring, partials merged in split order; ragged and paged packs in tiles of
@@ -47,9 +48,11 @@ Phases (each raises on failure, so the script exits non-zero):
    (P's remainder in a second mma); the latent-MQA kernel at minicpm3-4b's
    widths (latent 256 + rope 32, 40 heads, bf16), deepseek-v2-lite's (512
    + 64, 16 heads, bf16) and the reduced configs' (32 + 8, 4 heads, f32)
-   over the 64-token pack, a pack of decode singletons and one of padding,
-   and at the domain's edges (1 and 64 heads, f32 at the wide widths), and
-   its refusal of another width. Times each kernel, its plain version and
+   over the 64-token pack, a pack of decode singletons, one mostly and one
+   all of padding, a pack whose tiles cross two slots and a 128-token
+   bucket, the bf16 serving pack at 1, 2 and 4 forced splits, and at the
+   domain's edges (1 and 64 heads, f32 at the wide widths), and its refusal
+   of another width. Times each kernel, its plain version and
    a one-call PyTorch yardstick (where one exists) as device time (CUDA events
    around one CUDA-graph replay of 30 calls, so the wrappers' host time is
    not counted), and computes its bound at the card's published peaks.
@@ -126,10 +129,11 @@ Phases (each raises on failure, so the script exits non-zero):
 9. full width, multi-head latent attention — minicpm3-4b, 62 layers, bf16,
    random weights from a seed (phase 4's weights freed), phase 4's traffic
    on its dense latent cache (4 slots x 1024 positions); the latent-MQA
-   kernel's launches between the counts' reset and read must be > 0 and
-   equal the MLA packed-attention calls, every request must finish, and the
-   stream agree with ``LM.prefill`` teacher-forced; prints peak memory,
-   tok/s, TTFT, TPOT and a decode-step profile.
+   kernel's launches between the counts' reset and read, and those of its
+   wgmma body, must be > 0 and equal the MLA packed-attention calls, every
+   request must finish, and the stream agree with ``LM.prefill``
+   teacher-forced; prints peak memory, tok/s, TTFT, TPOT and a decode-step
+   profile.
 10. a ``{"kernels": [...], "to_port": []}`` JSON line (every row of PERF.md's
    kernel table; the decode, ragged, paged, matmul and matmul_q8 rows name the body
    their timed case ran and its launches; paged packs and matmul_q8 at M = 16
@@ -593,17 +597,29 @@ MLA_CASES = [(256, 32, 40, "bfloat16"), (512, 64, 16, "bfloat16"), (32, 8, 4, "f
              (256, 32, 1, "bfloat16"), (256, 32, 40, "float32"), (512, 64, 16, "float32"),
              (32, 8, 4, "bfloat16")]
 MLA_TIMED = 3  # the first three are timed beside their bound, plain version and SDPA
+# phase 2's latent-MQA packs (slots, positions) beyond the serving pack: a
+# tile whose rows cross two slots at every head count (slot 0's chunk meets
+# slot 2's), a 128-token bucket (a 96-token chunk, a 16-token one, 8
+# singletons and 8 padding tokens), and a pack that is all padding
+MLA_CROSS = ([0, 0, 0, 2, 2, 2, 2, 2, 1, 3], [500, 501, 502, 100, 101, 102, 103, 104, 900, 1023])
+MLA_BUCKET = ([2] * 96 + [0] * 16 + [1, 3, 1, 3, 0, 2, 1, 3] + [2] * 8,
+              list(range(300, 396)) + list(range(16)) + [1023, 17, 511, 800, 700, 250, 3, 64]
+              + [S_MAX] * 8)
+MLA_SPLITS = (1, 2, 4)  # forced split counts of the bf16 serving pack
 
 
 def check_mla_kernels(dev):
     """Phase 2 for the latent-MQA kernel (``csrc/mla_attention.cu``): each of
     MLA_CASES over phase 2's 64-token pack (4 slots x 1024 positions, 8
-    padding tokens), a pack of decode singletons and a pack that is mostly
-    padding, against ``ref.mla_ragged_attention``; padding rows must be
-    zero. The latent rows are N(0, 1), as after kv_norm. The first
-    MLA_TIMED cases are timed beside their bound, plain version and SDPA
-    over K = [ckv | krope] broadcast to the H heads, V = ckv, under the
-    full-cross mask (row 2's yardstick); the main case is returned."""
+    padding tokens), a pack of decode singletons, a pack that is mostly
+    padding, MLA_CROSS, MLA_BUCKET and a pack that is all padding, and the
+    bf16 cases' serving pack at MLA_SPLITS forced splits, against
+    ``ref.mla_ragged_attention``; padding rows must be zero and every bf16
+    call must run the wgmma body. The latent rows are N(0, 1), as after
+    kv_norm. The first MLA_TIMED cases are timed beside their bound, plain
+    version and SDPA over K = [ckv | krope] broadcast to the H heads, V =
+    ckv, under the full-cross mask (row 2's yardstick); the main case is
+    returned."""
     import torch
     import torch.nn.functional as F
 
@@ -617,7 +633,11 @@ def check_mla_kernels(dev):
         "pack": (PACK_SLOTS, PACK_POS),
         "singletons": (list(range(B)), SINGLE_POS),
         "padding": ([2, 2, 0, 2, 2, 2, 0, 2], [S, 5, S, 6, S, S, 1000, S]),
+        "cross": MLA_CROSS,
+        "bucket128": MLA_BUCKET,
+        "allpad": ([0, 1, 2, 3] * 2, [S] * 7 + [S + 100]),
     }
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for i, (r, rope, h, dname) in enumerate(MLA_CASES):
         dtype = getattr(torch, dname)
         tol = TOL[dname]
@@ -630,18 +650,21 @@ def check_mla_kernels(dev):
             t = ts.numel()
             q_eff = torch.randn(t, h, r, generator=gen, device=dev).to(dtype)
             q_rope = torch.randn(t, h, rope, generator=gen, device=dev).to(dtype)
-            n0 = mk.launches
+            bf16 = dtype == torch.bfloat16
+            n0 = (mk.launches, mk.launches_wgmma)
             got = mk.mla_attention(q_eff, q_rope, ckv, krope, ts, tp, scale=scale)
-            if mk.launches != n0 + 1:
+            if (mk.launches, mk.launches_wgmma) != (n0[0] + 1, n0[1] + bf16):
                 raise AssertionError("mla_attention: the wrapper did not count its launch")
             want = ref.mla_ragged_attention(q_eff, q_rope, ckv, krope, ts, tp, scale=scale)
             real = tp < S
             if got[~real].any():
                 raise AssertionError(f"mla_attention {kind} r={r} h={h}: padding rows not zero")
-            err = (got[real].float() - want[real].float()).abs().max().item()
-            mt, chunks = mk.plan(h, r, dtype)
+            err = (got[real].float() - want[real].float()).abs().max().item() if real.any() \
+                else 0.0
+            rows, blocks, span, n = mk.plan(t, h, S, dtype, sms)
             line = (f"  mla_attention        {kind:10s} T={t} r={r} rope={rope} H={h} {dname} "
-                    f"({chunks} x {16 * mt} rows) max_abs_err={err:.3e} tol={tol:g}")
+                    f"({blocks} x {rows} rows, {n} x {span} positions) max_abs_err={err:.3e} "
+                    f"tol={tol:g}")
             if i < MLA_TIMED and kind == "pack":
                 # bytes of the real tokens only, each slot's valid prefix once
                 rs, rp = ts[real].cpu().numpy(), tp[real].cpu().numpy()
@@ -676,6 +699,20 @@ def check_mla_kernels(dev):
             if not err <= tol:
                 raise AssertionError(f"mla_attention {kind} r={r} h={h} {dname}: max_abs_err "
                                      f"{err} above {tol}")
+            if kind == "pack" and bf16:  # the serving pack at forced split counts
+                for n in MLA_SPLITS:
+                    got = mk.mla_attention(q_eff, q_rope, ckv, krope, ts, tp, scale=scale,
+                                           splits=n)
+                    if got[~real].any():
+                        raise AssertionError(f"mla_attention splits={n} r={r} h={h}: padding "
+                                             "rows not zero")
+                    err = (got[real].float() - want[real].float()).abs().max().item()
+                    span = mk.plan(t, h, S, dtype, sms, n)[2]
+                    print(f"  mla_attention        splits={n} (span {span}) r={r} H={h} "
+                          f"max_abs_err={err:.3e} tol={tol:g}", flush=True)
+                    if not err <= tol:
+                        raise AssertionError(f"mla_attention splits={n} r={r} h={h}: "
+                                             f"max_abs_err {err} above {tol}")
     # a width outside the domain is refused before the C call
     try:
         mk.mla_attention(*(torch.zeros(1, 4, w, dtype=torch.bfloat16, device=dev)
@@ -1526,10 +1563,10 @@ def full_width_mla(dev, counters):
     serving phase 4's traffic on its dense latent cache (4 slots x 1024):
     fused admissions (the expanded prefill in plain torch), ragged packs (the
     latent-MQA kernel) and decode chunks (the absorbed decode in plain
-    torch). The kernel's launches between the counts' reset and read must
-    be > 0 and equal ``mla_packed``'s calls (no pack took the plain
-    version); every request must finish and the stream agree with
-    ``LM.prefill`` teacher-forced."""
+    torch). The kernel's launches between the counts' reset and read, and
+    its wgmma body's, must be > 0 and equal ``mla_packed``'s calls (no pack
+    took the plain version or another body); every request must finish and
+    the stream agree with ``LM.prefill`` teacher-forced."""
     import torch
 
     from repro_torch.configs import get_arch
@@ -1558,10 +1595,12 @@ def full_width_mla(dev, counters):
     stats = eng.run()
     launches = read_counts(counters, "phase 9")
     calls = mla_mod.packed_calls
-    print(f"  {launches['mla_attention']} latent-MQA launches for {calls} MLA packed-attention "
-          f"calls ({calls // cfg.n_layers} packs x {cfg.n_layers} layers)")
-    if launches["mla_attention"] != calls:
-        raise AssertionError(f"phase 9: {launches['mla_attention']} latent-MQA launches for "
+    print(f"  {launches['mla_attention']} latent-MQA launches, "
+          f"{launches['mla_attention_wgmma']} on the wgmma body, for {calls} MLA "
+          f"packed-attention calls ({calls // cfg.n_layers} packs x {cfg.n_layers} layers)")
+    if not launches["mla_attention"] == launches["mla_attention_wgmma"] == calls:
+        raise AssertionError(f"phase 9: {launches['mla_attention']} latent-MQA launches "
+                             f"({launches['mla_attention_wgmma']} on the wgmma body) for "
                              f"{calls} MLA packed-attention calls")
     check_finished(reqs, max_new, cfg.vocab_size)
     peak = torch.cuda.max_memory_allocated()
@@ -2368,7 +2407,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     phase("9 full width minicpm3-4b (multi-head latent attention)")
-    counters9 = {"mla_attention": (mk, "launches")}
+    counters9 = {"mla_attention": (mk, "launches"),
+                 "mla_attention_wgmma": (mk, "launches_wgmma")}
     launches.update(full_width_mla(dev, counters9))
 
     phase("10 the kernel table")
@@ -2457,7 +2497,8 @@ def main() -> int:
         if name == "matmul_tile":
             kernels[-1]["body"] = "wgmma"
         if name == "mla_attention":  # the timed case: minicpm3-4b's widths, phase 2's pack
-            kernels[-1]["body"] = "mma_rows"
+            kernels[-1]["body"] = "wgmma"
+            kernels[-1]["launches_wgmma"] = launches["mla_attention_wgmma"]
             kernels[-1]["launched_in"] = "phase 9: full-width minicpm3-4b serving"
     print(json.dumps({"kernels": kernels, "to_port": []}))
     print(json.dumps({"ok": True, "device": {

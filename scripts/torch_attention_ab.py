@@ -15,7 +15,11 @@ queries, the grouped shape, windows, fp8 and scaled f32 stores; and the
 main packs, bf16 and int8, and a 64-token chunk at positions 900-963, at 1,
 2 and 4 splits where the checkout's wrapper takes ``splits``), and
 the flat flash attention of phase 7 (32 heads of 1024 tokens, causal) at
-each bf16 tile of the checkout, for an A/B of two checkouts on one card.
+each bf16 tile of the checkout, and the latent-MQA kernel over phase 2's
+64-token pack at minicpm3-4b's widths (latent 256 + rope 32, 40 heads) and
+deepseek-v2-lite's (512 + 64, 16 heads), bf16, at 1, 2 and 4 splits too
+where the checkout's wrapper takes ``splits``, for an A/B of two checkouts
+on one card.
 Each kernel's output is digested (sha256 of its bytes), so two checkouts
 whose kernels should agree bit for bit can be compared:
 
@@ -58,6 +62,7 @@ def main() -> int:
     import numpy as np
 
     from repro_torch.kernels import flash_attention as fk
+    from repro_torch.kernels import mla_attention as mk
     from repro_torch.kernels import ops
     from repro_torch.kernels import paged_attention as pk
     from repro_torch.kernels import ragged_attention as rk
@@ -165,6 +170,18 @@ def main() -> int:
     for tq, tk in tiles:
         kernels[f"flash_attention {tq}x{tk}"] = (
             lambda tq=tq, tk=tk: fk.flash_attention(q_api, k_api, v_api, block_q=tq, block_k=tk))
+    # the latent-MQA kernel over phase 2's pack, chip_smoke's scale (a nope
+    # width of r / 4)
+    mla_splits = (None, 1, 2, 4) if "splits" in inspect.signature(mk.mla_attention).parameters \
+        else (None,)
+    for tag, r, rope, h in (("minicpm3", 256, 32, 40), ("deepseek", 512, 64, 16)):
+        margs = (randn(len(cs.PACK_SLOTS), h, r), randn(len(cs.PACK_SLOTS), h, rope),
+                 randn(cs.SLOTS, cs.S_MAX, r), randn(cs.SLOTS, cs.S_MAX, rope), slots, poss)
+        for n in mla_splits:
+            kw = {} if n is None else {"splits": n}
+            kernels[f"mla_attention {tag}" + ("" if n is None else f" splits={n}")] = (
+                lambda a=margs, s_=(r // 4 + rope) ** -0.5, kw=kw:
+                mk.mla_attention(*a, scale=s_, **kw))
     out = {}
     for name, fn in kernels.items():
         res = fn().contiguous()

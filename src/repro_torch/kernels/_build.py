@@ -41,9 +41,9 @@ SIGNATURES = {
     # q, k, v, k_scale, v_scale, tok_seq, tok_pos, tables, workspace, counters, out, T, NB,
     # bs, max_blocks, KV, G, D, window, span, tile_tokens, qdtype, sdtype, stream
     "repro_paged_attention": [_P] * 11 + [_I] * 12 + [_P],
-    # q_eff, q_rope, ckv, krope, tok_slot, tok_pos, out, T, S, H, R, ROPE, mt, scale, dtype,
-    # stream
-    "repro_mla_attention": [_P] * 7 + [_I] * 6 + [ctypes.c_float, _I, _P],
+    # q_eff, q_rope, ckv, krope, tok_slot, tok_pos, workspace, counters, out, T, B, S, H, R,
+    # ROPE, span, scale, dtype, stream
+    "repro_mla_attention": [_P] * 9 + [_I] * 7 + [ctypes.c_float, _I, _P],
     # q, k, v, out, BKV, G, Sq, Sk, D, causal, block_q, block_k, dtype, stream
     "repro_flash_attention": [_P] * 4 + [_I] * 9 + [_P],
     # a, b, scale, workspace, counters, out, M, K, N, adtype, bdtype, route, split_k,

@@ -33,8 +33,8 @@ def attention_domain(name: str, d: int, g: int) -> None:
 
 
 # the (kv_lora_rank, rope_head_dim) widths of the latent-MQA kernel
-# (csrc/mla_attention.cu: launch_mla's cases) — minicpm3-4b, deepseek-v2-lite
-# and every reduced MLA config — and its heads per token
+# (csrc/mla_attention.cu: repro_mla_attention's cases) — minicpm3-4b,
+# deepseek-v2-lite and every reduced MLA config — and its heads per token
 MLA_WIDTHS = ((256, 32), (512, 64), (32, 8))
 MLA_MAX_HEADS = 64
 

@@ -315,6 +315,81 @@ def mla_ragged_attention(
     return out.permute(1, 0, 2).to(q_eff.dtype)
 
 
+def mla_ragged_attention_split(
+    q_eff: torch.Tensor,
+    q_rope: torch.Tensor,
+    ckv: torch.Tensor,
+    krope: torch.Tensor,
+    tok_slot: torch.Tensor,
+    tok_pos: torch.Tensor,
+    *,
+    scale: float,
+    rows: int = 64,
+    span: Optional[int] = None,
+    splits: int = 1,
+) -> torch.Tensor:
+    """Latent MQA as ``csrc/mla_attention.cu``'s bf16 body computes it
+    (shapes of :func:`mla_ragged_attention`). The (token, head) pairs of
+    [T * H] are the rows, flattened, in tiles of ``rows``; split s owns the
+    positions [s * span, (s + 1) * span) (``span`` None: ceil(S_max /
+    splits)). A tile's live splits are those up to its last real token's
+    position; in each, one pass per slot of the tile's tokens with keys
+    there (in the order the tokens come) takes the partial (m, l, acc) of
+    that slot's rows over their keys p <= tok_pos in the span, and a tile
+    with one live split is normalised at once; otherwise the partials are
+    merged in split order, M = max m, L = sum l * exp(m - M), out = sum acc *
+    exp(m - M) / max(L, 1e-30), a split with no key of a row contributing
+    (-1e30, 0, 0). Padding tokens (tok_pos >= S_max) get zeros. f32 math, in
+    q_eff's dtype."""
+    t, h, r = q_eff.shape
+    s_max = ckv.shape[1]
+    n = t * h
+    out = torch.zeros(n, r, device=q_eff.device)
+    if span is None:
+        span = -(-s_max // splits)
+    qe = q_eff.reshape(n, r).float()
+    qr = q_rope.reshape(n, -1).float()
+    kl, kr = ckv.float(), krope.float()
+    tok = torch.arange(n, device=q_eff.device) // h
+    slot_row, pos_row = tok_slot.long()[tok], tok_pos.long()[tok]
+    live_row = pos_row < s_max
+    for m0 in range(0, n, rows):
+        sl = slice(m0, min(m0 + rows, n))
+        live, slot, pos = live_row[sl], slot_row[sl], pos_row[sl]
+        if not live.any():
+            continue
+        parts = []
+        for s in range(int(pos[live].max()) // span + 1):
+            lo, hi = s * span, min(s * span + span, s_max)
+            m_ = torch.full((len(live),), NEG_INF, device=q_eff.device)
+            l_ = torch.zeros(len(live), device=q_eff.device)
+            acc = torch.zeros(len(live), r, device=q_eff.device)
+            here = live & (pos >= lo)
+            for sq in dict.fromkeys(slot[here].tolist()):  # one pass a slot, in order
+                mine = here & (slot == sq)
+                keys = torch.arange(lo, hi, device=q_eff.device)
+                sc = (qe[sl][mine] @ kl[sq, lo:hi].T + qr[sl][mine] @ kr[sq, lo:hi].T) * scale
+                ok = keys[None, :] <= pos[mine][:, None]
+                sc = sc.masked_fill(~ok, NEG_INF)
+                mx = sc.amax(-1)
+                p = torch.where(ok, torch.exp(sc - mx[:, None]), 0.0)
+                m_[mine], l_[mine], acc[mine] = mx, p.sum(-1), p @ kl[sq, lo:hi]
+            parts.append((m_, l_, acc))
+        if len(parts) == 1:
+            _, l_, acc = parts[0]
+            out[sl] = acc / l_.clamp_min(1e-30)[:, None]
+            continue
+        big = torch.stack([m_ for m_, _, _ in parts]).amax(0)
+        total = torch.zeros_like(big)
+        acc = torch.zeros(len(big), r, device=q_eff.device)
+        for m_, l_, a in parts:  # split order
+            e = torch.exp(m_ - big)
+            total = total + l_ * e
+            acc = acc + a * e[:, None]
+        out[sl] = acc / total.clamp_min(1e-30)[:, None]
+    return out.reshape(t, h, r).to(q_eff.dtype)
+
+
 def paged_gather(pool: torch.Tensor, block_tables: torch.Tensor) -> torch.Tensor:
     """Dense rows from a block-paged pool: pool [NB, bs, ...], block_tables
     [R, max_blocks] int32 -> [R, max_blocks * bs, ...], where position p of

@@ -28,7 +28,9 @@ logits (two layers of f32 matmuls summed in different orders, as
 
 CUDA (``-m cuda``, skipped without a card): the kernel against its plain
 version at the three widths (minicpm3-4b's, deepseek-v2-lite's, the reduced
-configs'), and the refusal of a width outside the domain. Tolerances are
+configs'), the serving pack at forced spans, one CUDA graph replayed
+bitwise, offset views of the cache taken and a misaligned one refused, and
+the refusal of a width outside the domain. Tolerances are
 ``chip_smoke.py``'s: 1e-4 at f32, 2e-2 at a bf16 output.
 """
 
@@ -353,16 +355,21 @@ def test_mla_refusals(jx, minicpm3):
 
 
 @pytest.mark.parametrize("h,r,dtype,want", [
-    (40, 256, torch.bfloat16, (3, 1)), (16, 512, torch.bfloat16, (1, 1)),
-    (4, 32, torch.float32, (1, 1)), (64, 256, torch.bfloat16, (2, 2)),
-    (64, 512, torch.bfloat16, (1, 4)), (64, 32, torch.bfloat16, (4, 1)),
-    (50, 256, torch.bfloat16, (2, 2)), (40, 256, torch.float32, (1, 3)),
+    # (rows a block, blocks, span, splits) of phase 2's 64-token pack over
+    # 1024 positions on 132 SMs: bf16 tiles of 64 (token, head) rows, f32
+    # blocks of a token's chunk of 16 heads
+    (40, 256, torch.bfloat16, (64, 40, 256, 4)), (16, 512, torch.bfloat16, (64, 16, 256, 4)),
+    (4, 32, torch.float32, (16, 64, 1024, 1)), (64, 256, torch.bfloat16, (64, 64, 256, 4)),
+    (64, 512, torch.bfloat16, (64, 64, 256, 4)), (64, 32, torch.bfloat16, (64, 64, 256, 4)),
+    (50, 256, torch.bfloat16, (64, 50, 256, 4)), (40, 256, torch.float32, (16, 192, 1024, 1)),
 ])
 def test_plan_chunks_the_heads(h, r, dtype, want):
-    mt, chunks = mk.plan(h, r, dtype)
-    assert (mt, chunks) == want
-    assert mt <= (mk.MAX_TILES[r] if dtype == torch.bfloat16 else 1)
-    assert (chunks - 1) * 16 * mt < h <= chunks * 16 * mt
+    rows, blocks, span, splits = mk.plan(64, h, 1024, dtype, 132)
+    assert (rows, blocks, span, splits) == want
+    if dtype == torch.bfloat16:  # the heads of every token, flattened into whole tiles
+        assert (blocks - 1) * rows < 64 * h <= blocks * rows
+    else:  # each token's heads in chunks of 16
+        assert blocks == 64 * -(-h // rows)
 
 
 @pytest.mark.parametrize("r,rope,h", [(64, 8, 4), (256, 64, 40), (576, 0, 16), (32, 8, 65),
@@ -427,6 +434,96 @@ def test_cuda_mla_attention_vs_plain(r, rope, h, dtype):
     assert not got[~real].any(), "padding rows must be zero"
     err = (got[real].float() - want[real].float()).abs().max().item()
     assert err <= (1e-4 if dtype == torch.float32 else 2e-2), err
+
+
+# chip_smoke.py's serving pack: 40 prompt tokens of slot 1, 16 of slot 3 at
+# 600-615 and 8 padding tokens riding slot 1, over 4 slots of 1024 positions
+SERVE_SLOT = [1] * 40 + [3] * 16 + [1] * 8
+SERVE_POS = list(range(0, 40)) + list(range(600, 616)) + [1024] * 8
+
+
+def _serve_case(dev, r, rope, h, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    bf16 = torch.bfloat16
+    ckv = torch.randn(4, 1024, r, generator=gen, device=dev).to(bf16)
+    krope = torch.randn(4, 1024, rope, generator=gen, device=dev).to(bf16)
+    q_eff = torch.randn(64, h, r, generator=gen, device=dev).to(bf16)
+    q_rope = torch.randn(64, h, rope, generator=gen, device=dev).to(bf16)
+    ts = torch.tensor(SERVE_SLOT, dtype=torch.int32, device=dev)
+    tp = torch.tensor(SERVE_POS, dtype=torch.int32, device=dev)
+    return q_eff, q_rope, ckv, krope, ts, tp
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,rope,h", [(256, 32, 40), (512, 64, 16), (32, 8, 4)])
+@pytest.mark.parametrize("splits", [None, 1, 2, 4])
+def test_cuda_mla_forced_spans(r, rope, h, splits):
+    """The serving pack at the kernel's own split count and at forced ones
+    (spans of 1024, 512 and 256 positions), all on the wgmma body."""
+    dev = _cuda()
+    args = _serve_case(dev, r, rope, h, seed=r + h)
+    scale = (r // 4 + rope) ** -0.5
+    n0 = mk.launches_wgmma
+    got = mk.mla_attention(*args, scale=scale, splits=splits)
+    assert mk.launches_wgmma == n0 + 1
+    want = ref.mla_ragged_attention(*args, scale=scale)
+    torch.cuda.synchronize()
+    real = args[5] < 1024
+    assert not got[~real].any(), "padding rows must be zero"
+    assert (got[real].float() - want[real].float()).abs().max().item() <= 2e-2
+
+
+@pytest.mark.cuda
+def test_cuda_graph_replays_mla_bitwise():
+    """The serving pack at minicpm3's and deepseek's widths, at the kernel's
+    own split and at one, captured in one CUDA graph and replayed: bitwise
+    the eager results, twice."""
+    dev = _cuda()
+    a = _serve_case(dev, 256, 32, 40, seed=1)
+    b = _serve_case(dev, 512, 64, 16, seed=2)
+
+    def step():
+        return (mk.mla_attention(*a, scale=0.1), mk.mla_attention(*a, scale=0.1, splits=1),
+                mk.mla_attention(*b, scale=0.07))
+
+    eager = step()
+    torch.cuda.synchronize()
+    n0 = mk.launches_wgmma
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = step()
+    assert mk.launches_wgmma == n0 + 3
+    for _ in range(2):
+        for o in outs:
+            o.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        for got, want in zip(outs, eager):
+            assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_cuda_mla_offset_views():
+    """Slices of a larger cache and query batch (past their first slot and
+    token: contiguous, 16-byte aligned) are taken and match the plain
+    version; a view one element off is refused before the C call."""
+    dev = _cuda()
+    q_eff, q_rope, ckv, krope, _, _ = _serve_case(dev, 256, 32, 40, seed=3)
+    q_eff, q_rope, ckv, krope = q_eff[1:], q_rope[1:], ckv[1:], krope[1:]
+    assert ckv.storage_offset() > 0 and q_eff.storage_offset() > 0
+    ts = torch.tensor([0, 2, 1] * 21, dtype=torch.int32, device=dev)
+    tp = torch.tensor([1023, 0, 517] * 20 + [1024, 5, 300], dtype=torch.int32, device=dev)
+    got = mk.mla_attention(q_eff, q_rope, ckv, krope, ts, tp, scale=0.1)
+    want = ref.mla_ragged_attention(q_eff, q_rope, ckv, krope, ts, tp, scale=0.1)
+    torch.cuda.synchronize()
+    real = tp < 1024
+    assert not got[~real].any()
+    assert (got[real].float() - want[real].float()).abs().max().item() <= 2e-2
+    buf = torch.zeros(krope.numel() + 8, dtype=krope.dtype, device=dev)
+    shifted = buf[1:1 + krope.numel()].view(krope.shape)  # contiguous, 2 bytes off
+    shifted.copy_(krope)
+    with pytest.raises(ValueError, match="aligned"):
+        mk.mla_attention(q_eff, q_rope, ckv, shifted, ts, tp, scale=0.1)
 
 
 @pytest.mark.cuda
