@@ -52,7 +52,11 @@ Phases (each raises on failure, so the script exits non-zero):
    all of padding, a pack whose tiles cross two slots and a 128-token
    bucket, the bf16 serving pack at 1, 2 and 4 forced splits, and at the
    domain's edges (1 and 64 heads, f32 at the wide widths), and its refusal
-   of another width. Times each kernel, its plain version and
+   of another width; the verify packs of speculative decoding (T = B·(K+1):
+   12 and 36 over 4 dense slots and the paged pool, 144 over 16 paged
+   sequences; tiles crossing slots, rows past a slot's depth as padding) on
+   the ragged and paged kernels, bf16 and f32 queries, G 1 and 4, bf16 and
+   int8 stores. Times each kernel, its plain version and
    a one-call PyTorch yardstick (where one exists) as device time (CUDA events
    around one CUDA-graph replay of 30 calls, so the wrappers' host time is
    not counted), and computes its bound at the card's published peaks.
@@ -62,7 +66,13 @@ Phases (each raises on failure, so the script exits non-zero):
    prefix over an int8 cache), then the reduced codeqwen1.5-7b and
    qwen3-32b configs (head_dim 16, groups 1 and 4), dense and paged, and
    the reduced minicpm3-4b (MLA, its packs on the latent-MQA kernel); the
-   token streams must be equal.
+   token streams must be equal. Then the PRNG on the card (keys, bits and
+   uniforms bitwise the CPU's, gumbel within 4 float32 steps) and the
+   sampler at smode 2 over a 92,416-wide vocabulary (the CPU's tokens), and
+   the reduced codeqwen1.5-7b and qwen3-32b configs serving mixed greedy /
+   seeded / top-k-top-p / biased traffic on the card without speculation,
+   with the n-gram and the draft-model drafter, dense and paged: every
+   stream must equal the CPU's without speculation.
 4. full width — codeqwen1.5-7b, 32 layers, bf16, random weights from a seed,
    4 slots x 1024 positions; about 12 greedy requests whose prompts straddle
    the prefill budget, so fused admissions, ragged packs and decode chunks
@@ -134,10 +144,27 @@ Phases (each raises on failure, so the script exits non-zero):
    request must finish, and the stream agree with ``LM.prefill``
    teacher-forced; prints peak memory, tok/s, TTFT, TPOT and a decode-step
    profile.
-10. a ``{"kernels": [...], "to_port": []}`` JSON line (every row of PERF.md's
+10. (run after phase 6, while phase 4's weights are resident) full width,
+   sampled and speculated serving — phase 4's prompt lengths made
+   repetitive, 4 slots x 1024 positions: (a) three each of greedy,
+   temperature 0.8, top-k 40 / top-p 0.9 and greedy with a logit bias that
+   bans the prompt's first greedy token, run twice (the greedy requests at
+   top-k 1 and temperature 1 the second time: the other streams must be
+   bitwise equal, and every top-k 1 draw must take a largest logit) and at
+   max_chunk 1 (agreement printed); a decode step at smode 2 and 0 and the
+   sampler alone profiled; (b) the n-gram drafter on the same traffic: drafts
+   proposed and accepted, every verify dispatch one ragged launch a layer,
+   greedy streams teacher-forced; a verify dispatch profiled; (c) a 1-layer
+   truncation of the target as the draft model: its catch-ups on the ragged
+   kernel, its rolls on the decode kernel; (d) phase 5 (a)'s paged + prefix
+   traffic with the n-gram drafter, every verify dispatch on the paged
+   kernel. Prints tok/s, TTFT, TPOT and the acceptance of each run.
+11. a ``{"kernels": [...], "to_port": []}`` JSON line (every row of PERF.md's
    kernel table; the decode, ragged, paged, matmul and matmul_q8 rows name the body
    their timed case ran and its launches; paged packs and matmul_q8 at M = 16
-   have entries of their own), then the result line.
+   have entries of their own; the ragged row adds phase 10's verify and draft
+   catch-up launches, the paged pack row its paged verify launches, the
+   decode row the draft's roll launches), then the result line.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -526,6 +553,109 @@ def check_attention_domain(dev):
                   flush=True)
             if not max(errs) <= tol:
                 raise AssertionError(f"attention domain d={d} g={g} {store}: {errs} above {tol}")
+    torch.cuda.synchronize()
+
+
+# phase 2's speculative verify packs: each slot's rows [last token, draft_1
+# .. draft_K] at (slot, cl + j), slot-major, T = B·(K+1) exactly (not a T
+# bucket: tiles of 8 tokens cross slots and the last tile is partial); rows
+# past a slot's depth and a whole idle slot carry (slot 0, the position
+# sentinel), as the engine's verify tick builds them. 4 slots at K 2 and 8
+# (T 12, 36) over the dense cache and the paged pool; 16 paged sequences at K
+# 8 (T 144)
+VERIFY_CUR = {4: [700, 5, 333, 1000],
+              16: [540, 560, 580, 600, 5, 300, 700, 1000, 37, 64, 129, 250, 413, 800, 901, 2]}
+VERIFY_DEPTHS = {(4, 2): [2, 1, 2, -1], (4, 8): [8, 3, 0, 5],
+                 (16, 8): [8, 8, 0, 3, 5, 8, 1, 2, -1, 8, 7, 6, 8, 4, 2, 8]}
+
+
+def verify_rows(cur, depths, k, s_max):
+    """(tok_slot, tok_pos) of a verify pack: slot i's rows j <= depth at
+    cur + j, the rest (and slots of depth -1: not decoding) at (0, s_max)."""
+    slots, poss = [], []
+    for i, (c, d) in enumerate(zip(cur, depths)):
+        for j in range(k + 1):
+            live = j <= d
+            slots.append(i if live else 0)
+            poss.append(c + j if live else s_max)
+    return slots, poss
+
+
+def check_verify_packs(dev):
+    """Phase 2 for the verify packs of speculative decoding: the ragged
+    kernel over the dense cache (4 slots x 1024 positions) and the paged
+    kernel over a fragmented pool (blocks of 32), bf16 and f32 queries, KV 32
+    / G 1 (codeqwen) and KV 8 / G 4, against the plain version; padding rows
+    must be zero. The bf16 KV 32 cases are timed beside their plain
+    versions."""
+    import torch
+
+    from repro_torch.dist.compression import quantize_rows
+    from repro_torch.kernels import paged_attention as pk
+    from repro_torch.kernels import ragged_attention as rk
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    rs = np.random.default_rng(7)
+    D, bs = 128, 32
+
+    def randn(*shape, dtype):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    def check(name, case, got, want, real, dtype, kernel=None, plain=None):
+        tol = TOL[str(dtype).split(".")[-1]]
+        if got[~real].any():
+            raise AssertionError(f"{name} {case}: padding rows are not zero")
+        err = (got[real].float() - want[real].float()).abs().max().item()
+        timing = ""
+        if kernel is not None:
+            timing = f" ms={time_ms(kernel):.4f} plain={time_ms(plain):.3f}"
+        print(f"  {name:20s} {case:52s} err={err:.2e} tol={tol:g}{timing}", flush=True)
+        if not err <= tol:
+            raise AssertionError(f"{name} {case}: max_abs_err {err} above {tol}")
+
+    for (b, kk), depths in VERIFY_DEPTHS.items():
+        cur = VERIFY_CUR[b]
+        seqs, poss = verify_rows(cur, depths, kk, S_MAX)
+        ts = torch.tensor(seqs, dtype=torch.int32, device=dev)
+        tp = torch.tensor(poss, dtype=torch.int32, device=dev)
+        real, t = tp < S_MAX, len(seqs)
+        # the pool's tables cover each sequence's verify rows
+        nb, tab_h = paged_pool_tables(rs, [min(c + kk, S_MAX - 1) for c in cur], bs)
+        tab = torch.from_numpy(tab_h).to(dev)
+        for kv, g, dtype, store in [(32, 1, torch.bfloat16, None), (32, 1, torch.float32, None),
+                                    (8, 4, torch.bfloat16, None), (32, 1, torch.bfloat16, "int8")]:
+            q = randn(t, kv, g, D, dtype=dtype)
+            case = f"verify B={b} K={kk} T={t} KV={kv} G={g} {store or str(dtype)[6:]}"
+            main = kv == 32 and dtype == torch.bfloat16 and store is None
+            sc = {}
+            if b == 4:  # the dense cache
+                k, v = randn(b, S_MAX, kv, D, dtype=dtype), randn(b, S_MAX, kv, D, dtype=dtype)
+                if store:
+                    k, ks = quantize_rows(k.float(), torch.int8)
+                    v, vs = quantize_rows(v.float(), torch.int8)
+                    sc = dict(k_scale=ks, v_scale=vs)
+                n0 = rk.launches_split
+                got = rk.ragged_attention(q, k, v, ts, tp, **sc)
+                if rk.launches_split != n0 + 1:
+                    raise AssertionError("ragged_attention: the verify pack was not counted")
+                want = ref.ragged_attention(q, k, v, ts, tp, **sc)
+                check("ragged_attention", case, got, want, real, dtype,
+                      *((lambda: rk.ragged_attention(q, k, v, ts, tp),
+                         lambda: ref.ragged_attention(q, k, v, ts, tp)) if main else ()))
+            k, v = randn(nb + 1, bs, kv, D, dtype=dtype), randn(nb + 1, bs, kv, D, dtype=dtype)
+            if store:
+                k, ks = quantize_rows(k.float(), torch.int8)
+                v, vs = quantize_rows(v.float(), torch.int8)
+                sc = dict(k_scale=ks, v_scale=vs)
+            n0 = pk.launches_split_pack
+            got = pk.paged_attention(q, k, v, ts, tp, tab, **sc)
+            if pk.launches_split_pack != n0 + 1:
+                raise AssertionError("paged_attention: the verify pack was not counted")
+            want = ref.paged_ragged_attention(q, k, v, ts, tp, tab, **sc)
+            check("paged_attention", case + f" bs={bs}", got, want, real, dtype,
+                  *((lambda: pk.paged_attention(q, k, v, ts, tp, tab),
+                     lambda: ref.paged_ragged_attention(q, k, v, ts, tp, tab)) if main else ()))
     torch.cuda.synchronize()
 
 
@@ -1136,6 +1266,128 @@ def small_model_streams(dev):
           flush=True)
 
 
+def mixed_params(i: int, max_new: int, ban: int, boost: int):
+    """Phase 3's and 10's mixed traffic, by rid mod 4: greedy; temperature
+    0.8, seeded; top-k 40 and top-p 0.9 at temperature 1, seeded; greedy with
+    a logit bias that bans ``ban`` and lifts ``boost`` by 3."""
+    from repro_torch.serve import SamplingParams
+
+    kind = i % 4
+    if kind == 0:
+        return SamplingParams(max_new=max_new)
+    if kind == 1:
+        return SamplingParams(max_new=max_new, temperature=0.8, seed=1000 + i)
+    if kind == 2:
+        return SamplingParams(max_new=max_new, temperature=1.0, top_k=40, top_p=0.9,
+                              seed=2000 + i)
+    return SamplingParams(max_new=max_new, logit_bias=((ban, -1e9), (boost, 3.0)))
+
+
+def repetitive_prompts(lens, vocab: int, seed: int) -> list:
+    """Prompts of ``lens`` tokens, each a random pattern of 2-12 tokens
+    repeated, with one token in 16 replaced at random: traffic the n-gram
+    drafter can match."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for s in lens:
+        p_ = np.resize(rng.integers(0, vocab, size=int(rng.integers(2, 13))), s)
+        hit = rng.random(s) < 1 / 16
+        p_[hit] = rng.integers(0, vocab, size=int(hit.sum()))
+        out.append(p_.astype(np.int32))
+    return out
+
+
+def sampled_streams(dev):
+    """Phase 3's sampled and speculated lanes: the PRNG and the sampler on
+    the card against the CPU, then the reduced codeqwen1.5-7b and qwen3-32b
+    configs (f32) serving mixed seeded traffic on the card without
+    speculation, with the n-gram and the draft-model drafter, dense and paged
+    with prefix reuse: every stream must equal the CPU's without
+    speculation."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import LM
+    from repro_torch.serve import Request, ServeEngine
+    from repro_torch.serve import prng
+    from repro_torch.serve import sampling as smp
+
+    # the PRNG: keys, bits and uniforms bitwise, gumbel within 4 float32
+    # steps of max(|g|, 1) (torch's CUDA log against its CPU log)
+    rng = np.random.default_rng(3)
+    v = 92416
+    seeds = torch.from_numpy(rng.integers(-(2**31), 2**31, size=16).astype(np.int32))
+    pos = torch.from_numpy(rng.integers(0, 4096, size=16).astype(np.int32))
+    kc = prng.fold_in(prng.key(seeds), pos)
+    kg = prng.fold_in(prng.key(seeds.to(dev)), pos.to(dev))
+    tiny = float(torch.finfo(torch.float32).tiny)
+    same = (torch.equal(torch.stack(kg, -1).cpu(), torch.stack(kc, -1))
+            and torch.equal(prng.random_bits(kg, v).cpu(), prng.random_bits(kc, v))
+            and torch.equal(prng.uniform(kg, v, tiny).cpu().view(torch.int32),
+                            prng.uniform(kc, v, tiny).view(torch.int32)))
+    g, gc = prng.gumbel(kg, v).cpu(), prng.gumbel(kc, v)
+    steps = ((g - gc).abs() / torch.from_numpy(
+        np.spacing(np.maximum(gc.abs().numpy(), 1.0).astype(np.float32)))).max().item()
+    print(f"  prng: 16 keys x {v} draws: keys, bits and uniforms bitwise equal card vs CPU: "
+          f"{same}; gumbel within {steps:.1f} float32 steps (bound 4)", flush=True)
+    if not same or steps > 4:
+        raise AssertionError("prng: the card's draws differ from the CPU's")
+    # the sampler at smode 2 over the vocabulary, card vs CPU
+    logits = torch.from_numpy(rng.normal(size=(16, v)).astype(np.float32) * 4)
+    temps = torch.full((16,), 0.8)
+    temps[0] = 0.0
+    top_k = torch.tensor([0, 40] * 8, dtype=torch.int32)
+    top_p = torch.tensor([0.9, 1.0] * 8)
+    btok = torch.full((16, smp.MAX_LOGIT_BIAS), smp._BIAS_PAD, dtype=torch.int32)
+    bval = torch.zeros(16, smp.MAX_LOGIT_BIAS)
+    btok[:, 0], bval[:, 0] = 5, -1e9
+    args = (logits, temps, top_k, top_p, seeds, pos, btok, bval)
+    want = smp.fused_sample(*args, smode=2)
+    got = smp.fused_sample(*[a.to(dev) for a in args], smode=2).cpu()
+    print(f"  fused_sample smode 2, 16 x {v}: card == CPU: {torch.equal(got, want)}", flush=True)
+    if not torch.equal(got, want):
+        raise AssertionError("fused_sample: the card's draws differ from the CPU's")
+
+    lens = (5, 9, 16, 17, 23, 41, 12, 50, 3, 33)
+    for name in ("codeqwen1.5-7b", "qwen3-32b"):
+        rcfg = replace(get_arch(name).reduced(), dtype="float32")
+        r_cpu = LM(rcfg, device="cpu")
+        r_params = r_cpu.init(torch.Generator().manual_seed(0))
+        r_dev, r_params_dev = LM(rcfg, device=dev), _tree_to(r_params, dev)
+        prompts = repetitive_prompts(lens, rcfg.vocab_size, seed=4)
+        system = prompts[5][:32]  # a shared 32-token prefix for the paged lanes
+        prompts = [np.concatenate([system, p_]) if i % 3 == 0 else p_
+                   for i, p_ in enumerate(prompts)]
+
+        def serve(model, params, device, **kw):
+            eng = ServeEngine(model, params, batch_slots=4, max_len=128, prefill_budget=16,
+                              seed=5, device=device, **kw)
+            for i, pr in enumerate(prompts):
+                eng.submit(Request(rid=i, prompt=pr, params=mixed_params(i, 10, 7, 11)))
+            stats = eng.run()
+            return {r.rid: r.generated for r in eng.finished}, stats
+
+        want, _ = serve(r_cpu, r_params, "cpu")
+        if any(7 in want[i] for i in want if i % 4 == 3):
+            raise AssertionError(f"{name} reduced: a banned token was sampled")
+        for lane, kw in [("sampled, dense", {}), ("ngram, dense", dict(speculate="ngram")),
+                         ("draft, dense", dict(speculate="draft")),
+                         ("ngram, paged + prefix", dict(speculate="ngram", kv_block_size=16,
+                                                        prefix_cache=True)),
+                         ("draft, paged", dict(speculate="draft", kv_block_size=16))]:
+            got, stats = serve(r_dev, r_params_dev, dev, **kw)
+            if got != want:
+                diff = {rid: (want[rid], got.get(rid)) for rid in want if want[rid] != got.get(rid)}
+                raise AssertionError(f"{name} reduced, {lane}: streams differ from the CPU's "
+                                     f"without speculation: {diff}")
+            if "speculate" in kw and stats.spec_accepted <= 0:
+                raise AssertionError(f"{name} reduced, {lane}: no draft was accepted")
+            spec = (f", {stats.spec_ticks} verify ticks, {stats.spec_proposed} drafts proposed, "
+                    f"{stats.spec_accepted} accepted" if "speculate" in kw else "")
+            print(f"  {name} reduced, {lane}: {len(got)} mixed greedy / seeded streams on the "
+                  f"card equal the CPU's without speculation{spec}", flush=True)
+
+
 def _tree_to(tree, dev):
     if isinstance(tree, dict):
         return {k: _tree_to(v, dev) for k, v in tree.items()}
@@ -1177,9 +1429,10 @@ def ragged_all_split(before, run: str) -> None:
         raise AssertionError(f"{run}: {plain} + {q8} ragged launches, {split} on the split body")
 
 
-def teacher_forced(model, params, req, dev, label: str) -> float:
+def teacher_forced(model, params, req, dev, label: str, floor: float = AGREE_FLOOR) -> float:
     """LM.prefill (flash kernel, unquantized bf16 cache) over prompt +
-    generated must predict the engine's stream; returns the agreement."""
+    generated must predict the engine's stream (at least ``floor`` of its
+    tokens); returns the agreement."""
     import torch
 
     seq = np.concatenate([req.prompt, np.asarray(req.generated, np.int32)])
@@ -1192,9 +1445,9 @@ def teacher_forced(model, params, req, dev, label: str) -> float:
     margin = (top2[:, 0] - top2[:, 1]).cpu().numpy()
     agree = pred == np.asarray(req.generated)
     print(f"  {label}: teacher-forced top-1 agreement {agree.mean():.3f} over {len(agree)} "
-          f"positions (floor {AGREE_FLOOR}); top-2 margins at disagreements: "
-          f"{np.round(margin[~agree], 3).tolist()}")
-    if agree.mean() < AGREE_FLOOR:
+          f"positions (floor {floor}); top-2 margins at disagreements: "
+          f"{np.round(margin[~agree], 3).tolist()[:8]}")
+    if agree.mean() < floor:
         raise AssertionError(f"{label}: teacher-forced agreement below the floor")
     return float(agree.mean())
 
@@ -1513,12 +1766,13 @@ def int8_weights(dev, model, params, counters, num_blocks_b: int):
 
 
 def decode_step_profile(eng, cfg, dev, label: str = "decode step", steps: int = 8,
-                        floor_ms=None) -> dict:
+                        floor_ms=None, smode: int = 0) -> dict:
     """Where a decode step goes: wall time per step of an 8-step chunk over
     the engine's current slots (all slots decoding, or the live ones of a
     paged engine, through its block tables), the device's busy time per step
     from the profiler, and the kernels that take it. ``floor_ms`` is the
-    step's weight-read floor (default: every bf16 parameter once)."""
+    step's weight-read floor (default: every bf16 parameter once); ``smode``
+    the sampler variant each step draws with (the live slots' rows)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1528,9 +1782,10 @@ def decode_step_profile(eng, cfg, dev, label: str = "decode step", steps: int = 
     else:
         active = torch.ones(eng.B, dtype=torch.int32, device=dev)
     btab = eng._flush_btab()
+    sp = eng._slot_sampler([i for i, r in enumerate(eng.slot_req) if r is not None])[1]
 
     def chunk():
-        eng._tick_fn(eng._last_tok, eng._cur_len, active, steps, btab)
+        eng._tick_fn(eng._last_tok, eng._cur_len, active, steps, btab, sp, smode)
         torch.cuda.synchronize()
 
     chunk()
@@ -1552,6 +1807,336 @@ def decode_step_profile(eng, cfg, dev, label: str = "decode step", steps: int = 
     for us, n, key in sorted(kernels, reverse=True)[:8]:
         print(f"    {us / 1e3 / steps:7.3f} ms/step  {n // steps:4d} calls/step  {key[:80]}")
     return dict(wall_ms=wall_ms, busy_ms=busy_ms, kernels=n_kernels, floor_ms=floor_ms)
+
+
+# ---------------------------------------------------------------- phase 10
+
+
+def count_calls(obj, name: str, counter, per_call: list, steps=None) -> None:
+    """Wrap ``obj.<name>`` so that each call appends how far ``counter()``
+    moved during it (and, with ``steps``, the call's own step count from its
+    arguments) to ``per_call``."""
+    orig = getattr(obj, name)
+
+    def wrapped(*args, **kw):
+        n0 = counter()
+        out = orig(*args, **kw)
+        per_call.append((counter() - n0, steps(*args, **kw) if steps else 1))
+        return out
+
+    setattr(obj, name, wrapped)
+
+
+def spec_step_profile(eng, cfg, dev, label: str, depth_k: int = 8) -> dict:
+    """One verify dispatch of a speculating engine over its decoding slots at
+    depth ``depth_k`` (each slot's last token repeated as its drafts), wall
+    against device-busy time from the profiler; the dispatch's results are
+    discarded (its K/V rows lie past every committed length)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    b, w = eng.B, depth_k + 1
+    pack = np.zeros((3, b * w + b), np.int32)
+    pack[2, : b * w] = eng.max_len
+    slots = [i for i, r in enumerate(eng.slot_req) if r is not None and r.generated]
+    for i in slots:
+        cl = int(eng.slot_len[i])
+        pack[0, i * w: (i + 1) * w] = eng.slot_req[i].generated[-1]
+        pack[1, i * w: (i + 1) * w] = i
+        pack[2, i * w: (i + 1) * w] = cl + np.arange(w)
+        pack[:, b * w + i] = (depth_k, 1, cl)
+    smode, sp = eng._slot_sampler(slots)
+    btab = eng._flush_btab()
+
+    def verify():
+        eng._spec_fn(eng._last_tok, eng._cur_len, eng._put(pack.copy()), depth_k, btab, sp,
+                     smode)
+        torch.cuda.synchronize()
+
+    verify()
+    t0 = time.perf_counter()
+    verify()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        verify()
+    kernels = [(e.self_device_time_total, e.count, e.key) for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    busy_ms = sum(r[0] for r in kernels) / 1e3
+    n_kernels = sum(r[1] for r in kernels)
+    print(f"  {label} ({len(slots)} slots x {w} rows, T {b * w}, smode {smode}): wall "
+          f"{wall_ms:.2f} ms, device busy {busy_ms:.2f} ms (idle share "
+          f"{1 - busy_ms / wall_ms:.2f}), {n_kernels} kernels", flush=True)
+    for us, n, key in sorted(kernels, reverse=True)[:6]:
+        print(f"    {us / 1e3:7.3f} ms  {n:4d} calls  {key[:80]}")
+    return dict(wall_ms=wall_ms, busy_ms=busy_ms, kernels=n_kernels, t=b * w)
+
+
+def sampler_profile(dev, v: int, b: int = 4, smodes=(0, 1, 2)) -> dict:
+    """The fused sampler alone over ``b`` rows of ``v`` logits at each of
+    ``smodes``: device time (30 calls in one CUDA graph) and kernels a call
+    (the profiler over 10 calls); smode 2 is the threefry draw, the bias
+    lanes, the sort and the cumsum."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serve import sampling as smp
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    logits = torch.randn(b, v, generator=gen, device=dev).to(torch.bfloat16)
+    rows = smp.param_rows([smp.SamplingParams(temperature=1.0, top_k=40, top_p=0.9, seed=i,
+                                              logit_bias=((3, 1.0),)) for i in range(b)],
+                          list(range(b)))
+    spf, spi, btok, bval = (torch.from_numpy(a).to(dev) for a in rows)
+    pos = torch.arange(b, dtype=torch.int32, device=dev) + 700
+    out = {}
+    for sm in smodes:
+        def call():
+            return smp.fused_sample(logits, spf[0], spi[0], spf[1], spi[1], pos, btok, bval,
+                                    smode=sm)
+        ms = time_ms(call)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                call()
+            torch.cuda.synchronize()
+        n = sum(e.count for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and e.self_device_time_total > 0) / 10
+        out[sm] = dict(ms=ms, kernels=n)
+        print(f"  fused_sample smode {sm}, {b} x {v}: {ms:.4f} ms device, {n:g} kernels a call",
+              flush=True)
+    return out
+
+
+def full_width_sampling(dev, model, params) -> dict:
+    """Phase 10: sampled and speculated serving at full width on phase 4's
+    weights (4 slots x 1024, bf16), phase 4's prompt lengths made repetitive:
+    (a) the mixed traffic of ``mixed_params`` (three each of greedy,
+    temperature, top-k/top-p and biased greedy), run twice (the second with
+    the greedy requests at top-k 1, temperature 1) and at max_chunk 1; (b)
+    the same traffic with the n-gram drafter, every verify dispatch on the
+    ragged kernel; (c) with a 1-layer truncation of the target as the draft
+    model, its catch-ups on the ragged kernel and its rolls on the decode
+    kernel; (d) phase 5 (a)'s paged + prefix traffic with the n-gram drafter,
+    every verify dispatch on the paged kernel. Returns its readings."""
+    import torch
+
+    from repro_torch.kernels import decode_attention as dk
+    from repro_torch.kernels import paged_attention as pk
+    from repro_torch.kernels import ragged_attention as rk
+    from repro_torch.serve import Request, SamplingParams, ServeEngine, SpeculateConfig
+    from repro_torch.serve import engine as engine_mod
+
+    cfg = model.cfg
+    max_new, boost = 32, 1234
+    lens = (5, 700, 37, 130, 64, 300, 12, 513, 65, 200, 48, 90)  # phase 4's
+    prompts = repetitive_prompts(lens, cfg.vocab_size, seed=10)
+    bans = {}  # a biased request bans its prompt's first greedy token
+    for i in range(3, len(prompts), 4):
+        with torch.no_grad():
+            lg, _ = model.prefill(params, {"tokens": torch.from_numpy(prompts[i][None]).to(dev)},
+                                  len(prompts[i]))
+        bans[i] = int(lg[0, -1].float().argmax())
+    out: dict = {}
+
+    def params_for(i, top1=False):
+        if top1 and i % 4 == 0:
+            return SamplingParams(max_new=max_new, temperature=1.0, top_k=1, seed=3000 + i)
+        return mixed_params(i, max_new, bans.get(i, 0), boost)
+
+    def serve(**kw):
+        eng = ServeEngine(model, params, batch_slots=4, max_len=1024, prefill_budget=64, seed=11,
+                          **kw)
+        eng.prewarm(sampling=True)
+        return eng
+
+    def drain(eng, label, top1=False, prompts_=prompts, params_=None):
+        reqs = [Request(rid=i, prompt=p_, params=params_ or params_for(i, top1))
+                for i, p_ in enumerate(prompts_)]
+        for r in reqs:
+            eng.submit(r)
+        stats = eng.run()
+        check_finished(reqs, max_new, cfg.vocab_size)
+        spec = (f"; {stats.spec_ticks} verify ticks, {stats.spec_proposed} drafts proposed, "
+                f"{stats.spec_accepted} accepted (acceptance {stats.spec_acceptance:.3f}), "
+                f"{stats.total_tokens / max(stats.spec_ticks, 1):.2f} tokens a tick"
+                if eng.spec is not None else "")
+        print(f"  {label}:", flush=True)
+        print_stats(stats, spec)
+        out[label] = dict(tok_s=stats.tokens_per_sec, ttft_p50_ms=stats.ttft_p50 * 1e3,
+                          ttft_p99_ms=stats.ttft_p99 * 1e3, tpot_p50_ms=stats.tpot_p50 * 1e3,
+                          spec_ticks=stats.spec_ticks, spec_proposed=stats.spec_proposed,
+                          spec_accepted=stats.spec_accepted,
+                          spec_acceptance=stats.spec_acceptance)
+        return {r.rid: r.generated for r in reqs}, reqs, stats
+
+    def agreement(a, b, rids):
+        n = sum(len(a[r]) for r in rids)
+        return sum(int(x == y) for r in rids for x, y in zip(a[r], b[r])) / n
+
+    kinds = {k: [i for i in range(len(prompts)) if i % 4 == k] for k in range(4)}
+    seeded = kinds[1] + kinds[2]
+
+    # (a) mixed sampling, run twice
+    eng = serve()
+    run1, reqs1, _ = drain(eng, "(a) mixed sampling, run 1")
+    for i, ban in bans.items():
+        if ban in run1[i]:
+            raise AssertionError(f"(a) rid {i}: the banned token {ban} was sampled")
+    print(f"  (a) banned tokens {sorted(bans.values())} never sampled; the boosted token "
+          f"{boost} drawn {sum(run1[i].count(boost) for i in bans)} times in "
+          f"{len(bans) * max_new}", flush=True)
+    # a sampled decode step, and the sampler alone
+    live = [eng.submit(Request(rid=400 + i, prompt=prompts[i], params=params_for(i)))
+            for i in (1, 2, 5, 6)]
+    while eng._prefilling or eng.waiting:
+        eng.step()
+    out["sampled_step"] = decode_step_profile(eng, cfg, dev, "(a) decode step, smode 2",
+                                              smode=2)
+    out["greedy_step"] = decode_step_profile(eng, cfg, dev, "(a) decode step, smode 0")
+    for h in live:
+        h.cancel()
+    eng.run()
+    out["sampler"] = sampler_profile(dev, cfg.vocab_size)
+    out["sampler_verify"] = sampler_profile(dev, cfg.vocab_size, 36, (2,))  # T 36
+    # run 2: the greedy requests at top-k 1, temperature 1; each such draw is
+    # checked to take a largest logit of the row it was drawn from
+    top1 = {"draws": 0, "ties": 0, "bad": 0}
+    orig = engine_mod.fused_sample
+
+    def checked(logits, temps=None, top_k=None, *args, smode=0):
+        got = orig(logits, temps, top_k, *args, smode=smode)
+        if smode == 2:  # the variant that reads top_k (smode 1 draws every row unmasked)
+            rows = (top_k == 1) & (temps > 0)
+            if bool(rows.any()):
+                lf = logits.float()[rows]
+                mx = lf.max(-1).values
+                took = lf.gather(1, got[rows].long()[:, None])[:, 0]
+                top1["draws"] += int(rows.sum())
+                top1["bad"] += int((took != mx).sum())
+                top1["ties"] += int(((lf == mx[:, None]).sum(-1) > 1).sum())
+        return got
+
+    engine_mod.fused_sample = checked
+    try:
+        run2, _, _ = drain(eng, "(a) run 2, greedy requests at top-k 1", top1=True)
+    finally:
+        engine_mod.fused_sample = orig
+    same = [i for i in run1 if i % 4 and run1[i] != run2[i]]
+    if same:
+        raise AssertionError(f"(a) rids {same}: streams differ between two runs")
+    eq1 = all(run1[i] == run2[i] for i in kinds[0])
+    print(f"  (a) the 9 other streams bitwise equal run to run; top-k 1 at temperature 1: "
+          f"{top1['draws']} draws, {top1['bad']} off a row's largest logit, {top1['ties']} at a "
+          f"tie for it; its streams equal the greedy ones: {eq1} (agreement "
+          f"{agreement(run1, run2, kinds[0]):.3f})", flush=True)
+    if top1["bad"] or top1["draws"] == 0 or (top1["ties"] == 0 and not eq1):
+        raise AssertionError("(a) top-k 1 at temperature 1 is not the greedy draw")
+    out["top1"] = dict(top1, equal=eq1)
+    del eng
+    eng = serve(max_chunk=1)
+    run3, _, _ = drain(eng, "(a) run 3, max_chunk 1")
+    a_chunk = agreement(run1, run3, seeded)
+    print(f"  (a) seeded streams at max_chunk 1 against 8: agreement {a_chunk:.3f} "
+          f"({sum(run1[i] == run3[i] for i in seeded)} of {len(seeded)} streams equal); all: "
+          f"{agreement(run1, run3, list(run1)):.3f}", flush=True)
+    out["chunk_agreement"] = a_chunk
+    del eng
+
+    def verify_counts(eng, counter):
+        per = []
+        count_calls(eng, "_spec_fn", counter, per)
+        return per
+
+    def check_verify(per, stats, counter_name, label):
+        bad = [n for n, _ in per if n != cfg.n_layers]
+        print(f"  {label}: {len(per)} verify dispatches, {counter_name} launches per dispatch "
+              f"{sorted({n for n, _ in per})} (the model's {cfg.n_layers} layers)", flush=True)
+        if len(per) != stats.spec_ticks or not per or bad:
+            raise AssertionError(f"{label}: verify dispatches not all on {counter_name}")
+
+    def greedy_gate(reqs, label):
+        return [teacher_forced(model, params, reqs[i], dev, f"{label} rid {i}")
+                for i in kinds[0]]
+
+    # (b) the n-gram drafter
+    eng = serve(speculate="ngram")
+    per = verify_counts(eng, lambda: rk.launches_split)
+    run_b, reqs_b, stats_b = drain(eng, "(b) n-gram speculation")
+    check_verify(per, stats_b, "ragged (split body)", "(b)")
+    launched = {"ragged_verify": sum(n for n, _ in per)}
+    if stats_b.spec_proposed <= 0 or stats_b.spec_accepted <= 0:
+        raise AssertionError("(b) no draft proposed or accepted")
+    out["(b) n-gram speculation"]["teacher_forced"] = greedy_gate(reqs_b, "(b)")
+    print(f"  (b) agreement with (a)'s streams without speculation: greedy "
+          f"{agreement(run1, run_b, kinds[0]):.3f}, seeded {agreement(run1, run_b, seeded):.3f},"
+          f" biased {agreement(run1, run_b, kinds[3]):.3f}; equal streams "
+          f"{sum(run1[i] == run_b[i] for i in run1)} of {len(run1)}", flush=True)
+    out["(b) n-gram speculation"]["agreement"] = agreement(run1, run_b, list(run1))
+    live = [eng.submit(Request(rid=400 + i, prompt=prompts[i], params=params_for(i)))
+            for i in (1, 2, 5, 6)]
+    while eng._prefilling or eng.waiting:
+        eng.step()
+    out["verify_step"] = spec_step_profile(eng, cfg, dev, "(b) verify dispatch, depth 8")
+    for h in live:
+        h.cancel()
+    eng.run()
+    del eng
+
+    # (c) the draft-model drafter: a 1-layer truncation of the target
+    eng = serve(speculate=SpeculateConfig(mode="draft", draft_layers=1))
+    per = verify_counts(eng, lambda: rk.launches_split)
+    catches, rolls = [], []
+    count_calls(eng.drafter, "_catch", lambda: rk.launches_split, catches)
+    count_calls(eng.drafter, "_roll", lambda: dk.launches_split, rolls,
+                steps=lambda tok, cl, act, n_steps: n_steps)
+    run_c, reqs_c, stats_c = drain(eng, "(c) draft-model speculation")
+    check_verify(per, stats_c, "ragged (split body)", "(c)")
+    launched["ragged_verify"] += sum(n for n, _ in per)
+    launched["ragged_draft_catchup"] = sum(n for n, _ in catches)
+    launched["decode_draft_roll"] = sum(n for n, _ in rolls)
+    # what the draft could be accepted at: its own teacher-forced top-1
+    # agreement with the target's greedy streams
+    d_agree = [teacher_forced(eng.drafter.model, eng.drafter.params, reqs_c[i], dev,
+                              f"(c) the 1-layer draft on rid {i}", floor=0.0)
+               for i in kinds[0]]
+    bad = [c for c in catches if c[0] != 1] + [r_ for r_ in rolls if r_[0] != r_[1]]
+    print(f"  (c) drafter: {len(catches)} catch-ups, each one ragged launch (its 1 layer); "
+          f"{len(rolls)} rolls of {sum(r_[1] for r_ in rolls)} steps, "
+          f"{sum(r_[0] for r_ in rolls)} decode launches", flush=True)
+    if not catches or not rolls or bad:
+        raise AssertionError(f"(c) drafter launches off the ragged / decode kernels: {bad[:4]}")
+    out["(c) draft-model speculation"]["teacher_forced"] = greedy_gate(reqs_c, "(c)")
+    print(f"  (c) agreement with (a)'s streams without speculation: "
+          f"{agreement(run1, run_c, list(run1)):.3f}; with (b)'s: "
+          f"{agreement(run_b, run_c, list(run1)):.3f}", flush=True)
+    out["(c) draft-model speculation"]["agreement"] = agreement(run1, run_c, list(run1))
+    out["(c) draft-model speculation"]["draft_teacher_forced"] = d_agree
+    del eng
+
+    # (d) phase 5 (a)'s paged + prefix traffic, n-gram drafter
+    warm, shared_prompts = shared_traffic(cfg)
+    eng = ServeEngine(model, params, batch_slots=8, max_len=1024, prefill_budget=64,
+                      kv_block_size=32, prefix_cache=True, speculate="ngram", seed=11)
+    eng.prewarm(sampling=True)
+    eng.submit(Request(rid=100, prompt=warm, params=SamplingParams(max_new=max_new)))
+    eng.run()
+    hits0 = eng.prefix.stats().hit_tokens
+    per = verify_counts(eng, lambda: pk.launches_split_pack)
+    _, reqs_d, stats_d = drain(eng, "(d) paged + prefix, n-gram speculation",
+                               prompts_=shared_prompts, params_=SamplingParams(max_new=max_new))
+    check_verify(per, stats_d, "paged (split pack body)", "(d)")
+    launched["paged_verify"] = sum(n for n, _ in per)
+    out["launches"] = launched
+    print(f"  phase 10's launches on the speculative paths: {launched}", flush=True)
+    hits = eng.prefix.stats().hit_tokens - hits0
+    print(f"  (d) prefix hit tokens {hits}", flush=True)
+    if hits <= 0:
+        raise AssertionError("(d) the prefix cache never hit")
+    out["(d) paged + prefix, n-gram speculation"]["teacher_forced"] = teacher_forced(
+        model, params, reqs_d[1], dev, "(d)")
+    del eng
+    torch.cuda.empty_cache()
+    return out
 
 
 # ----------------------------------------------------------------- phase 9
@@ -2344,9 +2929,11 @@ def main() -> int:
     timed.update(check_mla_kernels(dev))
     check_attention_domain(dev)
     check_paged_split(dev)
+    check_verify_packs(dev)
 
     phase("3 kernel path vs plain path, end to end, f32")
     small_model_streams(dev)
+    sampled_streams(dev)
 
     phase("4 full width codeqwen1.5-7b")
     counters4 = {"decode_attention": (dk, "launches"), "ragged_attention": (rk, "launches"),
@@ -2385,6 +2972,10 @@ def main() -> int:
     serving["int8_weights"] = serving6
     print(json.dumps({"serving": serving}))
 
+    phase("10 full width, sampled and speculated serving (phase 4's weights)")
+    sampling = full_width_sampling(dev, model, params)
+    print(json.dumps({"sampling": sampling}, default=float))
+
     phase("7 kernel API and autotuner")
     counters7 = {"flash_attention": (fk, "launches_flat"), "rmsnorm": (rnk, "launches"),
                  "softmax": (smk, "launches"), "softmax_cluster": (smk, "launches_cluster"),
@@ -2411,7 +3002,7 @@ def main() -> int:
                  "mla_attention_wgmma": (mk, "launches_wgmma")}
     launches.update(full_width_mla(dev, counters9))
 
-    phase("10 the kernel table")
+    phase("11 the kernel table")
     # the pl.pallas_call line of each TPU kernel, as in PERF.md's kernel table
     sources = {
         "decode_attention": ("decode_attention.cu", "src/repro/kernels/decode_attention.py:186"),
@@ -2496,6 +3087,14 @@ def main() -> int:
             kernels[-1]["body"] = "split"
         if name == "matmul_tile":
             kernels[-1]["body"] = "wgmma"
+        # phase 10's launches on the speculative paths (not in "launches")
+        if name == "ragged_attention":
+            kernels[-1]["launches_verify"] = sampling["launches"]["ragged_verify"]
+            kernels[-1]["launches_draft_catchup"] = sampling["launches"]["ragged_draft_catchup"]
+        if name == "paged_attention_pack":
+            kernels[-1]["launches_verify"] = sampling["launches"]["paged_verify"]
+        if name == "decode_attention":
+            kernels[-1]["launches_draft_roll"] = sampling["launches"]["decode_draft_roll"]
         if name == "mla_attention":  # the timed case: minicpm3-4b's widths, phase 2's pack
             kernels[-1]["body"] = "wgmma"
             kernels[-1]["launches_wgmma"] = launches["mla_attention_wgmma"]

@@ -1,6 +1,6 @@
 """Batched serving engine with continuous batching and the unified ragged
 prefill+decode dispatch (counterpart of ``repro/serve/engine.py`` with
-``unified=True``, dense cache, greedy sampling).
+``unified=True``).
 
 A fixed pool of ``batch_slots`` cache slots; requests are admitted into free
 slots and every scheduling iteration advances work through three routes:
@@ -14,10 +14,26 @@ slots and every scheduling iteration advances work through three routes:
   flat token batch padded to a T bucket (``LM.packed_step`` → the ragged
   kernel); a slot whose prompt completes samples its first token there;
 * **decode chunk** — every decoding slot advances ``k ∈ {1, 2, 4, 8}``
-  (≤ ``max_chunk``) greedy steps in one dispatch, where ``k`` is the largest
+  (≤ ``max_chunk``) steps in one dispatch, where ``k`` is the largest
   power of two in which no slot can finish (``LM.decode_step`` → the decode
   kernel). Inactive slots (empty or mid-prefill) ride along without
   advancing their length or changing their last token.
+
+Every request carries its :class:`SamplingParams`; the per-slot parameter
+rows live on the device and each dispatch runs the widest sampler variant
+(``smode``) its slots need (``serve/sampling.py``). Every draw is keyed
+``fold_in(key(seed), position)``, so a seeded stream does not change with
+``max_chunk``, speculation or its neighbours; a request with ``seed=None``
+takes one from the engine's ``seed`` at admission, in the JAX engine's
+order.
+
+With ``speculate`` ("ngram", "draft", "draft:<arch>", a
+:class:`SpeculateConfig` or a drafter), decoding slots advance by
+draft-and-verify instead of decode chunks: a drafter proposes up to ``k``
+tokens a slot, ONE ``packed_step`` over the exact ``B·(K+1)`` verify rows
+(the ragged kernel, or the paged kernel over block tables) scores them, and
+the drafts that equal their seeded targets commit with the token after
+them (``serve/speculate.py``).
 
 Two opt-in cache layouts change where K/V live, not what is computed:
 
@@ -49,12 +65,12 @@ block tables.
 
 Tick state (last tokens, per-slot lengths) lives on the device; the host
 tracks counts only and reads dispatch t-1's token values after dispatch t is
-enqueued, so the transfer overlaps device work. Host arrays reach the card
-through pinned memory without a stream synchronisation. The KV cache is
-updated in place (the JAX engine donates it). Not ported: the legacy
-prefill+insert tier, speculation, sampled (non-greedy) requests, the
-placement backends, admission control past the infeasible refusal, and the
-cluster hooks.
+enqueued, so the transfer overlaps device work (a verify tick reads its
+values at once: what it commits depends on them). Host arrays reach the
+card through pinned memory without a stream synchronisation. The KV cache
+is updated in place (the JAX engine donates it). Not ported: the legacy
+prefill+insert tier, the placement backends, ``reset``, admission control
+past the infeasible refusal, and the cluster hooks.
 """
 
 from __future__ import annotations
@@ -72,7 +88,14 @@ from repro_torch.models.model import LM
 from repro_torch.models.quant import quantize_params
 from repro_torch.serve.kv_pool import BlockPool, blocks_for
 from repro_torch.serve.prefix_cache import RadixPrefixCache
-from repro_torch.serve.sampling import SMODE_GREEDY, SamplingParams, fused_sample
+from repro_torch.serve.sampling import (
+    SMODE_GREEDY,
+    SamplingParams,
+    fused_sample,
+    param_rows,
+    spec_verify,
+)
+from repro_torch.serve.speculate import SpeculateConfig, build_drafter
 
 
 class AdmissionRejected(ValueError):
@@ -93,6 +116,7 @@ class Request:
     rid: int
     prompt: np.ndarray  # [S] int32
     params: SamplingParams = field(default_factory=SamplingParams)
+    tenant: Optional[str] = None  # per-tenant speculation opt-out key
     generated: list[int] = field(default_factory=list)
     n_generated: int = 0  # tokens sampled so far (values may still be in flight)
     submitted_at: float = 0.0
@@ -171,6 +195,11 @@ class ServeStats:
     # peak used blocks x the measured bytes of one block
     kv_bytes_resident: int = 0
     peak_residents: int = 0  # most requests holding a slot at once
+    # speculation: drafts dispatched to verify, drafts that matched their
+    # seeded target (the token sampled after the run is neither), verify ticks
+    spec_proposed: int = 0
+    spec_accepted: int = 0
+    spec_ticks: int = 0
     # per-request samples of the requests finished in this run: TTFT = first
     # token on the host - submitted; TPOT = mean inter-token time
     ttfts: list[float] = field(default_factory=list)
@@ -179,6 +208,11 @@ class ServeStats:
     @property
     def tokens_per_sec(self) -> float:
         return self.total_tokens / max(self.wall_seconds, 1e-9)
+
+    @property
+    def spec_acceptance(self) -> float:
+        """Fraction of dispatched draft tokens that matched their target."""
+        return self.spec_accepted / max(self.spec_proposed, 1)
 
     @property
     def ttft_p50(self) -> float:
@@ -247,11 +281,13 @@ class ServeEngine:
         *,
         batch_slots: int = 4,
         max_len: int = 256,
+        seed: int = 0,
         prefill_budget: int = 64,
         max_chunk: int = 8,
         kv_block_size: Optional[int] = None,
         num_blocks: Optional[int] = None,
         prefix_cache: bool = False,
+        speculate=None,
         kv_dtype=None,
         weight_dtype=None,
         device=None,
@@ -278,6 +314,26 @@ class ServeEngine:
         self.max_len = max_len
         self.prefill_budget = max(int(prefill_budget), 1)
         self.max_chunk = max(int(max_chunk), 1)
+        self.seed = seed
+        self.rng = np.random.default_rng(seed)
+        # speculation: a drafter proposes up to spec_k tokens a decoding slot,
+        # one packed verify dispatch scores them (a SpeculateConfig, its CLI
+        # string, or a drafter: anything with .propose)
+        self.spec: Optional[SpeculateConfig] = None
+        self.drafter = None
+        if speculate not in (None, False, "off"):
+            if hasattr(speculate, "propose"):
+                self.spec = SpeculateConfig(
+                    mode="draft" if getattr(speculate, "name", "") == "draft" else "ngram")
+                self.drafter = speculate
+            else:
+                self.spec = SpeculateConfig.coerce(speculate)
+                self.drafter = build_drafter(self.spec, model, params)
+            self.spec_k = min(int(self.spec.k), max(max_len // 2, 1))
+            self.drafter.setup(self.device, batch_slots, max_len, model.cfg.vocab_size)
+            # per-slot acceptance EWMA behind the adaptive depth (a fresh slot
+            # tries the full depth)
+            self._spec_ewma = np.ones(batch_slots)
         self.kv_dtype = _norm_kv_dtype(kv_dtype)
         # quantized and paged admissions ride the pack tier only: the packed
         # scatter is the one write path that quantizes rows and routes
@@ -333,6 +389,11 @@ class ServeEngine:
         self._cur_len = torch.zeros(batch_slots, dtype=torch.int32, device=dev)
         self._active = torch.zeros(batch_slots, dtype=torch.int32, device=dev)
         self._dirty = False  # slot set changed: the active lane must re-upload
+        # per-slot sampler rows on the device; the all-free rows stay cached
+        # for every greedy dispatch, which reads none of them
+        self._put_sp(*param_rows([None] * batch_slots, np.zeros(batch_slots)))
+        self._sp0 = self._sp
+        self._sp0_admit = self._put_rows(*param_rows([None], [0]))
 
     # ------------------------------------------------------------ transfers
 
@@ -345,11 +406,68 @@ class ServeEngine:
             return t.pin_memory().to(self.device, non_blocking=True)
         return t
 
+    def _put_rows(self, spf, spi, btok, bval) -> tuple:
+        """Sampler rows (as ``param_rows`` builds them) -> device, in two
+        uploads (the f32 rows, the int32 rows): ``(spf [2, B], spi [2, B],
+        btok [B, K], bval [B, K])`` views."""
+        b = btok.shape[0]
+        f = self._put(np.concatenate([spf.ravel(), bval.ravel()]))
+        i = self._put(np.concatenate([spi.ravel(), btok.ravel()]))
+        return f[: 2 * b].view(2, b), i[: 2 * b].view(2, b), i[2 * b:].view(b, -1), \
+            f[2 * b:].view(b, -1)
+
+    def _put_sp(self, spf, spi, btok, bval) -> None:
+        """Place the per-slot sampler rows on the device. They stay fresh until
+        a new request takes a slot (a freed slot's stale row is harmless: an
+        inactive slot's draw is discarded)."""
+        self._sp = self._put_rows(spf, spi, btok, bval)
+        self._sp_fresh = True
+
+    def _sp_rows(self) -> tuple:
+        """Host-built sampler rows of the current slot pool."""
+        return param_rows(
+            [r.params if r is not None else None for r in self.slot_req],
+            [r._seed if r is not None else 0 for r in self.slot_req],
+        )
+
+    def _sp_admit(self, req: Request) -> tuple:
+        """One admission's sampler rows (B = 1); a greedy request reuses the
+        cached zero rows, which its dispatch never reads."""
+        if req._smode == SMODE_GREEDY:
+            return self._sp0_admit
+        return self._put_rows(*param_rows([req.params], [req._seed]))
+
+    def _bind(self, req: Request) -> None:
+        """Resolve a request's sampling state once, at admission: its seed
+        (drawn from the engine's rng when the caller left it None, in the JAX
+        engine's admission order), its sampler variant, and whether it
+        speculates (a tenant may opt out: its slot rides the verify dispatch
+        at depth 0)."""
+        if getattr(req, "_bound", False):
+            return
+        p = req.params
+        req._seed = p.seed if p.seed is not None else int(self.rng.integers(1 << 31))
+        req._smode = p.smode
+        req._spec = self.spec is not None and self.spec.enabled_for(req.tenant)
+        req._bound = True
+
     # ------------------------------------------------------------- dispatches
 
-    def _tick_fn(self, last_tok, cur_len, active, n_steps: int, btab=None):
-        """One decode chunk: ``n_steps`` decode + greedy-sample steps for
-        every slot (through the block table ``btab`` when paged). Inactive
+    @staticmethod
+    def _sample(logits: torch.Tensor, sp, pos: torch.Tensor, smode: int) -> torch.Tensor:
+        """``fused_sample`` of ``logits`` [R, V] under the sampler rows ``sp``
+        (``_put_rows``' views, one row each) at PRNG positions ``pos`` [R]."""
+        if smode == SMODE_GREEDY:
+            return fused_sample(logits)
+        spf, spi, btok, bval = sp
+        return fused_sample(logits, spf[0], spi[0], spf[1], spi[1], pos, btok, bval,
+                            smode=smode)
+
+    def _tick_fn(self, last_tok, cur_len, active, n_steps: int, btab=None, sp=None,
+                 smode: int = SMODE_GREEDY):
+        """One decode chunk: ``n_steps`` decode + sample steps for every slot
+        (through the block table ``btab`` when paged), each draw at PRNG
+        position ``cur_len`` before its increment. Inactive
         slots keep their ``last_tok`` and length: their garbage K/V row at
         ``cur_len`` is rewritten before anything reads it, or, for a slot
         with no blocks, lands in the pool's scratch block. Returns (toks
@@ -361,18 +479,19 @@ class ServeEngine:
             logits, _ = self.model.decode_step(
                 self.params, self.cache, {"tokens": tok[:, None]}, cl, block_tables=btab
             )
-            tok = torch.where(act, fused_sample(logits[:, 0]), tok)
+            tok = torch.where(act, self._sample(logits[:, 0], sp, cl, smode), tok)
             cl = cl + active
             toks.append(tok)
         return torch.stack(toks), tok, cl
 
-    def _packed_fn(self, last_tok, pack, tb: int, btab=None):
+    def _packed_fn(self, last_tok, pack, tb: int, btab=None, sp=None,
+                   smode: int = SMODE_GREEDY):
         """One ragged pack (through the block table ``btab`` when paged).
         ``pack`` is one int32 upload: the [3, tb] descriptor rows (token,
         local slot, position) then meta = new_len [B] | sample_idx [B] |
         sample_mask [B] | pack_slots [_PACK_WIDTH]. A slot whose prompt
-        completes samples its first token from its final prompt row.
-        Returns (sampled [B], last_tok, cur_len = new_len)."""
+        completes samples its first token from its final prompt row, at PRNG
+        position ``new_len - 1``. Returns (sampled [B], last_tok, cur_len = new_len)."""
         b = self.B
         desc = pack[: 3 * tb].view(3, tb)
         meta = pack[3 * tb:]
@@ -385,20 +504,59 @@ class ServeEngine:
             out_rows=sample_idx, pack_slots=pack_slots, block_tables=btab,
             max_len=self.max_len,
         )
-        sampled = fused_sample(logits)
+        sampled = self._sample(logits, sp, new_len - 1, smode)
         return sampled, torch.where(sample_mask, sampled, last_tok), new_len
 
-    def _admit_fn(self, toks, slot: int, last_pos: int, last_tok, cur_len):
+    def _admit_fn(self, toks, slot: int, last_pos: int, last_tok, cur_len, sp=None,
+                  smode: int = SMODE_GREEDY):
         """One fused admission: prefill the bucket-padded prompt into the
         slot's cache rows, sample the first token from the last REAL prompt
-        position, and set the slot's tick state. Returns (tok, last_tok,
+        position (its PRNG position) under the admission's sampler rows
+        ``sp``, and set the slot's tick state. Returns (tok, last_tok,
         cur_len)."""
         logits, _ = self.model.prefill(
             self.params, {"tokens": toks}, self.max_len, cache=self.cache, slot=slot
         )
-        tok = fused_sample(logits[0, last_pos][None])[0]
+        pos = torch.full((1,), last_pos, dtype=torch.int32, device=self.device)
+        tok = self._sample(logits[0, last_pos][None], sp, pos, smode)[0]
         hit = self._slot_ids == slot
         return tok, torch.where(hit, tok, last_tok), torch.where(hit, last_pos + 1, cur_len)
+
+    def _spec_fn(self, last_tok, cur_len, pack, depth_k: int, btab=None, sp=None,
+                 smode: int = SMODE_GREEDY):
+        """One draft-and-verify dispatch (through the block table ``btab``
+        when paged): the packed step over the slot-major verify rows
+        ``[last_token, draft_1 .. draft_K]`` of every slot (T = B·(K+1),
+        exact), then the seeded exact-match acceptance (``spec_verify``).
+        Row (i, j) scatters at (slot i, position cl + j) and attends keys up
+        to it, so it sees the context and the drafts before it.
+
+        ``pack`` is ONE [3, T + B] int32 upload: the first T columns the
+        (token, global slot, position) rows, the last B the per-slot (depth,
+        active, cl). Rows past a slot's depth carry the position sentinel
+        ``max_len`` (scatter dropped, acceptance masked). Rejected rows need
+        no rollback: their K/V lie past the committed length. Inactive slots
+        pass through. Returns (targets [B, K+1], commit [B], last_tok,
+        cur_len)."""
+        b, w = self.B, depth_k + 1
+        desc, meta = pack[:, : b * w], pack[:, b * w:]
+        depth, act, cl = meta[0], meta[1], meta[2]
+        active = act.bool()
+        logits, _ = self.model.packed_step(
+            self.params, self.cache, desc[0], desc[1], desc[2], block_tables=btab
+        )
+        drafts = desc[0].reshape(b, w)[:, 1:]
+        temps = top_k = top_p = seeds = btok = bval = None  # smode 0 reads none
+        if smode != SMODE_GREEDY:
+            spf, spi, btok, bval = sp
+            temps, top_k, top_p, seeds = spf[0], spi[0], spf[1], spi[1]
+        targets, n_acc, commit = spec_verify(
+            logits, drafts, depth, act, temps, top_k, top_p, seeds, cl, btok, bval, smode=smode,
+        )
+        ar = torch.arange(b, device=targets.device)
+        last_tok = torch.where(active, targets[ar, n_acc.long()], last_tok)
+        cur_len = torch.where(active, cl + commit, cur_len)
+        return targets, commit, last_tok, cur_len
 
     # --------------------------------------------------------- token harvest
 
@@ -489,32 +647,48 @@ class ServeEngine:
 
     # ------------------------------------------------------------------ API
 
-    def prewarm(self) -> None:
+    def prewarm(self, sampling: bool = False) -> None:
         """Build the kernels and run one dummy dispatch per route (decode
         chunk, ragged pack and, where admissions take it, fused admission)
-        off the clock. Results are discarded and the tick state is
-        untouched; call on an IDLE engine: the dummies write garbage into
-        cache rows nothing reads yet (a paged engine's all-sentinel tables
-        send them to the scratch block)."""
+        off the clock; ``sampling=True`` runs each at every sampler variant
+        (smodes 0, 1, 2), and a speculating engine also runs its drafter's
+        prewarm and a verify dispatch at every depth of the ladder {1, 2, 4,
+        .., spec_k}. Results are discarded and the tick state is untouched;
+        call on an IDLE engine: the dummies write garbage into cache rows
+        nothing reads yet (a paged engine's all-sentinel tables send them to
+        the scratch block)."""
+        smodes = (0, 1, 2) if sampling else (0,)
         idle = torch.zeros(self.B, dtype=torch.int32, device=self.device)
         btab = self._flush_btab()
-        self._tick_fn(self._last_tok, self._cur_len, idle, 1, btab)
         tb = _T_BUCKETS[0]
         desc = np.zeros((3, tb), np.int32)
         desc[2, 1:] = self.max_len  # token 0 at row 0 of slot 0, then padding
         meta = np.concatenate([self.slot_len, np.zeros(2 * self.B + _PACK_WIDTH, np.int32)])
-        self._packed_fn(self._last_tok, self._put(np.concatenate([desc.ravel(), meta])), tb, btab)
-        if not self._chunk_only_admit:
-            self._admit_fn(self._put(np.zeros((1, 1), np.int32)), 0, 0, self._last_tok,
-                           self._cur_len)
+        for sm in smodes:
+            self._tick_fn(self._last_tok, self._cur_len, idle, 1, btab, self._sp0, sm)
+            self._packed_fn(self._last_tok, self._put(np.concatenate([desc.ravel(), meta])), tb,
+                            btab, self._sp0, sm)
+            if not self._chunk_only_admit:
+                self._admit_fn(self._put(np.zeros((1, 1), np.int32)), 0, 0, self._last_tok,
+                               self._cur_len, self._sp0_admit, sm)
+        if self.spec is not None:
+            self.drafter.prewarm()
+            kk = 1
+            while True:  # every slot inactive: nothing commits
+                pack = np.zeros((3, self.B * (kk + 1) + self.B), np.int32)
+                pack[2, 1: self.B * (kk + 1)] = self.max_len  # row 0 at slot 0, position 0
+                for sm in smodes:
+                    self._spec_fn(self._last_tok, self._cur_len, self._put(pack), kk, btab,
+                                  self._sp0, sm)
+                if kk >= self.spec_k:
+                    break
+                kk *= 2
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
     def submit(self, req: Request) -> RequestHandle:
         if len(req.prompt) >= self.max_len:
             raise ValueError(f"prompt of {len(req.prompt)} tokens needs max_len > that")
-        if req.params.smode != SMODE_GREEDY:
-            raise NotImplementedError("only greedy requests are ported (smode 0)")
         if self.paged:
             need = blocks_for(len(req.prompt), req.params.max_new, self.max_len,
                               self.kv_block_size)
@@ -586,9 +760,12 @@ class ServeEngine:
         for slot in range(self.B):
             while self.slot_req[slot] is None and self.waiting:
                 req = self.waiting.popleft()
+                self._bind(req)
                 s = len(req.prompt)
                 self.slot_req[slot] = req
+                self._sp_fresh = False  # a new occupant's row must upload
                 self._dirty = True
+                self._spec_admit(slot)
                 if self._chunk_only_admit or s > self.prefill_budget:
                     self.slot_len[slot] = 0
                     self.slot_fed[slot] = 0
@@ -598,7 +775,8 @@ class ServeEngine:
                 toks = np.zeros((1, sb), np.int32)
                 toks[0, :s] = req.prompt
                 tok, self._last_tok, self._cur_len = self._admit_fn(
-                    self._put(toks), slot, s - 1, self._last_tok, self._cur_len
+                    self._put(toks), slot, s - 1, self._last_tok, self._cur_len,
+                    self._sp_admit(req), req._smode,
                 )
                 self.slot_len[slot] = s
                 self.slot_fed[slot] = s
@@ -622,6 +800,7 @@ class ServeEngine:
         for slot in range(self.B):
             while self.slot_req[slot] is None and self.waiting:
                 req = self.waiting[0]
+                self._bind(req)
                 s = len(req.prompt)
                 need_total = blocks_for(s, req.params.max_new, self.max_len, self.kv_block_size)
                 shared: list[int] = []
@@ -646,10 +825,29 @@ class ServeEngine:
                 row[: len(blocks)] = blocks
                 self._btab_dirty = True
                 self.slot_req[slot] = req
+                self._sp_fresh = False  # a new occupant's row must upload
                 self._dirty = True
+                self._spec_admit(slot)
                 self.slot_len[slot] = matched
                 self.slot_fed[slot] = matched
                 self._prefilling.append(slot)
+
+    def _spec_admit(self, slot: int) -> None:
+        """A new occupant starts at the full depth, with a fresh draft cache."""
+        if self.spec is not None:
+            self._spec_ewma[slot] = 1.0
+            self.drafter.reset_slot(slot)
+
+    def _slot_sampler(self, slots) -> tuple[int, tuple]:
+        """The widest sampler variant of ``slots`` and the rows its dispatch
+        reads: the resident rows (uploaded first if stale) when any samples,
+        the cached zero rows when all are greedy."""
+        smode = max((self.slot_req[i]._smode for i in slots), default=SMODE_GREEDY)
+        if not smode:
+            return smode, self._sp0
+        if not self._sp_fresh:
+            self._put_sp(*self._sp_rows())
+        return smode, self._sp
 
     def _packed_tick(self, stats: ServeStats) -> None:
         """Build and dispatch one ragged pack: up to ``prefill_budget`` prompt
@@ -685,9 +883,11 @@ class ServeEngine:
         for t, (tok, sl, pos) in enumerate(entries):
             desc[:, t] = (tok, sl, pos)
         meta = np.concatenate([self.slot_len, sample_idx, sample_mask.astype(np.int32), pack_slots])
+        # only the slots this pack samples pick its variant
+        smode, sp = self._slot_sampler(completed)
         toks, self._last_tok, self._cur_len = self._packed_fn(
             self._last_tok, self._put(np.concatenate([desc.ravel(), meta])), tb,
-            self._flush_btab(),
+            self._flush_btab(), sp, smode,
         )
         stats.ticks += 1
         if completed:
@@ -724,8 +924,10 @@ class ServeEngine:
         k = 1
         while k * 2 <= cap:
             k *= 2
+        lanes = self._flush_events()
+        smode, sp = self._slot_sampler(active)
         toks, self._last_tok, self._cur_len = self._tick_fn(
-            self._last_tok, self._cur_len, self._flush_events(), k, self._flush_btab()
+            self._last_tok, self._cur_len, lanes, k, self._flush_btab(), sp, smode
         )
         stats.ticks += k
         self._pending.append(("chunk", toks, [(i, self.slot_req[i]) for i in active], stats))
@@ -737,11 +939,112 @@ class ServeEngine:
             if req.n_generated >= req.params.max_new or self.slot_len[i] + 1 >= self.max_len:
                 self._finish(req, i, stats)
 
+    def _spec_depth(self, slot: int) -> int:
+        """Adaptive proposal depth of one slot from its acceptance EWMA, in
+        the ladder {1, 2, 4, .., spec_k}; ``spec_k`` with adaptation off."""
+        if not self.spec.adaptive:
+            return self.spec_k
+        e = self._spec_ewma[slot]
+        for thresh, d in ((0.7, 8), (0.45, 4), (0.2, 2)):
+            if e >= thresh:
+                return min(d, self.spec_k)
+        return 1
+
+    def _spec_tick(self, stats: ServeStats) -> None:
+        """One draft-and-verify iteration over every decoding slot: harvest
+        everything in flight (the drafter reads committed values, and what a
+        verify commits depends on them), draft, run ONE verify dispatch, read
+        its targets and commits back at once, and credit the accepted runs.
+
+        A slot's depth is capped at ``rem - 1`` (rem its remaining budget, as
+        in ``_chunk_tick``), so a commit never passes ``max_new``/``max_len``
+        and every verify row stays inside the slot's row or reserved table.
+        A stop token is found in the credit path; values past it are
+        refunded, so the stream stops where the sequential engine's does."""
+        self._drain_pending()
+        self._release_stopped(stats)
+        decoding = [
+            i for i, r in enumerate(self.slot_req)
+            if r is not None and self.slot_fed[i] >= len(r.prompt)
+        ]
+        if not decoding:
+            return
+        b = self.B
+        depths = np.zeros(b, np.int32)
+        ctxs: list[Optional[np.ndarray]] = [None] * b
+        for i in decoding:
+            r = self.slot_req[i]
+            rem = min(r.params.max_new - r.n_generated, self.max_len - 1 - int(self.slot_len[i]))
+            d = min(self.spec_k, rem - 1, self._spec_depth(i)) if r._spec else 0
+            depths[i] = max(d, 0)
+            if depths[i] > 0:
+                ctxs[i] = np.concatenate(
+                    [np.asarray(r.prompt, np.int64), np.asarray(r.generated, np.int64)])
+        if depths.any():
+            props = self.drafter.propose(ctxs, depths)
+            for i in decoding:
+                depths[i] = min(int(depths[i]), len(props[i]))
+        else:
+            props = [[] for _ in range(b)]
+        kmax = max(1, int(depths.max()))
+        depth_k = 1
+        while depth_k < kmax:
+            depth_k *= 2
+        w = depth_k + 1
+        # slot-major verify rows [last_token, draft_1 .. draft_d]; rows past
+        # a slot's depth (and whole inactive slots) carry the position
+        # sentinel. pack[:, :b*w] the descriptors, pack[:, b*w:] (depth,
+        # active, cl) per slot: one upload
+        pack = np.zeros((3, b * w + b), np.int32)
+        desc = pack[:, : b * w]
+        meta = pack[:, b * w:]
+        desc[2] = self.max_len
+        for i in decoding:
+            r = self.slot_req[i]
+            d = int(depths[i])
+            cl = int(self.slot_len[i])
+            r0 = i * w
+            desc[0, r0] = r.generated[-1]
+            if d:
+                desc[0, r0 + 1: r0 + 1 + d] = props[i][:d]
+            desc[1, r0: r0 + 1 + d] = i
+            desc[2, r0: r0 + 1 + d] = cl + np.arange(d + 1)
+            meta[:, i] = (d, 1, cl)
+        smode, sp = self._slot_sampler(decoding)
+        targets, commit, self._last_tok, self._cur_len = self._spec_fn(
+            self._last_tok, self._cur_len, self._put(pack), depth_k, self._flush_btab(), sp,
+            smode,
+        )
+        stats.ticks += 1
+        stats.spec_ticks += 1
+        both = torch.cat([targets.reshape(-1), commit]).cpu().numpy()  # one transfer
+        t_h, c_h = both[: b * w].reshape(b, w), both[b * w:]
+        now = time.perf_counter()
+        for i in decoding:
+            r = self.slot_req[i]
+            c = int(c_h[i])  # the accepted run and the token after it, >= 1
+            d = int(depths[i])
+            stats.spec_proposed += d
+            stats.spec_accepted += c - 1
+            if self.spec.adaptive and d > 0:
+                self._spec_ewma[i] = 0.5 * self._spec_ewma[i] + 0.5 * ((c - 1) / d)
+            r.n_generated += c
+            self.slot_len[i] += c
+            stats.total_tokens += c
+            for j in range(c):
+                self._credit(r, int(t_h[i, j]), now, stats)
+            self._stamp(r, now)
+            if r.finish_reason is None and (
+                r.n_generated >= r.params.max_new or self.slot_len[i] + 1 >= self.max_len
+            ):
+                self._finish(r, i, stats)
+
     def _service_once(self, stats: ServeStats) -> bool:
         """ONE scheduling iteration: apply cancellations, release
         stop-finished slots, admit, dispatch a pack (if any admission is
-        mid-prefill) and a decode chunk, then harvest everything older than
-        the newest dispatch. Returns whether any work remains."""
+        mid-prefill) and a decode chunk (a verify tick when speculating),
+        then harvest everything older than the newest dispatch. Returns
+        whether any work remains."""
         self._apply_cancels(stats)
         self._release_stopped(stats)
         if self.paged:
@@ -757,12 +1060,17 @@ class ServeEngine:
             return bool(self.waiting) or any(r is not None for r in self.slot_req)
         if self._prefilling:
             self._packed_tick(stats)
-            decoding = [
-                i for i, r in enumerate(self.slot_req)
-                if r is not None and self.slot_fed[i] >= len(r.prompt)
-            ]
-            if decoding:
-                self._chunk_tick(stats, decoding)
+            if self.spec is not None:
+                self._spec_tick(stats)
+            else:
+                decoding = [
+                    i for i, r in enumerate(self.slot_req)
+                    if r is not None and self.slot_fed[i] >= len(r.prompt)
+                ]
+                if decoding:
+                    self._chunk_tick(stats, decoding)
+        elif self.spec is not None:
+            self._spec_tick(stats)
         else:
             self._chunk_tick(stats, active)
         while len(self._pending) > 1:
