@@ -72,7 +72,13 @@ Phases (each raises on failure, so the script exits non-zero):
    the reduced codeqwen1.5-7b and qwen3-32b configs serving mixed greedy /
    seeded / top-k-top-p / biased traffic on the card without speculation,
    with the n-gram and the draft-model drafter, dense and paged: every
-   stream must equal the CPU's without speculation.
+   stream must equal the CPU's without speculation. Then the reduced
+   codeqwen1.5-7b config through ``ServeCluster`` (2 slots, max_len 64,
+   mixed traffic of tenants a and b): split over [cuda:0, cuda:0] (two
+   replicas, two streams, one copy of the weights) with a cancel from
+   another thread mid-run, merge over [cuda:0], a mid-stream SPLIT -> MERGE
+   switch and the warm switch back, and split with the n-gram drafter:
+   every stream must equal the CPU single engine's.
 4. full width — codeqwen1.5-7b, 32 layers, bf16, random weights from a seed,
    4 slots x 1024 positions; about 12 greedy requests whose prompts straddle
    the prefill budget, so fused admissions, ragged packs and decode chunks
@@ -159,6 +165,24 @@ Phases (each raises on failure, so the script exits non-zero):
    kernel, its rolls on the decode kernel; (d) phase 5 (a)'s paged + prefix
    traffic with the n-gram drafter, every verify dispatch on the paged
    kernel. Prints tok/s, TTFT, TPOT and the acceptance of each run.
+12. (run after phase 10, on phase 4's weights) full width, the split/merge
+   serving cluster — the perfmodel's host constants measured (host time a
+   launch over 2,000 empty launches; a two-thread barrier + synchronize);
+   phase 4's 12 prompts, tenants a / b, four seeded at temperature 0.8, 32
+   new tokens, 4 slots x 1024 a replica: a single engine, then (a) split over
+   [cuda:0, cuda:0] (two controller threads, two streams, one copy of the
+   weights) and a steady decode step of one replica and of both at once
+   profiled (the union of kernel time over both streams), (b) [cuda:0]
+   switching SPLIT -> MERGE once half the requests have arrived, then back
+   and forth warm, (c) ``run_controlled`` under
+   ``ReconfigController.for_cluster`` over 8 prompts of 600-700 tokens then
+   24 of 5-40 (decisions printed, not gated), (d) two replicas with replica
+   1's controller stalled 6 s: one must be declared dead and every request
+   finish. In each run the decode, ragged and flash kernels must launch
+   between the counts' reset and read, and every stream agree with
+   ``LM.prefill`` teacher-forced (greedy: its argmax; seeded: the same
+   draw); greedy streams are compared with phase 4's (printed). Prints tok/s,
+   TTFT, TPOT and the NVML idle share of each run, and each switch's cost.
 11. a ``{"kernels": [...], "to_port": []}`` JSON line (every row of PERF.md's
    kernel table; the decode, ragged, paged, matmul and matmul_q8 rows name the body
    their timed case ran and its launches; paged packs and matmul_q8 at M = 16
@@ -1388,6 +1412,89 @@ def sampled_streams(dev):
                   f"card equal the CPU's without speculation{spec}", flush=True)
 
 
+def cluster_streams(dev):
+    """Phase 3's cluster lanes: the reduced codeqwen1.5-7b config (f32, 2
+    slots, max_len 64) serving mixed greedy / seeded / biased traffic of
+    tenants a and b through ``ServeCluster`` on the card: split over two
+    replicas on one card (two streams, two controller threads) with a
+    cancel from another thread mid-run, merge over the card, a mid-stream
+    SPLIT -> MERGE switch and the warm switch back, and split with the
+    n-gram drafter. Every stream must equal the CPU single engine's (the
+    cancelled one a prefix of its own)."""
+    import threading
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core.modes import Mode
+    from repro_torch.models import LM
+    from repro_torch.serve import Request, ServeCluster, ServeEngine
+
+    rcfg = replace(get_arch("codeqwen1.5-7b").reduced(), dtype="float32")
+    r_cpu = LM(rcfg, device="cpu")
+    r_params = r_cpu.init(torch.Generator().manual_seed(0))
+    r_dev, r_params_dev = LM(rcfg, device=dev), _tree_to(r_params, dev)
+    lens = (5, 9, 16, 17, 23, 41, 12, 50, 3, 33)
+    prompts = repetitive_prompts(lens, rcfg.vocab_size, seed=6)
+    kw = dict(batch_slots=2, max_len=64, prefill_budget=16, seed=5)
+
+    def reqs():
+        return [Request(rid=i, prompt=pr, params=mixed_params(i, 10, 7, 11), tenant="ab"[i % 2])
+                for i, pr in enumerate(prompts)]
+
+    eng = ServeEngine(r_cpu, r_params, device="cpu", **kw)
+    for r in reqs():
+        eng.submit(r)
+    eng.run()
+    want = {r.rid: r.generated for r in eng.finished}
+
+    def check(lane, cl, stats, cut=()):
+        got = {r.rid: r for r in cl.finished}
+        bad = [rid for rid in want if rid not in cut and got[rid].generated != want[rid]]
+        bad += [rid for rid in cut if got[rid].generated != want[rid][: len(got[rid].generated)]]
+        if bad or len(got) != len(want):
+            raise AssertionError(f"cluster, {lane}: streams differ from the CPU's for rids {bad}")
+        cancelled = [rid for rid in cut if got[rid].finish_reason == "cancelled"]
+        print(f"  cluster, {lane}: {len(got)} mixed streams on the card equal the CPU single "
+              f"engine's (mode {stats.mode}, {len(stats.reconfigures)} reconfigures"
+              f"{', cancelled mid-run: ' + str(cancelled) if cut else ''}"
+              f"{', %d verify ticks' % stats.spec_ticks if stats.spec_ticks else ''})",
+              flush=True)
+
+    cl = ServeCluster(r_dev, r_params_dev, devices=[dev, dev], **kw)
+    cl.prewarm(sampling=True)
+    handles = {r.rid: cl.submit(r) for r in reqs()}
+    timer = threading.Timer(0.05, handles[4].cancel)
+    timer.start()
+    try:
+        stats = cl.run()
+    finally:
+        timer.cancel()
+        timer.join()
+    streams = {e.backend.stream for e in cl.engines}
+    shared = cl.engines[0].params is cl.engines[1].params
+    if (dev.type == "cuda" and len(streams) != 2) or not shared:
+        raise AssertionError("split replicas on one card must own two streams and share weights")
+    check("split over [cuda:0, cuda:0]", cl, stats, cut=(4,))
+    cl = ServeCluster(r_dev, r_params_dev, mode=Mode.MERGE, devices=[dev], **kw)
+    for r in reqs():
+        cl.submit(r)
+    check("merge over [cuda:0]", cl, cl.run())
+    cl = ServeCluster(r_dev, r_params_dev, devices=[dev], **kw)
+    stats = cl.run(arrivals=[(0.02 * i, r) for i, r in enumerate(reqs())],
+                   reconfigure_schedule=[(0.06, Mode.MERGE), (0.15, Mode.SPLIT)])
+    if [r.cached for r in stats.reconfigures] != [False, True]:
+        raise AssertionError(f"cluster: switches {stats.reconfigures}, want cold then warm")
+    check("[cuda:0], SPLIT -> MERGE mid-stream, warm switch back", cl, stats)
+    cl = ServeCluster(r_dev, r_params_dev, devices=[dev, dev], speculate="ngram", **kw)
+    for r in reqs():
+        cl.submit(r)
+    stats = cl.run()
+    if stats.spec_ticks <= 0:
+        raise AssertionError("cluster, ngram: no verify tick ran")
+    check("split over [cuda:0, cuda:0], n-gram drafter", cl, stats)
+
+
 def _tree_to(tree, dev):
     if isinstance(tree, dict):
         return {k: _tree_to(v, dev) for k, v in tree.items()}
@@ -1502,7 +1609,7 @@ def full_width(dev, counters):
     print_stats(stats, f"; peak memory {peak / 2**30:.2f} GiB")
     teacher_forced(model, params, reqs[5], dev, "dense bf16")
     decode_step_profile(eng, cfg, dev)
-    return launches, model, params
+    return launches, model, params, {r.rid: r.generated for r in reqs}
 
 
 def phase4_prompts(cfg):
@@ -2136,6 +2243,387 @@ def full_width_sampling(dev, model, params) -> dict:
         model, params, reqs_d[1], dev, "(d)")
     del eng
     torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------- phase 12
+
+
+def teacher_forced_sampled(model, params, req, dev, label: str,
+                           floor: float = AGREE_FLOOR) -> float:
+    """The seeded-stream form of ``teacher_forced``: LM.prefill's logits over
+    prompt + generated, drawn again with the request's own sampler row at
+    each token's PRNG position (``fused_sample``, the seed folded with the
+    position), must give at least ``floor`` of its tokens."""
+    import torch
+
+    from repro_torch.serve import sampling as smp
+
+    seq = np.concatenate([req.prompt, np.asarray(req.generated, np.int32)])
+    with torch.no_grad():
+        logits, _ = model.prefill(params, {"tokens": torch.from_numpy(seq[None]).to(dev)},
+                                  len(seq))
+    rows = logits[0, len(req.prompt) - 1: len(seq) - 1].float()
+    n = rows.shape[0]
+    spf, spi, btok, bval = smp.param_rows([req.params] * n, [req.params.seed] * n)
+    pos = torch.arange(len(req.prompt) - 1, len(seq) - 1, dtype=torch.int32)
+    args = [torch.from_numpy(a).to(dev) for a in (spf[0], spi[0], spf[1], spi[1])]
+    drawn = smp.fused_sample(rows, *args, pos.to(dev), torch.from_numpy(btok).to(dev),
+                             torch.from_numpy(bval).to(dev), smode=req.params.smode)
+    agree = float((drawn.cpu().numpy() == np.asarray(req.generated)).mean())
+    print(f"  {label}: teacher-forced seeded agreement {agree:.3f} over {n} positions "
+          f"(floor {floor})")
+    if agree < floor:
+        raise AssertionError(f"{label}: teacher-forced agreement below the floor")
+    return agree
+
+
+class BusySampler:
+    """The card's busy share over a run from NVML: ``nvidia-smi`` samples
+    ``utilization.gpu`` (the share of its sample period, 1/6 to 1 s, in
+    which a kernel ran) every 100 ms in a process of its own until
+    ``stop()``, which returns the mean idle share (None where the query
+    gives nothing: not measured)."""
+
+    def __init__(self, dev):
+        import threading
+
+        self.samples: list[float] = []
+        self.proc = None
+        if dev.type != "cuda":
+            return
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", f"--id={dev.index or 0}", "--query-gpu=utilization.gpu",
+             "--format=csv,noheader,nounits", "-lms", "100"],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        self.reader = threading.Thread(target=self._read, daemon=True)
+        self.reader.start()
+
+    def _read(self):
+        for line in self.proc.stdout:
+            try:
+                self.samples.append(float(line.strip()))
+            except ValueError:
+                pass
+
+    def stop(self):
+        if self.proc is None:
+            return None
+        self.proc.terminate()
+        try:
+            self.proc.wait(timeout=5)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait()
+        self.reader.join(timeout=5)
+        if not self.samples:
+            return None
+        return 1.0 - float(np.mean(self.samples)) / 100.0
+
+
+def host_overheads(dev) -> dict:
+    """The perfmodel's host constants on this card: ``launch_overhead``, the
+    host time of one launch over 2,000 empty kernels (``torch.cuda._sleep(0)``)
+    queued back to back, and ``barrier_overhead``, one round of a two-thread
+    barrier and ``torch.cuda.synchronize`` on an idle card (mean of 500)."""
+    import threading
+
+    import torch
+
+    for _ in range(200):
+        torch.cuda._sleep(0)
+    torch.cuda.synchronize()
+    n = 2000
+    t0 = time.perf_counter()
+    for _ in range(n):
+        torch.cuda._sleep(0)
+    launch = (time.perf_counter() - t0) / n
+    torch.cuda.synchronize()
+    rounds, bar = 500, threading.Barrier(2)
+    took = []
+
+    def worker(timed: bool):
+        bar.wait()
+        t0 = time.perf_counter()
+        for _ in range(rounds):
+            bar.wait()
+            torch.cuda.synchronize()
+        bar.wait()
+        if timed:
+            took.append((time.perf_counter() - t0) / rounds)
+
+    other = threading.Thread(target=worker, args=(False,))
+    other.start()
+    worker(True)
+    other.join()
+    print(f"  host overheads: launch {launch * 1e6:.2f} us (2,000 empty launches), barrier + "
+          f"synchronize {took[0] * 1e6:.2f} us (two threads, 500 rounds)", flush=True)
+    return dict(launch_overhead_s=launch, barrier_overhead_s=took[0])
+
+
+def replica_step_profile(engines, dev, steps: int = 8) -> dict:
+    """A steady decode step of 4 slots on one replica alone, then on every
+    replica at once (each from its own thread, on its own stream): wall per
+    step (the slowest thread's), the card's busy time per step from the
+    profiler (the union of kernel intervals over both streams) and the idle
+    share. The replicas are idle; their dummy steps write cache rows nothing
+    reads."""
+    import threading
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    def chunk(e):
+        with e.backend.scope():
+            act = torch.ones(e.B, dtype=torch.int32, device=dev)
+            e._tick_fn(e._last_tok, e._cur_len, act, steps, e._flush_btab(), e._sp0, 0)
+            torch.cuda.current_stream(dev).synchronize()
+
+    def together(group):
+        bar = threading.Barrier(len(group) + 1)
+
+        def go(e):
+            bar.wait()
+            chunk(e)
+
+        threads = [threading.Thread(target=go, args=(e,)) for e in group]
+        for t in threads:
+            t.start()
+        bar.wait()
+        t0 = time.perf_counter()
+        for t in threads:
+            t.join()
+        return (time.perf_counter() - t0) * 1e3 / steps
+
+    out = {}
+    for label, group in (("1 replica", engines[:1]), (f"{len(engines)} replicas", engines)):
+        together(group)
+        wall = together(group)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            together(group)
+        spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA)
+        busy, end = 0.0, -1.0
+        for a, b in spans:  # the union of the kernels' intervals (us)
+            if b > end:
+                busy += b - max(a, end)
+                end = b
+        if not spans:
+            raise AssertionError("replica_step_profile: the profiler saw no kernel")
+        busy_ms = busy / 1e3 / steps
+        out[label] = dict(wall_ms=wall, busy_ms=busy_ms, idle_share=1 - busy_ms / wall,
+                          kernels=len(spans) // steps)
+        print(f"  decode step, {label} x 4 slots: wall {wall:.2f} ms, device busy {busy_ms:.2f} "
+              f"ms (union over streams), idle share {1 - busy_ms / wall:.2f}, "
+              f"{len(spans) // steps} kernels a step", flush=True)
+    return out
+
+
+def cluster_traffic(cfg, max_new: int = 32):
+    """Phase 12's traffic: phase 4's 12 prompts, tenants a / b alternating,
+    rids 1, 4, 7 and 10 seeded at temperature 0.8, the others greedy."""
+    from repro_torch.serve import Request, SamplingParams
+
+    return [Request(rid=i, prompt=p_, tenant="ab"[i % 2], params=SamplingParams(
+                max_new=max_new, **(dict(temperature=0.8, seed=3000 + i) if i % 3 == 1 else {})))
+            for i, p_ in enumerate(phase4_prompts(cfg))]
+
+
+def cluster_checks(model, params, dev, reqs, phase4: dict, label: str) -> dict:
+    """Every stream finished and teacher-forced (greedy: argmax; seeded: the
+    same draw), greedy streams against phase 4's single engine (printed,
+    not gated: a bf16 near-tie may round apart in another batch mix)."""
+    check_finished(reqs, reqs[0].params.max_new, model.cfg.vocab_size)
+    agree = []
+    for r in reqs:
+        tag = f"{label} rid {r.rid}"
+        if r.params.temperature > 0:
+            agree.append(teacher_forced_sampled(model, params, r, dev, tag))
+        else:
+            agree.append(teacher_forced(model, params, r, dev, tag))
+    same = [r.rid for r in reqs if r.params.temperature == 0 and r.rid in phase4
+            and r.generated == phase4[r.rid][: len(r.generated)]]
+    greedy = [r for r in reqs if r.params.temperature == 0 and r.rid in phase4]
+    tok = [np.mean(np.asarray(r.generated) == np.asarray(phase4[r.rid][: len(r.generated)]))
+           for r in greedy]
+    print(f"  {label}: teacher-forced min {min(agree):.3f}; greedy streams equal to phase 4's: "
+          f"{len(same)} of {len(greedy)}, token agreement {np.mean(tok) if tok else 1.0:.3f}",
+          flush=True)
+    return dict(teacher_forced_min=min(agree), phase4_equal=len(same), phase4_greedy=len(greedy),
+                phase4_token_agreement=float(np.mean(tok)) if tok else 1.0)
+
+
+def cluster_row(label: str, stats, idle) -> dict:
+    idle_s = f"{idle:.3f}" if idle is not None else "not measured"
+    print(f"  {label}: {stats.total_requests} requests, {stats.total_tokens} decode tokens in "
+          f"{stats.wall_seconds:.3f} s: {stats.tokens_per_sec:.1f} tok/s; TTFT p50 "
+          f"{stats.ttft_p50 * 1e3:.1f} ms p99 {stats.ttft_p99 * 1e3:.1f} ms; TPOT p50 "
+          f"{stats.tpot_p50 * 1e3:.2f} ms; device idle share {idle_s} (NVML)", flush=True)
+    return dict(tok_s=stats.tokens_per_sec, ttft_p50_ms=stats.ttft_p50 * 1e3,
+                ttft_p99_ms=stats.ttft_p99 * 1e3, tpot_p50_ms=stats.tpot_p50 * 1e3,
+                wall_s=stats.wall_seconds, idle_share=idle)
+
+
+def full_width_cluster(dev, model, params, phase4: dict, counters, max_len: int = 1024) -> dict:
+    """Phase 12: the split/merge serving cluster at full width on phase 4's
+    weights (bf16, 4 slots x ``max_len`` a replica). A single engine, then
+    (a) split over [cuda:0, cuda:0] (two replicas, two controller threads,
+    two streams, one copy of the weights), (b) a cluster over [cuda:0]
+    switching SPLIT -> MERGE once half the requests have arrived and
+    switching back warm, (c) ``run_controlled`` under
+    ``ReconfigController.for_cluster`` over 8 long prompts then 24 short
+    ones (its decisions printed, not gated), (d) two replicas with an
+    injected controller stall: one must be declared dead and every request
+    finish. In each run the decode, ragged and flash kernels must launch and
+    every stream agree with ``LM.prefill`` teacher-forced."""
+    import threading
+
+    from repro_torch.core.modes import Mode
+    from repro_torch.serve import (
+        FailurePolicy,
+        ReconfigController,
+        Request,
+        SamplingParams,
+        ServeCluster,
+        ServeEngine,
+    )
+
+    cfg = model.cfg
+    out: dict = {"host": host_overheads(dev)} if dev.type == "cuda" else {}
+    kw = dict(batch_slots=4, max_len=max_len, prefill_budget=64)
+    runs: dict = {}
+
+    def measured(label, go, reqs):
+        reset_counts(counters)
+        busy = BusySampler(dev)
+        try:
+            stats = go()
+        finally:
+            idle = busy.stop()
+        runs[label] = dict(launches=read_counts(counters, f"phase 12 {label}"),
+                           **cluster_row(label, stats, idle),
+                           **cluster_checks(model, params, dev, reqs, phase4, label))
+        return stats
+
+    # the single engine on the same traffic
+    eng = ServeEngine(model, params, device=dev, **kw)
+    eng.prewarm(sampling=True)
+    reqs = cluster_traffic(cfg)
+
+    def single():
+        for r in reqs:
+            eng.submit(r)
+        return eng.run()
+
+    measured("single engine", single, reqs)
+    del eng
+
+    # (a) split: two replicas on one card
+    cl = ServeCluster(model, params, devices=[dev, dev], **kw)
+    if cl.engines[0].params is not cl.engines[1].params:
+        raise AssertionError("phase 12 (a): the replicas must share one copy of the weights")
+    cl.prewarm(sampling=True)
+    reqs = cluster_traffic(cfg)
+
+    def split():
+        for r in reqs:
+            cl.submit(r)
+        return cl.run()
+
+    measured("(a) split [cuda:0, cuda:0]", split, reqs)
+    runs["(a) split [cuda:0, cuda:0]"]["assigned"] = list(cl.router.assigned)
+    if dev.type == "cuda":
+        out["step_profile"] = replica_step_profile(cl.engines, dev)
+    del cl
+
+    # (b) SPLIT -> MERGE once half the requests have arrived, then back warm
+    cl = ServeCluster(model, params, devices=[dev], **kw)
+    cl.prewarm(sampling=True)
+    reqs = cluster_traffic(cfg)
+    gap = 0.4
+    t_half = gap * (len(reqs) // 2 - 1) + gap / 2
+
+    def switched():
+        return cl.run(arrivals=[(gap * i, r) for i, r in enumerate(reqs)],
+                      reconfigure_schedule=[(t_half, Mode.MERGE)])
+
+    stats = measured("(b) [cuda:0] split -> merge", switched, reqs)
+    reports = list(stats.reconfigures) + [cl.reconfigure(Mode.SPLIT), cl.reconfigure(Mode.MERGE)]
+    for rep in reports:
+        print(f"  (b) {rep}")
+    if [r.cached for r in reports] != [False, True, True]:
+        raise AssertionError(f"phase 12 (b): switches {reports}, want cold, warm, warm")
+    out["reconfigure"] = [dict(from_mode=r.from_mode, to_mode=r.to_mode, cached=r.cached,
+                               seconds=r.seconds, drain_s=r.drain_seconds,
+                               place_s=r.place_seconds, bytes=r.bytes_moved) for r in reports]
+    del cl
+
+    # (c) the closed control loop over 8 long prompts, then 24 short ones
+    rng = np.random.default_rng(12)
+    lens = [int(x) for x in rng.integers(600, 701, size=8)] + \
+        [int(x) for x in rng.integers(5, 41, size=24)]
+    reqs = [Request(rid=100 + i, prompt=rng.integers(0, cfg.vocab_size, size=n).astype(np.int32),
+                    tenant="ab"[i % 2], params=SamplingParams(max_new=16))
+            for i, n in enumerate(lens)]
+    arrivals = [(0.05 * i if i < 8 else 2.0 + 0.1 * (i - 8), r) for i, r in enumerate(reqs)]
+    cl = ServeCluster(model, params, devices=[dev, dev], **kw)
+    cl.prewarm()
+    inner = ReconfigController.for_cluster(cl, interval_s=0.5)
+    log = []
+
+    class Logged:  # the controller, its every observation and decision kept
+        interval_s = inner.interval_s
+
+        def observe(self, sample, *, warm_target=False):
+            d = inner.observe(sample, warm_target=warm_target)
+            log.append(dict(t=round(sample.t, 3), mode=sample.mode, arrivals=sample.n_requests,
+                            queue=sample.queue_depth,
+                            decision=None if d is None else dict(
+                                mode=str(d.mode), win_s=d.predicted_win_s,
+                                cost_s=d.switch_cost_s)))
+            return d
+
+        def note_switched(self, t, report=None):
+            inner.note_switched(t, report)
+
+    stats = measured("(c) run_controlled [cuda:0, cuda:0]",
+                     lambda: cl.run_controlled(arrivals, controller=Logged()), reqs)
+    for entry in log:
+        print(f"    control window {entry}")
+    out["controlled"] = dict(windows=len(log), decisions=[e for e in log if e["decision"]],
+                             mode=stats.mode, reconfigures=len(stats.reconfigures))
+    del cl
+
+    # (d) a controller stall on replica 1: declared dead, its requests re-homed
+    ticks = {0: 0, 1: 0}
+    lock = threading.Lock()
+
+    def stall(idx: int) -> None:
+        with lock:
+            ticks[idx] += 1
+            n = ticks[idx]
+        if idx == 1 and n == 12:
+            time.sleep(6.0)
+
+    cl = ServeCluster(model, params, devices=[dev, dev], **kw, failure=FailurePolicy(
+        straggler_after=1.0, dead_after=3.0, poll=0.05, tick_hook=stall))
+    cl.prewarm(sampling=True)
+    reqs = cluster_traffic(cfg)
+
+    def dying():
+        for r in reqs:
+            cl.submit(r)
+        return cl.run()
+
+    stats = measured("(d) replica 1 stalled", dying, reqs)
+    print(f"  (d) dead replicas {stats.dead_replicas}, re-homed {stats.rehomed}, stragglers "
+          f"{stats.stragglers}, replica ticks {ticks}")
+    if stats.dead_replicas != 1 or stats.rehomed < 1:
+        raise AssertionError("phase 12 (d): one replica must die and its requests re-home")
+    out["death"] = dict(dead=stats.dead_replicas, rehomed=stats.rehomed,
+                        stragglers=stats.stragglers)
+    del cl
+    out["runs"] = runs
     return out
 
 
@@ -2934,13 +3422,14 @@ def main() -> int:
     phase("3 kernel path vs plain path, end to end, f32")
     small_model_streams(dev)
     sampled_streams(dev)
+    cluster_streams(dev)
 
     phase("4 full width codeqwen1.5-7b")
     counters4 = {"decode_attention": (dk, "launches"), "ragged_attention": (rk, "launches"),
                  "gqa_flash_attention": (fk, "launches"),
                  "decode_attention_split": (dk, "launches_split"),
                  "ragged_attention_split": (rk, "launches_split")}
-    launches, model, params = full_width(dev, counters4)
+    launches, model, params, phase4_streams = full_width(dev, counters4)
 
     phase("5 full width, paged + prefix and quantized KV")
     counters5 = {"paged_attention": (pk, "launches"), "paged_attention_q8": (pk, "launches_q8"),
@@ -2975,6 +3464,12 @@ def main() -> int:
     phase("10 full width, sampled and speculated serving (phase 4's weights)")
     sampling = full_width_sampling(dev, model, params)
     print(json.dumps({"sampling": sampling}, default=float))
+
+    phase("12 full width, the split/merge serving cluster (phase 4's weights)")
+    counters12 = {"decode_attention": (dk, "launches"), "ragged_attention": (rk, "launches"),
+                  "gqa_flash_attention": (fk, "launches")}
+    cluster = full_width_cluster(dev, model, params, phase4_streams, counters12)
+    print(json.dumps({"cluster": cluster}, default=float))
 
     phase("7 kernel API and autotuner")
     counters7 = {"flash_attention": (fk, "launches_flat"), "rmsnorm": (rnk, "launches"),

@@ -19,6 +19,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -69,6 +70,7 @@ SIGNATURES = {
 RESTYPES = {"repro_matmul_workspace": ctypes.c_longlong}  # every other entry: int
 
 _lib = None
+_load_lock = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -139,20 +141,25 @@ def library_path() -> Path:
 
 
 def load() -> ctypes.CDLL:
-    """The kernel library, built on first use. Raises if it cannot be built."""
+    """The kernel library, built on first use. Raises if it cannot be built.
+    Thread-safe: two controller threads' first launches build and bind it
+    once (the second waits for the first)."""
     global _lib
     if _lib is not None:
         return _lib
-    path = library_path()
-    if not path.exists():
-        BUILD_ROOT.mkdir(parents=True, exist_ok=True)
-        _compile(path.parent)
-    lib = ctypes.CDLL(str(path))
-    for name, argtypes in SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = RESTYPES.get(name, ctypes.c_int)
-    _lib = lib
+    with _load_lock:
+        if _lib is not None:
+            return _lib
+        path = library_path()
+        if not path.exists():
+            BUILD_ROOT.mkdir(parents=True, exist_ok=True)
+            _compile(path.parent)
+        lib = ctypes.CDLL(str(path))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = RESTYPES.get(name, ctypes.c_int)
+        _lib = lib
     return lib
 
 

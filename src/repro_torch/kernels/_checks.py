@@ -5,6 +5,7 @@ dtypes are ones the kernels were built for."""
 
 from __future__ import annotations
 
+import threading
 from typing import Optional
 
 import torch
@@ -111,6 +112,7 @@ def int32_vector(name: str, what: str, t: torch.Tensor, n: int) -> None:
 
 TICKETS = 1 << 16  # ticket counters per (device, stream)
 _tickets: dict = {}  # (device index, stream handle) -> int32 zeros the kernels leave zero
+_tickets_lock = threading.Lock()
 
 
 def tickets(device: torch.device, stream: int) -> torch.Tensor:
@@ -124,8 +126,11 @@ def tickets(device: torch.device, stream: int) -> torch.Tensor:
     key = (device.index, stream)
     buf = _tickets.get(key)
     if buf is None:
-        buf = torch.zeros(TICKETS, dtype=torch.int32, device=device)
-        _tickets[key] = buf
+        with _tickets_lock:  # made once, even when two threads ask first
+            buf = _tickets.get(key)
+            if buf is None:
+                buf = torch.zeros(TICKETS, dtype=torch.int32, device=device)
+                _tickets[key] = buf
     return buf
 
 

@@ -165,10 +165,12 @@ class LM:
         """Per-layer views of the stacked blocks (int8 leaves as the [K, N]
         weight and [N] scale the matmul kernel takes), rebuilt only for new
         params."""
-        if self._views[0] is not params:
-            self._views = (params, [layer_matmul_views(_index(params["blocks"], i))
-                                    for i in range(self.cfg.n_layers)])
-        return self._views[1]
+        views = self._views  # one read: another thread may replace it meanwhile
+        if views[0] is not params:
+            views = (params, [layer_matmul_views(_index(params["blocks"], i))
+                              for i in range(self.cfg.n_layers)])
+            self._views = views
+        return views[1]
 
     def _mlp_residual(self, blk: Params, x: torch.Tensor) -> torch.Tensor:
         return x + mlp_apply(blk["mlp"], rms_norm(x, blk["norm2"], self.cfg.norm_eps))

@@ -1,7 +1,31 @@
 """Serving: the unified engine and its request API, the seeded sampler zoo,
 speculative decoding's drafters, the block-paged KV pool and the radix
-prefix cache behind paged serving."""
+prefix cache behind paged serving, the placement backends, and the
+split/merge serving cluster with its supervisor (reconfiguration,
+admission, failure re-homing)."""
 
+from repro_torch.serve.backend import DeviceBackend, PlacementBackend
+from repro_torch.serve.cluster import (
+    ClusterStats,
+    NoModelReplica,
+    ReconfigureReport,
+    Router,
+    SegmentStats,
+    ServeCluster,
+)
+from repro_torch.serve.controller import (
+    AdmissionController,
+    AdmissionPolicy,
+    ControllerConfig,
+    FailurePolicy,
+    ReconfigController,
+    SwitchDecision,
+    TenantPolicy,
+    WindowSample,
+    build_continuation,
+    model_token_cost,
+    plan_hetero_placement,
+)
 from repro_torch.serve.engine import (
     AdmissionRejected,
     Request,
@@ -15,18 +39,37 @@ from repro_torch.serve.sampling import SamplingParams
 from repro_torch.serve.speculate import ModelDrafter, NGramDrafter, SpeculateConfig
 
 __all__ = [
+    "AdmissionController",
+    "AdmissionPolicy",
     "AdmissionRejected",
     "BlockPool",
+    "ClusterStats",
+    "ControllerConfig",
+    "DeviceBackend",
+    "FailurePolicy",
     "ModelDrafter",
     "NGramDrafter",
+    "NoModelReplica",
+    "PlacementBackend",
     "PoolStats",
     "PrefixStats",
     "RadixPrefixCache",
+    "ReconfigController",
+    "ReconfigureReport",
     "Request",
     "RequestHandle",
+    "Router",
     "SamplingParams",
+    "SegmentStats",
+    "ServeCluster",
     "ServeEngine",
     "ServeStats",
     "SpeculateConfig",
+    "SwitchDecision",
+    "TenantPolicy",
+    "WindowSample",
     "blocks_for",
+    "build_continuation",
+    "model_token_cost",
+    "plan_hetero_placement",
 ]

@@ -68,13 +68,20 @@ tracks counts only and reads dispatch t-1's token values after dispatch t is
 enqueued, so the transfer overlaps device work (a verify tick reads its
 values at once: what it commits depends on them). Host arrays reach the
 card through pinned memory without a stream synchronisation. The KV cache
-is updated in place (the JAX engine donates it). Not ported: the legacy
-prefill+insert tier, the placement backends, ``reset``, admission control
-past the infeasible refusal, and the cluster hooks.
+is updated in place (the JAX engine donates it).
+
+Placement goes through a backend (``serve/backend.py``): ``device=d`` is the
+shorthand for ``DeviceBackend(d)``, which on a CUDA device queues every
+dispatch and host copy of the engine on a stream of its own. The cluster
+hooks (``serve/cluster.py``): a thread-safe ``cancel``, ``reset``, and
+``run(deadline_s=, on_tick=, gate=)``. Not ported: the legacy
+prefill+insert tier and the tensor-parallel placement. The JAX engine's
+compile counters (``prefill_compiles``) have no meaning in an eager engine.
 """
 
 from __future__ import annotations
 
+import threading
 import time
 from collections import deque
 from dataclasses import dataclass, field
@@ -83,9 +90,9 @@ from typing import Iterator, Optional
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
 from repro_torch.models.model import LM
 from repro_torch.models.quant import quantize_params
+from repro_torch.serve.backend import PlacementBackend, resolve_backend
 from repro_torch.serve.kv_pool import BlockPool, blocks_for
 from repro_torch.serve.prefix_cache import RadixPrefixCache
 from repro_torch.serve.sampling import (
@@ -99,30 +106,63 @@ from repro_torch.serve.speculate import SpeculateConfig, build_drafter
 
 
 class AdmissionRejected(ValueError):
-    """Typed submit-time rejection: the request was never queued. Of the JAX
-    engine's reasons only ``"infeasible"`` (the request needs more KV blocks
-    than the pool holds) arises here; the others belong to admission control,
-    which is not ported."""
+    """Typed submit-time rejection: the request was never queued.
+
+    ``reason`` is one of the four admission outcomes:
+
+    * ``"infeasible"`` — could never be served (it needs more KV blocks than
+      the paged pool holds, or no live replica serves its model);
+    * ``"shed_deadline"`` — its predicted TTFT exceeds its ``deadline_s``;
+    * ``"rate_limited"`` — its tenant's token bucket is empty;
+    * ``"queue_full"`` — bounded-queue backpressure.
+
+    The last three come from the cluster's admission control
+    (``serve/controller.py``). A :class:`ValueError`, so callers that caught
+    the bare infeasible refusal keep working."""
+
+    REASONS = ("infeasible", "shed_deadline", "rate_limited", "queue_full")
 
     def __init__(self, reason: str, detail: str = "") -> None:
+        if reason not in self.REASONS:
+            raise ValueError(f"unknown admission reason {reason!r}")
         self.reason = reason
         super().__init__(f"{reason}: {detail}" if detail else reason)
 
 
 @dataclass(eq=False)
 class Request:
-    """One serving request (identity-based equality: a live lifecycle object)."""
+    """One serving request (identity-based equality: a live lifecycle object).
+
+    ``params=None`` means the caller configured no sampling: the request
+    serves ``SamplingParams()`` unless a cluster's per-tenant default fills
+    it first (:meth:`apply_default_params`)."""
 
     rid: int
     prompt: np.ndarray  # [S] int32
-    params: SamplingParams = field(default_factory=SamplingParams)
-    tenant: Optional[str] = None  # per-tenant speculation opt-out key
+    params: Optional[SamplingParams] = None
+    tenant: Optional[str] = None  # router affinity and speculation opt-out key
+    model: Optional[str] = None  # heterogeneous cluster: pin to a named model
+    deadline_s: Optional[float] = None  # TTFT budget: shed if predicted to miss
     generated: list[int] = field(default_factory=list)
     n_generated: int = 0  # tokens sampled so far (values may still be in flight)
     submitted_at: float = 0.0
     first_token_at: Optional[float] = None
     done_at: Optional[float] = None
-    finish_reason: Optional[str] = None  # "length" | "stop" | "cancelled"
+    finish_reason: Optional[str] = None  # "length"|"stop"|"cancelled"|"rejected"
+    reject_reason: Optional[str] = None  # AdmissionRejected.reason when rejected
+
+    def __post_init__(self):
+        self._explicit_params = self.params is not None
+        if self.params is None:
+            self.params = SamplingParams()
+
+    def apply_default_params(self, params: SamplingParams) -> None:
+        """Fill in a default ``SamplingParams`` (a cluster's per-tenant
+        default); a no-op when the caller configured the request."""
+        if self._explicit_params:
+            return
+        self.params = params
+        self._explicit_params = True
 
     @property
     def complete(self) -> bool:
@@ -132,11 +172,14 @@ class Request:
 
 class RequestHandle:
     """Streaming view of one submitted request: an incremental token
-    iterator (driving the engine when needed) plus ``cancel()``."""
+    iterator plus ``cancel()``. Iterating drives the owning engine when no
+    run loop does, and polls when a controller thread (a cluster's split
+    replica) owns it."""
 
-    def __init__(self, request: Request, owner: "ServeEngine") -> None:
+    def __init__(self, request: Request, owner) -> None:
         self.request = request
-        self._owner = owner
+        self._owner = owner  # ServeEngine or ServeCluster
+        self.replica = None  # split-mode routing target (set by ServeCluster)
 
     @property
     def rid(self) -> int:
@@ -165,6 +208,11 @@ class RequestHandle:
                 yield self.request.generated[i]
                 i += 1
             elif self.done:
+                # the owner's bookkeeping hook (a cluster prunes its
+                # request -> engine map here)
+                done_hook = getattr(self._owner, "_handle_done", None)
+                if done_hook is not None:
+                    done_hook(self.request)
                 return
             else:
                 self._owner._handle_pump(self.request)
@@ -200,6 +248,10 @@ class ServeStats:
     spec_proposed: int = 0
     spec_accepted: int = 0
     spec_ticks: int = 0
+    # admission counters: nonzero only at the cluster layer, which owns
+    # admission control (ClusterStats carries them per run)
+    shed: int = 0  # deadline-based load shedding (shed_deadline)
+    rejected: int = 0  # rate_limited + queue_full rejections
     # per-request samples of the requests finished in this run: TTFT = first
     # token on the host - submitted; TPOT = mean inter-token time
     ttfts: list[float] = field(default_factory=list)
@@ -290,13 +342,23 @@ class ServeEngine:
         speculate=None,
         kv_dtype=None,
         weight_dtype=None,
+        backend: Optional[PlacementBackend] = None,
         device=None,
     ):
-        self.device = resolve_device(device)
+        # every host -> device crossing goes through the backend; device=d is
+        # the shorthand for DeviceBackend(d) (None: the card), which on a
+        # CUDA device queues the engine's work on a stream of its own
+        self.backend = resolve_backend(backend, device)
+        self.device = self.backend.device
         if model.device != self.device:
             raise ValueError(f"model lives on {model.device}, engine on {self.device}")
-        if params["final_norm"].device != self.device:
-            raise ValueError(f"params live on {params['final_norm'].device}, engine on {self.device}")
+        with self.backend.scope():
+            self._setup(model, params, batch_slots, max_len, seed, prefill_budget, max_chunk,
+                        kv_block_size, num_blocks, prefix_cache, speculate, kv_dtype,
+                        weight_dtype)
+
+    def _setup(self, model, params, batch_slots, max_len, seed, prefill_budget, max_chunk,
+               kv_block_size, num_blocks, prefix_cache, speculate, kv_dtype, weight_dtype):
         if not model.has_positional_kv:  # MLA's latent cache: dense and unquantized only
             if kv_dtype is not None:
                 raise ValueError(f"family {model.family_tag!r} has no positional KV to quantize")
@@ -309,7 +371,7 @@ class ServeEngine:
         # None keeps the params as given; "int8" rewrites the eligible stacked
         # weights to {"q8", "scale"} leaves (unquantized leaves shared)
         self.weight_dtype = weight_dtype
-        self.params = quantize_params(params, weight_dtype)
+        self.params = self.backend.put_params(model, quantize_params(params, weight_dtype))
         self.B = batch_slots
         self.max_len = max_len
         self.prefill_budget = max(int(prefill_budget), 1)
@@ -379,8 +441,16 @@ class ServeEngine:
         self._prefilling: list[int] = []  # slots mid-prefill, admission order
         self._done_now: list[Request] = []  # requests finished in this run()
         self._pending: deque = deque()  # dispatched, not yet harvested
-        self._cancels: list[Request] = []
-        self._running = False
+        self._cancels: list[Request] = []  # the cross-thread abort inbox
+        self._cancel_lock = threading.Lock()
+        # serializes what advances the state machine: run() iterations, step()
+        # (handle-driven streaming) and inline cancels
+        self._drive_lock = threading.RLock()
+        self._running = False  # a run() loop (possibly another thread) drives
+        # poison pill: a cluster that declared this engine dead sets it, and a
+        # stuck controller thread that resumes aborts its run() at the next
+        # iteration boundary without touching the state already re-homed
+        self._poisoned = False
         self._stream_stats = ServeStats()  # step()-driven serving
         # device-resident tick state and the per-slot "decoding" lane
         dev = self.device
@@ -398,13 +468,10 @@ class ServeEngine:
     # ------------------------------------------------------------ transfers
 
     def _put(self, arr: np.ndarray) -> torch.Tensor:
-        """Host array -> device. On the card through pinned memory, so the
-        copy is queued without waiting for earlier work on the stream. The
-        caller hands a fresh array it never mutates afterwards."""
-        t = torch.from_numpy(arr)
-        if self.device.type == "cuda":
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t
+        """Host array -> device, through the backend (on the card through
+        pinned memory, queued without waiting for earlier work on the
+        stream). The caller hands a fresh array it never mutates afterwards."""
+        return self.backend.put_host(arr)
 
     def _put_rows(self, spf, spi, btok, bval) -> tuple:
         """Sampler rows (as ``param_rows`` builds them) -> device, in two
@@ -657,6 +724,10 @@ class ServeEngine:
         call on an IDLE engine: the dummies write garbage into cache rows
         nothing reads yet (a paged engine's all-sentinel tables send them to
         the scratch block)."""
+        with self._drive_lock, self.backend.scope():
+            self._prewarm(sampling)
+
+    def _prewarm(self, sampling: bool) -> None:
         smodes = (0, 1, 2) if sampling else (0,)
         idle = torch.zeros(self.B, dtype=torch.int32, device=self.device)
         btab = self._flush_btab()
@@ -701,36 +772,46 @@ class ServeEngine:
         return RequestHandle(req, self)
 
     def cancel(self, req: Request) -> None:
-        """Abort a request: dequeue it if waiting, free its slot if admitted.
-        In-flight token values are discarded; no other slot is perturbed.
-        Applied now, or at the next iteration boundary inside ``run()``."""
-        self._cancels.append(req)
-        if not self._running:
-            self._apply_cancels(self._stream_stats)
+        """Abort a request (thread-safe): dequeue it if waiting, free its slot
+        if admitted. In-flight token values are discarded; no other slot is
+        perturbed. Applied now when no run loop owns the engine, else at the
+        loop's next iteration boundary."""
+        with self._cancel_lock:
+            # the append AND the _running read under the lock: an unlocked
+            # append could land on a list _apply_cancels already swapped out,
+            # and run() flips _running under the same lock
+            self._cancels.append(req)
+            running = self._running
+        if not running:
+            with self._drive_lock:
+                self._apply_cancels(self._stream_stats)
 
     def _apply_cancels(self, stats: ServeStats) -> None:
-        cancels, self._cancels = self._cancels, []
-        for req in cancels:
-            if req.finish_reason is not None:
-                continue
-            if req in self.waiting:
-                self.waiting.remove(req)
-            for slot, r in enumerate(self.slot_req):
-                if r is req:
-                    self.slot_req[slot] = None
-                    self.slot_len[slot] = 0
-                    self.slot_fed[slot] = 0
-                    if slot in self._prefilling:
-                        self._prefilling.remove(slot)
-                    if self.paged:  # a cancel frees the blocks mid-stream
-                        self._release_slot_blocks(slot)
-                    self._dirty = True
-            req.finish_reason = "cancelled"
-            req.n_generated = len(req.generated)
-            req.done_at = time.perf_counter()
-            self.finished.append(req)
-            self._done_now.append(req)
-            stats.cancelled += 1
+        if not self._cancels:
+            return
+        with self._cancel_lock:
+            cancels, self._cancels = self._cancels, []
+            for req in cancels:
+                if req.finish_reason is not None:
+                    continue
+                if req in self.waiting:
+                    self.waiting.remove(req)
+                for slot, r in enumerate(self.slot_req):
+                    if r is req:
+                        self.slot_req[slot] = None
+                        self.slot_len[slot] = 0
+                        self.slot_fed[slot] = 0
+                        if slot in self._prefilling:
+                            self._prefilling.remove(slot)
+                        if self.paged:  # a cancel frees the blocks mid-stream
+                            self._release_slot_blocks(slot)
+                        self._dirty = True
+                req.finish_reason = "cancelled"
+                req.n_generated = len(req.generated)
+                req.done_at = time.perf_counter()
+                self.finished.append(req)
+                self._done_now.append(req)
+                stats.cancelled += 1
 
     def _release_stopped(self, stats: ServeStats) -> None:
         for slot, r in enumerate(self.slot_req):
@@ -1039,15 +1120,18 @@ class ServeEngine:
             ):
                 self._finish(r, i, stats)
 
-    def _service_once(self, stats: ServeStats) -> bool:
+    def _service_once(self, stats: ServeStats, admit: bool = True) -> bool:
         """ONE scheduling iteration: apply cancellations, release
         stop-finished slots, admit, dispatch a pack (if any admission is
         mid-prefill) and a decode chunk (a verify tick when speculating),
         then harvest everything older than the newest dispatch. Returns
-        whether any work remains."""
+        whether any work remains. ``admit=False`` drains the slots without
+        taking from the queue (a control interval's end)."""
         self._apply_cancels(stats)
         self._release_stopped(stats)
-        if self.paged:
+        if not admit:
+            pass
+        elif self.paged:
             self._admit_paged()
         else:
             self._admit_unified(stats)
@@ -1092,13 +1176,21 @@ class ServeEngine:
 
     def step(self) -> bool:
         """Advance by one scheduling iteration; returns whether work remains."""
-        busy = self._service_once(self._stream_stats)
-        if not busy:
-            self._drain_pending()
-            self._release_stopped(self._stream_stats)
-        return busy
+        with self._drive_lock, self.backend.scope():
+            busy = self._service_once(self._stream_stats)
+            if not busy:
+                self._drain_pending()
+                self._release_stopped(self._stream_stats)
+            return busy
 
     def _handle_pump(self, req: Request) -> None:
+        """Progress for a blocked handle iterator: drive the engine when no
+        run loop owns it, poll when a controller thread does. A poisoned
+        (declared-dead) engine is never driven: the handle polls until the
+        cluster has re-homed its request."""
+        if self._running or self._poisoned:
+            time.sleep(1e-4)
+            return
         if self.step():
             return
         self._apply_cancels(self._stream_stats)
@@ -1107,37 +1199,112 @@ class ServeEngine:
                 f"engine idle but request {req.rid} incomplete — was it submitted here?"
             )
 
-    def run(self, arrivals=None) -> ServeStats:
+    def reset(self) -> None:
+        """Return an IDLE engine to its just-constructed serving state: the
+        device tick state, the sampler rows, the slot bookkeeping and the
+        queues, the drafter's slots and the acceptance EWMA, and (paged) the
+        pool, the prefix tree and the block table. The KV cache (garbage
+        nothing reads) and the weights stay: a cluster's warm switch back to
+        a built fabric costs no placement. Refuses a busy engine."""
+        if any(r is not None for r in self.slot_req):
+            raise RuntimeError("reset() on a busy engine")
+        with self._drive_lock, self.backend.scope():
+            self.slot_len[:] = 0
+            self.slot_fed[:] = 0
+            self.waiting.clear()
+            self.finished = []
+            self._prefilling.clear()
+            self._done_now = []
+            self._pending.clear()
+            with self._cancel_lock:
+                self._cancels.clear()
+            self._stream_stats = ServeStats()
+            self.rng = np.random.default_rng(self.seed)
+            dev = self.device
+            self._last_tok = torch.zeros(self.B, dtype=torch.int32, device=dev)
+            self._cur_len = torch.zeros(self.B, dtype=torch.int32, device=dev)
+            self._active = torch.zeros(self.B, dtype=torch.int32, device=dev)
+            self._dirty = False
+            self._put_sp(*param_rows([None] * self.B, np.zeros(self.B)))
+            if self.spec is not None:
+                self._spec_ewma[:] = 1.0
+                for i in range(self.B):
+                    self.drafter.reset_slot(i)
+            if self.paged:
+                if self.prefix is not None:
+                    self.prefix.clear()
+                self.pool.reset()
+                self._slot_blocks = [[] for _ in range(self.B)]
+                self._btab_h[:] = self.num_blocks
+                self._btab = self._put(self._btab_h.copy())
+                self._btab_dirty = False
+
+    def run(self, arrivals=None, *, deadline_s=None, on_tick=None, gate=None) -> ServeStats:
         """Drain all submitted requests; returns throughput + latency stats.
+
         ``arrivals`` optionally replays an open-loop stream of
         ``(t_offset_seconds, Request)``, each submitted once the run clock
-        passes its offset (its TTFT clock starts at the scheduled time)."""
+        passes its offset (its TTFT clock starts at the scheduled time).
+
+        ``gate`` is the admission hook of arrival-stream requests: called
+        with each due request before it joins the queue, it may raise
+        :class:`AdmissionRejected`; the request then finishes at once as
+        ``"rejected"`` (an open-loop stream has no caller to raise into).
+
+        ``deadline_s`` bounds the run to a control interval: past it the
+        loop stops admitting and exits once the slots drain; waiting
+        requests stay queued for the next run.
+
+        ``on_tick`` is called once per scheduling iteration outside the drive
+        lock (a cluster's watchdog heartbeat and fault-injection point);
+        after each call a poisoned engine stops at the iteration boundary."""
         stats = ServeStats()
         self._done_now = []
         alloc_fail0 = self.pool.alloc_failures if self.paged else 0
         t0 = time.perf_counter()
         arr: deque = deque(sorted(arrivals, key=lambda a: a[0]) if arrivals else ())
-        self._running = True
+        with self._cancel_lock:  # see cancel(): no inline apply may overlap
+            self._running = True
         try:
-            while True:
-                now = time.perf_counter() - t0
-                while arr and arr[0][0] <= now:
-                    t_off, req = arr.popleft()
-                    self.submit(req)
-                    req.submitted_at = t0 + t_off
-                stats.queue_peak = max(stats.queue_peak, len(self.waiting))
-                if not (any(r is not None for r in self.slot_req)
-                        or self.waiting or arr or self._cancels):
-                    break
-                busy = self._service_once(stats)
-                if not busy and arr:
-                    wait = arr[0][0] - (time.perf_counter() - t0)
-                    if wait > 0:
-                        time.sleep(min(wait, 0.001))
-            self._drain_pending()
-            self._release_stopped(stats)
+            with self.backend.scope():
+                while True:
+                    if on_tick is not None:
+                        on_tick()
+                    if self._poisoned:
+                        break
+                    now = time.perf_counter() - t0
+                    while arr and arr[0][0] <= now:
+                        t_off, req = arr.popleft()
+                        if gate is not None:
+                            try:
+                                gate(req)
+                            except AdmissionRejected as rej:
+                                req.finish_reason = "rejected"
+                                req.reject_reason = rej.reason
+                                req.submitted_at = t0 + t_off
+                                req.done_at = time.perf_counter()
+                                self.finished.append(req)
+                                continue
+                        self.submit(req)
+                        req.submitted_at = t0 + t_off
+                    stats.queue_peak = max(stats.queue_peak, len(self.waiting))
+                    expired = deadline_s is not None and now >= deadline_s
+                    if not (any(r is not None for r in self.slot_req)
+                            or (self.waiting and not expired) or arr or self._cancels):
+                        break
+                    with self._drive_lock:  # serialized against inline cancels, step()
+                        busy = self._service_once(stats, admit=not expired)
+                    if not busy and arr:
+                        wait = arr[0][0] - (time.perf_counter() - t0)
+                        if wait > 0:
+                            time.sleep(min(wait, 0.001))
+                if not self._poisoned:
+                    with self._drive_lock:
+                        self._drain_pending()
+                        self._release_stopped(stats)
         finally:
-            self._running = False
+            with self._cancel_lock:
+                self._running = False
         stats.wall_seconds = time.perf_counter() - t0
         stats.kv_bytes_resident = max(stats.kv_bytes_resident, self.kv_bytes_resident())
         if self.paged:
