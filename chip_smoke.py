@@ -65,8 +65,11 @@ Phases (each raises on failure, so the script exits non-zero):
    over int8 and fp8 caches, and with int8 weights (dense, and paged +
    prefix over an int8 cache), then the reduced codeqwen1.5-7b and
    qwen3-32b configs (head_dim 16, groups 1 and 4), dense and paged, and
-   the reduced minicpm3-4b (MLA, its packs on the latent-MQA kernel); the
-   token streams must be equal. Then the PRNG on the card (keys, bits and
+   the reduced minicpm3-4b (MLA, its packs on the latent-MQA kernel), and
+   the mixture-of-experts family: reduced llama4-scout-17b-a16e (GQA G 4,
+   top-1 of 4 experts + 1 shared) dense, paged with prefix reuse and with
+   int8 weights, and reduced deepseek-v2-lite-16b (MoE + MLA); the token
+   streams must be equal. Then the PRNG on the card (keys, bits and
    uniforms bitwise the CPU's, gumbel within 4 float32 steps) and the
    sampler at smode 2 over a 92,416-wide vocabulary (the CPU's tokens), and
    the reduced codeqwen1.5-7b and qwen3-32b configs serving mixed greedy /
@@ -177,18 +180,39 @@ Phases (each raises on failure, so the script exits non-zero):
    and forth warm, (c) ``run_controlled`` under
    ``ReconfigController.for_cluster`` over 8 prompts of 600-700 tokens then
    24 of 5-40 (decisions printed, not gated), (d) two replicas with replica
-   1's controller stalled 6 s: one must be declared dead and every request
-   finish. In each run the decode, ragged and flash kernels must launch
+   1's controller stalled 14 s under a 10 s dead_after: exactly one must be
+   declared dead and every request finish; each replica's longest iteration
+   is printed. In each run the decode, ragged and flash kernels must launch
    between the counts' reset and read, and every stream agree with
    ``LM.prefill`` teacher-forced (greedy: its argmax; seeded: the same
    draw); greedy streams are compared with phase 4's (printed). Prints tok/s,
    TTFT, TPOT and the NVML idle share of each run, and each switch's cost.
+13. (run after phase 9) full width, the mixture-of-experts family on phase
+   4's traffic, each model freed before the next: (a) deepseek-v2-lite-16b
+   whole (27 layers, the first dense at ff 10944, 64 routed experts top-6 +
+   2 shared at ff 1408, MLA 512 + 64 x 16 heads, bf16, ~31.4 GB of random
+   weights from a seed), every pack on the latent-MQA kernel (launches ==
+   MLA packed calls); (b) llama4-scout-17b-a16e at 4 of its 48 layers (the
+   one cut: 48 layers do not fit one card), every width full (G 5, D 128,
+   16 experts top-1, 1 shared), bf16, on the decode, ragged and flash
+   kernels; (c) (b)'s weights quantized to int8 on the card (``matmul_q8``
+   on the projections and the shared expert). Each prints parameters,
+   bytes and the decode step's weight-read floor (every expert is read:
+   the dense [E, C] dispatch), tok/s, TTFT, TPOT, a decode step's wall
+   against device time with the expert ``bmm``s' share, and the kept share
+   of (token, k) entries by route (decode must keep all); each run's
+   kernels must launch, its streams agree with ``LM.prefill``
+   teacher-forced, (a) and (b) hold a 64-token pack's logits through the
+   kernels against the plain path on the card (``PACK_REL_TOL``), and two
+   identical runs of (a) and of (b) must give equal streams.
 11. a ``{"kernels": [...], "to_port": []}`` JSON line (every row of PERF.md's
    kernel table; the decode, ragged, paged, matmul and matmul_q8 rows name the body
    their timed case ran and its launches; paged packs and matmul_q8 at M = 16
    have entries of their own; the ragged row adds phase 10's verify and draft
    catch-up launches, the paged pack row its paged verify launches, the
-   decode row the draft's roll launches), then the result line.
+   decode row the draft's roll launches; the decode, ragged, flash,
+   matmul_q8 and latent-MQA rows phase 13's launches as ``launches_moe``),
+   then the result line.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -300,8 +324,11 @@ def paged_tokens(kind: str, cur, s_max: int) -> tuple[list, list]:
     return seqs, list(range(600, 600 + n6)) + list(range(545, 601 - n6)) + [s_max] * 8
 
 
+_T0 = time.perf_counter()
+
+
 def phase(name: str) -> None:
-    print(f"== {name}", flush=True)
+    print(f"== {name} (at {time.perf_counter() - _T0:.1f} s)", flush=True)
 
 
 def time_ms(fn, reps: int = 30, warmup: int = 3) -> float:
@@ -1289,6 +1316,112 @@ def small_model_streams(dev):
           f"identical on the card ({mk.launches - n0} latent-MQA launches) and the CPU (plain)",
           flush=True)
 
+    # the mixture-of-experts family, f32: reduced llama4-scout-17b-a16e (GQA,
+    # G 4, top-1 of 4 experts + 1 shared) dense, paged with prefix reuse and
+    # with int8 weights (the shared expert on matmul_q8, the expert stacks
+    # read through qweight), and reduced deepseek-v2-lite-16b (MoE + MLA:
+    # top-2 of 4 + 2 shared after a dense first layer, its packs on the
+    # latent-MQA kernel); capacity drops, where a pack's bucket makes them,
+    # must fall on the same entries on both
+    from repro_torch.kernels import matmul as mmk
+    from repro_torch.models import moe as moe_mod
+
+    for name, lanes_moe in (
+        ("llama4-scout-17b-a16e",
+         [("dense", prompts, {}),
+          ("paged + prefix, bs=16", shared + prompts[6:], dict(kv_block_size=16,
+                                                               prefix_cache=True)),
+          ("int8 weights, dense", prompts, dict(weight_dtype="int8"))]),
+        ("deepseek-v2-lite-16b", [("dense", prompts, {})]),
+    ):
+        rcfg = get_arch(name).reduced()
+        r_cpu = LM(rcfg, device="cpu")
+        r_params = r_cpu.init(torch.Generator().manual_seed(0))
+        r_dev, r_params_dev = LM(rcfg, device=dev), _tree_to(r_params, dev)
+        for lane, reqs, kw in lanes_moe:
+            reqs = [p_ % rcfg.vocab_size for p_ in reqs]
+            on_cpu, hits_cpu = serve(r_cpu, r_params, "cpu", reqs, kw)
+            n0 = (mk.launches, mmk.launches_q8)
+            kept = moe_kept(moe_mod)
+            with kept:
+                on_dev, hits_dev = serve(r_dev, r_params_dev, dev, reqs, kw)
+            n_mla, n_q8 = mk.launches - n0[0], mmk.launches_q8 - n0[1]
+            if on_dev != on_cpu or hits_dev != hits_cpu:
+                diff = [rid for rid in on_cpu if on_cpu[rid] != on_dev.get(rid)]
+                raise AssertionError(f"{name} reduced, {lane}: streams differ for rids {diff}, "
+                                     f"prefix hits {hits_dev} on the card, {hits_cpu} on CPU")
+            if (rcfg.mla is not None) != (n_mla > 0) or ("weight_dtype" in kw) != (n_q8 > 0):
+                raise AssertionError(f"{name} reduced, {lane}: {n_mla} latent-MQA and {n_q8} "
+                                     "matmul_q8 launches")
+            print(f"  {name} reduced (MoE {rcfg.moe.n_routed} experts top-{rcfg.moe.top_k} + "
+                  f"{rcfg.moe.n_shared} shared, {'MLA' if rcfg.mla else 'GQA G 4'}), {lane}: "
+                  f"{len(on_cpu)} greedy streams identical on the card and the CPU (plain); "
+                  f"kept entries {kept.summary()}; {n_mla} latent-MQA, {n_q8} matmul_q8 launches",
+                  flush=True)
+
+
+class moe_kept:
+    """Context manager over ``models.moe.moe_dispatch``: while active, every
+    dispatch's (token, k) entries and kept entries are added up under the
+    engine route that made it (``route``, set by :meth:`wrap`: "admission",
+    "pack", "decode"; "other" outside an engine dispatch). The kept counts
+    stay on the device until :meth:`read`."""
+
+    def __init__(self, moe_mod):
+        self.moe_mod = moe_mod
+        self.route = "other"
+        self.calls: dict = {}
+
+    def __enter__(self):
+        inner = self.moe_mod.moe_dispatch
+        self._inner = inner
+
+        def spy(router, cfg, x_flat, aux=True):
+            d = inner(router, cfg, x_flat, aux)
+            n, kept = self.calls.get(self.route, (0, []))
+            kept.append(d.keep.sum())
+            self.calls[self.route] = (n + d.keep.numel(), kept)
+            return d
+
+        self.moe_mod.moe_dispatch = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.moe_mod.moe_dispatch = self._inner
+
+    def wrap(self, eng) -> None:
+        """Label the dispatches of ``eng``'s routes (instance attributes
+        shadowing the engine's methods)."""
+        for attr, route in (("_admit_fn", "admission"), ("_packed_fn", "pack"),
+                            ("_tick_fn", "decode")):
+            fn = getattr(eng, attr)
+
+            def labelled(*a, _fn=fn, _route=route, **kw):
+                self.route = _route
+                try:
+                    return _fn(*a, **kw)
+                finally:
+                    self.route = "other"
+
+            setattr(eng, attr, labelled)
+
+    def unwrap(self, eng) -> None:
+        for attr in ("_admit_fn", "_packed_fn", "_tick_fn"):
+            eng.__dict__.pop(attr, None)
+
+    def read(self) -> dict:
+        """{route: (entries, kept, kept share)}."""
+        import torch
+
+        out = {}
+        for route, (n, kept) in self.calls.items():
+            k = int(torch.stack(kept).sum()) if kept else 0
+            out[route] = (n, k, k / max(n, 1))
+        return out
+
+    def summary(self) -> str:
+        return ", ".join(f"{r} {k}/{n} ({share:.4f})" for r, (n, k, share) in self.read().items())
+
 
 def mixed_params(i: int, max_new: int, ban: int, boost: int):
     """Phase 3's and 10's mixed traffic, by rid mod 4: greedy; temperature
@@ -1873,13 +2006,15 @@ def int8_weights(dev, model, params, counters, num_blocks_b: int):
 
 
 def decode_step_profile(eng, cfg, dev, label: str = "decode step", steps: int = 8,
-                        floor_ms=None, smode: int = 0) -> dict:
+                        floor_ms=None, smode: int = 0, moe_mod=None) -> dict:
     """Where a decode step goes: wall time per step of an 8-step chunk over
     the engine's current slots (all slots decoding, or the live ones of a
     paged engine, through its block tables), the device's busy time per step
     from the profiler, and the kernels that take it. ``floor_ms`` is the
     step's weight-read floor (default: every bf16 parameter once); ``smode``
-    the sampler variant each step draws with (the live slots' rows)."""
+    the sampler variant each step draws with (the live slots' rows). With
+    ``moe_mod`` (``models.moe``), the device time of the expert products
+    (the ``aten::bmm`` calls inside ``moe._experts``) is read too."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1899,11 +2034,24 @@ def decode_step_profile(eng, cfg, dev, label: str = "decode step", steps: int = 
     t0 = time.perf_counter()
     chunk()
     wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        chunk()
+    experts = moe_mod._experts if moe_mod is not None else None
+    if experts is not None:
+        def spanned(*a, **kw):
+            with torch.profiler.record_function("moe.experts"):
+                return experts(*a, **kw)
+
+        moe_mod._experts = spanned
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            chunk()
+    finally:
+        if experts is not None:
+            moe_mod._experts = experts
     # kernel rows carry the device time; op rows repeat it as their children's
+    # (the "moe.experts" span is a range on the device's timeline, not a kernel)
     kernels = [(e.self_device_time_total, e.count, e.key) for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
+               and e.key != "moe.experts"]
     busy_ms = sum(r[0] for r in kernels) / 1e3 / steps
     if floor_ms is None:
         floor_ms = cfg.num_params() * 2 / HBM_BYTES_PER_S * 1e3
@@ -1913,7 +2061,24 @@ def decode_step_profile(eng, cfg, dev, label: str = "decode step", steps: int = 
           f"{n_kernels} kernels; weight-read floor {floor_ms:.2f} ms")
     for us, n, key in sorted(kernels, reverse=True)[:8]:
         print(f"    {us / 1e3 / steps:7.3f} ms/step  {n // steps:4d} calls/step  {key[:80]}")
-    return dict(wall_ms=wall_ms, busy_ms=busy_ms, kernels=n_kernels, floor_ms=floor_ms)
+    out = dict(wall_ms=wall_ms, busy_ms=busy_ms, kernels=n_kernels, floor_ms=floor_ms)
+    if experts is not None:
+        bmm_us, n_bmm = 0.0, 0
+        for e in prof.events():
+            if e.name != "aten::bmm":
+                continue
+            up = e.cpu_parent
+            while up is not None and up.name != "moe.experts":
+                up = up.cpu_parent
+            if up is not None:
+                bmm_us += e.device_time_total
+                n_bmm += 1
+        out.update(expert_bmm_ms=bmm_us / 1e3 / steps, expert_bmms=n_bmm // steps)
+        print(f"    the expert products: {out['expert_bmm_ms']:.3f} ms/step of device time in "
+              f"{out['expert_bmms']} aten::bmm calls/step")
+        if n_bmm == 0:
+            raise AssertionError(f"{label}: no expert product in the profile")
+    return out
 
 
 # ---------------------------------------------------------------- phase 10
@@ -1966,8 +2131,10 @@ def spec_step_profile(eng, cfg, dev, label: str, depth_k: int = 8) -> dict:
     wall_ms = (time.perf_counter() - t0) * 1e3
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         verify()
+    # (the "moe.experts" span is a range on the device's timeline, not a kernel)
     kernels = [(e.self_device_time_total, e.count, e.key) for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
+               and e.key != "moe.experts"]
     busy_ms = sum(r[0] for r in kernels) / 1e3
     n_kernels = sum(r[1] for r in kernels)
     print(f"  {label} ({len(slots)} slots x {w} rows, T {b * w}, smode {smode}): wall "
@@ -2464,6 +2631,9 @@ def cluster_row(label: str, stats, idle) -> dict:
                 wall_s=stats.wall_seconds, idle_share=idle)
 
 
+STALL_S, DEAD_AFTER_S = 14.0, 10.0  # phase 12 (d): replica 1's stall, the watchdog's verdict
+
+
 def full_width_cluster(dev, model, params, phase4: dict, counters, max_len: int = 1024) -> dict:
     """Phase 12: the split/merge serving cluster at full width on phase 4's
     weights (bf16, 4 slots x ``max_len`` a replica). A single engine, then
@@ -2473,8 +2643,8 @@ def full_width_cluster(dev, model, params, phase4: dict, counters, max_len: int 
     switching back warm, (c) ``run_controlled`` under
     ``ReconfigController.for_cluster`` over 8 long prompts then 24 short
     ones (its decisions printed, not gated), (d) two replicas with an
-    injected controller stall: one must be declared dead and every request
-    finish. In each run the decode, ragged and flash kernels must launch and
+    injected controller stall: exactly one must be declared dead and every
+    request finish. In each run the decode, ragged and flash kernels must launch and
     every stream agree with ``LM.prefill`` teacher-forced."""
     import threading
 
@@ -2594,34 +2764,59 @@ def full_width_cluster(dev, model, params, phase4: dict, counters, max_len: int 
                              mode=stats.mode, reconfigures=len(stats.reconfigures))
     del cl
 
-    # (d) a controller stall on replica 1: declared dead, its requests re-homed
-    ticks = {0: 0, 1: 0}
+    # (d) a controller stall on replica 1: declared dead, its requests re-homed.
+    # dead_after must exceed the longest iteration a live replica takes: two
+    # replicas at full width run iterations of up to ~3 s (a batch's first
+    # admissions, both threads launching), so a 3 s verdict can declare the
+    # survivor dead too, and with no replica left its requests are never served
+    stamps: dict = {0: [], 1: []}
     lock = threading.Lock()
 
     def stall(idx: int) -> None:
         with lock:
-            ticks[idx] += 1
-            n = ticks[idx]
+            stamps[idx].append(time.perf_counter())
+            n = sum(t is not None for t in stamps[idx])
         if idx == 1 and n == 12:
-            time.sleep(6.0)
+            time.sleep(STALL_S)
 
     cl = ServeCluster(model, params, devices=[dev, dev], **kw, failure=FailurePolicy(
-        straggler_after=1.0, dead_after=3.0, poll=0.05, tick_hook=stall))
+        straggler_after=1.0, dead_after=DEAD_AFTER_S, poll=0.05, tick_hook=stall))
     cl.prewarm(sampling=True)
+    for i, e in enumerate(cl.engines):  # mark where each run of a replica starts
+        def run(*a, _run=e.run, _i=i, **k):
+            with lock:
+                stamps[_i].append(None)
+            return _run(*a, **k)
+        e.run = run
     reqs = cluster_traffic(cfg)
 
     def dying():
         for r in reqs:
             cl.submit(r)
-        return cl.run()
+        stats = cl.run()
+        # the longest iteration of each replica within one of its runs (not
+        # the idle time before the survivor's drain of re-homed work;
+        # replica 1's stall excluded: no beat follows it)
+        with lock:
+            longest = {i: max((b - a for a, b in zip(s, s[1:]) if a and b), default=0.0)
+                       for i, s in stamps.items()}
+            ticks = {i: sum(t is not None for t in s) for i, s in stamps.items()}
+        hung = [r.rid for r in reqs if r.finish_reason is None]
+        print(f"  (d) dead replicas {stats.dead_replicas}, re-homed {stats.rehomed}, stragglers "
+              f"{stats.stragglers}, replica ticks {ticks}, longest iteration (s) "
+              f"{ {i: round(v, 3) for i, v in longest.items()} } against dead_after "
+              f"{DEAD_AFTER_S} s", flush=True)
+        if stats.dead_replicas != 1 or stats.rehomed < 1 or hung:
+            raise AssertionError(
+                f"phase 12 (d): one replica must die and its requests re-home and finish: "
+                f"{stats.dead_replicas} dead, {stats.rehomed} re-homed, unfinished rids {hung}, "
+                f"longest iterations {longest} s against dead_after {DEAD_AFTER_S} s")
+        out["death"] = dict(dead=stats.dead_replicas, rehomed=stats.rehomed,
+                            stragglers=stats.stragglers, ticks=ticks,
+                            longest_iteration_s=longest, dead_after_s=DEAD_AFTER_S)
+        return stats
 
-    stats = measured("(d) replica 1 stalled", dying, reqs)
-    print(f"  (d) dead replicas {stats.dead_replicas}, re-homed {stats.rehomed}, stragglers "
-          f"{stats.stragglers}, replica ticks {ticks}")
-    if stats.dead_replicas != 1 or stats.rehomed < 1:
-        raise AssertionError("phase 12 (d): one replica must die and its requests re-home")
-    out["death"] = dict(dead=stats.dead_replicas, rehomed=stats.rehomed,
-                        stragglers=stats.stragglers)
+    measured("(d) replica 1 stalled", dying, reqs)
     del cl
     out["runs"] = runs
     return out
@@ -2682,6 +2877,272 @@ def full_width_mla(dev, counters):
     teacher_forced(model, params, reqs[5], dev, "minicpm3-4b dense bf16")
     decode_step_profile(eng, cfg, dev, label="minicpm3-4b decode step")
     return launches
+
+
+# ---------------------------------------------------------------- phase 13
+
+# one packed step through the kernels against the same step with every
+# kernel call on its plain version (kernels/ref.py), on the card, bf16: the
+# relative Frobenius error of the live rows' logits. Each layer's attention
+# differs by about one bf16 rounding (2^-8) between the two, and a residual
+# stack of random layers carries that forward (an MoE layer can also swap
+# near-tied experts): predicted 0.02-0.1 at full depth. A wrong kernel (wrong
+# rows, slots or scale) gives logits uncorrelated with the plain ones, ~1.4
+PACK_REL_TOL = 0.25
+
+
+def plain_kernels():
+    """Context manager: every ``kernels.ops`` call takes its plain version in
+    ``kernels/ref.py`` on the card (the device check answers "not CUDA")."""
+    import contextlib
+
+    from repro_torch.kernels import ops
+
+    @contextlib.contextmanager
+    def cm():
+        on_cuda = ops._on_cuda
+        ops._on_cuda = lambda t: False
+        try:
+            yield
+        finally:
+            ops._on_cuda = on_cuda
+
+    return cm()
+
+
+def pack_vs_plain(model, params, cache, dev, label: str, moe_mod) -> dict:
+    """Phase 2's 64-token pack (40 tokens of slot 1 at 0-39, 16 of slot 3 at
+    600-615, 8 of padding) through ``LM.packed_step`` over the engine's
+    cache, with the kernels and then with every kernel on its plain version;
+    the live rows' logits within ``PACK_REL_TOL``."""
+    import torch
+
+    rng = np.random.default_rng(3)
+    toks = torch.from_numpy(rng.integers(0, model.cfg.vocab_size, 64).astype(np.int32)).to(dev)
+    slot = torch.tensor(PACK_SLOTS, dtype=torch.int32, device=dev)
+    pos = torch.tensor(PACK_POS, dtype=torch.int32, device=dev)
+    live = pos < S_MAX
+    kept = moe_kept(moe_mod)
+    with torch.no_grad():
+        with kept:
+            kern, _ = model.packed_step(params, cache, toks, slot, pos)
+        with plain_kernels():
+            plain, _ = model.packed_step(params, cache, toks, slot, pos)
+    a, b = kern[live].float(), plain[live].float()
+    rel = float((a - b).norm() / b.norm())
+    out = dict(rel_err=rel, max_abs_err=float((a - b).abs().max()),
+               top1=float((a.argmax(-1) == b.argmax(-1)).float().mean()),
+               logit_rms=float(b.pow(2).mean().sqrt()), kept=kept.read()["other"])
+    print(f"  {label} a 64-token pack (56 live rows), kernels vs plain on the card: relative "
+          f"error {rel:.4f} (tolerance {PACK_REL_TOL}), max |diff| {out['max_abs_err']:.4f} of "
+          f"logit rms {out['logit_rms']:.3f}, top-1 agreement {out['top1']:.3f}; kept entries "
+          f"{out['kept'][1]}/{out['kept'][0]}")
+    if not rel <= PACK_REL_TOL:
+        raise AssertionError(f"{label}: the pack's logits through the kernels are {rel:.4f} "
+                             "from the plain path's")
+    return out
+
+
+def moe_serve(dev, model, params, counters, label: str, expect, moe_mod, smi: str,
+              **kw) -> tuple[dict, dict, object]:
+    """Phase 4's traffic (4 slots x 1024, prefill_budget 64, 12 greedy
+    requests of 5-700 prompt tokens, 32 new tokens) on a new engine; counts
+    set to 0 just before and read just after (``expect`` must have
+    launched); the kept share of (token, k) entries per route; every request
+    finished and teacher-forced; a decode step profiled with the expert
+    products timed, against the weight-read floor of the engine's params
+    (every weight once: the dense [E, C] dispatch reads every expert).
+    Returns (launches, readings, engine)."""
+    import torch
+
+    from repro_torch.common import pytree_bytes
+    from repro_torch.models import mla as mla_mod
+    from repro_torch.serve import Request, SamplingParams, ServeEngine
+
+    cfg = model.cfg
+    max_new = 32
+    t0 = time.perf_counter()
+    eng = ServeEngine(model, params, batch_slots=4, max_len=S_MAX, prefill_budget=64, **kw)
+    eng.prewarm()
+    setup_s = time.perf_counter() - t0
+    reqs = [Request(rid=i, prompt=p_, params=SamplingParams(max_new=max_new))
+            for i, p_ in enumerate(phase4_prompts(cfg))]
+    kept = moe_kept(moe_mod)
+    kept.wrap(eng)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(counters)
+    mla_mod.packed_calls = 0  # after the prewarm's dispatches
+    with kept:
+        for r in reqs:
+            eng.submit(r)
+        stats = eng.run()
+    launches = read_counts(counters, f"phase 13 {label}", expect)
+    mla_calls = mla_mod.packed_calls
+    kept.unwrap(eng)
+    check_finished(reqs, max_new, cfg.vocab_size)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  {label} [{smi}]", end="")
+    print_stats(stats, f"; peak memory {peak / 2**30:.2f} GiB; engine built and prewarmed in "
+                f"{setup_s:.1f} s")
+    shares = kept.read()
+    print(f"  {label} kept (token, k) entries: {kept.summary()}")
+    if shares["decode"][2] != 1.0:  # 4 slots: C = T, nothing may drop
+        raise AssertionError(f"{label}: a decode step dropped entries")
+    out = dict(tok_s=stats.tokens_per_sec, ttft_p50_ms=stats.ttft_p50 * 1e3,
+               ttft_p99_ms=stats.ttft_p99 * 1e3, tpot_p50_ms=stats.tpot_p50 * 1e3,
+               peak_gib=peak / 2**30, kept={r: v[2] for r, v in shares.items()},
+               streams={r.rid: list(r.generated) for r in reqs}, mla_packed_calls=mla_calls)
+    # the teacher: LM.prefill of the whole sequence routes its T tokens in
+    # one call, so at the model's capacity factor its experts drop entries
+    # that the engine's small calls kept (capacity follows the call's T; the
+    # engine kept the shares above). The teacher runs the same weights at a
+    # capacity of T (capacity factor E / k: nothing drops), the function the
+    # engine computed wherever it dropped nothing
+    from repro_torch.models import LM
+
+    m = cfg.moe
+    nodrop = LM(replace(cfg, moe=replace(m, capacity_factor=m.n_routed / m.top_k)), device=dev)
+    seq = np.concatenate([reqs[5].prompt, np.asarray(reqs[5].generated, np.int32)])
+    whole = moe_kept(moe_mod)
+    with whole, torch.no_grad():
+        model.prefill(eng.params, {"tokens": torch.from_numpy(seq[None]).to(dev)}, len(seq))
+    n, k, share = whole.read()["other"]
+    print(f"  {label} LM.prefill of request 5's {len(seq)} tokens in one call at capacity factor "
+          f"{m.capacity_factor} keeps {k}/{n} entries ({share:.4f}); the teacher below keeps all")
+    out["prefill_kept"] = share
+    out["agreement"] = teacher_forced(nodrop, eng.params, reqs[5], dev, label)
+    out["bytes"] = pytree_bytes(eng.params)
+    out["floor_ms"] = out["bytes"] / HBM_BYTES_PER_S * 1e3
+    out["decode_step"] = decode_step_profile(eng, cfg, dev, f"{label} decode step",
+                                             floor_ms=out["floor_ms"], moe_mod=moe_mod)
+    return launches, out, eng
+
+
+def twice_equal(model, params, label: str, prompts, max_new: int, **kw) -> None:
+    """Two identical runs on fresh engines give equal greedy streams (the
+    deterministic combine: no atomics in the expert sums)."""
+    from repro_torch.serve import Request, SamplingParams, ServeEngine
+
+    runs = []
+    for _ in range(2):
+        eng = ServeEngine(model, params, batch_slots=4, max_len=S_MAX, prefill_budget=64, **kw)
+        reqs = [Request(rid=i, prompt=p_, params=SamplingParams(max_new=max_new))
+                for i, p_ in enumerate(prompts)]
+        for r in reqs:
+            eng.submit(r)
+        eng.run()
+        runs.append([list(r.generated) for r in reqs])
+        del eng
+    if runs[0] != runs[1]:
+        diff = [i for i, (a, b) in enumerate(zip(*runs)) if a != b]
+        raise AssertionError(f"{label}: two identical runs differ at requests {diff}")
+    print(f"  {label}: two identical runs of {len(prompts)} requests x {max_new} tokens give "
+          "equal streams")
+
+
+def full_width_moe(dev, counters, smi: str) -> tuple[dict, dict]:
+    """Phase 13: the mixture-of-experts family at full width on phase 4's
+    traffic. (a) deepseek-v2-lite-16b (27 layers, the first dense at ff
+    10944, 64 routed experts top-6 + 2 shared at ff 1408, MLA 512 + 64 x 16
+    heads, bf16, ~31.4 GB of random weights from a seed; nothing cut): every
+    pack on the latent-MQA kernel (launches == MLA packed calls); (b)
+    llama4-scout-17b-a16e at 4 of its 48 layers (the only cut: 48 layers are
+    ~108 B parameters, more than one card holds at bf16 or int8), every
+    width full (d 5120, 40 heads over 8 KV heads: G 5, D 128, 16 experts
+    top-1 at capacity factor 1.5, 1 shared, vocab 202,048), bf16: decode,
+    ragged and flash kernels at G 5; (c) (b)'s weights quantized to int8 on
+    the card (the attention projections and the shared expert on
+    matmul_q8, the expert stacks read through qweight). Each model is freed
+    before the next loads. Returns ({case: its launches}, readings)."""
+    import torch
+
+    from repro_torch.common import pytree_bytes
+    from repro_torch.configs import get_arch
+    from repro_torch.models import LM
+    from repro_torch.models import moe as moe_mod
+
+    def floor(nb: int) -> float:
+        return nb / HBM_BYTES_PER_S * 1e3
+
+    out = {}
+    # ---- (a) deepseek-v2-lite-16b, whole
+    cfg = get_arch("deepseek-v2-lite-16b")
+    m = cfg.moe
+    model = LM(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    nb = pytree_bytes(params)
+    print(f"  (a) {cfg.name} [{smi}]: {cfg.n_layers} layers ({cfg.first_k_dense} dense at ff "
+          f"{cfg.dense_ff}), d_model {cfg.d_model}, {m.n_routed} routed experts top-{m.top_k} + "
+          f"{m.n_shared} shared at ff {m.expert_ff}, MLA latent {cfg.mla.kv_lora_rank} + rope "
+          f"{cfg.mla.rope_head_dim} x {cfg.n_heads} heads, {cfg.dtype}: "
+          f"{cfg.num_params() / 1e9:.3f}B params ({cfg.num_active_params() / 1e9:.3f}B active a "
+          f"token), {nb} bytes ({nb / 1e9:.2f} GB), init {time.perf_counter() - t0:.1f} s; "
+          "nothing cut")
+    print(f"  (a) weight-read floor of a decode step: the dense [E, C] dispatch reads every "
+          f"expert, so every weight once: {nb / 1e9:.2f} GB -> {floor(nb):.2f} ms at 3.35 TB/s")
+    la, a, eng = moe_serve(dev, model, params, counters, "(a)",
+                           ["mla_attention", "mla_attention_wgmma"], moe_mod, smi)
+    calls = a["mla_packed_calls"]
+    print(f"  (a) {la['mla_attention']} latent-MQA launches, {la['mla_attention_wgmma']} on the "
+          f"wgmma body, for {calls} MLA packed-attention calls")
+    if not la["mla_attention"] == la["mla_attention_wgmma"] == calls:
+        raise AssertionError(f"(a): {la['mla_attention']} latent-MQA launches for {calls} MLA "
+                             "packed-attention calls")
+    a["pack_vs_plain"] = pack_vs_plain(model, params, eng.cache, dev, "(a)", moe_mod)
+    del eng
+    prompts = phase4_prompts(cfg)
+    twice_equal(model, params, "(a)", [prompts[i] for i in (0, 2, 3, 6)], 16)
+    a.update(params=cfg.num_params())
+    out["a"] = a
+    del model, params
+    torch.cuda.empty_cache()
+
+    # ---- (b) llama4-scout-17b-a16e at 4 of 48 layers, bf16
+    full = get_arch("llama4-scout-17b-a16e")
+    cfg = replace(full, n_layers=4)
+    m = cfg.moe
+    model = LM(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    nb = pytree_bytes(params)
+    print(f"  (b) {cfg.name} [{smi}]: REDUCED to {cfg.n_layers} of {full.n_layers} layers "
+          f"(depth only: {full.num_params() / 1e9:.1f}B params at 48 layers do not fit one "
+          f"card); every width full: d_model {cfg.d_model}, {cfg.n_heads} heads over "
+          f"{cfg.n_kv_heads} KV heads (G {cfg.n_heads // cfg.n_kv_heads}, D {cfg.head_dim}), "
+          f"{m.n_routed} routed experts top-{m.top_k} (capacity factor {m.capacity_factor}) + "
+          f"{m.n_shared} shared at ff {m.expert_ff}, vocab {cfg.vocab_size}, {cfg.dtype}: "
+          f"{cfg.num_params() / 1e9:.3f}B params, {nb} bytes ({nb / 1e9:.2f} GB), init "
+          f"{time.perf_counter() - t0:.1f} s; weight-read floor {floor(nb):.2f} ms")
+    expect = ["decode_attention", "ragged_attention", "gqa_flash_attention",
+              "decode_attention_split", "ragged_attention_split"]
+    ragged0 = ragged_counts()
+    lb, b, eng = moe_serve(dev, model, params, counters, "(b)", expect, moe_mod, smi)
+    ragged_all_split(ragged0, "phase 13 (b)")
+    b["pack_vs_plain"] = pack_vs_plain(model, params, eng.cache, dev, "(b)", moe_mod)
+    del eng
+    twice_equal(model, params, "(b)", phase4_prompts(cfg), 32)
+    b.update(params=cfg.num_params(), layers=cfg.n_layers, layers_full=full.n_layers)
+    out["b"] = b
+
+    # ---- (c) (b)'s weights quantized to int8 on the card
+    q_expect = expect + ["matmul_q8", "matmul_q8_gemv_tc", "matmul_q8_rows"]
+    lc, c, eng = moe_serve(dev, model, params, counters, "(c)", q_expect, moe_mod, smi,
+                           weight_dtype="int8")
+    print(f"  (c) int8 weights [{smi}]: {c['bytes']} bytes resident for the quantized model "
+          f"({c['bytes'] / nb:.3f} of bf16: the embeddings and head stay bf16)")
+    c["vs_bf16"] = top1_vs_dense(model, params, eng.params, np.concatenate(
+        [phase4_prompts(cfg)[5], np.asarray(b["streams"][5], np.int32)]), dev)
+    out["c"] = c
+    del eng, model, params
+    torch.cuda.empty_cache()
+    for case in out.values():
+        case.pop("streams", None)
+    launches = {"a": la, "b": lb, "c": lc}
+    print(f"  launches during phase 13: {launches}")
+    return launches, out
 
 
 # ----------------------------------------------------------------- phase 7
@@ -3497,6 +3958,14 @@ def main() -> int:
                  "mla_attention_wgmma": (mk, "launches_wgmma")}
     launches.update(full_width_mla(dev, counters9))
 
+    phase("13 full width MoE: deepseek-v2-lite-16b, llama4-scout-17b-a16e at 4 of 48 layers")
+    torch.cuda.empty_cache()
+    counters13 = {"mla_attention": (mk, "launches"),
+                  "mla_attention_wgmma": (mk, "launches_wgmma"), **counters4,
+                  **{k: v for k, v in counters6.items() if k.startswith("matmul_q8")}}
+    moe_launches, moe = full_width_moe(dev, counters13, smi)
+    print(json.dumps({"moe": moe}, default=float))
+
     phase("11 the kernel table")
     # the pl.pallas_call line of each TPU kernel, as in PERF.md's kernel table
     sources = {
@@ -3594,6 +4063,14 @@ def main() -> int:
             kernels[-1]["body"] = "wgmma"
             kernels[-1]["launches_wgmma"] = launches["mla_attention_wgmma"]
             kernels[-1]["launched_in"] = "phase 9: full-width minicpm3-4b serving"
+        # phase 13's launches on the MoE path (not in "launches"): (a)
+        # deepseek-v2-lite on the latent-MQA kernel, (b) + (c) llama4-scout's
+        # GQA routes, (c) its int8 weights
+        moe_rows = {"mla_attention": ("a",), "decode_attention": ("b", "c"),
+                    "ragged_attention": ("b", "c"), "gqa_flash_attention": ("b", "c"),
+                    "matmul_q8": ("c",)}
+        if name in moe_rows:
+            kernels[-1]["launches_moe"] = sum(moe_launches[c][name] for c in moe_rows[name])
     print(json.dumps({"kernels": kernels, "to_port": []}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -99,9 +99,11 @@ class Watchdog:
         return self
 
     def stop(self) -> None:
+        """Stop the thread, waiting for the sweep in progress and the hooks
+        it fires (a serving cluster's re-homing) to end."""
         self._stop.set()
         if self._thread is not None:
-            self._thread.join(timeout=2.0)
+            self._thread.join()
 
     def sweep(self) -> None:
         """One classification pass over the lanes; fires the hooks of the

@@ -1,25 +1,32 @@
-"""The dense decoder LM (the ``dense`` branch of ``repro/models/model.py``).
+"""The decoder LM (the ``dense`` and ``moe`` branches of
+``repro/models/model.py``).
 
 A pre-norm transformer: RMSNorm -> GQA attention (optional qk-norm, RoPE),
 or multi-head latent attention where the config has ``mla``
-(``models.mla``) -> residual -> RMSNorm -> SwiGLU -> residual, then final
-norm and unembed.
+(``models.mla``) -> residual -> RMSNorm -> SwiGLU (``dense``), or routed +
+shared experts (``moe``, ``models.moe``) after ``first_k_dense`` leading
+dense layers at ``dense_ff`` -> residual, then final norm and unembed.
 Layer params are stacked on a leading ``L`` axis as in the JAX package
-(an int8 weight's ``{"q8", "scale"}`` sub-dict slices per layer like any
-leaf), and a Python loop over layers replaces ``lax.scan``. It serves prefill
-(:meth:`LM.prefill`), one decode step for every slot (:meth:`LM.decode_step`)
-and the packed ragged step of the unified engine (:meth:`LM.packed_step`).
+(``params["blocks"]``; an MoE model's ``params["dense_blocks"]`` then
+``params["moe_blocks"]``; an int8 weight's ``{"q8", "scale"}`` sub-dict
+slices per layer like any leaf), and a Python loop over layers replaces
+``lax.scan``. It serves prefill (:meth:`LM.prefill`), one decode step for
+every slot (:meth:`LM.decode_step`) and the packed ragged step of the
+unified engine (:meth:`LM.packed_step`).
 
 Caches are updated in place (the JAX package donates them instead). A cache
 is dense (:meth:`LM.init_cache`) or a block-paged pool (:meth:`LM.init_kv_pool`,
 read through block tables), and either may store quantized rows with
 per-(position, head) ``k_scale``/``v_scale`` leaves (``kv_dtype``). An MLA
 model's cache is the latent one, ``{"ckv": [L, B, S, kv_lora], "krope":
-[L, B, S, rope]}``, dense and unquantized only (``has_positional_kv``).
+[L, B, S, rope]}``, dense and unquantized only (``has_positional_kv``). An
+MoE model's one ``[L, ...]`` cache serves both stacks: the dense layers take
+indices ``0..first_k_dense-1``, the MoE layers the rest.
 """
 
 from __future__ import annotations
 
+from dataclasses import replace
 from typing import Optional
 
 import torch
@@ -29,6 +36,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ref as _ref
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mla as mla_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (
     Params,
     dense_init,
@@ -43,9 +51,11 @@ from repro_torch.models.quant import layer_matmul_views
 
 class LM:
     def __init__(self, cfg: ArchConfig, device=None):
-        if cfg.family != "dense":
-            raise NotImplementedError(f"family {cfg.family!r} is not ported (dense, with or "
-                                      "without MLA, only)")
+        if cfg.family not in ("dense", "moe"):
+            raise NotImplementedError(f"family {cfg.family!r} is not ported (dense and moe, "
+                                      "each with or without MLA, only)")
+        if cfg.family == "moe" and cfg.moe is None:
+            raise ValueError(f"{cfg.name}: family 'moe' needs an MoEConfig (cfg.moe)")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = getattr(torch, cfg.dtype)
@@ -55,42 +65,61 @@ class LM:
 
     def init(self, generator: torch.Generator) -> Params:
         """Random params from ``generator`` (which must live on the model's
-        device), in the JAX package's layout with stacked [L, ...] blocks."""
+        device), in the JAX package's layout with stacked [L, ...] blocks:
+        ``blocks``, or an MoE model's ``dense_blocks`` (the first
+        ``first_k_dense`` layers, SwiGLU at ``dense_ff``) and ``moe_blocks``."""
         cfg, dt, dev = self.cfg, self.dtype, self.device
-        d, f, L = cfg.d_model, cfg.d_ff, cfg.n_layers
-        H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-
-        def w(shape, fan_in):  # stacked [L, *shape], scaled by the layer's fan-in
-            return dense_init((L, *shape), generator, dt, dev, fan_in=fan_in)
+        d, L = cfg.d_model, cfg.n_layers
 
         def ones(*shape):
             return torch.ones(shape, dtype=dt, device=dev)
 
-        if cfg.mla is not None:
-            attn = mla_mod.mla_init(cfg, generator, dt, dev)
-        else:
-            attn = {
-                "wq": w((d, H, hd), d),
-                "wk": w((d, KV, hd), d),
-                "wv": w((d, KV, hd), d),
-                "wo": w((H, hd, d), H * hd),
-            }
-        if cfg.qk_norm and cfg.mla is None:
-            attn["q_norm"] = ones(L, hd)
-            attn["k_norm"] = ones(L, hd)
+        def stack(n, attn, ffn):
+            return {"attn": attn, "norm1": ones(n, d), "norm2": ones(n, d), **ffn}
+
+        # a dense model draws attention, embeddings, then the MLP: the order that
+        # keeps its seeded weights what they have been
+        attn = self._attn_init(generator, L) if cfg.family == "dense" else None
         embed = {"tok": trunc_normal((cfg.vocab_size, d), generator, dt, dev)}
         if not cfg.tie_embeddings:
             embed["head"] = dense_init((d, cfg.vocab_size), generator, dt, dev)
-        return {
-            "embed": embed,
-            "final_norm": ones(d),
-            "blocks": {
-                "attn": attn,
-                "norm1": ones(L, d),
-                "norm2": ones(L, d),
-                "mlp": {"w_in": w((d, f), d), "w_gate": w((d, f), d), "w_out": w((f, d), f)},
-            },
+        params: Params = {"embed": embed, "final_norm": ones(d)}
+        if cfg.family == "dense":
+            params["blocks"] = stack(L, attn, {"mlp": self._mlp_init(generator, L, cfg.d_ff)})
+            return params
+        kd = cfg.first_k_dense
+        if kd:
+            attn = self._attn_init(generator, kd)
+            params["dense_blocks"] = stack(
+                kd, attn, {"mlp": self._mlp_init(generator, kd, cfg.dense_ff or cfg.d_ff)})
+        attn = self._attn_init(generator, L - kd)
+        params["moe_blocks"] = stack(
+            L - kd, attn, {"moe": moe_mod.moe_init(cfg, generator, dt, dev, L - kd)})
+        return params
+
+    def _attn_init(self, generator: torch.Generator, n: int) -> Params:
+        """``n`` layers' attention params, stacked [n, ...]."""
+        cfg, dt, dev = self.cfg, self.dtype, self.device
+        d, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        if cfg.mla is not None:
+            return mla_mod.mla_init(replace(cfg, n_layers=n), generator, dt, dev)
+        attn = {
+            "wq": dense_init((n, d, H, hd), generator, dt, dev, fan_in=d),
+            "wk": dense_init((n, d, KV, hd), generator, dt, dev, fan_in=d),
+            "wv": dense_init((n, d, KV, hd), generator, dt, dev, fan_in=d),
+            "wo": dense_init((n, H, hd, d), generator, dt, dev, fan_in=H * hd),
         }
+        if cfg.qk_norm:
+            attn["q_norm"] = torch.ones(n, hd, dtype=dt, device=dev)
+            attn["k_norm"] = torch.ones(n, hd, dtype=dt, device=dev)
+        return attn
+
+    def _mlp_init(self, generator: torch.Generator, n: int, d_ff: int) -> Params:
+        """``n`` layers' SwiGLU at width ``d_ff``, stacked [n, ...]."""
+        d, dt, dev = self.cfg.d_model, self.dtype, self.device
+        return {"w_in": dense_init((n, d, d_ff), generator, dt, dev, fan_in=d),
+                "w_gate": dense_init((n, d, d_ff), generator, dt, dev, fan_in=d),
+                "w_out": dense_init((n, d_ff, d), generator, dt, dev, fan_in=d_ff)}
 
     # ------------------------------------------------------------ capabilities
 
@@ -98,19 +127,19 @@ class LM:
     def supports_packed(self) -> bool:
         """Whether the unified ragged prefill+decode dispatch applies: every
         ported family (positional K/V rows, or MLA's latent rows)."""
-        return self.cfg.family == "dense"
+        return self.cfg.family in ("dense", "moe")
 
     @property
     def has_positional_kv(self) -> bool:
         """Whether the cache stores one K/V row per (position, head), the
         precondition for paging and quantized rows. The MLA latent cache is
         positional but latent-shaped: it neither pages nor quantizes."""
-        return self.cfg.family == "dense" and self.cfg.mla is None
+        return self.cfg.family in ("dense", "moe") and self.cfg.mla is None
 
     @property
     def family_tag(self) -> str:
-        """The family for error messages ('dense+mla' when the attention is
-        latent)."""
+        """The family for error messages ('dense+mla', 'moe+mla' when the
+        attention is latent)."""
         return f"{self.cfg.family}+mla" if self.cfg.mla is not None else self.cfg.family
 
     def _kv_leaves(self, lead: tuple, kv_dtype: Optional[torch.dtype]) -> Params:
@@ -162,18 +191,28 @@ class LM:
         return self._kv_leaves((num_blocks + 1, block_size), kv_dtype)
 
     def _layers(self, params: Params) -> list[Params]:
-        """Per-layer views of the stacked blocks (int8 leaves as the [K, N]
+        """Per-layer views of the stacked blocks in cache order (an MoE
+        model's dense blocks, then its MoE blocks; int8 leaves as the [K, N]
         weight and [N] scale the matmul kernel takes), rebuilt only for new
         params."""
         views = self._views  # one read: another thread may replace it meanwhile
         if views[0] is not params:
-            views = (params, [layer_matmul_views(_index(params["blocks"], i))
-                              for i in range(self.cfg.n_layers)])
+            stacks = ([params["blocks"]] if "blocks" in params else
+                      [params[k] for k in ("dense_blocks", "moe_blocks") if k in params])
+            views = (params, [layer_matmul_views(_index(st, i)) for st in stacks
+                              for i in range(_depth(st))])
             self._views = views
         return views[1]
 
     def _mlp_residual(self, blk: Params, x: torch.Tensor) -> torch.Tensor:
-        return x + mlp_apply(blk["mlp"], rms_norm(x, blk["norm2"], self.cfg.norm_eps))
+        """x + the layer's SwiGLU, or its MoE block. The MoE block routes
+        every token of ``x`` in one call (capacity depends on that count:
+        see ``moe.moe_dispatch``) and drops the aux loss, which serving never
+        reads."""
+        h = rms_norm(x, blk["norm2"], self.cfg.norm_eps)
+        if "moe" in blk:
+            return x + moe_mod.moe_apply(blk["moe"], self.cfg, h, aux=False)[0]
+        return x + mlp_apply(blk["mlp"], h)
 
     def _logits(self, params: Params, x: torch.Tensor) -> torch.Tensor:
         return unembed(params["embed"], rms_norm(x, params["final_norm"], self.cfg.norm_eps))
@@ -304,3 +343,8 @@ def _index(tree: Params, i: int) -> Params:
     if isinstance(tree, dict):
         return {k: _index(v, i) for k, v in tree.items()}
     return tree[i]
+
+
+def _depth(tree: Params) -> int:
+    """The stacked L of a block stack (its norm1 leaf's leading axis)."""
+    return tree["norm1"].shape[0]

@@ -1169,6 +1169,10 @@ class ServeCluster:
                     futs.pop(i)
                     done.add(i)
             if wd is not None:  # concurrency over: nothing left to monitor
+                # a replica is marked dead before its requests move, so the
+                # loop above can end while the watchdog thread is still
+                # re-homing: wait for its last sweep, or the drain below
+                # could miss work handed to a survivor after it looked
                 wd.stop()
                 wd = None
             # survivors may have inherited re-homed work AFTER their run

@@ -54,10 +54,18 @@ construction (``models.quant.quantize_params``); every projection and MLP
 product then runs the int8-weight matmul kernel. It combines with every
 cache layout above.
 
-An MLA model (``cfg.mla``: minicpm3-4b) serves on the same three routes over
-its latent cache; it takes neither cache layout above (``ValueError``, as
-the JAX package refuses a family without positional K/V) nor int8 weights
-(``NotImplementedError``).
+An MLA model (``cfg.mla``: minicpm3-4b, deepseek-v2-lite-16b) serves on the
+same three routes over its latent cache; it takes neither cache layout above
+(``ValueError``, as the JAX package refuses a family without positional K/V)
+nor int8 weights (``NotImplementedError``).
+
+A mixture-of-experts model (``cfg.family == "moe"``: deepseek-v2-lite-16b
+with MLA, llama4-scout-17b-a16e with GQA) serves on every route and option
+its attention allows. Its experts' capacity depends on how many tokens one
+call routes (``models.moe.moe_dispatch``), so each dispatch routes exactly
+what the JAX engine's routes: a fused admission's whole power-of-two bucket,
+every slot of a decode step (live or not), a pack's whole T bucket, and a
+verify pack's exact ``B·(K+1)`` rows; padding always follows the live tokens.
 
 Paged and quantized admissions always take the pack tier: the packed
 scatter is the one write path that quantizes rows and routes through the
@@ -539,6 +547,11 @@ class ServeEngine:
         ``cur_len`` is rewritten before anything reads it, or, for a slot
         with no blocks, lands in the pool's scratch block. Returns (toks
         [n_steps, B], last_tok, cur_len)."""
+        # an MoE model routes all B slots, inactive ones too (the JAX engine's
+        # T). Above 16 slots C < B, so an inactive slot's garbage row can take
+        # a live entry's capacity: where no key is valid the decode kernel
+        # gives zeros and the plain version a uniform average, so the card and
+        # the CPU may then route differently (ROADMAP Queue 3)
         act = active.bool()
         tok, cl = last_tok, cur_len
         toks = []
@@ -559,6 +572,9 @@ class ServeEngine:
         sample_mask [B] | pack_slots [_PACK_WIDTH]. A slot whose prompt
         completes samples its first token from its final prompt row, at PRNG
         position ``new_len - 1``. Returns (sampled [B], last_tok, cur_len = new_len)."""
+        # all tb rows go through the step (an MoE model routes the whole bucket,
+        # as the JAX engine does); padding rows follow the live ones, so they
+        # only take expert slots the live tokens left over
         b = self.B
         desc = pack[: 3 * tb].view(3, tb)
         meta = pack[3 * tb:]
@@ -581,6 +597,8 @@ class ServeEngine:
         position (its PRNG position) under the admission's sampler rows
         ``sp``, and set the slot's tick state. Returns (tok, last_tok,
         cur_len)."""
+        # the whole [1, sb] bucket is prefilled and, in an MoE model, routed:
+        # capacity follows the bucket, and the bucket's padding comes last
         logits, _ = self.model.prefill(
             self.params, {"tokens": toks}, self.max_len, cache=self.cache, slot=slot
         )
@@ -609,6 +627,8 @@ class ServeEngine:
         desc, meta = pack[:, : b * w], pack[:, b * w:]
         depth, act, cl = meta[0], meta[1], meta[2]
         active = act.bool()
+        # exactly B·(K+1) rows, off the T buckets: an MoE model's capacity
+        # follows this T, as in the JAX engine
         logits, _ = self.model.packed_step(
             self.params, self.cache, desc[0], desc[1], desc[2], block_tables=btab
         )

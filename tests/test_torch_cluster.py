@@ -471,6 +471,42 @@ def test_replica_death_rehomes_token_for_token(world):
     assert {r.rid: r.generated for r in late} == _ref(world, (0, 1), 4)
 
 
+def test_replica_death_waits_for_a_slow_rehoming(world):
+    """A replica is marked dead before its requests move, so run() can see
+    the death while the watchdog thread is still re-homing. With the moves
+    outlasting the watchdog's default stop timeout (2 s), run() must still
+    wait for them and drain them on the survivor."""
+    ticks: dict[int, int] = {}
+    lock = threading.Lock()
+
+    def stall(idx: int) -> None:
+        with lock:
+            ticks[idx] = ticks.get(idx, 0) + 1
+            n = ticks[idx]
+        if idx == 1 and n == 3:
+            time.sleep(3.0)
+
+    cl = _cluster(world, SPLIT2, failure=FailurePolicy(
+        straggler_after=0.3, dead_after=0.8, poll=0.02, tick_hook=stall))
+    move = cl._resubmit_rehomed
+    slowed: list = []
+
+    def slow_move(req):
+        if not slowed:  # the first move only: 2.5 s
+            slowed.append(req.rid)
+            time.sleep(2.5)
+        move(req)
+
+    cl._resubmit_rehomed = slow_move
+    reqs = [_req(world, rid) for rid in SEEDED]
+    for r in reqs:
+        cl.submit(r)
+    stats = cl.run()
+    assert slowed and stats.dead_replicas == 1 and stats.rehomed >= 1
+    assert all(r.finish_reason == "length" for r in reqs)
+    assert _served(cl) == _ref(world, SEEDED)
+
+
 # =============================== heterogeneous (multi-model) clusters ======
 
 

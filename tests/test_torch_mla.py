@@ -18,7 +18,8 @@ CPU (runs anywhere), f32 at the reduced widths (latent 32 + rope 8, 4 heads):
   ``decode_step`` and ``packed_step`` logits against the JAX ``LM``; the
   engine's greedy streams against the JAX ``ServeEngine``'s at the default
   and a small prefill budget; the refusals of the latent cache (paged,
-  quantized KV, int8 weights) and of the unported families; the kernel's
+  quantized KV, int8 weights), of the unported families and of a moe
+  config without its MoEConfig; the kernel's
   plan and domain.
 
 Tolerances: 1e-5 absolute for the attention functions (f32, summation
@@ -320,7 +321,8 @@ def test_engine_streams_equal_the_jax_engine(jx, minicpm3, budget):
 def test_mla_refusals(jx, minicpm3):
     """The latent cache neither pages nor quantizes (ValueError, where the
     JAX package refuses too); int8 weights for MLA are not ported; the
-    unported families still raise."""
+    unported families (ssm, hybrid) still raise, and a moe config without
+    its MoEConfig is refused."""
     _, jm, jp, cfg, m, p = minicpm3
     js = jx["serve"]
     for kw in (dict(kv_dtype="int8"), dict(kv_block_size=16), dict(kv_block_size=16,
@@ -346,9 +348,15 @@ def test_mla_refusals(jx, minicpm3):
     dense = LM(get_arch("codeqwen1.5-7b").reduced(), device="cpu")
     assert (dense.supports_packed, dense.has_positional_kv, dense.family_tag) == (
         True, True, "dense")
-    for family in ("moe", "ssm", "hybrid"):
+    for family in ("ssm", "hybrid"):
         with pytest.raises(NotImplementedError):
             LM(replace(cfg, family=family), device="cpu")
+    # the moe family is ported: a moe config without its MoEConfig is refused,
+    # where the JAX package fails building its params
+    with pytest.raises(ValueError, match="MoEConfig"):
+        LM(replace(cfg, family="moe"), device="cpu")
+    with pytest.raises(AttributeError):
+        jx["LM"](replace(minicpm3[0], family="moe")).init(jx["jax"].random.key(0))
 
 
 # ------------------------------------------------------ kernel wrapper
