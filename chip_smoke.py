@@ -56,7 +56,10 @@ Phases (each raises on failure, so the script exits non-zero):
    12 and 36 over 4 dense slots and the paged pool, 144 over 16 paged
    sequences; tiles crossing slots, rows past a slot's depth as padding) on
    the ragged and paged kernels, bf16 and f32 queries, G 1 and 4, bf16 and
-   int8 stores. Times each kernel, its plain version and
+   int8 stores; decode attention (B 4 x 1024, KV 32) and GQA flash attention
+   (BKV 32, S 512 timed; S 37, 300 and 700, tails of the tile, held) at
+   zamba2-2.7b's shared-block width, D 80, G 1, bf16.
+   Times each kernel, its plain version and
    a one-call PyTorch yardstick (where one exists) as device time (CUDA events
    around one CUDA-graph replay of 30 calls, so the wrappers' host time is
    not counted), and computes its bound at the card's published peaks.
@@ -81,12 +84,18 @@ Phases (each raises on failure, so the script exits non-zero):
    replicas, two streams, one copy of the weights) with a cancel from
    another thread mid-run, merge over [cuda:0], a mid-stream SPLIT -> MERGE
    switch and the warm switch back, and split with the n-gram drafter:
-   every stream must equal the CPU single engine's.
+   every stream must equal the CPU single engine's. Then the state-space
+   families: reduced falcon-mamba-7b (Mamba1, packs one slot wide, no
+   attention kernel), reduced zamba2-2.7b (Mamba2 + the shared attention
+   block, on the legacy tier: flash and decode kernels) and reduced
+   codeqwen1.5-7b with ``unified=False``; every stream must equal the CPU's.
 4. full width — codeqwen1.5-7b, 32 layers, bf16, random weights from a seed,
    4 slots x 1024 positions; about 12 greedy requests whose prompts straddle
    the prefill budget, so fused admissions, ragged packs and decode chunks
    all run; each PR-11 kernel's launch count over this run must be > 0,
    and decode and every ragged launch must have run the split body.
+   Phases 5, 6, 9 and 13 serve ``SERVE_NEW`` (16) new tokens a request,
+   phases 4 and 14 32.
 5. full width, paged and quantized — the same weights behind (a) a paged
    engine with prefix reuse serving a shared 512-token system prompt, (b)
    the same traffic over an int8 pool of (a)'s bytes, (c) phase 4's traffic
@@ -155,7 +164,9 @@ Phases (each raises on failure, so the script exits non-zero):
    profile.
 10. (run after phase 6, while phase 4's weights are resident) full width,
    sampled and speculated serving — phase 4's prompt lengths made
-   repetitive, 4 slots x 1024 positions: (a) three each of greedy,
+   repetitive (8 of its 12 lengths, the 700 among them, 16 new tokens),
+   4 slots x 1024
+   positions: (a) two each of greedy,
    temperature 0.8, top-k 40 / top-p 0.9 and greedy with a logit bias that
    bans the prompt's first greedy token, run twice (the greedy requests at
    top-k 1 and temperature 1 the second time: the other streams must be
@@ -166,20 +177,21 @@ Phases (each raises on failure, so the script exits non-zero):
    greedy streams teacher-forced; a verify dispatch profiled; (c) a 1-layer
    truncation of the target as the draft model: its catch-ups on the ragged
    kernel, its rolls on the decode kernel; (d) phase 5 (a)'s paged + prefix
-   traffic with the n-gram drafter, every verify dispatch on the paged
-   kernel. Prints tok/s, TTFT, TPOT and the acceptance of each run.
+   traffic (its 8 shared-prefix prompts and 2 unshared ones) with the
+   n-gram drafter, every verify dispatch on the paged kernel. Prints tok/s,
+   TTFT, TPOT and the acceptance of each run.
 12. (run after phase 10, on phase 4's weights) full width, the split/merge
    serving cluster — the perfmodel's host constants measured (host time a
    launch over 2,000 empty launches; a two-thread barrier + synchronize);
-   phase 4's 12 prompts, tenants a / b, four seeded at temperature 0.8, 32
-   new tokens, 4 slots x 1024 a replica: a single engine, then (a) split over
+   8 of phase 4's 12 prompts, tenants a / b, two seeded at temperature 0.8,
+   16 new tokens, 4 slots x 1024 a replica: a single engine, then (a) split over
    [cuda:0, cuda:0] (two controller threads, two streams, one copy of the
    weights) and a steady decode step of one replica and of both at once
    profiled (the union of kernel time over both streams), (b) [cuda:0]
    switching SPLIT -> MERGE once half the requests have arrived, then back
    and forth warm, (c) ``run_controlled`` under
-   ``ReconfigController.for_cluster`` over 8 prompts of 600-700 tokens then
-   24 of 5-40 (decisions printed, not gated), (d) two replicas with replica
+   ``ReconfigController.for_cluster`` over 4 prompts of 600-700 tokens then
+   12 of 5-40 (decisions printed, not gated), (d) two replicas with replica
    1's controller stalled 14 s under a 10 s dead_after: exactly one must be
    declared dead and every request finish; each replica's longest iteration
    is printed. In each run the decode, ragged and flash kernels must launch
@@ -204,14 +216,31 @@ Phases (each raises on failure, so the script exits non-zero):
    kernels must launch, its streams agree with ``LM.prefill``
    teacher-forced, (a) and (b) hold a 64-token pack's logits through the
    kernels against the plain path on the card (``PACK_REL_TOL``), and two
-   identical runs of (a) and of (b) must give equal streams.
+   identical runs of (a) and of (b) (4 requests x 16 tokens) must give
+   equal streams.
+14. (run after phase 13) full width, the state-space families whole on
+   phase 4's traffic, each model freed before the next: (a)
+   falcon-mamba-7b (64 Mamba1 layers, d 4096, d_inner 8192, N 16, ~14 GB
+   bf16 of random weights from a seed) on the unified engine, packs one slot
+   wide, every admission on the pack tier: no attention kernel may launch;
+   (b) zamba2-2.7b (54 Mamba2 layers, d 2560, 80 SSM heads x 64, N 64, the
+   weight-tied attention + MLP block at 32 heads x D 80 after every 6th
+   layer, ~4.7 GB) on the legacy tier: each admission's exact-length
+   prefill on the flash kernel, every decode launch on the split decode
+   body, no ragged launch. Each prints parameters, bytes, the decode
+   step's weight-read floor (zamba2: the shared block read 9 times), tok/s,
+   TTFT, TPOT, a decode step's wall against device time; each stream must
+   agree with ``LM.prefill`` teacher-forced, and two identical runs of 4
+   requests x 16 tokens give equal streams.
 11. a ``{"kernels": [...], "to_port": []}`` JSON line (every row of PERF.md's
    kernel table; the decode, ragged, paged, matmul and matmul_q8 rows name the body
    their timed case ran and its launches; paged packs and matmul_q8 at M = 16
    have entries of their own; the ragged row adds phase 10's verify and draft
    catch-up launches, the paged pack row its paged verify launches, the
    decode row the draft's roll launches; the decode, ragged, flash,
-   matmul_q8 and latent-MQA rows phase 13's launches as ``launches_moe``),
+   matmul_q8 and latent-MQA rows phase 13's launches as ``launches_moe``;
+   the decode and flash rows phase 14 (b)'s launches as ``launches_hybrid``
+   and their phase 2 readings at zamba2's shapes as ``zamba2_shape``),
    then the result line.
 
 Imports nothing of JAX and nothing of the JAX package.
@@ -259,6 +288,9 @@ MATMUL_ROWS_MAIN = (16, 4096, 13440)
 # kernel (wrong rows, wrong scales, wrong table) agrees on ~1/92416 of the
 # positions, so 0.5 still separates right from wrong with a wide margin
 AGREE_FLOOR = 0.5
+# new tokens a request in phases 5, 6, 9 and 13 (phases 4 and 14: 32), cut
+# to keep the whole script inside its time
+SERVE_NEW = 16
 # phase 2's dense-cache shapes (also timed by scripts/torch_attention_ab.py):
 # 4 slots x 1024 positions; decode at an empty prefix, a non-tile multiple
 # and a full slot; a 64-token pack of 40 prompt tokens of slot 1, 16 of slot
@@ -381,35 +413,45 @@ def check_kernels(dev):
     def randn(*shape, dtype):
         return torch.randn(*shape, generator=gen, device=dev).to(dtype)
 
-    results = {}
+    results, zamba2 = {}, {}
 
-    def report(name, case, dtype, err, timed=None):
+    def report(name, case, dtype, err, timed=None, tag="main"):
         tol = TOL[str(dtype).split(".")[-1]]
         print(f"  {name:20s} {case:44s} max_abs_err={err:.3e} tol={tol:g}", flush=True)
         if not err <= tol:
             raise AssertionError(f"{name} {case}: max_abs_err {err} above {tol}")
         if timed is not None:
-            results[name] = dict(timed, max_abs_err=err, tol=tol)
+            print(f"  {'':20s} {tag}: ms={timed['ms']:.4f} plain={timed['plain_ms']:.4f} "
+                  f"SDPA={timed['library_ms']:.4f} bound={timed['bound_ms']:.5f} "
+                  f"({timed['bound_by']})", flush=True)
+            if tag == "main":
+                results[name] = dict(timed, max_abs_err=err, tol=tol)
+            else:
+                zamba2[name] = dict(timed, shape=case, max_abs_err=err, tol=tol)
 
     bf16, f32 = torch.bfloat16, torch.float32
     B, S, cur = SLOTS, S_MAX, DECODE_POS
 
-    # ---- decode attention
-    for kv, g, dtype, window, main in [
-        (32, 1, bf16, 0, True), (32, 1, f32, 0, False), (8, 8, bf16, 0, False),
-        (8, 8, f32, 0, False), (32, 1, bf16, 100, False), (8, 8, f32, 37, False),
+    # ---- decode attention; tag "main" is the row's timed case, "zamba2"
+    # zamba2-2.7b's shared block (32 heads = KV heads at D 80, G 1), timed
+    # as a sub-row of its own
+    for kv, g, d, dtype, window, tag in [
+        (32, 1, 128, bf16, 0, "main"), (32, 1, 128, f32, 0, None), (8, 8, 128, bf16, 0, None),
+        (8, 8, 128, f32, 0, None), (32, 1, 128, bf16, 100, None), (8, 8, 128, f32, 37, None),
+        (32, 1, 80, bf16, 0, "zamba2"),
     ]:
-        q, k, v = randn(B, kv, g, 128, dtype=dtype), randn(B, S, kv, 128, dtype=dtype), \
-            randn(B, S, kv, 128, dtype=dtype)
+        main = tag == "main"
+        q, k, v = randn(B, kv, g, d, dtype=dtype), randn(B, S, kv, d, dtype=dtype), \
+            randn(B, S, kv, d, dtype=dtype)
         cl = torch.tensor(cur, dtype=torch.int32, device=dev)
         got = dk.decode_attention(q, k, v, cl, window=window)
         want = ref.decode_attention(q, k, v, cl, window=window)
         err = (got.float() - want.float()).abs().max().item()
         timed = None
-        if main:
+        if tag:
             n_valid = [min(c, S - 1) + 1 for c in cur]
-            by = nbytes(q, q, cl) + sum(n_valid) * kv * 128 * 2 * k.element_size()
-            fl = sum(n_valid) * kv * g * 128 * 4
+            by = nbytes(q, q, cl) + sum(n_valid) * kv * d * 2 * k.element_size()
+            fl = sum(n_valid) * kv * g * d * 4
             qs = q  # [B, KV, G, d]: G queries per KV head
             ks, vs = k.permute(0, 2, 1, 3).contiguous(), v.permute(0, 2, 1, 3).contiguous()
             mask = (torch.arange(S, device=dev)[None, :] <= cl[:, None])[:, None, None, :]
@@ -419,7 +461,8 @@ def check_kernels(dev):
                 library_ms=time_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask)),
             )
             timed["bound_ms"], timed["bound_by"] = bound(by, fl, dtype)
-        report("decode_attention", f"B={B} S={S} KV={kv} G={g} {dtype} win={window}", dtype, err, timed)
+        report("decode_attention", f"B={B} S={S} KV={kv} G={g} d={d} {dtype} win={window}",
+               dtype, err, timed, tag)
         if main:  # the split body at the kernel's own and at forced split counts
             sms = torch.cuda.get_device_properties(dev).multi_processor_count
             own = dk.split_count(S, B, kv, g, sms)
@@ -491,19 +534,23 @@ def check_kernels(dev):
             report("ragged_attention", f"T={B} singletons of {B} slots at {SINGLE_POS}", dtype,
                    err)
 
-    # ---- GQA flash attention (prefill): B*KV rows, G heads per row
-    for bkv, g, s, dtype, main in [
-        (32, 1, 64, bf16, True), (32, 1, 37, bf16, False), (32, 1, 64, f32, False),
-        (8, 8, 64, bf16, False), (8, 8, 37, f32, False),
+    # ---- GQA flash attention (prefill): B*KV rows, G heads per row. zamba2's
+    # admissions prefill at each prompt's exact length (phase 4's 5-700
+    # tokens) at D 80: timed at 512, held at tails of the 64-row tile too
+    for bkv, g, s, d, dtype, tag in [
+        (32, 1, 64, 128, bf16, "main"), (32, 1, 37, 128, bf16, None),
+        (32, 1, 64, 128, f32, None), (8, 8, 64, 128, bf16, None), (8, 8, 37, 128, f32, None),
+        (32, 1, 512, 80, bf16, "zamba2"), (32, 1, 37, 80, bf16, None),
+        (32, 1, 300, 80, bf16, None), (32, 1, 700, 80, bf16, None),
     ]:
-        q, k, v = randn(bkv, g, s, 128, dtype=dtype), randn(bkv, s, 128, dtype=dtype), \
-            randn(bkv, s, 128, dtype=dtype)
+        q, k, v = randn(bkv, g, s, d, dtype=dtype), randn(bkv, s, d, dtype=dtype), \
+            randn(bkv, s, d, dtype=dtype)
         got = fk.gqa_flash_attention(q, k, v)
         want = ref.gqa_flash_attention(q, k, v)
         err = (got.float() - want.float()).abs().max().item()
         timed = None
-        if main:
-            fl = bkv * g * 128 * 4 * sum(i + 1 for i in range(s))
+        if tag:
+            fl = bkv * g * d * 4 * sum(i + 1 for i in range(s))
             k4, v4 = k[:, None], v[:, None]  # [BKV, 1, S, d]: G = 1 query head per row
             timed = dict(
                 ms=time_ms(lambda: fk.gqa_flash_attention(q, k, v)),
@@ -512,7 +559,8 @@ def check_kernels(dev):
                     q, k4, v4, is_causal=True)),
             )
             timed["bound_ms"], timed["bound_by"] = bound(nbytes(q, k, v, q), fl, dtype)
-        report("gqa_flash_attention", f"BKV={bkv} G={g} S={s} {dtype}", dtype, err, timed)
+        report("gqa_flash_attention", f"BKV={bkv} G={g} S={s} d={d} {dtype}", dtype, err, timed,
+               tag)
 
     # every bf16 tile of the wgmma body at every head width, the group packed
     # into the query tile (G = 8, a 64-token prefill: the grouped serving
@@ -539,6 +587,7 @@ def check_kernels(dev):
         print(f"  gqa_flash_attention  BKV=32 G=1 S=64 d=128 float32 tile={tile}: "
               f"ms={ms:.4f}{mark}", flush=True)
     torch.cuda.synchronize()
+    results["zamba2"] = zamba2
     return results
 
 
@@ -1359,6 +1408,40 @@ def small_model_streams(dev):
                   f"kept entries {kept.summary()}; {n_mla} latent-MQA, {n_q8} matmul_q8 launches",
                   flush=True)
 
+    # the state-space families, f32: reduced falcon-mamba-7b (Mamba1 on the
+    # unified engine, packs one slot wide: no attention kernel), reduced
+    # zamba2-2.7b (Mamba2 + the shared attention block at d_head 16, G 1, on
+    # the legacy tier: admissions on the flash kernel, decode on the decode
+    # kernel) and reduced codeqwen1.5-7b on the legacy tier (unified=False)
+    from repro_torch.kernels import decode_attention as dk
+    from repro_torch.kernels import flash_attention as fk
+    from repro_torch.kernels import ragged_attention as rk
+
+    for name, kw in (("falcon-mamba-7b", {}), ("zamba2-2.7b", {}),
+                     ("codeqwen1.5-7b", dict(unified=False))):
+        rcfg = get_arch(name).reduced()
+        r_cpu = LM(rcfg, device="cpu")
+        r_params = r_cpu.init(torch.Generator().manual_seed(0))
+        r_dev, r_params_dev = LM(rcfg, device=dev), _tree_to(r_params, dev)
+        reqs = [p_ % rcfg.vocab_size for p_ in prompts]
+        on_cpu, _ = serve(r_cpu, r_params, "cpu", reqs, kw)
+        n0 = (dk.launches, fk.launches, rk.launches)
+        on_dev, _ = serve(r_dev, r_params_dev, dev, reqs, kw)
+        n_dec, n_flash, n_rag = (a - b for a, b in zip((dk.launches, fk.launches, rk.launches),
+                                                       n0))
+        attention = rcfg.family != "ssm"
+        if on_dev != on_cpu:
+            diff = [rid for rid in on_cpu if on_cpu[rid] != on_dev.get(rid)]
+            raise AssertionError(f"{name} reduced ({kw or 'default tier'}): streams differ for "
+                                 f"rids {diff}")
+        if n_rag or (n_dec > 0) != attention or (n_flash > 0) != attention:
+            raise AssertionError(f"{name} reduced: {n_dec} decode, {n_flash} flash, {n_rag} "
+                                 "ragged launches")
+        tier = "unified, packs one slot wide" if rcfg.family == "ssm" else "legacy tier"
+        print(f"  {name} reduced ({rcfg.family}, {tier}): {len(on_cpu)} greedy streams "
+              f"identical on the card and the CPU (plain); {n_dec} decode, {n_flash} flash, "
+              f"{n_rag} ragged launches", flush=True)
+
 
 class moe_kept:
     """Context manager over ``models.moe.moe_dispatch``: while active, every
@@ -1778,7 +1861,7 @@ def serve_shared(dev, model, params, counters, label, expect, **kw):
     from repro_torch.serve import Request, SamplingParams, ServeEngine
 
     cfg = model.cfg
-    max_new, bs = 32, 32
+    max_new, bs = SERVE_NEW, 32
     floor_ms = kw.pop("floor_ms", None)
     warm, shared_prompts = shared_traffic(cfg)
     eng = ServeEngine(model, params, batch_slots=kw.pop("batch_slots"), max_len=1024,
@@ -1842,7 +1925,7 @@ def paged_and_quantized(dev, model, params, counters):
     from repro_torch.serve import Request, SamplingParams, ServeEngine
 
     cfg = model.cfg
-    max_new, bs = 32, 32
+    max_new, bs = SERVE_NEW, 32
     runs = []  # each measured run's launches
 
     # (a) bf16 pool at byte parity with a dense 8 x 1024 cache: 256 blocks
@@ -1935,7 +2018,7 @@ def int8_weights(dev, model, params, counters, num_blocks_b: int):
     from repro_torch.serve import Request, SamplingParams, ServeEngine
 
     cfg = model.cfg
-    max_new = 32
+    max_new = SERVE_NEW
     dense_bytes = pytree_bytes(params["blocks"])
     head_bytes = pytree_bytes(params["embed"].get("head"))
 
@@ -2181,10 +2264,17 @@ def sampler_profile(dev, v: int, b: int = 4, smodes=(0, 1, 2)) -> dict:
     return out
 
 
+# phase 10's traffic: 8 of phase 4's prompt lengths (the 513-, 65-, 48- and
+# 12-token prompts left out; the 700 keeps verify and draft catch-up reaching
+# the third 256-position span), 16 new tokens each
+PHASE10_LENS = (5, 300, 37, 130, 64, 200, 700, 90)
+PHASE10_NEW = 16
+
+
 def full_width_sampling(dev, model, params) -> dict:
     """Phase 10: sampled and speculated serving at full width on phase 4's
     weights (4 slots x 1024, bf16), phase 4's prompt lengths made repetitive:
-    (a) the mixed traffic of ``mixed_params`` (three each of greedy,
+    (a) the mixed traffic of ``mixed_params`` (two each of greedy,
     temperature, top-k/top-p and biased greedy), run twice (the second with
     the greedy requests at top-k 1, temperature 1) and at max_chunk 1; (b)
     the same traffic with the n-gram drafter, every verify dispatch on the
@@ -2201,9 +2291,8 @@ def full_width_sampling(dev, model, params) -> dict:
     from repro_torch.serve import engine as engine_mod
 
     cfg = model.cfg
-    max_new, boost = 32, 1234
-    lens = (5, 700, 37, 130, 64, 300, 12, 513, 65, 200, 48, 90)  # phase 4's
-    prompts = repetitive_prompts(lens, cfg.vocab_size, seed=10)
+    max_new, boost = PHASE10_NEW, 1234
+    prompts = repetitive_prompts(PHASE10_LENS, cfg.vocab_size, seed=10)
     bans = {}  # a biased request bans its prompt's first greedy token
     for i in range(3, len(prompts), 4):
         with torch.no_grad():
@@ -2299,7 +2388,8 @@ def full_width_sampling(dev, model, params) -> dict:
     if same:
         raise AssertionError(f"(a) rids {same}: streams differ between two runs")
     eq1 = all(run1[i] == run2[i] for i in kinds[0])
-    print(f"  (a) the 9 other streams bitwise equal run to run; top-k 1 at temperature 1: "
+    print(f"  (a) the {len(run1) - len(kinds[0])} other streams bitwise equal run to run; "
+          f"top-k 1 at temperature 1: "
           f"{top1['draws']} draws, {top1['bad']} off a row's largest logit, {top1['ties']} at a "
           f"tie for it; its streams equal the greedy ones: {eq1} (agreement "
           f"{agreement(run1, run2, kinds[0]):.3f})", flush=True)
@@ -2396,8 +2486,11 @@ def full_width_sampling(dev, model, params) -> dict:
     eng.run()
     hits0 = eng.prefix.stats().hit_tokens
     per = verify_counts(eng, lambda: pk.launches_split_pack)
+    # the 8 shared-prefix prompts and 2 unshared ones (5 and 130 tokens)
     _, reqs_d, stats_d = drain(eng, "(d) paged + prefix, n-gram speculation",
-                               prompts_=shared_prompts, params_=SamplingParams(max_new=max_new))
+                               prompts_=shared_prompts[:8] + [shared_prompts[8],
+                                                              shared_prompts[10]],
+                               params_=SamplingParams(max_new=max_new))
     check_verify(per, stats_d, "paged (split pack body)", "(d)")
     launched["paged_verify"] = sum(n for n, _ in per)
     out["launches"] = launched
@@ -2586,14 +2679,23 @@ def replica_step_profile(engines, dev, steps: int = 8) -> dict:
     return out
 
 
-def cluster_traffic(cfg, max_new: int = 32):
-    """Phase 12's traffic: phase 4's 12 prompts, tenants a / b alternating,
-    rids 1, 4, 7 and 10 seeded at temperature 0.8, the others greedy."""
+# phase 12's traffic: 8 of phase 4's prompts (the 700- and 513-token ones and
+# two others left out), 16 new tokens each
+CLUSTER_RIDS = (0, 2, 3, 4, 5, 6, 9, 10)
+CLUSTER_NEW = 16
+
+
+def cluster_traffic(cfg):
+    """Phase 12's traffic: phase 4's prompts ``CLUSTER_RIDS`` under their
+    rids, tenants a / b alternating, rids 4 and 10 seeded at temperature 0.8,
+    the others greedy."""
     from repro_torch.serve import Request, SamplingParams
 
-    return [Request(rid=i, prompt=p_, tenant="ab"[i % 2], params=SamplingParams(
-                max_new=max_new, **(dict(temperature=0.8, seed=3000 + i) if i % 3 == 1 else {})))
-            for i, p_ in enumerate(phase4_prompts(cfg))]
+    prompts = phase4_prompts(cfg)
+    return [Request(rid=i, prompt=prompts[i], tenant="ab"[i % 2], params=SamplingParams(
+                max_new=CLUSTER_NEW,
+                **(dict(temperature=0.8, seed=3000 + i) if i % 3 == 1 else {})))
+            for i in CLUSTER_RIDS]
 
 
 def cluster_checks(model, params, dev, reqs, phase4: dict, label: str) -> dict:
@@ -2631,7 +2733,11 @@ def cluster_row(label: str, stats, idle) -> dict:
                 wall_s=stats.wall_seconds, idle_share=idle)
 
 
-STALL_S, DEAD_AFTER_S = 14.0, 10.0  # phase 12 (d): replica 1's stall, the watchdog's verdict
+# phase 12 (d): replica 1's stall, the watchdog's verdict (near three times the
+# longest iteration a live replica took: 2.9-3.5 s), and the replica tick it
+# stalls at (16 new tokens a request: an earlier tick than 32 would need)
+STALL_S, DEAD_AFTER_S, STALL_TICK = 14.0, 10.0, 6
+
 
 
 def full_width_cluster(dev, model, params, phase4: dict, counters, max_len: int = 1024) -> dict:
@@ -2641,7 +2747,7 @@ def full_width_cluster(dev, model, params, phase4: dict, counters, max_len: int 
     two streams, one copy of the weights), (b) a cluster over [cuda:0]
     switching SPLIT -> MERGE once half the requests have arrived and
     switching back warm, (c) ``run_controlled`` under
-    ``ReconfigController.for_cluster`` over 8 long prompts then 24 short
+    ``ReconfigController.for_cluster`` over 4 long prompts then 12 short
     ones (its decisions printed, not gated), (d) two replicas with an
     injected controller stall: exactly one must be declared dead and every
     request finish. In each run the decode, ragged and flash kernels must launch and
@@ -2728,14 +2834,14 @@ def full_width_cluster(dev, model, params, phase4: dict, counters, max_len: int 
                                place_s=r.place_seconds, bytes=r.bytes_moved) for r in reports]
     del cl
 
-    # (c) the closed control loop over 8 long prompts, then 24 short ones
+    # (c) the closed control loop over 4 long prompts, then 12 short ones
     rng = np.random.default_rng(12)
-    lens = [int(x) for x in rng.integers(600, 701, size=8)] + \
-        [int(x) for x in rng.integers(5, 41, size=24)]
+    lens = [int(x) for x in rng.integers(600, 701, size=4)] + \
+        [int(x) for x in rng.integers(5, 41, size=12)]
     reqs = [Request(rid=100 + i, prompt=rng.integers(0, cfg.vocab_size, size=n).astype(np.int32),
                     tenant="ab"[i % 2], params=SamplingParams(max_new=16))
             for i, n in enumerate(lens)]
-    arrivals = [(0.05 * i if i < 8 else 2.0 + 0.1 * (i - 8), r) for i, r in enumerate(reqs)]
+    arrivals = [(0.05 * i if i < 4 else 2.0 + 0.1 * (i - 4), r) for i, r in enumerate(reqs)]
     cl = ServeCluster(model, params, devices=[dev, dev], **kw)
     cl.prewarm()
     inner = ReconfigController.for_cluster(cl, interval_s=0.5)
@@ -2776,7 +2882,7 @@ def full_width_cluster(dev, model, params, phase4: dict, counters, max_len: int 
         with lock:
             stamps[idx].append(time.perf_counter())
             n = sum(t is not None for t in stamps[idx])
-        if idx == 1 and n == 12:
+        if idx == 1 and n == STALL_TICK:
             time.sleep(STALL_S)
 
     cl = ServeCluster(model, params, devices=[dev, dev], **kw, failure=FailurePolicy(
@@ -2852,7 +2958,7 @@ def full_width_mla(dev, counters):
           f"{cfg.num_params() / 1e9:.2f}B params, init {time.perf_counter() - t0:.1f} s")
     eng = ServeEngine(model, params, batch_slots=4, max_len=1024, prefill_budget=64)
     eng.prewarm()
-    max_new = 32
+    max_new = SERVE_NEW
     reqs = [Request(rid=i, prompt=p_, params=SamplingParams(max_new=max_new))
             for i, p_ in enumerate(phase4_prompts(cfg))]
     torch.cuda.reset_peak_memory_stats()
@@ -2945,9 +3051,9 @@ def pack_vs_plain(model, params, cache, dev, label: str, moe_mod) -> dict:
 
 def moe_serve(dev, model, params, counters, label: str, expect, moe_mod, smi: str,
               **kw) -> tuple[dict, dict, object]:
-    """Phase 4's traffic (4 slots x 1024, prefill_budget 64, 12 greedy
-    requests of 5-700 prompt tokens, 32 new tokens) on a new engine; counts
-    set to 0 just before and read just after (``expect`` must have
+    """Phase 4's prompts (4 slots x 1024, prefill_budget 64, 12 greedy
+    requests of 5-700 prompt tokens, ``SERVE_NEW`` new tokens) on a new
+    engine; counts set to 0 just before and read just after (``expect`` must have
     launched); the kept share of (token, k) entries per route; every request
     finished and teacher-forced; a decode step profiled with the expert
     products timed, against the weight-read floor of the engine's params
@@ -2960,7 +3066,7 @@ def moe_serve(dev, model, params, counters, label: str, expect, moe_mod, smi: st
     from repro_torch.serve import Request, SamplingParams, ServeEngine
 
     cfg = model.cfg
-    max_new = 32
+    max_new = SERVE_NEW
     t0 = time.perf_counter()
     eng = ServeEngine(model, params, batch_slots=4, max_len=S_MAX, prefill_budget=64, **kw)
     eng.prewarm()
@@ -3123,7 +3229,7 @@ def full_width_moe(dev, counters, smi: str) -> tuple[dict, dict]:
     ragged_all_split(ragged0, "phase 13 (b)")
     b["pack_vs_plain"] = pack_vs_plain(model, params, eng.cache, dev, "(b)", moe_mod)
     del eng
-    twice_equal(model, params, "(b)", phase4_prompts(cfg), 32)
+    twice_equal(model, params, "(b)", [prompts[i] for i in (0, 2, 3, 6)], 16)
     b.update(params=cfg.num_params(), layers=cfg.n_layers, layers_full=full.n_layers)
     out["b"] = b
 
@@ -3142,6 +3248,118 @@ def full_width_moe(dev, counters, smi: str) -> tuple[dict, dict]:
         case.pop("streams", None)
     launches = {"a": la, "b": lb, "c": lc}
     print(f"  launches during phase 13: {launches}")
+    return launches, out
+
+
+# ---------------------------------------------------------------- phase 14
+
+
+def ssm_serve(dev, model, params, counters, label: str, expect, smi: str,
+              floor_bytes: int) -> tuple[dict, dict]:
+    """Phase 4's traffic (4 slots x 1024, prefill_budget 64, 12 greedy
+    requests of 5-700 prompt tokens, 32 new tokens) on a new engine at the
+    family's default tier; counts set to 0 just before and read just after
+    (``expect`` must have launched); every request finished and
+    teacher-forced; a decode step profiled against the weight-read floor of
+    ``floor_bytes``; two identical runs of four requests equal. Returns
+    (launches, readings)."""
+    import torch
+
+    from repro_torch.common import pytree_bytes
+    from repro_torch.serve import Request, SamplingParams, ServeEngine
+
+    cfg = model.cfg
+    max_new = 32
+    t0 = time.perf_counter()
+    eng = ServeEngine(model, params, batch_slots=4, max_len=S_MAX, prefill_budget=64)
+    eng.prewarm()
+    setup_s = time.perf_counter() - t0
+    reqs = [Request(rid=i, prompt=p_, params=SamplingParams(max_new=max_new))
+            for i, p_ in enumerate(phase4_prompts(cfg))]
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(counters)
+    for r in reqs:
+        eng.submit(r)
+    stats = eng.run()
+    launches = read_counts(counters, f"phase 14 {label}", expect)
+    check_finished(reqs, max_new, cfg.vocab_size)
+    peak = torch.cuda.max_memory_allocated()
+    state = eng.kv_bytes_resident()
+    tier = "unified, packs one slot wide" if eng.unified else "legacy prefill+insert tier"
+    print(f"  {label} [{smi}] ({tier})", end="")
+    print_stats(stats, f"; peak memory {peak / 2**30:.2f} GiB; cache {state / 1e6:.1f} MB; "
+                f"engine built and prewarmed in {setup_s:.1f} s")
+    floor_ms = floor_bytes / HBM_BYTES_PER_S * 1e3
+    out = dict(tok_s=stats.tokens_per_sec, ttft_p50_ms=stats.ttft_p50 * 1e3,
+               ttft_p99_ms=stats.ttft_p99 * 1e3, tpot_p50_ms=stats.tpot_p50 * 1e3,
+               peak_gib=peak / 2**30, cache_bytes=state, unified=eng.unified,
+               bytes=pytree_bytes(eng.params), floor_ms=floor_ms)
+    out["agreement"] = teacher_forced(model, eng.params, reqs[5], dev, label)
+    out["decode_step"] = decode_step_profile(eng, cfg, dev, f"{label} decode step",
+                                             floor_ms=floor_ms)
+    del eng
+    twice_equal(model, params, label, [phase4_prompts(cfg)[i] for i in (0, 2, 3, 6)], 16)
+    return launches, out
+
+
+def full_width_ssm(dev, counters, smi: str) -> tuple[dict, dict]:
+    """Phase 14: the state-space families whole, at full width, on phase 4's
+    traffic, each model freed before the next: (a) falcon-mamba-7b (64
+    Mamba1 layers, d 4096, d_inner 8192, N 16, ~14 GB bf16 of random weights
+    from a seed; nothing cut) on the unified engine, packs one slot wide: it
+    reaches no attention kernel; (b) zamba2-2.7b (54 Mamba2 layers, d 2560,
+    80 SSM heads of 64 at N 64, the shared attention + MLP block at 32 heads
+    x D 80, G 1, run after every 6th layer: 9 times; ~4.7 GB; nothing cut)
+    on the legacy tier: each admission's prefill at the prompt's exact length
+    on the flash kernel, every decode launch on the split decode body.
+    Returns ({case: its launches}, readings)."""
+    import torch
+
+    from repro_torch.common import pytree_bytes
+    from repro_torch.configs import get_arch
+    from repro_torch.models import LM
+
+    out, launches = {}, {}
+    for case, name in (("a", "falcon-mamba-7b"), ("b", "zamba2-2.7b")):
+        cfg = get_arch(name)
+        s = cfg.ssm
+        model = LM(cfg)
+        t0 = time.perf_counter()
+        params = model.init(torch.Generator(device=dev).manual_seed(0))
+        torch.cuda.synchronize()
+        nb = pytree_bytes(params)
+        floor_bytes = nb
+        desc = (f"{cfg.n_layers} {s.variant} layers, d_model {cfg.d_model}, d_inner "
+                f"{s.expand * cfg.d_model}, state {s.state}")
+        if cfg.family == "hybrid":
+            # the shared block's weights are read once per invocation
+            n_inv = cfg.n_layers // cfg.shared_attn_every
+            shared = pytree_bytes(params["shared"])
+            floor_bytes = nb + (n_inv - 1) * shared
+            desc += (f", {s.expand * cfg.d_model // s.head_dim} SSM heads of {s.head_dim}; the "
+                     f"shared attention + MLP block ({cfg.n_heads} heads over {cfg.n_kv_heads} "
+                     f"KV heads, D {cfg.head_dim}, ff {cfg.d_ff}: {shared / 1e9:.3f} GB) after "
+                     f"every {cfg.shared_attn_every} layers, {n_inv} times")
+        print(f"  ({case}) {cfg.name} [{smi}]: {desc}, vocab {cfg.vocab_size}, {cfg.dtype}: "
+              f"{cfg.num_params() / 1e9:.3f}B params, {nb} bytes ({nb / 1e9:.2f} GB), init "
+              f"{time.perf_counter() - t0:.1f} s; nothing cut; weight-read floor of a decode "
+              f"step {floor_bytes / 1e9:.2f} GB -> "
+              f"{floor_bytes / HBM_BYTES_PER_S * 1e3:.2f} ms at 3.35 TB/s", flush=True)
+        expect = [] if cfg.family == "ssm" else [
+            "decode_attention", "decode_attention_split", "gqa_flash_attention"]
+        launches[case], out[case] = ssm_serve(dev, model, params, counters, f"({case})", expect,
+                                              smi, floor_bytes)
+        la = launches[case]
+        if cfg.family == "ssm" and any(la.values()):
+            raise AssertionError(f"({case}) {name} launched an attention kernel: {la}")
+        if cfg.family == "hybrid" and (la["ragged_attention"]
+                                       or la["decode_attention"] != la["decode_attention_split"]):
+            raise AssertionError(f"({case}) {name}: decode launches off the split body, or a "
+                                 f"pack on the legacy tier: {la}")
+        out[case].update(params=cfg.num_params())
+        del model, params
+        torch.cuda.empty_cache()
+    print(f"  launches during phase 14: {launches}")
     return launches, out
 
 
@@ -3873,6 +4091,7 @@ def main() -> int:
 
     phase("2 kernels vs plain on the card")
     timed = check_kernels(dev)
+    hybrid_shapes = timed.pop("zamba2")  # rows 1 and 3 at zamba2-2.7b's shapes
     timed.update(check_paged_and_quant_kernels(dev))
     timed.update(check_matmul_kernels(dev))
     timed.update(check_mla_kernels(dev))
@@ -3965,6 +4184,10 @@ def main() -> int:
                   **{k: v for k, v in counters6.items() if k.startswith("matmul_q8")}}
     moe_launches, moe = full_width_moe(dev, counters13, smi)
     print(json.dumps({"moe": moe}, default=float))
+
+    phase("14 full width state-space: falcon-mamba-7b (unified), zamba2-2.7b (legacy tier)")
+    ssm_launches, ssm = full_width_ssm(dev, counters4, smi)
+    print(json.dumps({"ssm": ssm}, default=float))
 
     phase("11 the kernel table")
     # the pl.pallas_call line of each TPU kernel, as in PERF.md's kernel table
@@ -4071,6 +4294,12 @@ def main() -> int:
                     "matmul_q8": ("c",)}
         if name in moe_rows:
             kernels[-1]["launches_moe"] = sum(moe_launches[c][name] for c in moe_rows[name])
+        # phase 14 (b)'s launches (zamba2-2.7b's shared attention block: its
+        # admissions on flash, every decode launch on the split body), and
+        # each row timed at zamba2's shapes in phase 2
+        if name in hybrid_shapes:
+            kernels[-1]["launches_hybrid"] = ssm_launches["b"][name]
+            kernels[-1]["zamba2_shape"] = hybrid_shapes[name]
     print(json.dumps({"kernels": kernels, "to_port": []}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

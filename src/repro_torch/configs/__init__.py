@@ -1,24 +1,33 @@
 """Architecture registry of the port. Importing this package registers the
-archs the port serves: dense (codeqwen1.5-7b, qwen3-32b; minicpm3-4b with
-multi-head latent attention) and mixture-of-experts (deepseek-v2-lite-16b
-with MLA, llama4-scout-17b-a16e with GQA)."""
+JAX package's ten archs: dense (codeqwen1.5-7b, qwen3-32b, chameleon-34b,
+mistral-large-123b, musicgen-large; minicpm3-4b with multi-head latent
+attention), mixture-of-experts (deepseek-v2-lite-16b with MLA,
+llama4-scout-17b-a16e with GQA), ssm (falcon-mamba-7b, Mamba1) and hybrid
+(zamba2-2.7b, Mamba2 with a shared attention block)."""
 
 from repro_torch.configs.base import (
     ARCHS,
     ArchConfig,
     MLAConfig,
     MoEConfig,
+    SSMConfig,
     get_arch,
     register_arch,
 )
 
 # Import every arch module for registration side effects.
 from repro_torch.configs import (  # noqa: F401
+    chameleon_34b,
     codeqwen15_7b,
     deepseek_v2_lite_16b,
+    falcon_mamba_7b,
     llama4_scout_17b,
     minicpm3_4b,
+    mistral_large_123b,
+    musicgen_large,
     qwen3_32b,
+    zamba2_2p7b,
 )
 
-__all__ = ["ARCHS", "ArchConfig", "MLAConfig", "MoEConfig", "get_arch", "register_arch"]
+__all__ = ["ARCHS", "ArchConfig", "MLAConfig", "MoEConfig", "SSMConfig", "get_arch",
+           "register_arch"]

@@ -1,13 +1,15 @@
 """Architecture configs for the PyTorch port: a frozen dataclass + a registry
 keyed by arch id.
 
-A copy of the dense and mixture-of-experts parts of ``repro.configs.base``
-with the MLA and MoE sub-configs (the port imports nothing of the JAX
-package). The dense and moe families are ported, each with or without
-multi-head latent attention (``mla``); the SSM sub-config is not carried
-yet. ``reduced()``, ``num_params()`` and ``num_active_params()`` keep the JAX
-package's rules for the fields carried, which is what lets the tests hand
-the same reduced config to both packages.
+A copy of the architecture part of ``repro.configs.base`` with the MLA,
+MoE and SSM sub-configs (the port imports nothing of the JAX package). All
+four families are ported: dense and moe, each with or without multi-head
+latent attention (``mla``), ssm (a Mamba1 stack) and hybrid (a Mamba2 stack
+with one weight-tied attention + MLP block every ``shared_attn_every``
+layers). ``reduced()``, ``num_params()`` and ``num_active_params()`` keep
+the JAX package's rules, which is what lets the tests hand the same reduced
+config to both packages. The JAX package's input shapes and training
+hyperparameters are not carried.
 """
 
 from __future__ import annotations
@@ -41,9 +43,23 @@ class MLAConfig:
 
 
 @dataclass(frozen=True)
+class SSMConfig:
+    """State-space (Mamba) block config."""
+
+    variant: str  # 'mamba1' | 'mamba2'
+    state: int  # N: SSM state size
+    conv_kernel: int = 4
+    expand: int = 2  # d_inner = expand * d_model
+    head_dim: int = 64  # mamba2 only
+    n_groups: int = 1  # mamba2 only
+    chunk: int = 256  # scan chunk length
+
+
+@dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str  # 'dense' or 'moe' (each with or without ``mla``) are ported
+    family: str  # 'dense' | 'moe' | 'ssm' | 'hybrid'
+    modality: str = "text"  # 'text' | 'audio' | 'vlm'
     source: str = ""  # provenance string
 
     n_layers: int = 0
@@ -60,10 +76,12 @@ class ArchConfig:
     tie_embeddings: bool = False
     first_k_dense: int = 0  # leading dense layers in an MoE stack
     dense_ff: int = 0  # d_ff of those dense layers (0 => d_ff)
+    shared_attn_every: int = 0  # hybrid: the shared block's cadence (zamba2)
     sliding_window: int = 0  # 0 => full attention
 
     moe: Optional[MoEConfig] = None
     mla: Optional[MLAConfig] = None
+    ssm: Optional[SSMConfig] = None
 
     dtype: str = "bfloat16"  # weights and KV cache
 
@@ -73,11 +91,31 @@ class ArchConfig:
             return self.d_head
         return self.d_model // max(self.n_heads, 1)
 
+    def _mamba_params(self) -> int:
+        """One Mamba block's parameters, its pre-norm included."""
+        d, s = self.d_model, self.ssm
+        d_in = s.expand * d
+        if s.variant == "mamba1":
+            # in_proj, conv, x_proj (-> dt, B, C), dt_proj, A, D, out_proj
+            dt_rank = max(d // 16, 1)
+            per_layer = (d * 2 * d_in + s.conv_kernel * d_in + d_in * (dt_rank + 2 * s.state)
+                         + dt_rank * d_in + d_in * s.state + d_in + d_in * d)
+        else:  # mamba2: in_proj (-> z, x, B, C, dt), conv, A / D / dt_bias, out_proj
+            n_heads = d_in // s.head_dim
+            conv_dim = d_in + 2 * s.n_groups * s.state
+            per_layer = (d * (2 * d_in + 2 * s.n_groups * s.state + n_heads)
+                         + s.conv_kernel * conv_dim + 3 * n_heads + d_in * d)
+        return per_layer + d
+
     def num_params(self) -> int:
         """Analytic parameter count (embedding + blocks + final norm)."""
         d, f, v, L = self.d_model, self.d_ff, self.vocab_size, self.n_layers
         hd = self.head_dim
         emb = v * d * (1 if self.tie_embeddings else 2)
+        if self.family in ("ssm", "hybrid") and self.ssm is None:
+            raise ValueError(f"{self.name}: family {self.family!r} needs an SSMConfig")
+        if self.family == "ssm":
+            return int(emb + L * self._mamba_params() + d)
         if self.mla is not None:
             m = self.mla
             qk_dim = m.nope_head_dim + m.rope_head_dim
@@ -102,6 +140,8 @@ class ArchConfig:
             kd = self.first_k_dense
             return int(emb + (L - kd) * (attn + routed + shared + router + norms)
                        + kd * (attn + 3 * d * dff + norms) + d)
+        if self.family == "hybrid":  # L Mamba2 blocks + ONE shared attention + MLP block
+            return int(emb + L * self._mamba_params() + attn + 3 * d * f + norms + d)
         return int(emb + L * (attn + 3 * d * f + norms) + d)
 
     def num_active_params(self) -> int:
@@ -132,6 +172,11 @@ class ArchConfig:
                 nope_head_dim=16,
                 v_head_dim=16,
             )
+        if self.ssm is not None:
+            kw["ssm"] = replace(self.ssm, state=8, head_dim=16, chunk=32)
+        if self.shared_attn_every:
+            kw["n_layers"] = 4
+            kw["shared_attn_every"] = 2
         kw["dtype"] = "float32"
         kw["name"] = self.name + "-reduced"
         return replace(self, **kw)

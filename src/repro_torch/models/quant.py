@@ -27,8 +27,10 @@ from repro_torch.kernels import ops
 _INT8_MAX = 127.0
 
 # subtrees whose leaves are stacked [L, ...] matmul weights; everything
-# outside (embeddings, final norm) stays dense. The MoE and hybrid names are
-# kept so the eligibility rule reads as the JAX package's.
+# outside (embeddings, final norm, a hybrid's weight-tied ``shared`` block,
+# which has no L axis) stays dense, as in the JAX package. No SSM leaf name
+# (in_proj, x_proj, out_proj, ...) is eligible either, so int8 weights leave
+# the ssm and hybrid families' params as they are.
 _STACK_KEYS = ("blocks", "dense_blocks", "moe_blocks")
 
 

@@ -1,4 +1,5 @@
-"""Serving: the unified engine and its request API, the seeded sampler zoo,
+"""Serving: the engine (the unified dispatch and the legacy prefill+insert
+tier) and its request API, the seeded sampler zoo,
 speculative decoding's drafters, the block-paged KV pool and the radix
 prefix cache behind paged serving, the placement backends, and the
 split/merge serving cluster with its supervisor (reconfiguration,

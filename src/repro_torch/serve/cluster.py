@@ -468,14 +468,12 @@ class ServeCluster:
         # independent pool + prefix tree PER replica (tenant-affinity
         # routing then doubles as prefix locality — a tenant's repeated
         # system prompt stays hot on its home replica's tree)
-        if unified is False:
-            raise NotImplementedError(
-                "the legacy prefill+insert tier is not ported: the port's "
-                "engines are unified"
-            )
         self._engine_kw = dict(
             batch_slots=batch_slots,
             max_len=max_len,
+            # None: each replica's own family default (a hybrid on the
+            # legacy tier, the rest unified)
+            unified=unified,
             prefill_budget=prefill_budget,
             max_chunk=max_chunk,
             kv_block_size=kv_block_size,

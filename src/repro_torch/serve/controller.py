@@ -487,7 +487,7 @@ def model_token_cost(cfg) -> float:
     elif cfg.family in ("dense", "moe", "hybrid"):
         attn_row = float(2 * cfg.n_kv_heads * cfg.head_dim)
     ssm_cost = 0.0
-    ssm = getattr(cfg, "ssm", None)  # the port's configs have no SSM yet
+    ssm = cfg.ssm
     if ssm is not None:
         inner = cfg.d_model * ssm.expand
         # ~flops:bytes ratio stand-in; keeps SSM state math comparable

@@ -1,6 +1,6 @@
-"""Batched serving engine with continuous batching and the unified ragged
-prefill+decode dispatch (counterpart of ``repro/serve/engine.py`` with
-``unified=True``).
+"""Batched serving engine with continuous batching: the unified ragged
+prefill+decode dispatch and the legacy prefill+insert tier (counterpart of
+``repro/serve/engine.py``).
 
 A fixed pool of ``batch_slots`` cache slots; requests are admitted into free
 slots and every scheduling iteration advances work through three routes:
@@ -71,6 +71,26 @@ Paged and quantized admissions always take the pack tier: the packed
 scatter is the one write path that quantizes rows and routes through the
 block tables.
 
+An ssm model (``cfg.family == "ssm"``: falcon-mamba-7b) serves on the
+unified engine with packs ONE slot wide: a pack is one contiguous chunk of
+one slot's stream, and every admission takes the pack tier (a chunk that
+starts at position 0 starts from zero state). A decode chunk masks the
+state updates of inactive slots: a recurrent state has no position axis
+that a later write could correct. It takes neither paging nor quantized KV
+(``ValueError``), and refuses speculation (rejected drafts would need a
+state rollback). Int8 weights leave every SSM leaf dense.
+
+``unified=False`` serves on the legacy tier, the default (with a one-time
+``RuntimeWarning``) for a hybrid model (zamba2-2.7b), which has no packed
+step: each admission prefills its prompt alone at its exact length (the
+JAX engine pads attention families to a power-of-two bucket to bound its
+compiles; an eager engine has none to bound), copies
+the one-slot cache into every leaf of its slot (``_insert``: the attention
+rows up to ``max_len`` included) and samples the first token on the host
+through the same fused sampler, blocking the decode slots meanwhile; decode
+chunks run as on the unified engine. ``unified=True`` on a hybrid raises.
+The legacy tier takes no paging, quantized KV or speculation.
+
 Tick state (last tokens, per-slot lengths) lives on the device; the host
 tracks counts only and reads dispatch t-1's token values after dispatch t is
 enqueued, so the transfer overlaps device work (a verify tick reads its
@@ -82,15 +102,16 @@ Placement goes through a backend (``serve/backend.py``): ``device=d`` is the
 shorthand for ``DeviceBackend(d)``, which on a CUDA device queues every
 dispatch and host copy of the engine on a stream of its own. The cluster
 hooks (``serve/cluster.py``): a thread-safe ``cancel``, ``reset``, and
-``run(deadline_s=, on_tick=, gate=)``. Not ported: the legacy
-prefill+insert tier and the tensor-parallel placement. The JAX engine's
-compile counters (``prefill_compiles``) have no meaning in an eager engine.
+``run(deadline_s=, on_tick=, gate=)``. Not ported: the tensor-parallel
+placement. The JAX engine's compile counters (``prefill_compiles``) have no
+meaning in an eager engine.
 """
 
 from __future__ import annotations
 
 import threading
 import time
+import warnings
 from collections import deque
 from dataclasses import dataclass, field
 from typing import Iterator, Optional
@@ -98,6 +119,7 @@ from typing import Iterator, Optional
 import numpy as np
 import torch
 
+from repro_torch.common.utils import pytree_bytes
 from repro_torch.models.model import LM
 from repro_torch.models.quant import quantize_params
 from repro_torch.serve.backend import PlacementBackend, resolve_backend
@@ -319,8 +341,23 @@ def _bucket_len(s: int, max_len: int) -> int:
 
 
 # packed-tick size buckets (a 1.5x ladder), and the max admitting slots per pack
+# of an attention family (an ssm pack holds one)
 _T_BUCKETS = (8, 16, 24, 32, 48, 64, 96, 128)
 _PACK_WIDTH = 2
+
+# family tags already warned about riding the legacy tier (once per process)
+_LEGACY_WARNED: set = set()
+
+
+def _warn_legacy_tier(tag: str) -> None:
+    """One-time notice that a family serves on the slow legacy tier: a
+    blocking one-slot prefill, a whole-slot insert and a host-side first
+    token per admission, which stall every decode slot meanwhile."""
+    if tag in _LEGACY_WARNED:
+        return
+    _LEGACY_WARNED.add(tag)
+    warnings.warn(f"family {tag!r} has no packed path; serving on the legacy prefill+insert "
+                  "tier (each admission blocks the decode slots)", RuntimeWarning, stacklevel=4)
 
 
 def _bucket_tokens(t: int) -> int:
@@ -342,6 +379,7 @@ class ServeEngine:
         batch_slots: int = 4,
         max_len: int = 256,
         seed: int = 0,
+        unified: Optional[bool] = None,
         prefill_budget: int = 64,
         max_chunk: int = 8,
         kv_block_size: Optional[int] = None,
@@ -361,13 +399,26 @@ class ServeEngine:
         if model.device != self.device:
             raise ValueError(f"model lives on {model.device}, engine on {self.device}")
         with self.backend.scope():
-            self._setup(model, params, batch_slots, max_len, seed, prefill_budget, max_chunk,
-                        kv_block_size, num_blocks, prefix_cache, speculate, kv_dtype,
-                        weight_dtype)
+            self._setup(model, params, batch_slots, max_len, seed, unified, prefill_budget,
+                        max_chunk, kv_block_size, num_blocks, prefix_cache, speculate,
+                        kv_dtype, weight_dtype)
 
-    def _setup(self, model, params, batch_slots, max_len, seed, prefill_budget, max_chunk,
-               kv_block_size, num_blocks, prefix_cache, speculate, kv_dtype, weight_dtype):
-        if not model.has_positional_kv:  # MLA's latent cache: dense and unquantized only
+    def _setup(self, model, params, batch_slots, max_len, seed, unified, prefill_budget,
+               max_chunk, kv_block_size, num_blocks, prefix_cache, speculate, kv_dtype,
+               weight_dtype):
+        # the unified dispatch covers positional K/V, MLA's latent cache and
+        # single-slot SSM chunks; a hybrid keeps the legacy prefill+insert tier
+        self.unified = model.supports_packed if unified is None else bool(unified)
+        if self.unified and not model.supports_packed:
+            raise ValueError(f"family {model.family_tag!r} has no packed path "
+                             "(pass unified=False to serve it on the legacy tier)")
+        if not self.unified:
+            _warn_legacy_tier(model.family_tag)
+            if kv_dtype is not None:  # only the packed scatter quantizes rows
+                raise ValueError("kv_dtype requires the unified packed engine")
+            if kv_block_size:
+                raise ValueError("paged KV serving requires the unified engine")
+        if not model.has_positional_kv:  # latent or recurrent: dense and unquantized only
             if kv_dtype is not None:
                 raise ValueError(f"family {model.family_tag!r} has no positional KV to quantize")
             if kv_block_size:
@@ -392,6 +443,13 @@ class ServeEngine:
         self.spec: Optional[SpeculateConfig] = None
         self.drafter = None
         if speculate not in (None, False, "off"):
+            if not self.unified:
+                raise ValueError("speculative decoding needs the unified packed dispatch")
+            if model.cfg.family == "ssm":
+                # a verify row past a rejected draft is masked in attention; a
+                # recurrent state has no position axis and would need a rollback
+                raise ValueError(f"family {model.family_tag!r} cannot speculate: rejected "
+                                 "drafts would need recurrent-state rollback")
             if hasattr(speculate, "propose"):
                 self.spec = SpeculateConfig(
                     mode="draft" if getattr(speculate, "name", "") == "draft" else "ngram")
@@ -407,10 +465,13 @@ class ServeEngine:
         self.kv_dtype = _norm_kv_dtype(kv_dtype)
         # quantized and paged admissions ride the pack tier only: the packed
         # scatter is the one write path that quantizes rows and routes
-        # through the block tables
+        # through the block tables. So does every ssm admission: its packs
+        # carry one slot each, a contiguous chunk of that slot's stream
         self.kv_block_size = int(kv_block_size) if kv_block_size else 0
         self.paged = bool(self.kv_block_size)
-        self._chunk_only_admit = self.kv_dtype is not None or self.paged
+        ssm = model.cfg.family == "ssm"
+        self._chunk_only_admit = self.kv_dtype is not None or self.paged or ssm
+        self._pack_width = 1 if ssm else _PACK_WIDTH
         if self.paged:
             if max_len % self.kv_block_size:
                 raise ValueError(f"max_len={max_len} must be a multiple of "
@@ -545,19 +606,23 @@ class ServeEngine:
         position ``cur_len`` before its increment. Inactive
         slots keep their ``last_tok`` and length: their garbage K/V row at
         ``cur_len`` is rewritten before anything reads it, or, for a slot
-        with no blocks, lands in the pool's scratch block. Returns (toks
-        [n_steps, B], last_tok, cur_len)."""
+        with no blocks, lands in the pool's scratch block. An ssm model's
+        inactive slots (empty or mid-prefill) also keep their recurrent
+        state: nothing later could undo a rider token folded into it.
+        Returns (toks [n_steps, B], last_tok, cur_len)."""
         # an MoE model routes all B slots, inactive ones too (the JAX engine's
         # T). Above 16 slots C < B, so an inactive slot's garbage row can take
         # a live entry's capacity: where no key is valid the decode kernel
         # gives zeros and the plain version a uniform average, so the card and
         # the CPU may then route differently (ROADMAP Queue 3)
         act = active.bool()
+        keep = active if self.model.cfg.family == "ssm" else None
         tok, cl = last_tok, cur_len
         toks = []
         for _ in range(n_steps):
             logits, _ = self.model.decode_step(
-                self.params, self.cache, {"tokens": tok[:, None]}, cl, block_tables=btab
+                self.params, self.cache, {"tokens": tok[:, None]}, cl, block_tables=btab,
+                active=keep,
             )
             tok = torch.where(act, self._sample(logits[:, 0], sp, cl, smode), tok)
             cl = cl + active
@@ -569,7 +634,7 @@ class ServeEngine:
         """One ragged pack (through the block table ``btab`` when paged).
         ``pack`` is one int32 upload: the [3, tb] descriptor rows (token,
         local slot, position) then meta = new_len [B] | sample_idx [B] |
-        sample_mask [B] | pack_slots [_PACK_WIDTH]. A slot whose prompt
+        sample_mask [B] | pack_slots [pack width]. A slot whose prompt
         completes samples its first token from its final prompt row, at PRNG
         position ``new_len - 1``. Returns (sampled [B], last_tok, cur_len = new_len)."""
         # all tb rows go through the step (an MoE model routes the whole bucket,
@@ -644,6 +709,73 @@ class ServeEngine:
         last_tok = torch.where(active, targets[ar, n_acc.long()], last_tok)
         cur_len = torch.where(active, cl + commit, cur_len)
         return targets, commit, last_tok, cur_len
+
+    # ------------------------------------------------------ the legacy tier
+
+    def _insert(self, one_cache: dict, slot: int) -> None:
+        """Copy a one-slot cache into every leaf of ``slot`` (axis 1 of each
+        leaf: [L, B, ...] or the hybrid's [n_inv, B, ...]), the attention
+        rows up to ``max_len`` included."""
+
+        def walk(dst, src):
+            for name, leaf in dst.items():
+                if isinstance(leaf, dict):
+                    walk(leaf, src[name])
+                else:
+                    leaf[:, slot: slot + 1] = src[name].to(leaf.dtype)
+
+        walk(self.cache, one_cache)
+
+    def _prefill_one(self, req: Request, slot: int) -> torch.Tensor:
+        """Prefill one prompt alone at its exact length (an eager engine
+        compiles nothing, so a bucket would only add work; padding would
+        also enter an SSM's state), insert its cache into ``slot``, and
+        return the last position's logits row [V] on the device."""
+        toks = np.asarray(req.prompt, np.int32)[None]
+        logits, one_cache = self.model.prefill(self.params, {"tokens": self._put(toks)},
+                                               self.max_len)
+        self._insert(one_cache, slot)
+        return logits[0, -1]
+
+    def _sample_first(self, row: torch.Tensor, req: Request) -> int:
+        """The legacy tier's first token: the fused sampler every dispatch
+        runs, on a one-row batch of the row in f32 at PRNG position
+        ``len(prompt) - 1``, read back at once (the admission blocks)."""
+        pos = torch.full((1,), len(req.prompt) - 1, dtype=torch.int32, device=self.device)
+        return int(self._sample(row.float()[None], self._sp_admit(req), pos, req._smode)[0])
+
+    def _admit(self, stats: Optional[ServeStats]) -> None:
+        """Legacy admission: a blocking one-slot prefill, the insert, and the
+        first token sampled through the same fused sampler, so legacy and
+        unified streams agree under every ``SamplingParams``. A request that
+        ends at its first token (a stop token, or ``max_new`` 1) finishes
+        without taking the slot."""
+        for slot in range(self.B):
+            while self.slot_req[slot] is None and self.waiting:
+                req = self.waiting.popleft()
+                self._bind(req)
+                tok = self._sample_first(self._prefill_one(req, slot), req)
+                now = time.perf_counter()
+                req.generated.append(tok)
+                req.n_generated = 1
+                req.first_token_at = now
+                if tok in req.params.stop or req.n_generated >= req.params.max_new:
+                    req.finish_reason = "stop" if tok in req.params.stop else "length"
+                    req.done_at = now
+                    self.finished.append(req)
+                    self._done_now.append(req)
+                    if stats is not None:
+                        stats.total_requests += 1
+                    continue
+                s = len(req.prompt)
+                self.slot_req[slot] = req
+                self._sp_fresh = False  # a new occupant's row must upload
+                self.slot_len[slot] = s
+                self.slot_fed[slot] = s
+                hit = self._slot_ids == slot
+                self._last_tok = torch.where(hit, tok, self._last_tok)
+                self._cur_len = torch.where(hit, s, self._cur_len)
+                self._dirty = True
 
     # --------------------------------------------------------- token harvest
 
@@ -736,8 +868,10 @@ class ServeEngine:
 
     def prewarm(self, sampling: bool = False) -> None:
         """Build the kernels and run one dummy dispatch per route (decode
-        chunk, ragged pack and, where admissions take it, fused admission)
-        off the clock; ``sampling=True`` runs each at every sampler variant
+        chunk, ragged pack and, where admissions take it, fused admission;
+        on the legacy tier a one-token prefill and the first-token sampler
+        instead of the last two) off the clock; ``sampling=True`` runs each
+        at every sampler variant
         (smodes 0, 1, 2), and a speculating engine also runs its drafter's
         prewarm and a verify dispatch at every depth of the ladder {1, 2, 4,
         .., spec_k}. Results are discarded and the tick state is untouched;
@@ -754,9 +888,16 @@ class ServeEngine:
         tb = _T_BUCKETS[0]
         desc = np.zeros((3, tb), np.int32)
         desc[2, 1:] = self.max_len  # token 0 at row 0 of slot 0, then padding
-        meta = np.concatenate([self.slot_len, np.zeros(2 * self.B + _PACK_WIDTH, np.int32)])
+        meta = np.concatenate([self.slot_len,
+                               np.zeros(2 * self.B + self._pack_width, np.int32)])
         for sm in smodes:
             self._tick_fn(self._last_tok, self._cur_len, idle, 1, btab, self._sp0, sm)
+            if not self.unified:
+                row = self.model.prefill(self.params, {"tokens": self._put(
+                    np.zeros((1, 1), np.int32))}, self.max_len)[0][0, 0]
+                self._sample(row.float()[None], self._sp0_admit,
+                             torch.zeros(1, dtype=torch.int32, device=self.device), sm)
+                continue
             self._packed_fn(self._last_tok, self._put(np.concatenate([desc.ravel(), meta])), tb,
                             btab, self._sp0, sm)
             if not self._chunk_only_admit:
@@ -952,15 +1093,16 @@ class ServeEngine:
 
     def _packed_tick(self, stats: ServeStats) -> None:
         """Build and dispatch one ragged pack: up to ``prefill_budget`` prompt
-        tokens, FCFS across at most ``_PACK_WIDTH`` admitting slots, padded
-        to a T bucket (padding: local slot 0, position max_len)."""
+        tokens, FCFS across at most ``_pack_width`` admitting slots (one for
+        an ssm model), padded to a T bucket (padding: local slot 0, position
+        max_len)."""
         entries: list[tuple[int, int, int]] = []  # (token, LOCAL slot, pos)
         sample_idx = np.zeros(self.B, np.int32)
         sample_mask = np.zeros(self.B, bool)
-        pack_slots = np.zeros(_PACK_WIDTH, np.int32)
+        pack_slots = np.zeros(self._pack_width, np.int32)
         budget = self.prefill_budget
         completed: list[int] = []
-        for local, i in enumerate(self._prefilling[:_PACK_WIDTH]):
+        for local, i in enumerate(self._prefilling[: self._pack_width]):
             if budget <= 0:
                 break
             pack_slots[local] = i
@@ -1153,8 +1295,10 @@ class ServeEngine:
             pass
         elif self.paged:
             self._admit_paged()
-        else:
+        elif self.unified:
             self._admit_unified(stats)
+        else:
+            self._admit(stats)
         stats.kv_bytes_resident = max(stats.kv_bytes_resident, self.kv_bytes_resident())
         active = [i for i, r in enumerate(self.slot_req) if r is not None]
         stats.peak_residents = max(stats.peak_residents, len(active))
@@ -1187,7 +1331,7 @@ class ServeEngine:
         blocks times the measured bytes of one block."""
         if self.paged:
             return self.pool.used * self.pool.bytes_per_block
-        return sum(t.numel() * t.element_size() for t in self.cache.values())
+        return pytree_bytes(self.cache)
 
     @property
     def stream_stats(self) -> ServeStats:

@@ -77,6 +77,9 @@ def test_attention_domain_covers_the_registry(name, reduced):
     if cfg.mla is not None:  # latent MQA: its own kernel's domain (plain-torch prefill)
         _checks.mla_domain(cfg.mla.kv_lora_rank, cfg.mla.rope_head_dim, cfg.n_heads)
         return
+    if cfg.n_heads == 0:  # an attention-free (ssm) stack launches no attention kernel
+        assert cfg.family == "ssm", name
+        return
     g = cfg.n_heads // cfg.n_kv_heads
     assert _checks.in_attention_domain(cfg.d_head, g), (name, cfg.d_head, g)
     assert cfg.d_head in fk.HEAD_DIMS

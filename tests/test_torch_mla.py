@@ -320,9 +320,9 @@ def test_engine_streams_equal_the_jax_engine(jx, minicpm3, budget):
 
 def test_mla_refusals(jx, minicpm3):
     """The latent cache neither pages nor quantizes (ValueError, where the
-    JAX package refuses too); int8 weights for MLA are not ported; the
-    unported families (ssm, hybrid) still raise, and a moe config without
-    its MoEConfig is refused."""
+    JAX package refuses too); int8 weights for MLA are not ported; an ssm or
+    hybrid config without its SSMConfig, and a moe config without its
+    MoEConfig, are refused."""
     _, jm, jp, cfg, m, p = minicpm3
     js = jx["serve"]
     for kw in (dict(kv_dtype="int8"), dict(kv_block_size=16), dict(kv_block_size=16,
@@ -349,7 +349,7 @@ def test_mla_refusals(jx, minicpm3):
     assert (dense.supports_packed, dense.has_positional_kv, dense.family_tag) == (
         True, True, "dense")
     for family in ("ssm", "hybrid"):
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(ValueError, match="SSMConfig"):
             LM(replace(cfg, family=family), device="cpu")
     # the moe family is ported: a moe config without its MoEConfig is refused,
     # where the JAX package fails building its params

@@ -168,11 +168,11 @@ def test_params_cross_unchanged_and_init_matches_their_shapes(jx, pairs):
 
 
 def test_family_refusals():
-    """ssm and hybrid are not ported; a moe config without its MoEConfig
-    is refused."""
+    """An ssm or hybrid config without its SSMConfig, and a moe config
+    without its MoEConfig, are refused."""
     cfg = get_arch("llama4-scout-17b-a16e").reduced()
     for family in ("ssm", "hybrid"):
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(ValueError, match="SSMConfig"):
             LM(replace(cfg, family=family), device="cpu")
     with pytest.raises(ValueError, match="MoEConfig"):
         LM(replace(cfg, moe=None), device="cpu")
