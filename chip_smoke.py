@@ -94,8 +94,8 @@ Phases (each raises on failure, so the script exits non-zero):
    the prefill budget, so fused admissions, ragged packs and decode chunks
    all run; each PR-11 kernel's launch count over this run must be > 0,
    and decode and every ragged launch must have run the split body.
-   Phases 5, 6, 9 and 13 serve ``SERVE_NEW`` (16) new tokens a request,
-   phases 4 and 14 32.
+   Phases 4, 5, 6, 9, 13 and 14 serve ``SERVE_NEW`` (16) new tokens a
+   request.
 5. full width, paged and quantized — the same weights behind (a) a paged
    engine with prefix reuse serving a shared 512-token system prompt, (b)
    the same traffic over an int8 pool of (a)'s bytes, (c) phase 4's traffic
@@ -232,6 +232,27 @@ Phases (each raises on failure, so the script exits non-zero):
    TTFT, TPOT, a decode step's wall against device time; each stream must
    agree with ``LM.prefill`` teacher-forced, and two identical runs of 4
    requests x 16 tokens give equal streams.
+15. (run after phase 14) the paper's split/merge fabric over lanes of one
+   card (``core/``, ``dist/{sharding,collectives}.py``; a lane is a device
+   and a stream of its own): (a) ``SpatzformerCluster`` views over 2 and 4
+   lanes and ``surviving_cluster(0)``; (b) the sync harness at [4096, 4096]
+   over 2 lanes, 4 rounds — fft2d (torch.fft), fft2d through the
+   hand-written FFT (``ops.fft``) and the f32 matmul chain — ``run_merged``
+   (the corner turn on the device) against ``run_split_staged`` (through the
+   host), each held against a plain on-device oracle, best seconds and
+   SM/MM, and a profile of the merged program with no device-to-host copy
+   or host sync; (c) ``MixedScheduler`` over 2 lanes: 8 x each of matmul,
+   conv2d, fft, dotp, axpy and softmax through ``ops`` (phase 8's shapes,
+   matmul bf16 4096^3, softmax [32768, 4096] bf16; each task's rows over
+   its view's lanes, the two-lane outputs held against the one-lane ones)
+   beside coremark at 20, 100 and 400 iterations: MERGE, SPLIT with scalar
+   work, SPLIT vector-only; makespans, lane times, SM/MM; every one of the
+   six kernels must launch; (d) ``switch_mode`` SPLIT -> MERGE -> SPLIT five
+   times with a ~2 GB param tree (codeqwen1.5-7b at 1 of 32 layers) over 4
+   lanes in pods of (data 1, model 2), values bit-equal after every switch,
+   median latency, ``bytes_moved``, GB/s and the bytes copied between
+   lanes; (e) ``ring_rs_matmul`` / ``ring_ag_matmul`` over 2 and 4 lanes at
+   M = K = N = 4096 f32 against ``torch.matmul``.
 11. a ``{"kernels": [...], "to_port": []}`` JSON line (every row of PERF.md's
    kernel table; the decode, ragged, paged, matmul and matmul_q8 rows name the body
    their timed case ran and its launches; paged packs and matmul_q8 at M = 16
@@ -240,8 +261,9 @@ Phases (each raises on failure, so the script exits non-zero):
    decode row the draft's roll launches; the decode, ragged, flash,
    matmul_q8 and latent-MQA rows phase 13's launches as ``launches_moe``;
    the decode and flash rows phase 14 (b)'s launches as ``launches_hybrid``
-   and their phase 2 readings at zamba2's shapes as ``zamba2_shape``),
-   then the result line.
+   and their phase 2 readings at zamba2's shapes as ``zamba2_shape``; the
+   matmul, softmax, axpy, dotp, fft and conv2d rows phase 15 (c)'s
+   launches as ``launches_fabric``), then the result line.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -288,9 +310,13 @@ MATMUL_ROWS_MAIN = (16, 4096, 13440)
 # kernel (wrong rows, wrong scales, wrong table) agrees on ~1/92416 of the
 # positions, so 0.5 still separates right from wrong with a wide margin
 AGREE_FLOOR = 0.5
-# new tokens a request in phases 5, 6, 9 and 13 (phases 4 and 14: 32), cut
-# to keep the whole script inside its time
+# new tokens a request in phases 4, 5, 6, 9, 13 and 14, cut to keep the
+# whole script inside its time
 SERVE_NEW = 16
+# decode steps a profile of decode_step_profile spans (its wall: a chunk of
+# 8 steps); the profiler's parse of each step's ~2,500-7,100 launches takes
+# host time the whole script has to spare
+PROFILE_STEPS = 2
 # phase 2's dense-cache shapes (also timed by scripts/torch_attention_ab.py):
 # 4 slots x 1024 positions; decode at an empty prefix, a non-tile multiple
 # and a full slot; a 64-token pack of 40 prompt tokens of slot 1, 16 of slot
@@ -1807,7 +1833,7 @@ def full_width(dev, counters):
           f"{cfg.num_params() / 1e9:.2f}B params, init {time.perf_counter() - t0:.1f} s")
     eng = ServeEngine(model, params, batch_slots=4, max_len=1024, prefill_budget=64)
     eng.prewarm()
-    max_new = 32
+    max_new = SERVE_NEW
     reqs = [
         Request(rid=i, prompt=p_, params=SamplingParams(max_new=max_new))
         for i, p_ in enumerate(phase4_prompts(cfg))
@@ -2093,7 +2119,7 @@ def decode_step_profile(eng, cfg, dev, label: str = "decode step", steps: int = 
     """Where a decode step goes: wall time per step of an 8-step chunk over
     the engine's current slots (all slots decoding, or the live ones of a
     paged engine, through its block tables), the device's busy time per step
-    from the profiler, and the kernels that take it. ``floor_ms`` is the
+    from a profile of PROFILE_STEPS steps, and the kernels that take it. ``floor_ms`` is the
     step's weight-read floor (default: every bf16 parameter once); ``smode``
     the sampler variant each step draws with (the live slots' rows). With
     ``moe_mod`` (``models.moe``), the device time of the expert products
@@ -2109,8 +2135,8 @@ def decode_step_profile(eng, cfg, dev, label: str = "decode step", steps: int = 
     btab = eng._flush_btab()
     sp = eng._slot_sampler([i for i, r in enumerate(eng.slot_req) if r is not None])[1]
 
-    def chunk():
-        eng._tick_fn(eng._last_tok, eng._cur_len, active, steps, btab, sp, smode)
+    def chunk(n=steps):
+        eng._tick_fn(eng._last_tok, eng._cur_len, active, n, btab, sp, smode)
         torch.cuda.synchronize()
 
     chunk()
@@ -2124,9 +2150,10 @@ def decode_step_profile(eng, cfg, dev, label: str = "decode step", steps: int = 
                 return experts(*a, **kw)
 
         moe_mod._experts = spanned
+    t_prof = time.perf_counter()
     try:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            chunk()
+            chunk(PROFILE_STEPS)
     finally:
         if experts is not None:
             moe_mod._experts = experts
@@ -2135,15 +2162,19 @@ def decode_step_profile(eng, cfg, dev, label: str = "decode step", steps: int = 
     kernels = [(e.self_device_time_total, e.count, e.key) for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
                and e.key != "moe.experts"]
-    busy_ms = sum(r[0] for r in kernels) / 1e3 / steps
+    if not kernels:
+        raise AssertionError(f"{label}: the profiler recorded no device event")
+    busy_ms = sum(r[0] for r in kernels) / 1e3 / PROFILE_STEPS
     if floor_ms is None:
         floor_ms = cfg.num_params() * 2 / HBM_BYTES_PER_S * 1e3
-    n_kernels = sum(r[1] for r in kernels) // steps
+    n_kernels = sum(r[1] for r in kernels) // PROFILE_STEPS
     print(f"  {label} ({int(active.sum())} slots decoding): wall {wall_ms:.2f} ms, device busy "
           f"{busy_ms:.2f} ms (idle share {1 - busy_ms / wall_ms:.2f}), "
-          f"{n_kernels} kernels; weight-read floor {floor_ms:.2f} ms")
+          f"{n_kernels} kernels; weight-read floor {floor_ms:.2f} ms (profile of "
+          f"{PROFILE_STEPS} steps read in {time.perf_counter() - t_prof:.1f} s)")
     for us, n, key in sorted(kernels, reverse=True)[:8]:
-        print(f"    {us / 1e3 / steps:7.3f} ms/step  {n // steps:4d} calls/step  {key[:80]}")
+        print(f"    {us / 1e3 / PROFILE_STEPS:7.3f} ms/step  {n // PROFILE_STEPS:4d} "
+              f"calls/step  {key[:80]}")
     out = dict(wall_ms=wall_ms, busy_ms=busy_ms, kernels=n_kernels, floor_ms=floor_ms)
     if experts is not None:
         bmm_us, n_bmm = 0.0, 0
@@ -2156,7 +2187,7 @@ def decode_step_profile(eng, cfg, dev, label: str = "decode step", steps: int = 
             if up is not None:
                 bmm_us += e.device_time_total
                 n_bmm += 1
-        out.update(expert_bmm_ms=bmm_us / 1e3 / steps, expert_bmms=n_bmm // steps)
+        out.update(expert_bmm_ms=bmm_us / 1e3 / PROFILE_STEPS, expert_bmms=n_bmm // PROFILE_STEPS)
         print(f"    the expert products: {out['expert_bmm_ms']:.3f} ms/step of device time in "
               f"{out['expert_bmms']} aten::bmm calls/step")
         if n_bmm == 0:
@@ -2218,6 +2249,8 @@ def spec_step_profile(eng, cfg, dev, label: str, depth_k: int = 8) -> dict:
     kernels = [(e.self_device_time_total, e.count, e.key) for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
                and e.key != "moe.experts"]
+    if not kernels:
+        raise AssertionError(f"{label}: the profiler recorded no device event")
     busy_ms = sum(r[0] for r in kernels) / 1e3
     n_kernels = sum(r[1] for r in kernels)
     print(f"  {label} ({len(slots)} slots x {w} rows, T {b * w}, smode {smode}): wall "
@@ -2258,6 +2291,8 @@ def sampler_profile(dev, v: int, b: int = 4, smodes=(0, 1, 2)) -> dict:
         n = sum(e.count for e in prof.key_averages()
                 if e.device_type == torch.autograd.DeviceType.CUDA
                 and e.self_device_time_total > 0) / 10
+        if not n:
+            raise AssertionError(f"fused_sample smode {sm}: the profiler recorded no device event")
         out[sm] = dict(ms=ms, kernels=n)
         print(f"  fused_sample smode {sm}, {b} x {v}: {ms:.4f} ms device, {n:g} kernels a call",
               flush=True)
@@ -3257,7 +3292,7 @@ def full_width_moe(dev, counters, smi: str) -> tuple[dict, dict]:
 def ssm_serve(dev, model, params, counters, label: str, expect, smi: str,
               floor_bytes: int) -> tuple[dict, dict]:
     """Phase 4's traffic (4 slots x 1024, prefill_budget 64, 12 greedy
-    requests of 5-700 prompt tokens, 32 new tokens) on a new engine at the
+    requests of 5-700 prompt tokens, ``SERVE_NEW`` new tokens) on a new engine at the
     family's default tier; counts set to 0 just before and read just after
     (``expect`` must have launched); every request finished and
     teacher-forced; a decode step profiled against the weight-read floor of
@@ -3269,7 +3304,7 @@ def ssm_serve(dev, model, params, counters, label: str, expect, smi: str,
     from repro_torch.serve import Request, SamplingParams, ServeEngine
 
     cfg = model.cfg
-    max_new = 32
+    max_new = SERVE_NEW
     t0 = time.perf_counter()
     eng = ServeEngine(model, params, batch_slots=4, max_len=S_MAX, prefill_budget=64)
     eng.prewarm()
@@ -3361,6 +3396,521 @@ def full_width_ssm(dev, counters, smi: str) -> tuple[dict, dict]:
         torch.cuda.empty_cache()
     print(f"  launches during phase 14: {launches}")
     return launches, out
+
+
+# ---------------------------------------------------------------- phase 15
+
+# the sync harness's input, [4096, 4096]: 128 MiB of complex64 for the FFT,
+# 64 MiB of f32 for the matmul chain; SYNC_ROUNDS rounds of each
+SYNC_N = 4096
+SYNC_ROUNDS = 4
+SYNC_REPEATS = 2  # timed runs of each mode after its warm-up; the best is kept
+# max |mode - oracle| / max |oracle| allowed for the sync harness: f32 FFTs
+# and f32 products summed in other orders (per-lane blocks against the whole)
+# differ by ~1e-6 of the largest value after four rounds; a wrong exchange
+# is off by O(1)
+SYNC_TOL = 1e-4
+# the mixed queue: 8 x each of the paper's six kernels through the port's
+# ops, at phase 8's shapes (matmul bf16 4096^3, softmax [32768, 4096] bf16);
+# the scalar queue: one coremark at each of the JAX benchmark's load points
+MIXED_REPS = 8
+MIXED_MATMUL = 4096
+MIXED_SOFTMAX = (32768, 4096)
+CM_LOADS = (20, 100, 400)
+# a merged (2-lane) result of each op against its one-lane (pod 0) result:
+# the same kernels over the same rows; the matmul's and dotp's splits may
+# sum in other orders at another M or length
+MIXED_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+SWITCHES = 5  # SPLIT -> MERGE -> SPLIT round trips of phase 15 (d)
+RING_N = 4096  # M = K = N of the ring matmuls, f32
+RING_LANES = (2, 4)
+RING_TOL = 2e-4  # max |ring - torch.matmul| / max |torch.matmul| (the JAX test's rtol)
+
+
+def _held(name: str, got, want, tol: float) -> float:
+    """max |got - want| / max |want|, raising past ``tol`` or on a non-finite
+    value."""
+    import torch
+
+    got, want = got.to(want.device), want
+    scale = want.abs().max().item()
+    err = (got - want).abs().max().item() / scale
+    if not err <= tol or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{name}: max |err| / max |ref| = {err} outside {tol}")
+    return err
+
+
+def fabric_views(dev) -> dict:
+    """Phase 15 (a): the cluster's views over two and four lanes of one card."""
+    import torch
+
+    from repro_torch.core import SpatzformerCluster
+
+    out = {}
+    for lanes in (2, 4):
+        cl = SpatzformerCluster(n_pods=2, devices=[dev] * lanes)
+        mi, si = cl.merge_info(), cl.split_infos()
+        surv = cl.surviving_cluster(0)
+        streams = {lane.stream for lane in cl.merged_mesh.lanes}
+        if torch.device(dev).type == "cuda" and (None in streams or len(streams) != lanes):
+            raise AssertionError(f"{lanes} lanes on one card share streams")
+        row = dict(pod_shape=list(cl.pod_shape),
+                   merge=[mi.n_devices, mi.data_size, mi.model_size],
+                   split=[[i.n_devices, i.data_size, i.model_size] for i in si],
+                   surviving=[surv.n_pods, surv.n_devices, surv.pod_info(0).n_devices])
+        if (mi.n_devices, len(si), surv.n_devices) != (lanes, 2, lanes // 2):
+            raise AssertionError(f"views over {lanes} lanes: {row}")
+        print(f"  (a) {cl}: merge (lanes, data, model) {row['merge']}, split {row['split']}, "
+              f"surviving_cluster(0) (pods, lanes, pod 0's lanes) {row['surviving']}; "
+              f"{lanes} streams of their own", flush=True)
+        out[f"lanes{lanes}"] = row
+    return out
+
+
+def sync_fft_input() -> np.ndarray:
+    """Phase 15 (b)'s FFT input, [SYNC_N, SYNC_N] complex64 from a seed."""
+    rng = np.random.default_rng(15)
+    shape = (SYNC_N, SYNC_N)
+    return (rng.standard_normal(shape, np.float32)
+            + 1j * rng.standard_normal(shape, np.float32)).astype(np.complex64)
+
+
+def merged_profile(device: str = "cuda") -> dict:
+    """A torch-profiler count over run_merged's fft2d program (SYNC_ROUNDS
+    rounds over two lanes of the card, after a warm run): its device
+    events, its device-to-host copies, and the host syncs inside the
+    program's span (the profiler synchronizes the device itself when it
+    stops, after the span)."""
+    import torch
+
+    from repro_torch.core import SpatzformerCluster, fft2d_kernel, run_merged
+    from repro_torch.dist.sharding import Mesh, NamedSharding, P, device_put
+
+    dev = torch.device(device)
+    cl = SpatzformerCluster(n_pods=2, devices=[dev, dev])
+    x = sync_fft_input()
+    _, _, program = run_merged(fft2d_kernel(rounds=SYNC_ROUNDS), x, cl, repeats=0)
+    sh = NamedSharding(Mesh(cl.merged_mesh.lanes, ("fab",)), P("fab", None))
+    xd = device_put(torch.from_numpy(x), sh)
+    sh.mesh.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        with torch.profiler.record_function("merged_rounds"):
+            program(xd)
+        sh.mesh.synchronize()
+    events = prof.events()
+    span = next(e.time_range for e in events if e.name == "merged_rounds")
+    dtoh = [e.name for e in events if "DtoH" in e.name or "Device -> Host" in e.name]
+    syncs = [e.name for e in events if span.start <= e.time_range.start <= span.end
+             and ("_local_scalar_dense" in e.name or "Synchronize" in e.name)]
+    cuda = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    return dict(profile_dtoh=len(dtoh), profile_syncs=len(syncs),
+                profile_device_events=len(cuda), dtoh=dtoh, syncs=syncs)
+
+
+def merged_profile_in_a_fresh_process() -> dict:
+    """:func:`merged_profile` in a new process (``python3 -c``): run late in
+    this script's process (after phases 2-14, on an H100), the same profile
+    held no device event at all for the ~4 ms program, so the count showed
+    nothing there. Raises unless it shows device events, no device-to-host
+    copy and no host sync."""
+    out = subprocess.run(
+        [sys.executable, "-c",
+         "import json, chip_smoke; print(json.dumps(chip_smoke.merged_profile()))"],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    if out.returncode != 0:
+        raise AssertionError(f"the merged profile's process failed:\n{out.stderr[-4000:]}")
+    row = json.loads(out.stdout.strip().splitlines()[-1])
+    dtoh, syncs = row.pop("dtoh"), row.pop("syncs")
+    print(f"  (b) run_merged fft2d profiled (a fresh process): {row['profile_device_events']} "
+          f"device events, {len(dtoh)} device-to-host copies, {len(syncs)} host syncs between "
+          f"its first and last round", flush=True)
+    if dtoh or syncs or not row["profile_device_events"]:
+        raise AssertionError(f"run_merged: device-to-host copies {dtoh}, syncs {syncs}, "
+                             f"{row['profile_device_events']} device events")
+    return row
+
+
+def fabric_sync(dev, smi: str) -> dict:
+    """Phase 15 (b): the two-phase sync harness at [4096, 4096] over two
+    lanes of one card — fft2d (torch.fft, the JAX package's jnp.fft), the
+    same rounds through the hand-written FFT (ops.fft), and the f32 matmul
+    chain — merged (one controller, the corner turn on the device) against
+    split-staged (the host-mediated corner turn); each held against a plain
+    on-device oracle of the whole. A profile of the merged program counts
+    its device-to-host copies."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.core import (SpatzformerCluster, TwoPhaseKernel, fft2d_kernel,
+                                  matmul_chain_kernel, run_merged, run_split_staged)
+    from repro_torch.kernels import ops
+
+    cl = SpatzformerCluster(n_pods=2, devices=[dev, dev])
+    n = SYNC_N
+    xc = sync_fft_input()
+    xr = np.random.default_rng(16).standard_normal((n, n), np.float32)
+    w1 = torch.randn(n, n, generator=torch.Generator(device=dev).manual_seed(1),
+                     device=dev) / n**0.5
+    w2 = torch.randn(n, n, generator=torch.Generator(device=dev).manual_seed(2),
+                     device=dev) / n**0.5
+
+    def kernel_fft(x):  # a phase through the hand-written Stockham FFT (row 14)
+        re, im = ops.fft(x.real.contiguous(), x.imag.contiguous())
+        return torch.complex(re, im)
+
+    def fft_oracle(x):
+        for _ in range(SYNC_ROUNDS):
+            x = torch.fft.fft2(x)
+        return x
+
+    def chain_oracle(x):
+        for _ in range(SYNC_ROUNDS):
+            x = (F.gelu(x @ w1, approximate="tanh").T @ w2).T
+        return x
+
+    cases = (("fft2d", fft2d_kernel(rounds=SYNC_ROUNDS), xc, fft_oracle),
+             ("fft2d_kernel", TwoPhaseKernel("fft2d_kernel", kernel_fft, kernel_fft,
+                                             SYNC_ROUNDS), xc, fft_oracle),
+             ("matmul_chain", matmul_chain_kernel(w1, w2, rounds=SYNC_ROUNDS), xr, chain_oracle))
+    out = {}
+    for name, kernel, x, oracle in cases:
+        want = oracle(torch.from_numpy(x).to(dev))
+        ym, tm, _ = run_merged(kernel, x, cl, repeats=SYNC_REPEATS)
+        ys, ts = run_split_staged(kernel, x, cl, repeats=SYNC_REPEATS)
+        row = dict(merged_s=tm, split_s=ts, sm_over_mm=ts / tm,
+                   merged_err=_held(f"{name} merged", torch.from_numpy(ym), want, SYNC_TOL),
+                   split_err=_held(f"{name} split", torch.from_numpy(ys), want, SYNC_TOL),
+                   modes_err=_held(f"{name} merged vs split", torch.from_numpy(ym),
+                                   torch.from_numpy(ys).to(dev), SYNC_TOL))
+        del want
+        if name == "fft2d":  # the merged program's device-to-host copies between rounds
+            row.update(merged_profile_in_a_fresh_process())
+            # the same profile in this process, printed, not held: late in the script's
+            # process it once recorded no device event (PERF.md section 7)
+            row["profile_device_events_here"] = merged_profile()["profile_device_events"]
+            print(f"  (b) the same profile in this process: "
+                  f"{row['profile_device_events_here']} device events", flush=True)
+        print(f"  (b) {name} [{n}, {n}] {x.dtype}, {SYNC_ROUNDS} rounds [{smi}]: merged "
+              f"{tm:.6f} s, split-staged {ts:.6f} s (best of {SYNC_REPEATS}), SM/MM "
+              f"{ts / tm:.3f}; max |err| / max |oracle|: merged {row['merged_err']:.3g}, split "
+              f"{row['split_err']:.3g}, merged vs split {row['modes_err']:.3g} (tol {SYNC_TOL})",
+              flush=True)
+        out[name] = row
+        torch.cuda.empty_cache()
+    return out
+
+
+def fabric_mixed(dev, counters, smi: str) -> tuple[dict, dict]:
+    """Phase 15 (c): the mixed scalar-vector scheduler over two lanes of one
+    card. The vector queue is MIXED_REPS x each of the paper's six kernels
+    through ``ops`` (matmul, conv2d, fft, dotp, axpy, softmax), each task
+    sharding its rows over the lanes of the view it receives; the scalar
+    queue one coremark at each of CM_LOADS. MERGE and SPLIT with scalar work
+    at each load, then SPLIT vector-only. Returns (readings, launches)."""
+    import torch
+
+    from repro_torch.core import (Mode, MixedScheduler, ScalarTask, SpatzformerCluster,
+                                  VectorTask, coremark)
+    from repro_torch.dist.sharding import P, device_put
+    from repro_torch.kernels import ops
+
+    cl = SpatzformerCluster(n_pods=2, devices=[dev, dev])
+    gen = torch.Generator(device=dev).manual_seed(16)
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def randn(*shape, dtype=f32):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    mm, sm = MIXED_MATMUL, MIXED_SOFTMAX
+    whole = {"matmul": (randn(mm, mm, dtype=bf16), randn(mm, mm, dtype=bf16)),
+             "conv2d": (randn(*CONV_MAIN[0], dtype=bf16), randn(*CONV_MAIN[1], dtype=bf16)),
+             "fft": (randn(*FFT_MAIN), randn(*FFT_MAIN)),
+             "vec": (randn(SUITE_N), randn(SUITE_N)),
+             "softmax": (randn(*sm, dtype=bf16),)}
+    replicated = {"matmul": 1, "conv2d": 1}  # the operand every lane holds whole
+    placed = {}
+
+    def inputs(key, info):
+        """``key``'s operands on ``info``'s lanes: rows over every lane, the
+        weight of a matmul or conv2d whole on each; placed once per view."""
+        if (key, id(info.mesh)) not in placed:
+            rows = info.named(P(tuple(info.mesh.axis_names)))
+            placed[key, id(info.mesh)] = [
+                device_put(t, info.named(P()) if i == replicated.get(key) else rows)
+                for i, t in enumerate(whole[key])]
+        return placed[key, id(info.mesh)]
+
+    def per_lane(key, info, fn):
+        ops_ = inputs(key, info)
+        outs = []
+        for i, lane in enumerate(info.mesh.lanes):
+            with lane.use():
+                outs.append(fn(*(o.shards[i] for o in ops_)))
+        return outs
+
+    def dotp(info):
+        parts = per_lane("vec", info, ops.dotp)
+        first = info.mesh.lanes[0]
+        with first.use():  # the lanes' partial dots summed on the first lane
+            for lane, p in zip(info.mesh.lanes, parts):
+                first.wait_for(lane)
+                first.keep(p)
+            return torch.stack(parts).sum()
+
+    tasks = {"matmul": lambda info: per_lane("matmul", info, ops.matmul),
+             "conv2d": lambda info: per_lane("conv2d", info, ops.conv2d),
+             "fft": lambda info: per_lane("fft", info, ops.fft),
+             "dotp": dotp,
+             "axpy": lambda info: per_lane("vec", info, lambda x, y: ops.axpy(0.5, x, y)),
+             "softmax": lambda info: per_lane("softmax", info, ops.softmax)}
+    # warm-up on every view (places the operands, plans, first launches), and
+    # each op's merged (2-lane) output against its pod-0 (1-lane) one
+    views = {"merged": cl.merge_info(), "pod0": cl.pod_info(0), "pod1": cl.pod_info(1)}
+    res = {}
+    for label, info in views.items():
+        for name, fn in tasks.items():
+            res[label, name] = fn(info)
+        info.mesh.synchronize()
+
+    def whole_of(r):  # a task's per-lane outputs as one tensor
+        if isinstance(r, torch.Tensor):
+            return r.reshape(1)
+        return torch.cat([torch.complex(*p) if isinstance(p, tuple) else p for p in r])
+
+    errs = {}
+    for name in tasks:
+        g, w = whole_of(res["merged", name]), whole_of(res["pod0", name])
+        if name == "dotp":  # f32 sums in other orders: within 1e-5 * sum |x_i y_i| (phase 8)
+            x, y = whole["vec"]
+            scale = (x * y).abs().sum().item()
+            errs[name] = abs(g.item() - w.item()) / scale
+            if not errs[name] <= SUITE_TOL["dotp"]:
+                raise AssertionError(f"(c) dotp over two lanes vs one: {errs[name]} of "
+                                     f"sum |x y| outside {SUITE_TOL['dotp']}")
+            continue
+        tol = MIXED_TOL["bfloat16" if g.dtype == bf16 else "float32"]
+        if g.dtype == bf16:
+            g, w = g.float(), w.float()
+        errs[name] = _held(f"(c) {name} over two lanes vs one", g, w, tol)
+    print(f"  (c) merged (2-lane) vs one-lane outputs, max |err| / max |ref|: {errs}", flush=True)
+
+    def digest(outs):  # one f32 sum of each output tensor, kept on the device
+        outs = [outs] if isinstance(outs, torch.Tensor) else outs
+        return torch.stack([t.float().sum() for o in outs
+                            for t in (o if isinstance(o, tuple) else (o,))])
+
+    ref = {(label, name): digest(res[label, name]) for label in ("pod0", "pod1")
+           for name in tasks}
+    # the digests read the lanes' outputs on this thread's stream: let them finish before
+    # the outputs go back to the lanes' streams, whose next tasks may reuse that memory
+    torch.cuda.synchronize(dev)
+    del res
+
+    def discard(fn):  # a timed task keeps nothing of its outputs
+        def task(info):
+            fn(info)
+        return task
+
+    queue = [VectorTask(f"{name}{i}", discard(fn)) for i in range(MIXED_REPS)
+             for name, fn in tasks.items()]
+    sched = MixedScheduler(cl)
+    runs = {}
+    reset_counts(counters)
+    for load in CM_LOADS:
+        for mode in (Mode.MERGE, Mode.SPLIT):
+            rep = sched.run(mode, queue, [ScalarTask(f"coremark{load}",
+                                                     lambda n=load: coremark(n).checksum)])
+            runs[f"{mode}_{load}"] = rep
+    runs["split_vector_only"] = sched.run(Mode.SPLIT, queue)
+    launches = read_counts(counters, "phase 15 (c) (the mixed scheduler's seven runs)")
+    # two controller threads launching the hand-written ops at once (one per
+    # pod, each on its lane's stream) give the bits one thread gave
+    pair = [VectorTask(name, lambda info, fn=fn: digest(fn(info))) for name, fn in tasks.items()
+            for _ in range(2)]
+    rep = sched.run(Mode.SPLIT, pair)
+    for r in rep.records:
+        pod = r.lane.split("/")[1]
+        if not torch.equal(r.result, ref[pod, r.name]):
+            raise AssertionError(f"(c) {r.name} on {r.lane} beside the other controller: "
+                                 f"{r.result.tolist()} != {ref[pod, r.name].tolist()}")
+    print(f"  (c) two controllers at once: {len(rep.records)} outputs bitwise one thread's",
+          flush=True)
+    out = {"errors": errs, "runs": {}}
+    for key, rep in runs.items():
+        lanes = sorted({r.lane for r in rep.records})
+        row = dict(makespan=rep.makespan, lanes={ln: rep.lane_time(ln) for ln in lanes},
+                   vector_s=rep.kind_time("vector"), scalar_s=rep.kind_time("scalar"),
+                   records=len(rep.records))
+        out["runs"][key] = row
+        print(f"  (c) {key:18s} [{smi}]: makespan {rep.makespan:.4f} s; lanes "
+              + ", ".join(f"{ln} {t:.4f} s" for ln, t in row["lanes"].items())
+              + f"; {row['records']} records", flush=True)
+        if row["records"] != len(queue) + (0 if key == "split_vector_only" else 1):
+            raise AssertionError(f"(c) {key}: {row['records']} records")
+    out["mm_speedup"] = {}  # SM makespan / MM makespan at each scalar load
+    for load in CM_LOADS:
+        ratio = out["runs"][f"split_{load}"]["makespan"] / out["runs"][f"merge_{load}"]["makespan"]
+        out["mm_speedup"][load] = ratio
+        print(f"  (c) coremark {load}: SM/MM makespan {ratio:.3f}", flush=True)
+    del placed, whole
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def fabric_switch(dev, smi: str) -> dict:
+    """Phase 15 (d): ``switch_mode`` SPLIT -> MERGE -> SPLIT SWITCHES times
+    with a live, param-shaped state: codeqwen1.5-7b's tree cut to 1 of 32
+    layers (widths full; bf16 random weights from a seed, ~1.98 GB), over
+    four lanes of one card in two pods of (data 1, model 2), resharded
+    between pod 0's view and the merged view by ``param_shardings``. Values
+    bit-equal after every switch."""
+    import torch
+
+    from repro_torch.common import pytree_bytes
+    from repro_torch.configs import get_arch
+    from repro_torch.core import Mode, SpatzformerCluster, switch_mode
+    from repro_torch.dist.sharding import device_put, gather, param_shardings, tree_map_with_path
+    from repro_torch.models import LM
+
+    cfg = replace(get_arch("codeqwen1.5-7b"), n_layers=1)
+    params = LM(cfg, device=dev).init(torch.Generator(device=dev).manual_seed(17))
+    nb = pytree_bytes(params)
+    cl = SpatzformerCluster(n_pods=2, pod_shape=(1, 2), devices=[dev] * 4)
+    state = device_put(params, param_shardings(params, cl.pod_info(0)))
+    cl.merged_mesh.synchronize()
+
+    def shards(tree):
+        out = []
+        tree_map_with_path(lambda _, v: out.extend(v.shards), tree)
+        return out
+
+    reps = {"merge": [], "split": []}
+    copied = {"merge": [], "split": []}
+    for _ in range(SWITCHES):
+        for mode in (Mode.MERGE, Mode.SPLIT):
+            before = {id(t) for t in shards(state)}
+            state, rep = switch_mode(cl, mode, state)
+            copied[str(mode)].append(sum(t.numel() * t.element_size() for t in shards(state)
+                                         if id(t) not in before))
+            reps[str(mode)].append(rep)
+            leaves = []
+            tree_map_with_path(lambda p, v: leaves.append((p, v)), state)
+            bad = [p for p, v in leaves if not torch.equal(gather(v), _at(params, p))]
+            if bad or rep.bytes_moved != nb:
+                raise AssertionError(f"(d) switch to {mode}: leaves {bad} differ, bytes_moved "
+                                     f"{rep.bytes_moved} of {nb}")
+    out = {"bytes_moved": nb, "tree": f"codeqwen1.5-7b at 1 of 32 layers, {nb} bytes"}
+    for mode, rs in reps.items():
+        secs = sorted(r.seconds for r in rs)
+        med = float(np.median(secs))
+        out[mode] = dict(median_s=med, seconds=secs, gbytes_per_sec=nb / 1e9 / med,
+                         bytes_copied=copied[mode])
+        print(f"  (d) to {mode} [{smi}]: median {med:.6f} s of {len(rs)} (min {secs[0]:.6f}, "
+              f"max {secs[-1]:.6f}); bytes_moved {nb} -> {nb / 1e9 / med:.1f} GB/s; bytes "
+              f"copied between lanes {copied[mode][0]} (the rest kept on their lanes); values "
+              f"bit-equal after every switch", flush=True)
+    del state, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def _at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def fabric_ring(dev, smi: str) -> dict:
+    """Phase 15 (e): the ring matmuls over 2 and 4 lanes of one card at
+    M = K = N = 4096 f32 against torch.matmul of the whole."""
+    import torch
+
+    from repro_torch.dist.collectives import ring_ag_matmul, ring_rs_matmul
+    from repro_torch.dist.sharding import Mesh, NamedSharding, P, device_put, gather, lanes_for
+
+    gen = torch.Generator(device=dev).manual_seed(18)
+    n = RING_N
+    a = torch.randn(n, n, generator=gen, device=dev)
+    w = torch.randn(n, n, generator=gen, device=dev)
+    want = a @ w
+    sync = torch.cuda.synchronize if torch.device(dev).type == "cuda" else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        a @ w
+    sync()
+    out = {"matmul_s": (time.perf_counter() - t0) / 3}
+    for p in RING_LANES:
+        mesh = Mesh(lanes_for([dev] * p), ("model",))
+
+        def put(t, spec):
+            return device_put(t, NamedSharding(mesh, spec))
+
+        for name, fn, specs in (("rs", ring_rs_matmul, (P(None, "model"), P("model", None))),
+                                ("ag", ring_ag_matmul, (P("model", None), P(None, "model")))):
+            x, wx = put(a, specs[0]), put(w, specs[1])
+            y = fn(x, wx, "model")
+            err = _held(f"(e) ring_{name}_matmul over {p} lanes", gather(y), want, RING_TOL)
+            best = float("inf")
+            for _ in range(3):
+                mesh.synchronize()
+                t0 = time.perf_counter()
+                fn(x, wx, "model")
+                mesh.synchronize()
+                best = min(best, time.perf_counter() - t0)
+            out[f"{name}{p}"] = dict(s=best, err=err)
+            print(f"  (e) ring_{name}_matmul {n}^3 f32 over {p} lanes [{smi}]: best {best:.6f} s "
+                  f"(torch.matmul of the whole {out['matmul_s']:.6f} s); max |err| / max |ref| "
+                  f"{err:.3g} (tol {RING_TOL})", flush=True)
+            del x, wx, y
+    torch.cuda.empty_cache()
+    return out
+
+
+def fabric_counters() -> dict:
+    """Phase 15's launch counters: the six paper kernels of (c)'s queue."""
+    from repro_torch.kernels import axpy, conv2d, dotp, fft, matmul, softmax
+
+    return {"matmul": (matmul, "launches"), "conv2d": (conv2d, "launches"),
+            "fft": (fft, "launches"), "dotp": (dotp, "launches"),
+            "axpy": (axpy, "launches"), "softmax": (softmax, "launches")}
+
+
+def fabric_alone() -> int:
+    """Phase 15 alone, after the card check and the build, as :func:`main`
+    runs them; prints the ``{"fabric": ...}`` line. Raises where phase 15
+    fails.
+
+        python3 -c "import sys, chip_smoke; sys.exit(chip_smoke.fabric_alone())"
+    """
+    from repro_torch.kernels import _build
+
+    setup = card_setup()
+    if setup is None:
+        return 1
+    dev, smi = setup
+    phase("1 build")
+    t0 = time.perf_counter()
+    _build.load()
+    print(f"  built in {time.perf_counter() - t0:.1f} s", flush=True)
+    phase("15 the split/merge fabric over lanes of one card")
+    fabric, _ = full_fabric(dev, fabric_counters(), smi)
+    print(json.dumps({"fabric": fabric}, default=float))
+    phase("done")
+    return 0
+
+
+def full_fabric(dev, counters, smi: str) -> tuple[dict, dict]:
+    """Phase 15: the paper's split/merge fabric over lanes of one card (a)
+    views, (b) the sync harness, (c) the mixed scheduler, (d) live-state
+    reconfiguration, (e) the ring matmuls. Returns (readings, (c)'s
+    launches)."""
+    out = {"views": fabric_views(dev), "sync": fabric_sync(dev, smi)}
+    out["mixed"], launches = fabric_mixed(dev, counters, smi)
+    out["switch"] = fabric_switch(dev, smi)
+    out["ring"] = fabric_ring(dev, smi)
+    return out, launches
 
 
 # ----------------------------------------------------------------- phase 7
@@ -4038,6 +4588,28 @@ def kernel_suite(dev, counters):
 # -------------------------------------------------------------------- main
 
 
+def card_setup():
+    """Phase 0: the card, TF32 off, and the card's name and power limit as
+    ``nvidia-smi`` gives them, printed. Returns (device, that line), or None
+    without a CUDA device."""
+    import torch
+
+    phase("0 device")
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return None
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"python {sys.version.split()[0]}", flush=True)
+    return torch.device("cuda"), smi
+
+
 def main() -> int:
     import torch
 
@@ -4056,20 +4628,10 @@ def main() -> int:
     from repro_torch.kernels import rmsnorm as rnk
     from repro_torch.kernels import softmax as smk
 
-    phase("0 device")
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
+    setup = card_setup()
+    if setup is None:
         return 1
-    dev = torch.device("cuda")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
-    print(smi, flush=True)
-    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
-          f"python {sys.version.split()[0]}", flush=True)
+    dev, smi = setup
 
     phase("1 build")
     t0 = time.perf_counter()
@@ -4189,6 +4751,10 @@ def main() -> int:
     ssm_launches, ssm = full_width_ssm(dev, counters4, smi)
     print(json.dumps({"ssm": ssm}, default=float))
 
+    phase("15 the split/merge fabric over lanes of one card")
+    fabric, fabric_launches = full_fabric(dev, fabric_counters(), smi)
+    print(json.dumps({"fabric": fabric}, default=float))
+
     phase("11 the kernel table")
     # the pl.pallas_call line of each TPU kernel, as in PERF.md's kernel table
     sources = {
@@ -4297,6 +4863,8 @@ def main() -> int:
         # phase 14 (b)'s launches (zamba2-2.7b's shared attention block: its
         # admissions on flash, every decode launch on the split body), and
         # each row timed at zamba2's shapes in phase 2
+        if name in fabric_launches:  # phase 15 (c): the mixed scheduler's vector queue
+            kernels[-1]["launches_fabric"] = fabric_launches[name]
         if name in hybrid_shapes:
             kernels[-1]["launches_hybrid"] = ssm_launches["b"][name]
             kernels[-1]["zamba2_shape"] = hybrid_shapes[name]

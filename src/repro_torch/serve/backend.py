@@ -17,7 +17,9 @@ backend's device under :meth:`PlacementBackend.scope`. Two fabrics:
 
 Parameters placed on the device they already live on come back as the same
 tensors: two replicas on one card share one copy of the weights. The
-tensor-parallel ``ShardedBackend`` is not ported yet (ROADMAP).
+tensor-parallel ``ShardedBackend`` is not ported yet (ROADMAP Queue 1 item
+7); it would place params over the lanes of ``dist/sharding.py`` (a device
+and a stream of its own each) through that module's rules.
 """
 
 from __future__ import annotations

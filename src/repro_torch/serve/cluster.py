@@ -12,7 +12,9 @@ of ``repro/serve/cluster.py``).
 * **MERGE** — ONE engine under one controller. Over one distinct device it
   is the pinned plain engine; merge over several distinct devices is
   tensor-parallel serving, which is not ported yet (``NotImplementedError``,
-  ROADMAP Queue 1 item 7), and merge over a repeated device is refused
+  ROADMAP Queue 1 item 7: the lane meshes, partition rules and ring
+  collectives of ``dist/`` exist; ``ShardedBackend``, a head-sharded ``LM``
+  and ``ring_allreduce_q8`` do not), and merge over a repeated device is refused
   (``ValueError``).
 * **reconfigure(mode)** — drain in-flight chunks, place the target mode's
   engines, re-route the carried queue; the wall-clock cost is measured and
@@ -634,8 +636,8 @@ class ServeCluster:
             raise NotImplementedError(
                 f"merge over {len(distinct)} distinct devices is "
                 "tensor-parallel serving, not ported yet (ROADMAP Queue 1 "
-                "item 7: ShardedBackend, dist/sharding.py, "
-                "dist/collectives.py)"
+                "item 7: ShardedBackend, a head-sharded LM, "
+                "ring_allreduce_q8)"
             )
         return distinct[0]
 
