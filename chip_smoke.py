@@ -58,7 +58,9 @@ Phases (each raises on failure, so the script exits non-zero):
    the ragged and paged kernels, bf16 and f32 queries, G 1 and 4, bf16 and
    int8 stores; decode attention (B 4 x 1024, KV 32) and GQA flash attention
    (BKV 32, S 512 timed; S 37, 300 and 700, tails of the tile, held) at
-   zamba2-2.7b's shared-block width, D 80, G 1, bf16.
+   zamba2-2.7b's shared-block width, D 80, G 1, bf16; and decode, ragged,
+   flash and paged (decode and pack) at one lane's shard of phase 12 (b)'s
+   merged engine, 16 KV heads.
    Times each kernel, its plain version and
    a one-call PyTorch yardstick (where one exists) as device time (CUDA events
    around one CUDA-graph replay of 30 calls, so the wrappers' host time is
@@ -83,8 +85,11 @@ Phases (each raises on failure, so the script exits non-zero):
    mixed traffic of tenants a and b): split over [cuda:0, cuda:0] (two
    replicas, two streams, one copy of the weights) with a cancel from
    another thread mid-run, merge over [cuda:0], a mid-stream SPLIT -> MERGE
-   switch and the warm switch back, and split with the n-gram drafter:
-   every stream must equal the CPU single engine's. Then the state-space
+   switch and the warm switch back, split with the n-gram drafter, and
+   merge over [cuda:0, cuda:0] (one tensor-parallel engine over two lanes),
+   dense and paged with prefix reuse: every stream must equal the CPU single
+   engine's; then ``repro_torch.launch.serve`` in merge mode over
+   ``--devices cuda:0,cuda:0`` (8 requests). Then the state-space
    families: reduced falcon-mamba-7b (Mamba1, packs one slot wide, no
    attention kernel), reduced zamba2-2.7b (Mamba2 + the shared attention
    block, on the legacy tier: flash and decode kernels) and reduced
@@ -187,11 +192,19 @@ Phases (each raises on failure, so the script exits non-zero):
    16 new tokens, 4 slots x 1024 a replica: a single engine, then (a) split over
    [cuda:0, cuda:0] (two controller threads, two streams, one copy of the
    weights) and a steady decode step of one replica and of both at once
-   profiled (the union of kernel time over both streams), (b) [cuda:0]
-   switching SPLIT -> MERGE once half the requests have arrived, then back
-   and forth warm, (c) ``run_controlled`` under
+   profiled (the union of kernel time over both streams), (b) [cuda:0,
+   cuda:0] switching SPLIT (two replicas) -> MERGE (one tensor-parallel
+   engine over two lanes of the card, 16 KV heads a lane) once half the
+   requests have arrived, then back and forth warm: decode, ragged and
+   flash must launch on both lanes, one decode step's logits of the merged
+   engine stay within ``MERGED_REL_TOL`` of the single engine's, and the
+   merged decode step is profiled (wall, device, launches, the lane
+   collectives' device ms); bytes placed and switch seconds printed; then
+   the merged weights behind a paged pool with prefix reuse serve 4 of the
+   prompts, the paged kernel on both lanes, (c) ``run_controlled`` under
    ``ReconfigController.for_cluster`` over 4 prompts of 600-700 tokens then
-   12 of 5-40 (decisions printed, not gated), (d) two replicas with replica
+   12 of 5-40 (decisions printed, not gated; it may commit MERGE over the
+   two lanes), (d) two replicas with replica
    1's controller stalled 14 s under a 10 s dead_after: exactly one must be
    declared dead and every request finish; each replica's longest iteration
    is printed. In each run the decode, ragged and flash kernels must launch
@@ -263,7 +276,10 @@ Phases (each raises on failure, so the script exits non-zero):
    the decode and flash rows phase 14 (b)'s launches as ``launches_hybrid``
    and their phase 2 readings at zamba2's shapes as ``zamba2_shape``; the
    matmul, softmax, axpy, dotp, fft and conv2d rows phase 15 (c)'s
-   launches as ``launches_fabric``), then the result line.
+   launches as ``launches_fabric``; the decode, ragged, flash and paged rows
+   phase 12 (b)'s merged launches on each lane as ``launches_merged`` and
+   their phase 2 readings at a lane's shard as ``lane_shape``), then the
+   result line.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -302,6 +318,9 @@ MATMUL_M = (4, 9, 16, 37, 64, 65, 256)
 MATMUL_KN = ((4096, 4096), (4096, 13440), (13440, 4096), (4100, 4104))
 MATMUL_MAIN = (4, 4096, 13440)
 MATMUL_ROWS_MAIN = (16, 4096, 13440)
+# one lane's KV heads in the merged engine over two lanes of one card (phase
+# 12 (b)): codeqwen1.5-7b's 32 over 2; phase 2 times rows 1-3 and 6 there too
+LANE_KV = 16
 # teacher-forced top-1 agreement floor of phases 4 and 5: a random-weight
 # bf16 model over a 92k vocab has top-2 logit gaps of ~0.2 while bf16 logits
 # near 4 are spaced 0.03 apart, so near-ties flip between two matmul/attention
@@ -439,7 +458,7 @@ def check_kernels(dev):
     def randn(*shape, dtype):
         return torch.randn(*shape, generator=gen, device=dev).to(dtype)
 
-    results, zamba2 = {}, {}
+    results, sub = {}, {"zamba2": {}, "lane": {}}
 
     def report(name, case, dtype, err, timed=None, tag="main"):
         tol = TOL[str(dtype).split(".")[-1]]
@@ -453,18 +472,19 @@ def check_kernels(dev):
             if tag == "main":
                 results[name] = dict(timed, max_abs_err=err, tol=tol)
             else:
-                zamba2[name] = dict(timed, shape=case, max_abs_err=err, tol=tol)
+                sub[tag][name] = dict(timed, shape=case, max_abs_err=err, tol=tol)
 
     bf16, f32 = torch.bfloat16, torch.float32
     B, S, cur = SLOTS, S_MAX, DECODE_POS
 
     # ---- decode attention; tag "main" is the row's timed case, "zamba2"
     # zamba2-2.7b's shared block (32 heads = KV heads at D 80, G 1), timed
-    # as a sub-row of its own
+    # as a sub-row of its own, and "lane" one lane's shard of the merged
+    # engine over two lanes (16 of codeqwen's 32 KV heads)
     for kv, g, d, dtype, window, tag in [
         (32, 1, 128, bf16, 0, "main"), (32, 1, 128, f32, 0, None), (8, 8, 128, bf16, 0, None),
         (8, 8, 128, f32, 0, None), (32, 1, 128, bf16, 100, None), (8, 8, 128, f32, 37, None),
-        (32, 1, 80, bf16, 0, "zamba2"),
+        (32, 1, 80, bf16, 0, "zamba2"), (LANE_KV, 1, 128, bf16, 0, "lane"),
     ]:
         main = tag == "main"
         q, k, v = randn(B, kv, g, d, dtype=dtype), randn(B, S, kv, d, dtype=dtype), \
@@ -511,8 +531,9 @@ def check_kernels(dev):
             raise AssertionError(f"ragged_attention {case}: padding rows are not zero")
         return (got[real].float() - want[real].float()).abs().max().item()
 
-    for kv, g, dname, window in RAGGED_CASES:
+    for kv, g, dname, window in RAGGED_CASES + [(LANE_KV, 1, "bfloat16", 0)]:
         dtype, main = getattr(torch, dname), (kv, g, dname, window) == RAGGED_CASES[0]
+        tag = "main" if main else "lane" if kv == LANE_KV else None
         T = ts.numel()
         q, k, v = randn(T, kv, g, 128, dtype=dtype), randn(B, S, kv, 128, dtype=dtype), \
             randn(B, S, kv, 128, dtype=dtype)
@@ -523,7 +544,7 @@ def check_kernels(dev):
         want = ref.ragged_attention(q, k, v, ts, tp, window=window)
         err = ragged_err(got, want, real, "")
         timed = None
-        if main:
+        if tag:
             # bytes and flops of the real tokens only: padding reads no key
             rs, rp = ts[real].cpu().numpy(), tp[real].cpu().numpy()
             rows = {}  # union of the valid prefixes per slot
@@ -542,7 +563,8 @@ def check_kernels(dev):
                 library_ms=time_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask)),
             )
             timed["bound_ms"], timed["bound_by"] = bound(by, fl, dtype)
-        report("ragged_attention", f"T={T} S={S} KV={kv} G={g} {dtype} win={window}", dtype, err, timed)
+        report("ragged_attention", f"T={T} S={S} KV={kv} G={g} {dtype} win={window}", dtype, err,
+               timed, tag or "main")
         if main:  # the split body at the kernel's own and at forced split counts
             tt, _, own = rk.plan(S, T, kv, g, sms, rk.one_token_tiles(dtype, dtype))
             for splits in (1, 2, 4):
@@ -568,6 +590,7 @@ def check_kernels(dev):
         (32, 1, 64, 128, f32, None), (8, 8, 64, 128, bf16, None), (8, 8, 37, 128, f32, None),
         (32, 1, 512, 80, bf16, "zamba2"), (32, 1, 37, 80, bf16, None),
         (32, 1, 300, 80, bf16, None), (32, 1, 700, 80, bf16, None),
+        (LANE_KV, 1, 64, 128, bf16, "lane"),
     ]:
         q, k, v = randn(bkv, g, s, d, dtype=dtype), randn(bkv, s, d, dtype=dtype), \
             randn(bkv, s, d, dtype=dtype)
@@ -613,7 +636,7 @@ def check_kernels(dev):
         print(f"  gqa_flash_attention  BKV=32 G=1 S=64 d=128 float32 tile={tile}: "
               f"ms={ms:.4f}{mark}", flush=True)
     torch.cuda.synchronize()
-    results["zamba2"] = zamba2
+    results.update(sub)
     return results
 
 
@@ -1088,6 +1111,8 @@ def check_paged_and_quant_kernels(dev):
             (8, 8, 16, bf16, 0, "decode", None), (8, 8, 32, f32, 0, "decode", None),
             (8, 4, 8, bf16, 0, "decode", None), (8, 12, 16, bf16, 50, "decode", None),
             (32, 1, 32, bf16, 0, "pack", "paged_attention_pack"),
+            (LANE_KV, 1, 32, bf16, 0, "decode", "paged_attention_lane"),
+            (LANE_KV, 1, 32, bf16, 0, "pack", "paged_attention_pack_lane"),
             (32, 1, 16, bf16, 100, "pack", None), (32, 1, 8, bf16, 0, "pack2", None),
             (8, 4, 16, bf16, 0, "pack2", None), (8, 12, 32, f32, 30, "pack2", None),
         ]),
@@ -1660,9 +1685,12 @@ def cluster_streams(dev):
     tenants a and b through ``ServeCluster`` on the card: split over two
     replicas on one card (two streams, two controller threads) with a
     cancel from another thread mid-run, merge over the card, a mid-stream
-    SPLIT -> MERGE switch and the warm switch back, and split with the
-    n-gram drafter. Every stream must equal the CPU single engine's (the
-    cancelled one a prefix of its own)."""
+    SPLIT -> MERGE switch and the warm switch back, split with the n-gram
+    drafter, and merge over [cuda:0, cuda:0] — one tensor-parallel engine
+    over two lanes — dense and paged with prefix reuse. Every stream must
+    equal the CPU single engine's (the cancelled one a prefix of its own).
+    Then ``repro_torch.launch.serve.main`` once: ``--reduced --cluster-mode
+    merge --devices cuda:0,cuda:0``, 8 requests."""
     import threading
 
     import torch
@@ -1735,6 +1763,29 @@ def cluster_streams(dev):
     if stats.spec_ticks <= 0:
         raise AssertionError("cluster, ngram: no verify tick ran")
     check("split over [cuda:0, cuda:0], n-gram drafter", cl, stats)
+    # tensor-parallel merge over two lanes of the card: heads, MLP width and
+    # vocabulary split, dense and paged with prefix reuse
+    for lane, extra in (("merge over [cuda:0, cuda:0] (two lanes)", {}),
+                        ("merge over [cuda:0, cuda:0], paged + prefix",
+                         dict(kv_block_size=8, prefix_cache=True))):
+        cl = ServeCluster(r_dev, r_params_dev, mode=Mode.MERGE, devices=[dev, dev], **kw, **extra)
+        back = cl.engines[0].backend
+        if back.describe() != "sharded:model=2,devices=2" or (
+                dev.type == "cuda" and len({ln.stream for ln in back.lanes}) != 2):
+            raise AssertionError(f"cluster, {lane}: not two lanes of their own ({back.describe()})")
+        cl.prewarm(sampling=True)
+        for r in reqs():
+            cl.submit(r)
+        check(lane, cl, cl.run())
+    # the serving launcher, merge over two lanes of the card
+    from repro_torch.launch import serve as launch
+
+    target = launch.main(["--arch", "codeqwen1.5-7b", "--reduced", "--cluster-mode", "merge",
+                          "--devices", f"{dev},{dev}", "--requests", "8", "--max-new", "8"])
+    done = [r for r in target.finished if r.finish_reason == "length" and len(r.generated) == 8]
+    if target.engines[0].backend.describe() != "sharded:model=2,devices=2" or len(done) != 8:
+        raise AssertionError(f"launch.serve merge: {len(done)} of 8 requests finished, over "
+                             f"{target.engines[0].backend.describe()}")
 
 
 def _tree_to(tree, dev):
@@ -2115,7 +2166,7 @@ def int8_weights(dev, model, params, counters, num_blocks_b: int):
 
 
 def decode_step_profile(eng, cfg, dev, label: str = "decode step", steps: int = 8,
-                        floor_ms=None, smode: int = 0, moe_mod=None) -> dict:
+                        floor_ms=None, smode: int = 0, moe_mod=None, lanes=False) -> dict:
     """Where a decode step goes: wall time per step of an 8-step chunk over
     the engine's current slots (all slots decoding, or the live ones of a
     paged engine, through its block tables), the device's busy time per step
@@ -2123,9 +2174,14 @@ def decode_step_profile(eng, cfg, dev, label: str = "decode step", steps: int = 
     step's weight-read floor (default: every bf16 parameter once); ``smode``
     the sampler variant each step draws with (the live slots' rows). With
     ``moe_mod`` (``models.moe``), the device time of the expert products
-    (the ``aten::bmm`` calls inside ``moe._experts``) is read too."""
+    (the ``aten::bmm`` calls inside ``moe._experts``) is read too; with
+    ``lanes`` (a merged engine), the device time of the lane collectives
+    (``dist.collectives``: the partial sums and the logits' gather on the
+    controller lane) and the kernels' launches on each lane's stream."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.dist import collectives
 
     if eng.paged:  # the live slots only: released rows read the scratch block
         active = torch.tensor([r is not None for r in eng.slot_req], dtype=torch.int32,
@@ -2150,6 +2206,16 @@ def decode_step_profile(eng, cfg, dev, label: str = "decode step", steps: int = 
                 return experts(*a, **kw)
 
         moe_mod._experts = spanned
+    coll = {}
+    if lanes:  # each collective inside a span of its own name
+        for name in ("lane_reduce", "lane_gather", "lane_broadcast"):
+            coll[name] = getattr(collectives, name)
+
+            def spanned_coll(*a, _fn=coll[name], _name=name, **kw):
+                with torch.profiler.record_function(f"lane.{_name}"):
+                    return _fn(*a, **kw)
+
+            setattr(collectives, name, spanned_coll)
     t_prof = time.perf_counter()
     try:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -2157,11 +2223,13 @@ def decode_step_profile(eng, cfg, dev, label: str = "decode step", steps: int = 
     finally:
         if experts is not None:
             moe_mod._experts = experts
+        for name, fn in coll.items():
+            setattr(collectives, name, fn)
     # kernel rows carry the device time; op rows repeat it as their children's
     # (the "moe.experts" span is a range on the device's timeline, not a kernel)
     kernels = [(e.self_device_time_total, e.count, e.key) for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
-               and e.key != "moe.experts"]
+               and e.key != "moe.experts" and not e.key.startswith("lane.")]
     if not kernels:
         raise AssertionError(f"{label}: the profiler recorded no device event")
     busy_ms = sum(r[0] for r in kernels) / 1e3 / PROFILE_STEPS
@@ -2192,6 +2260,22 @@ def decode_step_profile(eng, cfg, dev, label: str = "decode step", steps: int = 
               f"{out['expert_bmms']} aten::bmm calls/step")
         if n_bmm == 0:
             raise AssertionError(f"{label}: no expert product in the profile")
+    if lanes:
+        # the ops called directly inside each collective's span: their device
+        # time is the collective's (on one card a broadcast is an event only)
+        per = {}
+        for e in prof.events():
+            up = e.cpu_parent
+            if up is not None and up.name.startswith("lane.") and e.device_type != \
+                    torch.autograd.DeviceType.CUDA:
+                ms, n = per.get(up.name, (0.0, 0))
+                per[up.name] = (ms + e.device_time_total / 1e3, n + 1)
+        out["collectives_ms"] = {k: v[0] / PROFILE_STEPS for k, v in per.items()}
+        out["collective_ops"] = {k: v[1] // PROFILE_STEPS for k, v in per.items()}
+        print(f"    the lane collectives a step: "
+              f"{sum(out['collectives_ms'].values()):.3f} ms of device time "
+              f"{ {k: round(v, 4) for k, v in out['collectives_ms'].items()} } in "
+              f"{out['collective_ops']} ops")
     return out
 
 
@@ -2248,7 +2332,7 @@ def spec_step_profile(eng, cfg, dev, label: str, depth_k: int = 8) -> dict:
     # (the "moe.experts" span is a range on the device's timeline, not a kernel)
     kernels = [(e.self_device_time_total, e.count, e.key) for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
-               and e.key != "moe.experts"]
+               and e.key != "moe.experts" and not e.key.startswith("lane.")]
     if not kernels:
         raise AssertionError(f"{label}: the profiler recorded no device event")
     busy_ms = sum(r[0] for r in kernels) / 1e3
@@ -2768,6 +2852,118 @@ def cluster_row(label: str, stats, idle) -> dict:
                 wall_s=stats.wall_seconds, idle_share=idle)
 
 
+# phase 12 (b): one decode step's logits of the merged engine (two lanes,
+# bf16) against the single engine's, max |diff| over the largest |logit|.
+# Each lane rounds its partial attention and MLP products to bf16 before the
+# sum (one more rounding a sublayer than one engine's matmul), and the
+# residual carries those roundings through 64 sublayers: a few 2^-9 steps of
+# a logit, far under 5% of the largest; a head or a block on the wrong lane
+# moves the logits by their own scale
+MERGED_REL_TOL = 0.05
+
+
+def streams_counted(dev, counts: dict):
+    """A context in which each call of the serving attention ops (decode,
+    ragged, flash, paged) adds one to ``counts[(name, raw stream)]``: the
+    stream the call was queued on, so a lane's launches read apart."""
+    import contextlib
+
+    import torch
+
+    from repro_torch.kernels import ops
+
+    names = {"decode_attention": "decode_attention", "ragged_attention": "ragged_attention",
+             "gqa_flash_attention": "gqa_flash_attention",
+             "paged_decode_attention": "paged_attention",
+             "paged_ragged_attention": "paged_attention"}
+
+    @contextlib.contextmanager
+    def scope():
+        saved = {a: getattr(ops, a) for a in names}
+
+        def wrap(attr):
+            def call(*a, **kw):
+                key = (names[attr], torch.cuda.current_stream(dev).cuda_stream)
+                counts[key] = counts.get(key, 0) + 1
+                return saved[attr](*a, **kw)
+            return call
+
+        for a in names:
+            setattr(ops, a, wrap(a))
+        try:
+            yield counts
+        finally:
+            for a, fn in saved.items():
+                setattr(ops, a, fn)
+
+    return scope() if dev.type == "cuda" else contextlib.nullcontext(counts)
+
+
+def merged_vs_single(model, params, merged, dev) -> dict:
+    """One decode step after a 64-token prefill of 2 prompts through the
+    merged engine's model and params (two lanes) and through the single
+    engine's: the logits within ``MERGED_REL_TOL`` of the largest, and the
+    argmax agreement printed."""
+    import torch
+
+    rng = np.random.default_rng(29)
+    toks = torch.from_numpy(rng.integers(0, model.cfg.vocab_size, size=(2, 64))
+                            .astype(np.int32)).to(dev)
+    cur = torch.full((2,), 64, dtype=torch.int32, device=dev)
+    outs = []
+    with torch.no_grad():
+        for m, p in ((model, params), (merged.model, merged.params)):
+            logits, cache = m.prefill(p, {"tokens": toks}, 128)
+            nxt = outs[0][0] if outs else logits[:, -1].argmax(-1)[:, None].to(torch.int32)
+            step, _ = m.decode_step(p, cache, {"tokens": nxt}, cur)
+            outs.append((nxt, logits[:, -1].float(), step[:, 0].float()))
+            del cache
+    res = {}
+    for label, i in (("prefill", 1), ("decode", 2)):
+        want, got = outs[0][i], outs[1][i]
+        res[f"{label}_rel"] = ((got - want).abs().max() / want.abs().max()).item()
+        res[f"{label}_argmax_equal"] = int((got.argmax(-1) == want.argmax(-1)).sum())
+    print(f"  (b) merged vs single, one prefill row and one decode step a prompt (2 prompts): "
+          f"max |diff| / max |logit| {res['prefill_rel']:.4f} / {res['decode_rel']:.4f} "
+          f"(tolerance {MERGED_REL_TOL}); argmax equal {res['prefill_argmax_equal']} / "
+          f"{res['decode_argmax_equal']} of 2", flush=True)
+    if not max(res["prefill_rel"], res["decode_rel"]) <= MERGED_REL_TOL:
+        raise AssertionError(f"phase 12 (b): merged logits off the single engine's: {res}")
+    return res
+
+
+def merged_paged(merged, model, params, dev, counters, reqs) -> dict:
+    """The merged engine's placed weights (no copy: they stay where they are)
+    behind a paged pool with prefix reuse: 4 of phase 12's prompts, the
+    paged kernels on both lanes (16 KV heads each), every stream
+    teacher-forced."""
+    from repro_torch.serve import Request, SamplingParams, ServeEngine
+
+    eng = ServeEngine(merged.model, merged.params, backend=merged.backend, batch_slots=4,
+                      max_len=1024, kv_block_size=32, prefix_cache=True, prefill_budget=64)
+    if any(a is not b for a, b in zip(eng.params["blocks"]["attn"]["wq"].shards,
+                                      merged.params["blocks"]["attn"]["wq"].shards)):
+        raise AssertionError("phase 12 (b) paged: the merged weights were copied")
+    reqs = [Request(rid=r.rid, prompt=r.prompt, params=SamplingParams(max_new=CLUSTER_NEW))
+            for r in reqs]
+    counts: dict = {}
+    reset_counts(counters)
+    with streams_counted(dev, counts):
+        for r in reqs:
+            eng.submit(r)
+        stats = eng.run()
+    lanes = [lane.stream.cuda_stream for lane in merged.backend.lanes] if dev.type == "cuda" \
+        else []
+    per_lane = [counts.get(("paged_attention", st), 0) for st in lanes]
+    print_stats(stats, f"; paged launches on the two lanes {per_lane}")
+    check_finished(reqs, CLUSTER_NEW, model.cfg.vocab_size)
+    agree = [teacher_forced(model, params, r, dev, f"(b) merged paged rid {r.rid}") for r in reqs]
+    if dev.type == "cuda" and min(per_lane) <= 0:
+        raise AssertionError("phase 12 (b) paged: the paged kernel must launch on both lanes")
+    return dict(tok_s=stats.tokens_per_sec, paged_launches=per_lane,
+                teacher_forced_min=min(agree))
+
+
 # phase 12 (d): replica 1's stall, the watchdog's verdict (near three times the
 # longest iteration a live replica took: 2.9-3.5 s), and the replica tick it
 # stalls at (16 new tokens a request: an earlier tick than 32 would need)
@@ -2847,18 +3043,33 @@ def full_width_cluster(dev, model, params, phase4: dict, counters, max_len: int 
         out["step_profile"] = replica_step_profile(cl.engines, dev)
     del cl
 
-    # (b) SPLIT -> MERGE once half the requests have arrived, then back warm
-    cl = ServeCluster(model, params, devices=[dev], **kw)
+    # (b) [cuda:0, cuda:0]: SPLIT (two replicas) -> MERGE (one tensor-parallel
+    # engine over two lanes, 16 KV heads a lane) once half the requests have
+    # arrived, then back and forth warm
+    cl = ServeCluster(model, params, devices=[dev, dev], **kw)
     cl.prewarm(sampling=True)
     reqs = cluster_traffic(cfg)
     gap = 0.4
     t_half = gap * (len(reqs) // 2 - 1) + gap / 2
+    per_stream = {}  # (kernel, raw stream) -> launches through ops in the run
 
     def switched():
         return cl.run(arrivals=[(gap * i, r) for i, r in enumerate(reqs)],
                       reconfigure_schedule=[(t_half, Mode.MERGE)])
 
-    stats = measured("(b) [cuda:0] split -> merge", switched, reqs)
+    with streams_counted(dev, per_stream):
+        stats = measured("(b) [cuda:0, cuda:0] split -> merge", switched, reqs)
+    merged = cl.engines[0]
+    if cl.mode is not Mode.MERGE or merged.backend.describe() != "sharded:model=2,devices=2":
+        raise AssertionError(f"phase 12 (b): the merged fabric is {merged.backend.describe()}")
+    lanes = [lane.stream.cuda_stream for lane in merged.backend.lanes] \
+        if dev.type == "cuda" else []
+    out["merged_launches"] = {name: [per_stream.get((name, st), 0) for st in lanes]
+                              for name in ("decode_attention", "ragged_attention",
+                                           "gqa_flash_attention")}
+    print(f"  (b) launches on the merged engine's two lanes: {out['merged_launches']}")
+    if lanes and any(min(n) <= 0 for n in out["merged_launches"].values()):
+        raise AssertionError("phase 12 (b): decode, ragged and flash must launch on both lanes")
     reports = list(stats.reconfigures) + [cl.reconfigure(Mode.SPLIT), cl.reconfigure(Mode.MERGE)]
     for rep in reports:
         print(f"  (b) {rep}")
@@ -2867,7 +3078,12 @@ def full_width_cluster(dev, model, params, phase4: dict, counters, max_len: int 
     out["reconfigure"] = [dict(from_mode=r.from_mode, to_mode=r.to_mode, cached=r.cached,
                                seconds=r.seconds, drain_s=r.drain_seconds,
                                place_s=r.place_seconds, bytes=r.bytes_moved) for r in reports]
-    del cl
+    out["merged_vs_single"] = merged_vs_single(model, params, merged, dev)
+    if dev.type == "cuda":
+        out["merged_step"] = decode_step_profile(
+            merged, cfg, dev, "(b) merged decode step, two lanes", lanes=True)
+    out["merged_paged"] = merged_paged(merged, model, params, dev, counters, reqs[:4])
+    del cl, merged
 
     # (c) the closed control loop over 4 long prompts, then 12 short ones
     rng = np.random.default_rng(12)
@@ -4654,6 +4870,7 @@ def main() -> int:
     phase("2 kernels vs plain on the card")
     timed = check_kernels(dev)
     hybrid_shapes = timed.pop("zamba2")  # rows 1 and 3 at zamba2-2.7b's shapes
+    lane_shapes = timed.pop("lane")  # rows 1-3 at one lane's shard of the merged engine
     timed.update(check_paged_and_quant_kernels(dev))
     timed.update(check_matmul_kernels(dev))
     timed.update(check_mla_kernels(dev))
@@ -4868,6 +5085,16 @@ def main() -> int:
         if name in hybrid_shapes:
             kernels[-1]["launches_hybrid"] = ssm_launches["b"][name]
             kernels[-1]["zamba2_shape"] = hybrid_shapes[name]
+        # phase 12 (b)'s merged engine over two lanes of the card: each lane's
+        # launches (a list in lane order) and the row timed in phase 2 at one
+        # lane's shard (16 KV heads)
+        if name in cluster["merged_launches"]:
+            kernels[-1]["launches_merged"] = cluster["merged_launches"][name]
+            kernels[-1]["lane_shape"] = lane_shapes[name]
+        if name == "paged_attention":
+            kernels[-1]["launches_merged"] = cluster["merged_paged"]["paged_launches"]
+        if f"{name}_lane" in timed:
+            kernels[-1]["lane_shape"] = timed[f"{name}_lane"]
     print(json.dumps({"kernels": kernels, "to_port": []}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

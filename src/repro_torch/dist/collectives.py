@@ -1,5 +1,5 @@
 """Ring collective matmuls over a lane axis (counterpart of
-``repro/dist/collectives.py``).
+``repro/dist/collectives.py``), and the lane collectives of merged serving.
 
 JAX runs these inside ``shard_map`` bodies, each device seeing its local
 shard and ringing over a mesh axis with ``ppermute``. The port runs the whole
@@ -16,6 +16,21 @@ Lanes that differ in another mesh axis form rings of their own.
 * ``ring_ag_matmul`` — x [M, K] sharded ``P(axis, None)``, w [K, N] sharded
   ``P(None, B)``: x's row blocks travel the ring, each hop contributing one
   output block; y [M, N] sharded ``P(None, B)`` ("column-parallel").
+
+The merged (tensor-parallel) serving step combines per-lane tensors that
+GSPMD would combine in JAX (it has no source for them): plain torch copies
+and adds, ordered by CUDA events. The first lane of the list is the root
+(the controller lane). A lane on the root's device reads the root's tensor
+itself once its stream waits on the root's: two lanes of one card share
+its memory, so moving a value between them is an event, not a copy. A lane
+on another device gets a copy.
+
+* ``lane_reduce`` / ``lane_all_reduce`` — the sum of one partial a lane, in
+  lane order, on the root (and then on every lane: the same bits
+  everywhere);
+* ``lane_gather`` / ``lane_all_gather`` — the lanes' blocks concatenated
+  along one axis, in lane order;
+* ``lane_broadcast`` — the root's tensor on every lane.
 """
 
 from __future__ import annotations
@@ -60,6 +75,67 @@ def _hop(t: torch.Tensor, src, dst) -> torch.Tensor:
         out = torch.empty(t.shape, dtype=t.dtype, device=dst.device)
     copy_between(out, dst, t, src)
     return out
+
+
+def _to_root(t: torch.Tensor, src, root) -> torch.Tensor:
+    """``t``, made on lane ``src``, readable on ``root``'s stream: the root
+    waits for ``src`` and keeps ``t``'s memory for that read; a copy where the
+    two lie on different devices."""
+    if src is root:
+        return t
+    if src.device != root.device:
+        return _hop(t, src, root)
+    root.wait_for(src)
+    root.keep(t)
+    return t
+
+
+def lane_broadcast(t: torch.Tensor, lanes) -> list[torch.Tensor]:
+    """``t`` (made on ``lanes[0]``, the root) on every lane: the tensor itself
+    where a lane shares the root's device (its stream waits for the root's
+    work so far), a copy on the lane's stream elsewhere. A list, one entry a
+    lane."""
+    root = lanes[0]
+    out = [t]
+    for lane in lanes[1:]:
+        if lane.device == root.device:
+            lane.wait_for(root)
+            lane.keep(t)
+            out.append(t)
+        else:
+            out.append(_hop(t, root, lane))
+    return out
+
+
+def lane_reduce(parts, lanes) -> torch.Tensor:
+    """The sum of ``parts`` (one a lane, each made on its lane's stream) on
+    the root ``lanes[0]``, added in lane order: ``((p0 + p1) + p2) + ...``.
+    The root's stream waits for each lane's work; the host never does."""
+    root = lanes[0]
+    acc = parts[0]
+    with root.use():
+        for t, lane in zip(parts[1:], lanes[1:]):
+            acc = acc + _to_root(t, lane, root)
+    return acc
+
+
+def lane_all_reduce(parts, lanes) -> list[torch.Tensor]:
+    """``lane_reduce`` then ``lane_broadcast``: the one sum on every lane, the
+    same bits on each."""
+    return lane_broadcast(lane_reduce(parts, lanes), lanes)
+
+
+def lane_gather(parts, lanes, dim: int) -> torch.Tensor:
+    """The lanes' blocks concatenated along ``dim`` in lane order, on the root
+    ``lanes[0]``."""
+    root = lanes[0]
+    with root.use():
+        return torch.cat([_to_root(t, lane, root) for t, lane in zip(parts, lanes)], dim=dim)
+
+
+def lane_all_gather(parts, lanes, dim: int) -> list[torch.Tensor]:
+    """``lane_gather`` then ``lane_broadcast``: the whole on every lane."""
+    return lane_broadcast(lane_gather(parts, lanes, dim), lanes)
 
 
 def ring_rs_matmul(x: ShardedTensor, w: ShardedTensor, axis_name: str) -> ShardedTensor:

@@ -104,6 +104,25 @@ class Lane:
         return f"Lane({self.device}, #{self.id})"
 
 
+@contextlib.contextmanager
+def stream_scope(s: Optional[torch.cuda.Stream], device: torch.device):
+    """Queue the enclosed work on ``s``. Entering, ``s`` waits for what the
+    caller queued on its own stream (params placed there, say); leaving,
+    the caller's stream waits for ``s``, so a caller that reads the work's
+    tensors afterwards sees them finished. Both are device-side waits: the
+    host never blocks. ``s`` None (the CPU): nothing."""
+    if s is None:
+        yield
+        return
+    outer = torch.cuda.current_stream(device)
+    s.wait_stream(outer)
+    try:
+        with torch.cuda.stream(s):
+            yield
+    finally:
+        outer.wait_stream(s)
+
+
 def lanes_for(devices: Optional[Sequence] = None) -> list[Lane]:
     """One lane per entry of ``devices`` (a lane stays itself, a device or
     its name becomes a new lane). ``None`` means every CUDA device, and
@@ -320,6 +339,23 @@ def _reshard(x: ShardedTensor, sharding: NamedSharding) -> ShardedTensor:
                          x.shards[i][_relative(inter, src_block)], src_lanes[i])
         shards.append(out)
     return ShardedTensor(x.shape, x.dtype, sharding, shards)
+
+
+def lane_blocks(x: ShardedTensor, spec: PartitionSpec) -> list[torch.Tensor]:
+    """Each lane's block of ``x`` under ``spec`` (over ``x``'s mesh), in the
+    mesh's flat order: a view of the lane's own shard where that shard holds
+    the block (a sharded leaf at ``spec``, or a replicated one), else a copy
+    assembled from the lanes that hold it (``_reshard``)."""
+    target = NamedSharding(x.sharding.mesh, spec)
+    have, want = x.sharding.blocks(x.shape), target.blocks(x.shape)
+    out: list = []
+    for t, h, w in zip(x.shards, have, want):
+        inside = all(h0 <= w0 and w1 <= h1 for (h0, h1), (w0, w1) in zip(h, w))
+        out.append(t[_relative(w, h)] if inside else None)
+    if any(t is None for t in out):
+        moved = _reshard(x, target).shards
+        out = [m if t is None else t for t, m in zip(out, moved)]
+    return out
 
 
 def gather(x: ShardedTensor, device=None) -> torch.Tensor:
@@ -544,6 +580,30 @@ def param_shardings(
             spec = spec_for_param(keystr(path), len(shape), shape, model_size)
         if fsdp:
             spec = _add_fsdp_dim(spec, shape, info, info.data_size, fsdp_threshold)
+        return info.named(spec)
+
+    return tree_map_with_path(one, tree)
+
+
+def serve_param_shardings(tree: Any, info: MeshInfo) -> Any:
+    """Merged serving's parameter placement: ``param_shardings``, except that
+    an attention output projection ``wo`` [L, H, hd, d] it shards places its
+    heads (dim 1) on the ``model`` axis where they divide. The attention
+    rule tries dims 2 and 3, written for wq/wk/wv's [L, d, heads, hd], and
+    so splits wo's head_dim; GSPMD reshards that silently, while each lane
+    of the port multiplies its own heads' outputs by its own rows of wo, a
+    partial product that stays on the lane. The bytes placed are the same."""
+    model_size = info.model_size
+
+    def one(path, leaf):
+        shape = tuple(leaf.shape)
+        if len(shape) == 0 or math.prod(shape) < MIN_SHARD_ELEMS:
+            return info.named(P())
+        key = keystr(path)
+        spec = spec_for_param(key, len(shape), shape, model_size)
+        if ("attn" in key and path[-1] == "wo" and len(shape) == 4
+                and any(p is not None for p in spec) and _divisible(shape[1], model_size)):
+            spec = P(None, MODEL_AXIS, None, None)
         return info.named(spec)
 
     return tree_map_with_path(one, tree)

@@ -26,6 +26,12 @@ as in the JAX package:
   insert (``quantize_rows``), their scales scattered beside them, and the
   kernels widen the rows with their scales. The functions then return a
   5-tuple (out, k, v, k_scale, v_scale).
+
+Head-sharded (merged) attention, :func:`attention_lanes`, runs any of the
+three on each lane of a mesh with the lane's own KV heads and their G query
+heads (JAX's ``_head_constraint``), over the lane's shard of the cache, on
+the lane's stream: each lane's ``wo`` rows give a partial output, and the
+partials are summed on the controller lane.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dist import collectives
 from repro_torch.dist.compression import quantize_rows
 from repro_torch.kernels import ops
 from repro_torch.models.layers import Params, apply_rope, rms_norm
@@ -246,3 +253,16 @@ def attention_packed(
     if quant:
         return out, cache_k, cache_v, k_scale, v_scale
     return out, cache_k, cache_v
+
+
+def attention_lanes(fn, lanes, args: list[tuple], kwargs: list[dict]
+                    ) -> tuple[torch.Tensor, list]:
+    """``fn(*args[j], **kwargs[j])`` for each lane j (the lane's attention
+    params, a config at its share of the heads, its input, its cache shard,
+    ...) on the lane's stream. Returns (the partial outputs summed on the
+    controller lane, each lane's whole result)."""
+    outs = []
+    for lane, a, kw in zip(lanes, args, kwargs):
+        with lane.use():
+            outs.append(fn(*a, **kw))
+    return collectives.lane_reduce([o[0] for o in outs], lanes), outs

@@ -5,6 +5,12 @@ Params are nested dicts of tensors, with a leading ``L`` axis where the JAX
 package stacks layers. Weights are stored in the config dtype, or as int8
 ``{"q8", "scale"}`` leaves (``models.quant``); math that needs f32 (norms,
 RoPE phases, SiLU) upcasts locally and casts back.
+
+The ``*_lanes`` functions are the merged (tensor-parallel) forms, the
+counterparts of what GSPMD makes of the same functions over a ``model``
+axis: each takes one weight block and one input a lane (a list in lane
+order) and runs each lane's part on the lane's stream; the result lands on
+the first lane, the controller's (``dist.collectives``).
 """
 
 from __future__ import annotations
@@ -13,6 +19,7 @@ from typing import Any
 
 import torch
 
+from repro_torch.dist import collectives
 from repro_torch.models.quant import qmatmul
 
 Params = dict[str, Any]
@@ -75,3 +82,43 @@ def unembed(params: Params, x: torch.Tensor) -> torch.Tensor:
     if "head" in params:
         return x @ params["head"]
     return x @ params["tok"].T
+
+
+def embed_tokens_lanes(tables: list[torch.Tensor], tokens: list[torch.Tensor], lanes
+                       ) -> torch.Tensor:
+    """Vocab-sharded lookup: lane j holds rows [j*n, (j+1)*n) of the table;
+    each looks up the tokens in its range, zeros the rest, and the partials
+    are summed on the controller lane (one is nonzero a token: the sum is
+    the row itself)."""
+    parts, start = [], 0
+    for tab, tok, lane in zip(tables, tokens, lanes):
+        n = tab.shape[0]
+        with lane.use():
+            local = tok.long() - start
+            hit = (local >= 0) & (local < n)
+            rows = tab[local.clamp(0, n - 1)]
+            parts.append(torch.where(hit[..., None], rows, torch.zeros((), dtype=rows.dtype,
+                                                                       device=rows.device)))
+        start += n
+    return collectives.lane_reduce(parts, lanes)
+
+
+def unembed_lanes(params: list[Params], xs: list[torch.Tensor], lanes) -> torch.Tensor:
+    """Vocab-sharded logits: each lane's rows of the head (or of the tied
+    table), gathered along the vocabulary on the controller lane (JAX's
+    ``_logits_constraint``: the sampler reads them whole)."""
+    parts = []
+    for p, x, lane in zip(params, xs, lanes):
+        with lane.use():
+            parts.append(unembed(p, x))
+    return collectives.lane_gather(parts, lanes, dim=-1)
+
+
+def mlp_apply_lanes(params: list[Params], xs: list[torch.Tensor], lanes) -> torch.Tensor:
+    """SwiGLU over lanes: w_in / w_gate split by columns, w_out by rows; each
+    lane's product is a partial [..., d], summed on the controller lane."""
+    parts = []
+    for p, x, lane in zip(params, xs, lanes):
+        with lane.use():
+            parts.append(mlp_apply(p, x))
+    return collectives.lane_reduce(parts, lanes)

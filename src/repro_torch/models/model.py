@@ -20,6 +20,17 @@ loop over layers replaces ``lax.scan``. It serves prefill
 (:meth:`LM.decode_step`) and the packed ragged step of the unified engine
 (:meth:`LM.packed_step`; every family but hybrid).
 
+``LM(cfg, mesh_info=info)`` over a ``(data=1, model=N)`` lane mesh with N
+>= 2 (``dist.sharding.serving_mesh_info``) is the merged view, one engine
+over N lanes (the paper's merge mode: one controller driving every vector
+unit): attention heads, MLP width and the vocabulary are split over the
+lanes (params placed by ``serve.backend.ShardedBackend``), each lane runs
+its part, its own kernels over its own cache shard, on its own stream, and
+the partial sums meet on the first lane, the controller's, which holds the
+residual stream and the logits. One thread issues every lane's work. It
+takes the dense family, GQA or MHA, at any head grouping whose KV heads
+divide over the lanes (:func:`check_tensor_parallel`).
+
 Caches are updated in place (the JAX package donates them instead). An
 attention cache is dense (:meth:`LM.init_cache`) or a block-paged pool
 (:meth:`LM.init_kv_pool`, read through block tables), and either may store
@@ -43,6 +54,17 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dist import collectives
+from repro_torch.dist.sharding import (
+    MODEL_AXIS,
+    MeshInfo,
+    P,
+    ShardedTensor,
+    lane_blocks,
+    serve_cache_shardings,
+    stream_scope,
+    tree_map_with_path,
+)
 from repro_torch.kernels import ref as _ref
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mla as mla_mod
@@ -52,16 +74,70 @@ from repro_torch.models.layers import (
     Params,
     dense_init,
     embed_tokens,
+    embed_tokens_lanes,
     mlp_apply,
+    mlp_apply_lanes,
     rms_norm,
     trunc_normal,
     unembed,
+    unembed_lanes,
 )
 from repro_torch.models.quant import layer_matmul_views
 
+_TP_REFUSED = "under MERGE is not ported (ROADMAP Queue 1 item 7)"
+
+
+def check_tensor_parallel(cfg: ArchConfig, model_size: int) -> None:
+    """Raise ``NotImplementedError`` (naming ROADMAP) unless ``cfg`` serves
+    head-sharded over ``model_size`` lanes: the dense family with plain
+    attention, whose KV heads, MLP width and vocabulary divide over the
+    lanes. A latent (MLA) cache shards on its rank, MoE would take JAX's
+    expert-parallel ``shard_map``, and KV heads that do not divide take
+    JAX's head_dim fallback, where GSPMD reduces the scores: a per-lane
+    kernel cannot."""
+    if model_size <= 1:
+        return
+    if cfg.family != "dense":
+        raise NotImplementedError(f"{cfg.name}: the {cfg.family} family {_TP_REFUSED}")
+    if cfg.mla is not None:
+        raise NotImplementedError(f"{cfg.name}: multi-head latent attention {_TP_REFUSED}")
+    for what, n in (("KV heads", cfg.n_kv_heads), ("d_ff", cfg.d_ff),
+                    ("vocab_size", cfg.vocab_size)):
+        if n % model_size:
+            raise NotImplementedError(f"{cfg.name}: {what} {n} over {model_size} lanes "
+                                      f"(JAX's head_dim / uneven fallback) {_TP_REFUSED}")
+
+
+def _lane_spec(path: tuple) -> P:
+    """The block of a parameter leaf one lane of the merged view computes
+    with: its heads of wq/wk/wv [L, d, heads, hd] and of wo [L, H, hd, d],
+    its columns of w_in/w_gate and rows of w_out, its rows of the vocabulary;
+    norms whole (the controller lane applies them)."""
+    name = path[-1]
+    if name in ("wq", "wk", "wv"):
+        return P(None, None, MODEL_AXIS, None)
+    if name == "wo":
+        return P(None, MODEL_AXIS, None, None)
+    if name in ("w_in", "w_gate"):
+        return P(None, None, MODEL_AXIS)
+    if name == "w_out":
+        return P(None, MODEL_AXIS, None)
+    if name == "tok":
+        return P(MODEL_AXIS, None)
+    if name == "head":
+        return P(None, MODEL_AXIS)
+    return P()
+
+
+def _pick(tree, j: int):
+    """Lane j's entry of a tree whose leaves are per-lane lists."""
+    if isinstance(tree, dict):
+        return {k: _pick(v, j) for k, v in tree.items()}
+    return tree[j]
+
 
 class LM:
-    def __init__(self, cfg: ArchConfig, device=None):
+    def __init__(self, cfg: ArchConfig, device=None, mesh_info: Optional[MeshInfo] = None):
         if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
             raise ValueError(f"unknown family {cfg.family!r}")
         if cfg.family == "moe" and cfg.moe is None:
@@ -73,9 +149,32 @@ class LM:
             raise ValueError(f"{cfg.name}: {cfg.n_layers} layers are not whole groups of "
                              f"shared_attn_every={cfg.shared_attn_every}")
         self.cfg = cfg
+        self.mesh_info = mesh_info
+        if mesh_info is not None:
+            if mesh_info.data_size != 1:
+                raise ValueError(f"a merged LM is one (data=1, model=N) view, got "
+                                 f"{mesh_info.mesh.shape}")
+            check_tensor_parallel(cfg, mesh_info.model_size)
+            root = mesh_info.mesh.lanes[0].device
+            if device is not None and resolve_device(device) != root:
+                raise ValueError(f"device={device} is not the mesh's first lane's {root}")
+            device = root
         self.device = resolve_device(device)
         self.dtype = getattr(torch, cfg.dtype)
         self._views: tuple = (None, [])
+        if self.merged:
+            n = mesh_info.model_size
+            self._lanes = mesh_info.mesh.lanes
+            # each lane's attention sees its share of the heads, G per KV head
+            self._lcfg = replace(cfg, n_heads=cfg.n_heads // n, n_kv_heads=cfg.n_kv_heads // n,
+                                 d_head=cfg.head_dim)
+            self._lane_views_of: tuple = (None, None, None)
+
+    @property
+    def merged(self) -> bool:
+        """Whether this is the merged (tensor-parallel) view over two or more
+        lanes."""
+        return self.mesh_info is not None and self.mesh_info.model_size > 1
 
     # ------------------------------------------------------------------ init
 
@@ -201,6 +300,8 @@ class LM:
         hd]}."""
         if kv_dtype is not None and not self.has_positional_kv:
             raise ValueError(f"family {self.family_tag!r} has no positional KV to quantize")
+        if self.merged:
+            return self._lane_kv((batch, max_len), kv_dtype)
         cfg = self.cfg
         if cfg.family in ("ssm", "hybrid"):  # SSM states stay in f32, conv rows in the dtype
             one = ssm_mod.block_fns(cfg).init_cache(cfg, batch, self.dtype, self.device)
@@ -233,6 +334,8 @@ class LM:
         families only (``has_positional_kv``)."""
         if not self.has_positional_kv:
             raise ValueError(f"family {self.family_tag!r} has no positional KV to page")
+        if self.merged:
+            return self._lane_kv((num_blocks + 1, block_size), kv_dtype)
         return self._kv_leaves((num_blocks + 1, block_size), kv_dtype)
 
     def _layers(self, params: Params) -> list[Params]:
@@ -278,6 +381,8 @@ class LM:
         if cache is not None and "k_scale" in cache:
             raise ValueError("prefill writes an unquantized cache; a quantized cache is "
                              "filled through packed_step")
+        if self.merged:
+            return self._merged_prefill(params, batch["tokens"], max_len, cache, slot)
         x = embed_tokens(params["embed"], batch["tokens"])
         b, s = x.shape[:2]
         if s > max_len:
@@ -368,6 +473,9 @@ class LM:
         cfg = self.cfg
         if block_tables is not None and cfg.family in ("ssm", "hybrid"):
             raise ValueError(f"family {self.family_tag!r} has no paged path")
+        if self.merged:
+            return self._merged_step(params, cache, batch["tokens"], block_tables,
+                                     attn_mod.attention_decode, (cur_len,))
         x = embed_tokens(params["embed"], batch["tokens"])
         if cfg.family in ("ssm", "hybrid"):
             return self._logits(params, self._recurrent_decode(params, cache, x, cur_len,
@@ -468,6 +576,11 @@ class LM:
         cfg = self.cfg
         if not self.supports_packed:
             raise ValueError(f"family {self.family_tag!r} has no packed path")
+        if self.merged:
+            valid = self._valid_mask(cache, tok_slot, tok_pos, pack_slots, block_tables)
+            return self._merged_step(params, cache, tokens, block_tables,
+                                     attn_mod.attention_packed,
+                                     (tok_slot, tok_pos, valid, pack_slots), out_rows)
         x = embed_tokens(params["embed"], tokens)
         if cfg.family == "ssm":
             if block_tables is not None:
@@ -478,17 +591,7 @@ class LM:
             if out_rows is not None:
                 x = x[out_rows.long()]
             return self._logits(params, x), cache
-        valid = None
-        if x.device.type == "cpu":
-            # the plain path's mask depends only on the descriptors: build it
-            # once for every layer (the CUDA kernel derives its own)
-            glob = tok_slot if pack_slots is None else pack_slots[tok_slot.long()]
-            if block_tables is None:  # [L, B, S_max, ...] K rows or MLA latents
-                leaf = cache["ckv"] if cfg.mla is not None else cache["k"]
-                b, s_max = leaf.shape[1], leaf.shape[2]
-            else:  # the tables' dense view: S_max = table width * block size
-                b, s_max = block_tables.shape[0], block_tables.shape[1] * cache["k"].shape[2]
-            valid = _ref.ragged_valid_mask(glob, tok_pos, b, s_max, cfg.sliding_window)
+        valid = self._valid_mask(cache, tok_slot, tok_pos, pack_slots, block_tables)
         for li, blk in enumerate(self._layers(params)):
             h = rms_norm(x, blk["norm1"], cfg.norm_eps)
             a = self._attend(attn_mod.attention_packed, mla_mod.mla_packed, li, blk, h, cache,
@@ -497,6 +600,166 @@ class LM:
         if out_rows is not None:
             x = x[out_rows.long()]
         return self._logits(params, x), cache
+
+
+    def _valid_mask(self, cache: Params, tok_slot: torch.Tensor, tok_pos: torch.Tensor,
+                    pack_slots: Optional[torch.Tensor], block_tables: Optional[torch.Tensor]
+                    ) -> Optional[torch.Tensor]:
+        """The plain path's ragged mask on the CPU, built once for every layer
+        from the descriptors alone (the CUDA kernel derives its own: None)."""
+        if self.device.type != "cpu":
+            return None
+        glob = tok_slot if pack_slots is None else pack_slots[tok_slot.long()]
+        if block_tables is None:  # [L, B, S_max, ...] K rows or MLA latents
+            leaf = cache["ckv"] if self.cfg.mla is not None else cache["k"]
+            b, s_max = leaf.shape[1], leaf.shape[2]
+        else:  # the tables' dense view: S_max = table width * block size
+            b, s_max = block_tables.shape[0], block_tables.shape[1] * cache["k"].shape[2]
+        return _ref.ragged_valid_mask(glob, tok_pos, b, s_max, self.cfg.sliding_window)
+
+    # ------------------------------------------------ the merged (TP) view
+
+    def _lane_kv(self, lead: tuple, kv_dtype: Optional[torch.dtype]) -> Params:
+        """Zero K/V leaves [L, *lead, KV, hd] laid over the lanes as
+        ``serve_cache_shardings`` says (KV heads on the ``model`` axis;
+        slots, positions and blocks never split), each lane's shard made on
+        its stream."""
+        if kv_dtype is not None:
+            raise NotImplementedError(f"a quantized KV cache {_TP_REFUSED}")
+        cfg = self.cfg
+        shape = (cfg.n_layers, *lead, cfg.n_kv_heads, cfg.head_dim)
+        meta = {"k": torch.empty(shape, device="meta"), "v": torch.empty(shape, device="meta")}
+        out = {}
+        for name, sharding in serve_cache_shardings(meta, self.mesh_info).items():
+            shards = []
+            for lane, block in zip(self._lanes, sharding.blocks(shape)):
+                with lane.use():
+                    shards.append(torch.zeros([b - a for a, b in block], dtype=self.dtype,
+                                              device=lane.device))
+            out[name] = ShardedTensor(shape, self.dtype, sharding, shards)
+        return out
+
+    def _lane_params(self, params: Params) -> tuple[list[Params], list[list[Params]]]:
+        """(each lane's top-level params, each lane's per-layer views) of the
+        placed params, rebuilt only for new params: every leaf's block of
+        ``_lane_spec`` on each lane — a view of the lane's shard, or a
+        contiguous copy made once where the placement replicated the leaf
+        (every leaf under ``MIN_SHARD_ELEMS``) or split another dim."""
+        got = self._lane_views_of
+        if got[0] is params:
+            return got[1], got[2]
+        lanes = self._lanes
+
+        def blocks(path, leaf):
+            if not isinstance(leaf, ShardedTensor):
+                raise TypeError("a merged LM reads params placed over its lanes "
+                                "(ShardedBackend.put_params)")
+            out = []
+            for lane, t in zip(lanes, lane_blocks(leaf, _lane_spec(path))):
+                if not t.is_contiguous():
+                    with lane.use():
+                        t = t.contiguous()
+                out.append(t)
+            return out
+
+        per = tree_map_with_path(blocks, params)
+        tops = [_pick(per, j) for j in range(len(lanes))]
+        layers = [[_index(top["blocks"], i) for i in range(self.cfg.n_layers)] for top in tops]
+        self._lane_views_of = (params, tops, layers)
+        return tops, layers
+
+    def _scope(self):
+        """A merged call's work, queued on the controller lane's stream after
+        the caller's (where the inputs were made; nothing to wait for under
+        ``ShardedBackend.scope``, whose stream it is), the caller's stream
+        waiting for it on the way out."""
+        root = self._lanes[0]
+        return stream_scope(root.stream, root.device)
+
+    def _bcast(self, t: Optional[torch.Tensor]) -> list:
+        """A controller-lane tensor on every lane (``lane_broadcast``)."""
+        if t is None:
+            return [None] * len(self._lanes)
+        return collectives.lane_broadcast(t, self._lanes)
+
+    def _norm(self, x: torch.Tensor, w: torch.Tensor) -> list:
+        """RMSNorm of the residual (on the controller lane), handed to every
+        lane."""
+        return self._bcast(rms_norm(x, w, self.cfg.norm_eps))
+
+    def _merged_layers(self, layers, x, attend) -> torch.Tensor:
+        """Every layer over the lanes: ``attend(li, hs)`` the summed
+        attention output of layer ``li`` for the lanes' inputs ``hs``, then
+        the MLP. Runs on the controller lane's stream, where the residual
+        stays."""
+        lanes = self._lanes
+        for li in range(self.cfg.n_layers):
+            x = x + attend(li, self._norm(x, layers[0][li]["norm1"]))
+            hs = self._norm(x, layers[0][li]["norm2"])
+            x = x + mlp_apply_lanes([lay[li]["mlp"] for lay in layers], hs, lanes)
+        return x
+
+    def _merged_logits(self, tops, x: torch.Tensor) -> torch.Tensor:
+        hs = self._norm(x, tops[0]["final_norm"])
+        return unembed_lanes([top["embed"] for top in tops], hs, self._lanes)
+
+    def _merged_embed(self, tops, tokens: torch.Tensor) -> torch.Tensor:
+        return embed_tokens_lanes([top["embed"]["tok"] for top in tops], self._bcast(tokens),
+                                  self._lanes)
+
+    def _merged_prefill(self, params, tokens, max_len, cache, slot):
+        """``prefill`` over the lanes: each lane's flash attention over its
+        heads writes its K/V rows into its cache shard."""
+        tops, layers = self._lane_params(params)
+        b, s = tokens.shape
+        if s > max_len:
+            raise ValueError(f"sequence {s} longer than max_len {max_len}")
+        if cache is None:
+            cache = self.init_cache(b, max_len)
+        ks, vs = cache["k"].shards, cache["v"].shards
+        n = len(self._lanes)
+
+        def attend(li, hs):
+            a, outs = attn_mod.attention_lanes(
+                attn_mod.attention_apply, self._lanes,
+                [(layers[j][li]["attn"], self._lcfg, hs[j], pos[j]) for j in range(n)],
+                [dict(return_kv=True)] * n)
+            for j, lane in enumerate(self._lanes):
+                with lane.use():
+                    k, v = outs[j][1]
+                    ks[j][li, slot:slot + b, :s] = k
+                    vs[j][li, slot:slot + b, :s] = v
+            return a
+
+        with self._scope():
+            pos = self._bcast(torch.arange(s, dtype=torch.int32, device=self.device))
+            x = self._merged_layers(layers, self._merged_embed(tops, tokens), attend)
+            return self._merged_logits(tops, x), cache
+
+    def _merged_step(self, params, cache, tokens, block_tables, fn, args: tuple,
+                     out_rows: Optional[torch.Tensor] = None):
+        """``decode_step`` (``fn`` = attention_decode, ``args`` = (cur_len,))
+        or ``packed_step`` (attention_packed over (tok_slot, tok_pos, valid,
+        pack_slots)) over the lanes: each lane's decode, ragged or paged
+        kernel over its heads and its cache shard."""
+        tops, layers = self._lane_params(params)
+        ks, vs = cache["k"].shards, cache["v"].shards
+        n = len(self._lanes)
+
+        def attend(li, hs):
+            return attn_mod.attention_lanes(
+                fn, self._lanes,
+                [(layers[j][li]["attn"], self._lcfg, hs[j], ks[j][li], vs[j][li],
+                  *lane_args[j]) for j in range(n)],
+                [dict(block_tables=tables[j]) for j in range(n)])[0]
+
+        with self._scope():
+            lane_args = list(zip(*[self._bcast(t) for t in args]))
+            tables = self._bcast(block_tables)
+            x = self._merged_layers(layers, self._merged_embed(tops, tokens), attend)
+            if out_rows is not None:
+                x = x[out_rows.long()]
+            return self._merged_logits(tops, x), cache
 
 
 def _index(tree: Params, i: int) -> Params:

@@ -1,11 +1,12 @@
 """Serving: the engine (the unified dispatch and the legacy prefill+insert
 tier) and its request API, the seeded sampler zoo,
 speculative decoding's drafters, the block-paged KV pool and the radix
-prefix cache behind paged serving, the placement backends, and the
-split/merge serving cluster with its supervisor (reconfiguration,
+prefix cache behind paged serving, the placement backends (a device, or
+the lanes of a tensor-parallel merged engine), and the split/merge serving
+cluster with its supervisor (reconfiguration,
 admission, failure re-homing)."""
 
-from repro_torch.serve.backend import DeviceBackend, PlacementBackend
+from repro_torch.serve.backend import DeviceBackend, PlacementBackend, ShardedBackend
 from repro_torch.serve.cluster import (
     ClusterStats,
     NoModelReplica,
@@ -65,6 +66,7 @@ __all__ = [
     "ServeCluster",
     "ServeEngine",
     "ServeStats",
+    "ShardedBackend",
     "SpeculateConfig",
     "SwitchDecision",
     "TenantPolicy",

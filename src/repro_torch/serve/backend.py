@@ -1,9 +1,9 @@
 """Device-placement backends: where a serving engine's tensors live and which
 CUDA stream its work is queued on (counterpart of ``repro/serve/backend.py``).
 
-The engine places its parameters and uploads its per-tick host arrays
-through its backend, and allocates its cache and tick state on the
-backend's device under :meth:`PlacementBackend.scope`. Two fabrics:
+The engine places its parameters and its cache and uploads its per-tick
+host arrays through its backend, and allocates its tick state on the
+backend's device under :meth:`PlacementBackend.scope`. Three fabrics:
 
 * :class:`PlacementBackend` — one device, the caller's current stream: no
   stream of its own.
@@ -15,11 +15,19 @@ backend's device under :meth:`PlacementBackend.scope`. Two fabrics:
   split kernels key their ticket counters and partials by (device, stream)
   (``kernels/_checks.tickets``), so they never share scratch.
 
+* :class:`ShardedBackend` — tensor-parallel placement over the ``model``
+  axis of a lane mesh (``dist/sharding.py``: a lane is a device and a stream
+  of its own, and one card may hold several): params through
+  ``serve_param_shardings`` (attention heads, MLP columns and rows, the
+  vocabulary split over the lanes), the KV cache through
+  ``serve_cache_shardings`` (KV heads). The tick state and the host uploads
+  live on the first lane, the controller's: one controller thread issues
+  every lane's work, the merged ``LM`` hands the lanes what they read of it
+  (``collectives.lane_broadcast``), and the engine queues its own work on
+  the controller lane's stream (:meth:`ShardedBackend.scope`).
+
 Parameters placed on the device they already live on come back as the same
-tensors: two replicas on one card share one copy of the weights. The
-tensor-parallel ``ShardedBackend`` is not ported yet (ROADMAP Queue 1 item
-7); it would place params over the lanes of ``dist/sharding.py`` (a device
-and a stream of its own each) through that module's rules.
+tensors: two replicas on one card share one copy of the weights.
 """
 
 from __future__ import annotations
@@ -32,6 +40,13 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.dist.sharding import (
+    MeshInfo,
+    device_put,
+    serve_cache_shardings,
+    serve_param_shardings,
+    stream_scope,
+)
 
 
 def _tree_to(tree: Any, device: torch.device) -> Any:
@@ -61,6 +76,11 @@ class PlacementBackend:
         """Place the model parameters (once, at engine construction)."""
         return _tree_to(params, self.device)
 
+    def put_cache(self, model, cache) -> Any:
+        """Place the decode cache the model made (once, at engine
+        construction)."""
+        return _tree_to(cache, self.device)
+
     def put_host(self, arr: np.ndarray) -> torch.Tensor:
         """Upload a freshly built host array. On the card through pinned
         memory, so the copy is queued without waiting for earlier work on
@@ -73,6 +93,11 @@ class PlacementBackend:
     def scope(self):
         """Context under which the engine queues its work: nothing here."""
         return contextlib.nullcontext()
+
+    def synchronize(self) -> None:
+        """Block the host until the device work queued so far has finished."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
 
 class DeviceBackend(PlacementBackend):
@@ -94,31 +119,58 @@ class DeviceBackend(PlacementBackend):
                 self._stream = torch.cuda.Stream(self.device)
         return self._stream
 
-    @contextlib.contextmanager
     def scope(self):
-        """Queue the enclosed work on the backend's stream. Entering, the
-        stream waits for what the caller queued on its own stream (params
-        placed there, say); leaving, the caller's stream waits for the
-        engine's work, so a caller that reads engine tensors afterwards sees
-        them finished. Both are device-side waits: the host never blocks."""
-        s = self.stream
-        if s is None:
-            yield
-            return
-        outer = torch.cuda.current_stream(self.device)
-        s.wait_stream(outer)
-        try:
-            with torch.cuda.stream(s):
-                yield
-        finally:
-            outer.wait_stream(s)
+        """Queue the enclosed work on the backend's stream, after what the
+        caller queued on its own; the caller's stream waits for it on the
+        way out (``stream_scope``)."""
+        return stream_scope(self.stream, self.device)
 
 
-def resolve_backend(backend: Optional[PlacementBackend] = None, device=None) -> PlacementBackend:
-    """The engine's backend: ``backend`` as given, else ``DeviceBackend(device)``
-    (``device=None`` is the card). Passing both raises when they disagree."""
+class ShardedBackend(PlacementBackend):
+    """Tensor-parallel placement over ``mesh_info``'s lanes (merge-mode
+    serving): params per ``serve_param_shardings``, the KV cache per
+    ``serve_cache_shardings``, everything per-slot or host-built on the
+    controller lane — control state, the same for every lane, as in the
+    paper's merged fabric under ONE controller."""
+
+    def __init__(self, mesh_info: MeshInfo) -> None:
+        self.mesh_info = mesh_info
+        self.lanes = mesh_info.mesh.lanes
+        self.device = self.lanes[0].device
+
+    def put_params(self, model, params) -> Any:
+        return device_put(params, serve_param_shardings(params, self.mesh_info))
+
+    def put_cache(self, model, cache) -> Any:
+        """A cache the merged ``LM`` laid out already keeps every shard."""
+        return device_put(cache, serve_cache_shardings(cache, self.mesh_info))
+
+    def scope(self):
+        """The controller lane's stream; the other lanes wait on events the
+        merged ``LM`` records there."""
+        return stream_scope(self.lanes[0].stream, self.device)
+
+    def synchronize(self) -> None:
+        for dev in dict.fromkeys(lane.device for lane in self.lanes):
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+
+    def describe(self) -> str:
+        mi = self.mesh_info
+        return f"sharded:model={mi.model_size},devices={mi.n_devices}"
+
+
+def resolve_backend(backend: Optional[PlacementBackend] = None, device=None,
+                    model=None) -> PlacementBackend:
+    """The engine's backend: ``backend`` as given, else a
+    ``ShardedBackend`` over a merged ``model``'s mesh, else
+    ``DeviceBackend(device)`` (``device=None`` is the card). Passing both
+    raises when they disagree."""
     if backend is None:
-        return DeviceBackend(device)
+        if model is not None and model.merged:
+            backend = ShardedBackend(model.mesh_info)
+        else:
+            return DeviceBackend(device)
     if device is not None and resolve_device(device) != backend.device:
         raise ValueError(f"device={device} disagrees with the backend's {backend.device}")
     return backend

@@ -9,13 +9,17 @@ of ``repro/serve/cluster.py``).
   entry may repeat: two replicas on one card share its weights and queue
   their kernels on two streams — the paper's two independent cores, the
   router playing the scalar control core.
-* **MERGE** — ONE engine under one controller. Over one distinct device it
-  is the pinned plain engine; merge over several distinct devices is
-  tensor-parallel serving, which is not ported yet (``NotImplementedError``,
-  ROADMAP Queue 1 item 7: the lane meshes, partition rules and ring
-  collectives of ``dist/`` exist; ``ShardedBackend``, a head-sharded ``LM``
-  and ``ring_allreduce_q8`` do not), and merge over a repeated device is refused
-  (``ValueError``).
+* **MERGE** — ONE engine under one controller. Over one device it is the
+  pinned plain engine; over two or more entries it is tensor-parallel
+  serving: one lane per entry (a device and a stream of its own, so a
+  repeated device gives two lanes of one card), a merged
+  ``LM(cfg, mesh_info=serving_mesh_info(devices))`` whose heads, MLP width
+  and vocabulary split over the lanes, behind a
+  :class:`~repro_torch.serve.backend.ShardedBackend`. A heterogeneous
+  cluster is split-only (``ValueError``); what the merged engine does not
+  take (``models.model.check_tensor_parallel``,
+  ``serve.engine.check_merged_options``) raises ``NotImplementedError``
+  naming ROADMAP, before any queued request is drained.
 * **reconfigure(mode)** — drain in-flight chunks, place the target mode's
   engines, re-route the carried queue; the wall-clock cost is measured and
   reported (:class:`ReconfigureReport`) like the paper's CSR-write cost. A
@@ -57,9 +61,10 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.common.utils import pytree_bytes
 from repro_torch.core.modes import Mode
+from repro_torch.dist.sharding import serving_mesh_info
 from repro_torch.ft.watchdog import Watchdog
-from repro_torch.models.model import LM
-from repro_torch.serve.backend import DeviceBackend
+from repro_torch.models.model import LM, check_tensor_parallel
+from repro_torch.serve.backend import DeviceBackend, ShardedBackend
 from repro_torch.serve.controller import (
     AdmissionController,
     AdmissionPolicy,
@@ -75,6 +80,7 @@ from repro_torch.serve.engine import (
     RequestHandle,
     ServeEngine,
     ServeStats,
+    check_merged_options,
     percentile,
 )
 from repro_torch.serve.sampling import SamplingParams
@@ -96,7 +102,8 @@ def _resolve_devices(devices) -> list[torch.device]:
 
 def _new_bytes(placed, source) -> int:
     """Bytes of the tensor leaves of ``placed`` that are not leaves of
-    ``source`` (copies made by placement or quantization)."""
+    ``source`` (copies made by placement or quantization); a sharded leaf
+    counts its global shape once, as ``pytree_bytes`` does."""
     seen = set()
 
     def ids(t):
@@ -116,7 +123,7 @@ def _new_bytes(placed, source) -> int:
             return sum(walk(v) for v in t.values())
         if isinstance(t, (list, tuple)):
             return sum(walk(v) for v in t)
-        if isinstance(t, torch.Tensor) and id(t) not in seen:
+        if (isinstance(t, torch.Tensor) and id(t) not in seen) or hasattr(t, "sharding"):
             return t.numel() * t.element_size()
         return 0
 
@@ -616,34 +623,25 @@ class ServeCluster:
 
     # ----------------------------------------------------------------- fabric
 
-    def _merge_device(self) -> torch.device:
-        """The one device a merged engine runs on, or the refusal: a
-        heterogeneous cluster, a repeated device, or several distinct
-        devices (tensor-parallel merge, not ported)."""
+    def _check_merge(self) -> None:
+        """Raise unless this cluster can merge: a heterogeneous cluster is
+        split-only (``ValueError``), and over two or more lanes the model and
+        the engine options must be ones the merged engine takes
+        (``NotImplementedError`` naming ROADMAP)."""
         if self._hetero:
             raise ValueError(
                 f"merge mode cannot fuse {len(self.models)} different "
                 "models into one engine; a heterogeneous cluster is "
                 "split-only"
             )
-        distinct = list(dict.fromkeys(self.devices))
-        if len(distinct) < len(self.devices):
-            raise ValueError(
-                f"merge over {self.devices} names a device more than once: "
-                "one fused engine spans distinct devices only"
-            )
-        if len(distinct) > 1:
-            raise NotImplementedError(
-                f"merge over {len(distinct)} distinct devices is "
-                "tensor-parallel serving, not ported yet (ROADMAP Queue 1 "
-                "item 7: ShardedBackend, a head-sharded LM, "
-                "ring_allreduce_q8)"
-            )
-        return distinct[0]
+        if len(self.devices) > 1:
+            kw = self._engine_kw
+            check_tensor_parallel(self.model.cfg, len(self.devices))
+            check_merged_options(kw["kv_dtype"], kw["weight_dtype"], kw["speculate"])
 
     def _can_merge(self) -> bool:
         try:
-            self._merge_device()
+            self._check_merge()
         except (ValueError, NotImplementedError):
             return False
         return True
@@ -662,15 +660,26 @@ class ServeCluster:
         Returns ``(cached, bytes_placed)``: a cached fabric only resets its
         engines' tick state (placement survives). ``bytes_placed`` counts
         what this build allocated: every engine's cache, and weights copied
-        onto another device (replicas on the weights' own device share
-        them and place nothing)."""
+        onto another device or split over lanes (replicas on the weights'
+        own device share them and place nothing)."""
         if mode in self._fabrics:
             for e in self._fabrics[mode]:
                 e.reset()
             return True, 0
+        # each engine its own LM view: no state of the model object is shared
+        # between controller threads
         if mode is Mode.MERGE:
-            # one device: merge degenerates to a pinned plain engine
-            plan = [(self.model, self.params, self._merge_device(), self.seed)]
+            self._check_merge()
+            if len(self.devices) > 1:
+                # one lane per entry (a stream of its own each): heads, MLP
+                # width and vocabulary split over them
+                info = serving_mesh_info(self.devices)
+                backend = ShardedBackend(info)
+                plan = [(LM(self.model.cfg, mesh_info=info), self.params, backend, self.seed)]
+            else:  # one device: merge degenerates to a pinned plain engine
+                d = self.devices[0]
+                plan = [(LM(self.model.cfg, device=d), self.params, DeviceBackend(d),
+                         self.seed)]
         else:
             plan = []
             for i, d in enumerate(self.devices):
@@ -678,21 +687,15 @@ class ServeCluster:
                     m, p = self.models[self._replica_model[i]]
                 else:
                     m, p = self.model, self.params
-                plan.append((m, p, d, self.seed + i))
+                plan.append((LM(m.cfg, device=d), p, DeviceBackend(d), self.seed + i))
         engines = []
         placed = 0
-        for m, p, d, seed in plan:
-            # each engine its own LM view on its device: no state of the
-            # model object is shared between controller threads
-            eng = ServeEngine(
-                LM(m.cfg, device=d), p, seed=seed, backend=DeviceBackend(d),
-                **self._engine_kw,
-            )
+        for m, p, backend, seed in plan:
+            eng = ServeEngine(m, p, seed=seed, backend=backend, **self._engine_kw)
             engines.append(eng)
             placed += pytree_bytes(eng.cache) + _new_bytes(eng.params, p)
-        for d in dict.fromkeys(e.device for e in engines):
-            if d.type == "cuda":
-                torch.cuda.synchronize(d)
+        for e in engines:
+            e.backend.synchronize()
         self._fabrics[mode] = engines
         return False, placed
 
@@ -837,7 +840,7 @@ class ServeCluster:
         if mode is Mode.MERGE:
             # refuse BEFORE draining queues — a failed fabric build after
             # the collect loop below would strand the carried requests
-            self._merge_device()
+            self._check_merge()
         carried: list[Request] = []
         routed = self.mode is not Mode.MERGE  # split queues went through JSQ
         for idx, e in enumerate(self.engines):
@@ -1283,8 +1286,8 @@ class ServeCluster:
             warm = self._other_mode(self.mode) in self._fabrics
             decision = ctl.observe(sample, warm_target=warm)
             if decision is not None and decision.mode is Mode.MERGE and not self._can_merge():
-                # un-mergeable (pinned models, a repeated device, distinct
-                # devices without tensor parallelism): the fabric stays split
+                # un-mergeable (pinned models, or what the merged engine does
+                # not take): the fabric stays split
                 decision = None
             if decision is not None and decision.mode is not self.mode:
                 self._sync_rehomed()

@@ -100,11 +100,17 @@ is updated in place (the JAX engine donates it).
 
 Placement goes through a backend (``serve/backend.py``): ``device=d`` is the
 shorthand for ``DeviceBackend(d)``, which on a CUDA device queues every
-dispatch and host copy of the engine on a stream of its own. The cluster
-hooks (``serve/cluster.py``): a thread-safe ``cancel``, ``reset``, and
-``run(deadline_s=, on_tick=, gate=)``. Not ported: the tensor-parallel
-placement. The JAX engine's compile counters (``prefill_compiles``) have no
-meaning in an eager engine.
+dispatch and host copy of the engine on a stream of its own. A merged
+``LM`` (``LM(cfg, mesh_info=info)`` over two or more lanes) serves through
+a ``ShardedBackend`` over the same lanes (the default for such a model): the
+params and the KV cache split over the lanes, the tick state, the sampler
+and the host uploads on the controller lane, every route as above, both
+tiers, dense or paged KV with prefix reuse at the model dtype, greedy or
+seeded sampling. Quantized KV, int8 weights and speculation are not ported
+under it (``NotImplementedError`` at construction: :func:`check_merged_options`).
+The cluster hooks (``serve/cluster.py``): a thread-safe ``cancel``,
+``reset``, and ``run(deadline_s=, on_tick=, gate=)``. The JAX engine's
+compile counters (``prefill_compiles``) have no meaning in an eager engine.
 """
 
 from __future__ import annotations
@@ -122,7 +128,8 @@ import torch
 from repro_torch.common.utils import pytree_bytes
 from repro_torch.models.model import LM
 from repro_torch.models.quant import quantize_params
-from repro_torch.serve.backend import PlacementBackend, resolve_backend
+from repro_torch.dist.sharding import ShardedTensor
+from repro_torch.serve.backend import PlacementBackend, ShardedBackend, resolve_backend
 from repro_torch.serve.kv_pool import BlockPool, blocks_for
 from repro_torch.serve.prefix_cache import RadixPrefixCache
 from repro_torch.serve.sampling import (
@@ -332,6 +339,19 @@ def _norm_kv_dtype(kv_dtype) -> Optional[torch.dtype]:
     return dt
 
 
+def check_merged_options(kv_dtype=None, weight_dtype=None, speculate=None) -> None:
+    """Raise ``NotImplementedError`` (naming ROADMAP) for the engine options
+    a merged (tensor-parallel) engine does not take: a quantized KV cache,
+    int8 weights, speculation."""
+    why = "under MERGE is not ported (ROADMAP Queue 1 item 7)"
+    if kv_dtype is not None:
+        raise NotImplementedError(f"kv_dtype={kv_dtype!r}: a quantized KV cache {why}")
+    if weight_dtype not in (None, "f32", "float32", torch.float32):
+        raise NotImplementedError(f"weight_dtype={weight_dtype!r}: int8 weights {why}")
+    if speculate not in (None, False, "off"):
+        raise NotImplementedError(f"speculate={speculate!r}: speculative decoding {why}")
+
+
 def _bucket_len(s: int, max_len: int) -> int:
     """Next power of two >= s, capped at max_len (fused-admission buckets)."""
     b = 1
@@ -394,10 +414,15 @@ class ServeEngine:
         # every host -> device crossing goes through the backend; device=d is
         # the shorthand for DeviceBackend(d) (None: the card), which on a
         # CUDA device queues the engine's work on a stream of its own
-        self.backend = resolve_backend(backend, device)
+        self.backend = resolve_backend(backend, device, model)
         self.device = self.backend.device
         if model.device != self.device:
             raise ValueError(f"model lives on {model.device}, engine on {self.device}")
+        if model.merged:
+            check_merged_options(kv_dtype, weight_dtype, speculate)
+            if (not isinstance(self.backend, ShardedBackend)
+                    or self.backend.lanes != model.mesh_info.mesh.lanes):
+                raise ValueError("a merged LM serves through a ShardedBackend over its lanes")
         with self.backend.scope():
             self._setup(model, params, batch_slots, max_len, seed, unified, prefill_budget,
                         max_chunk, kv_block_size, num_blocks, prefix_cache, speculate,
@@ -483,8 +508,8 @@ class ServeEngine:
             self.prefix = RadixPrefixCache(self.pool, self.kv_block_size) if prefix_cache else None
             # num_blocks + 1 blocks: the last is the scratch block that takes
             # the writes of sentinel table entries (models.attention)
-            self.cache = model.init_kv_pool(self.num_blocks, self.kv_block_size,
-                                            kv_dtype=self.kv_dtype)
+            self.cache = self.backend.put_cache(model, model.init_kv_pool(
+                self.num_blocks, self.kv_block_size, kv_dtype=self.kv_dtype))
             # one block's bytes over every leaf and layer, measured from the
             # live pool (payloads + scales); the scratch block is not counted
             self.pool.bytes_per_block = sum(
@@ -501,7 +526,8 @@ class ServeEngine:
                 raise ValueError("prefix_cache=True requires kv_block_size")
             self.pool = None
             self.prefix = None
-            self.cache = model.init_cache(batch_slots, max_len, kv_dtype=self.kv_dtype)
+            self.cache = self.backend.put_cache(
+                model, model.init_cache(batch_slots, max_len, kv_dtype=self.kv_dtype))
         self.slot_req: list[Optional[Request]] = [None] * batch_slots
         self.slot_len = np.zeros(batch_slots, np.int32)  # host mirror (counts)
         self.slot_fed = np.zeros(batch_slots, np.int32)  # prompt tokens fed
@@ -715,12 +741,17 @@ class ServeEngine:
     def _insert(self, one_cache: dict, slot: int) -> None:
         """Copy a one-slot cache into every leaf of ``slot`` (axis 1 of each
         leaf: [L, B, ...] or the hybrid's [n_inv, B, ...]), the attention
-        rows up to ``max_len`` included."""
+        rows up to ``max_len`` included; a merged cache lane by lane, each
+        shard on its lane's stream, where the prefill wrote it."""
 
         def walk(dst, src):
             for name, leaf in dst.items():
                 if isinstance(leaf, dict):
                     walk(leaf, src[name])
+                elif isinstance(leaf, ShardedTensor):
+                    for lane, d, s_ in zip(leaf.lanes, leaf.shards, src[name].shards):
+                        with lane.use():
+                            d[:, slot: slot + 1] = s_
                 else:
                     leaf[:, slot: slot + 1] = src[name].to(leaf.dtype)
 
@@ -915,8 +946,7 @@ class ServeEngine:
                 if kk >= self.spec_k:
                     break
                 kk *= 2
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        self.backend.synchronize()  # every lane of a merged engine
 
     def submit(self, req: Request) -> RequestHandle:
         if len(req.prompt) >= self.max_len:

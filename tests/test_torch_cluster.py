@@ -37,7 +37,7 @@ from repro_torch.serve import (
     ServeEngine,
     SwitchDecision,
 )
-from repro_torch.serve.backend import DeviceBackend, PlacementBackend
+from repro_torch.serve.backend import DeviceBackend, PlacementBackend, ShardedBackend
 
 SLOTS, MAX_LEN = 2, 64
 ENGINE = dict(batch_slots=SLOTS, max_len=MAX_LEN)
@@ -225,19 +225,25 @@ def test_cluster_matches_single_engine(world, devices, mode):
 
 
 def test_placement_rules(world):
-    """Merge over a repeated device raises ValueError, over several distinct
-    devices NotImplementedError naming the queued slice; both before any
-    queued request is drained."""
+    """Merge over a repeated device is tensor-parallel serving over two lanes
+    of it (a ShardedBackend, model axis 2), built at construction or by a
+    switch from split that carries a queued request; both serve the JAX
+    engine's streams."""
     m, p = world[0], world[1]
-    with pytest.raises(ValueError, match="more than once"):
-        ServeCluster(m, p, mode=Mode.MERGE, devices=SPLIT2, **ENGINE)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        ServeCluster(m, p, mode="merge", devices=["cpu", "cpu:1"], **ENGINE)
+    cl = ServeCluster(m, p, mode=Mode.MERGE, devices=SPLIT2, **ENGINE)
+    back = cl.engines[0].backend
+    assert isinstance(back, ShardedBackend) and back.mesh_info.model_size == 2
+    assert cl.n_replicas == 1 and cl.engines[0].model.merged
+    for rid in GREEDY:
+        cl.submit(_req(world, rid, max_new=4))
+    cl.run()
+    assert _served(cl) == _ref(world, GREEDY, 4)
     cl = _cluster(world, SPLIT2)
     r = _req(world, 0, max_new=3)
     cl.submit(r)
-    with pytest.raises(ValueError, match="more than once"):
-        cl.reconfigure(Mode.MERGE)
+    rep = cl.reconfigure(Mode.MERGE)
+    assert cl.mode is Mode.MERGE and not rep.cached and rep.bytes_moved > 0
+    assert list(cl.engines[0].waiting) == [r]
     cl.run()
     assert r.generated == _ref(world, [0], 3)[0]
 
@@ -659,19 +665,100 @@ def test_cuda_two_replicas_on_one_card_equal_the_cpu():
 
 
 def test_run_controlled_never_merges_a_repeated_device(world):
-    """Two replicas on one device cannot fuse: a controller demanding MERGE
-    is overruled, the fabric stays split, and every stream is served."""
+    """Two replicas on one device fuse into one engine over two lanes of it:
+    a controller demanding MERGE commits the switch (tensor-parallel over
+    the lanes), and every stream is served as the JAX engine serves it."""
     class MergeHappy:
         interval_s = 0.03
+
+        def __init__(self):
+            self.switched = []
 
         def observe(self, sample, *, warm_target=False):
             return SwitchDecision(mode=Mode.MERGE, predicted_win_s=1.0, switch_cost_s=0.0)
 
         def note_switched(self, t, report=None):
-            raise AssertionError("no switch may commit")
+            self.switched.append(report)
 
     cl = _cluster(world, SPLIT2)
+    ctl = MergeHappy()
     arrivals = [(i * 0.01, _req(world, rid, max_new=5)) for i, rid in enumerate(SAMPLED)]
-    stats = cl.run_controlled(arrivals, controller=MergeHappy())
-    assert cl.mode is Mode.SPLIT and stats.reconfigures == []
+    stats = cl.run_controlled(arrivals, controller=ctl)
+    assert cl.mode is Mode.MERGE and len(stats.reconfigures) == 1 and len(ctl.switched) == 1
+    assert isinstance(cl.engines[0].backend, ShardedBackend)
+    assert cl.engines[0].backend.mesh_info.model_size == 2
     assert _served(cl) == _ref(world, SAMPLED, 5)
+
+
+@pytest.mark.cuda
+def test_cuda_merged_logits_equal_the_single_engine():
+    """The merged LM over [cuda:0, cuda:0] (two lanes, two streams) against
+    the plain LM on the card at f32: prefill, decode and packed logits
+    within 1e-5 of the largest, and its engine's greedy streams equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.dist.sharding import serving_mesh_info
+
+    dev = torch.device("cuda", 0)
+    cfg = get_arch("codeqwen1.5-7b").reduced()
+    m = LM(cfg, device=dev)
+    p = m.init(torch.Generator(device=dev).manual_seed(0))
+    info = serving_mesh_info([dev, dev])
+    mm = LM(cfg, mesh_info=info)
+    sp = ShardedBackend(info).put_params(mm, p)
+    toks = torch.randint(0, cfg.vocab_size, (3, 11), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(1))
+    want, cache = m.prefill(p, {"tokens": toks}, 32)
+    got, scache = mm.prefill(sp, {"tokens": toks}, 32)
+    cur = torch.tensor([11, 7, 0], dtype=torch.int32, device=dev)
+    step = toks[:, -1:]
+    w2, _ = m.decode_step(p, cache, {"tokens": step}, cur)
+    g2, _ = mm.decode_step(sp, scache, {"tokens": step}, cur)
+    for g, w in ((got, want), (g2, w2)):
+        assert (g - w).abs().max() <= 1e-5 * w.abs().max()
+    specs = _specs(cfg.vocab_size)
+    reqs = lambda: [Request(rid=rid, prompt=specs[rid][0],  # noqa: E731
+                            params=SamplingParams(max_new=8)) for rid in GREEDY]
+    eng = ServeEngine(m, p, device=dev, **ENGINE)
+    for r in reqs():
+        eng.submit(r)
+    eng.run()
+    cl = ServeCluster(m, p, mode=Mode.MERGE, devices=[dev, dev], **ENGINE)
+    for r in reqs():
+        cl.submit(r)
+    cl.run()
+    assert _served(cl) == _served_engine(eng)
+
+
+@pytest.mark.cuda
+def test_cuda_two_lanes_keep_split_scratch_apart():
+    """Two lanes of one card run the split decode kernel on their own
+    streams: each (device, stream) has its own ticket counters, and both
+    lanes' outputs equal one stream's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.dist.sharding import serving_mesh_info
+    from repro_torch.kernels import _checks
+    from repro_torch.kernels import decode_attention as dk
+
+    dev = torch.device("cuda", 0)
+    lanes = serving_mesh_info([dev, dev]).mesh.lanes
+    g = torch.Generator(device=dev).manual_seed(2)
+    b, s, kv, hd = 4, 1024, 16, 128
+    q = torch.randn(b, kv, 1, hd, device=dev, generator=g, dtype=torch.bfloat16)
+    k = torch.randn(b, s, kv, hd, device=dev, generator=g, dtype=torch.bfloat16)
+    v = torch.randn(b, s, kv, hd, device=dev, generator=g, dtype=torch.bfloat16)
+    cur = torch.tensor([1000, 513, 64, 1], dtype=torch.int32, device=dev)
+    want = dk.decode_attention(q, k, v, cur, splits=4)
+    outs = []
+    for lane in lanes:  # both lanes at once, each after the inputs exist
+        lane.stream.wait_stream(torch.cuda.current_stream(dev))
+    for _ in range(4):
+        for lane in lanes:
+            with lane.use():
+                outs.append(dk.decode_attention(q, k, v, cur, splits=4))
+    torch.cuda.synchronize(dev)
+    keys = {(dev.index, lane.stream.cuda_stream) for lane in lanes}
+    assert len(keys) == 2 and keys <= set(_checks._tickets)
+    for o in outs:
+        assert torch.equal(o, want)
