@@ -160,8 +160,8 @@ Phases (each raises on failure, so the script exits non-zero):
    cuDNN, the FFT's radix-pass body at its three shapes and the four-step
    rows beside cuFFT.
 9. full width, multi-head latent attention — minicpm3-4b, 62 layers, bf16,
-   random weights from a seed (phase 4's weights freed), phase 4's traffic
-   on its dense latent cache (4 slots x 1024 positions); the latent-MQA
+   random weights from a seed (phase 4's weights freed), 8 of phase 4's
+   prompts (``RIDS8``) on its dense latent cache (4 slots x 1024 positions); the latent-MQA
    kernel's launches between the counts' reset and read, and those of its
    wgmma body, must be > 0 and equal the MLA packed-attention calls, every
    request must finish, and the stream agree with ``LM.prefill``
@@ -202,8 +202,8 @@ Phases (each raises on failure, so the script exits non-zero):
    collectives' device ms); bytes placed and switch seconds printed; then
    the merged weights behind a paged pool with prefix reuse serve 4 of the
    prompts, the paged kernel on both lanes, (c) ``run_controlled`` under
-   ``ReconfigController.for_cluster`` over 4 prompts of 600-700 tokens then
-   12 of 5-40 (decisions printed, not gated; it may commit MERGE over the
+   ``ReconfigController.for_cluster`` over 2 prompts of 600-700 tokens then
+   6 of 5-40 (decisions printed, not gated; it may commit MERGE over the
    two lanes), (d) two replicas with replica
    1's controller stalled 14 s under a 10 s dead_after: exactly one must be
    declared dead and every request finish; each replica's longest iteration
@@ -212,8 +212,8 @@ Phases (each raises on failure, so the script exits non-zero):
    ``LM.prefill`` teacher-forced (greedy: its argmax; seeded: the same
    draw); greedy streams are compared with phase 4's (printed). Prints tok/s,
    TTFT, TPOT and the NVML idle share of each run, and each switch's cost.
-13. (run after phase 9) full width, the mixture-of-experts family on phase
-   4's traffic, each model freed before the next: (a) deepseek-v2-lite-16b
+13. (run after phase 9) full width, the mixture-of-experts family on 8 of
+   phase 4's prompts, each model freed before the next: (a) deepseek-v2-lite-16b
    whole (27 layers, the first dense at ff 10944, 64 routed experts top-6 +
    2 shared at ff 1408, MLA 512 + 64 x 16 heads, bf16, ~31.4 GB of random
    weights from a seed), every pack on the latent-MQA kernel (launches ==
@@ -232,7 +232,7 @@ Phases (each raises on failure, so the script exits non-zero):
    identical runs of (a) and of (b) (4 requests x 16 tokens) must give
    equal streams.
 14. (run after phase 13) full width, the state-space families whole on
-   phase 4's traffic, each model freed before the next: (a)
+   8 of phase 4's prompts, each model freed before the next: (a)
    falcon-mamba-7b (64 Mamba1 layers, d 4096, d_inner 8192, N 16, ~14 GB
    bf16 of random weights from a seed) on the unified engine, packs one slot
    wide, every admission on the pack tier: no attention kernel may launch;
@@ -266,6 +266,23 @@ Phases (each raises on failure, so the script exits non-zero):
    median latency, ``bytes_moved``, GB/s and the bytes copied between
    lanes; (e) ``ring_rs_matmul`` / ``ring_ag_matmul`` over 2 and 4 lanes at
    M = K = N = 4096 f32 against ``torch.matmul``.
+16. (run after phase 15) training on the card (``LM.forward``, ``train/``,
+   ``data/``, ``ckpt/``, ``launch/train.py``, the int8 ring over lanes): (a)
+   codeqwen1.5-7b at full width and 4 of its 32 layers (1.69 B params), bf16,
+   remat per block, chunked attention at 512, batch 2 x 2048 from the
+   corpus, the same batch every step: 2 warm steps, 6 timed at grad_accum 1
+   (wall, tok/s, model TFLOP/s), peak memory, one step profiled (device
+   busy and idle share, kernel time by kind; raises on no device event),
+   forward + backward against the update on CUDA events, 2 steps at
+   grad_accum 2; the loss must be finite and fall; (b) one f32 step of
+   reduced codeqwen1.5-7b and deepseek-v2-lite-16b (MoE aux) on the card
+   against the CPU from one init (loss, aux, lr, grad_norm, params:
+   ``params_close``); (c) an async save at step 3 while step 4 runs, a
+   restore into fresh state, the resumed losses against the straight run's;
+   (d) ``python -m repro_torch.launch.train --reduced`` for 12 steps, then
+   ``--resume`` to 16, each exiting 0; (e) three compressed-DP steps over
+   [cuda:0, cuda:0] against two CPU lanes. No hand-written kernel may launch
+   in phase 16 (every wrapper's counts stay 0).
 11. a ``{"kernels": [...], "to_port": []}`` JSON line (every row of PERF.md's
    kernel table; the decode, ragged, paged, matmul and matmul_q8 rows name the body
    their timed case ran and its launches; paged packs and matmul_q8 at M = 16
@@ -332,10 +349,14 @@ AGREE_FLOOR = 0.5
 # new tokens a request in phases 4, 5, 6, 9, 13 and 14, cut to keep the
 # whole script inside its time
 SERVE_NEW = 16
+# the prompts phases 9, 12, 13 and 14 serve: 8 of phase 4's 12 (its 700-,
+# 513-, 65- and 90-token prompts left out), under their phase-4 rids; cut to
+# keep the whole script inside its time
+RIDS8 = (0, 2, 3, 4, 5, 6, 9, 10)
 # decode steps a profile of decode_step_profile spans (its wall: a chunk of
 # 8 steps); the profiler's parse of each step's ~2,500-7,100 launches takes
 # host time the whole script has to spare
-PROFILE_STEPS = 2
+PROFILE_STEPS = 1
 # phase 2's dense-cache shapes (also timed by scripts/torch_attention_ab.py):
 # 4 slots x 1024 positions; decode at an empty prefix, a non-tile multiple
 # and a full slot; a 64-token pack of 40 prompt tokens of slot 1, 16 of slot
@@ -2800,7 +2821,7 @@ def replica_step_profile(engines, dev, steps: int = 8) -> dict:
 
 # phase 12's traffic: 8 of phase 4's prompts (the 700- and 513-token ones and
 # two others left out), 16 new tokens each
-CLUSTER_RIDS = (0, 2, 3, 4, 5, 6, 9, 10)
+CLUSTER_RIDS = RIDS8
 CLUSTER_NEW = 16
 
 
@@ -2978,7 +2999,7 @@ def full_width_cluster(dev, model, params, phase4: dict, counters, max_len: int 
     two streams, one copy of the weights), (b) a cluster over [cuda:0]
     switching SPLIT -> MERGE once half the requests have arrived and
     switching back warm, (c) ``run_controlled`` under
-    ``ReconfigController.for_cluster`` over 4 long prompts then 12 short
+    ``ReconfigController.for_cluster`` over 2 long prompts then 6 short
     ones (its decisions printed, not gated), (d) two replicas with an
     injected controller stall: exactly one must be declared dead and every
     request finish. In each run the decode, ragged and flash kernels must launch and
@@ -3085,14 +3106,14 @@ def full_width_cluster(dev, model, params, phase4: dict, counters, max_len: int 
     out["merged_paged"] = merged_paged(merged, model, params, dev, counters, reqs[:4])
     del cl, merged
 
-    # (c) the closed control loop over 4 long prompts, then 12 short ones
+    # (c) the closed control loop over 2 long prompts, then 6 short ones
     rng = np.random.default_rng(12)
-    lens = [int(x) for x in rng.integers(600, 701, size=4)] + \
-        [int(x) for x in rng.integers(5, 41, size=12)]
+    lens = [int(x) for x in rng.integers(600, 701, size=2)] + \
+        [int(x) for x in rng.integers(5, 41, size=6)]
     reqs = [Request(rid=100 + i, prompt=rng.integers(0, cfg.vocab_size, size=n).astype(np.int32),
                     tenant="ab"[i % 2], params=SamplingParams(max_new=16))
             for i, n in enumerate(lens)]
-    arrivals = [(0.05 * i if i < 4 else 2.0 + 0.1 * (i - 4), r) for i, r in enumerate(reqs)]
+    arrivals = [(0.05 * i if i < 2 else 2.0 + 0.1 * (i - 2), r) for i, r in enumerate(reqs)]
     cl = ServeCluster(model, params, devices=[dev, dev], **kw)
     cl.prewarm()
     inner = ReconfigController.for_cluster(cl, interval_s=0.5)
@@ -3185,7 +3206,7 @@ def full_width_cluster(dev, model, params, phase4: dict, counters, max_len: int 
 def full_width_mla(dev, counters):
     """Phase 9: minicpm3-4b (multi-head latent attention: latent 256 + rope
     32, 40 heads) at full width and depth, bf16, random weights from a seed,
-    serving phase 4's traffic on its dense latent cache (4 slots x 1024):
+    serving 8 of phase 4's prompts on its dense latent cache (4 slots x 1024):
     fused admissions (the expanded prefill in plain torch), ragged packs (the
     latent-MQA kernel) and decode chunks (the absorbed decode in plain
     torch). The kernel's launches between the counts' reset and read, and
@@ -3210,8 +3231,9 @@ def full_width_mla(dev, counters):
     eng = ServeEngine(model, params, batch_slots=4, max_len=1024, prefill_budget=64)
     eng.prewarm()
     max_new = SERVE_NEW
-    reqs = [Request(rid=i, prompt=p_, params=SamplingParams(max_new=max_new))
-            for i, p_ in enumerate(phase4_prompts(cfg))]
+    prompts = phase4_prompts(cfg)
+    reqs = [Request(rid=i, prompt=prompts[i], params=SamplingParams(max_new=max_new))
+            for i in RIDS8]
     torch.cuda.reset_peak_memory_stats()
     reset_counts(counters)
     mla_mod.packed_calls = 0
@@ -3231,7 +3253,7 @@ def full_width_mla(dev, counters):
     peak = torch.cuda.max_memory_allocated()
     print_stats(stats, f"; peak memory {peak / 2**30:.2f} GiB; KV (latent) "
                 f"{eng.kv_bytes_resident() / 2**20:.1f} MiB")
-    teacher_forced(model, params, reqs[5], dev, "minicpm3-4b dense bf16")
+    teacher_forced(model, params, reqs[RIDS8.index(5)], dev, "minicpm3-4b dense bf16")
     decode_step_profile(eng, cfg, dev, label="minicpm3-4b decode step")
     return launches
 
@@ -3302,8 +3324,8 @@ def pack_vs_plain(model, params, cache, dev, label: str, moe_mod) -> dict:
 
 def moe_serve(dev, model, params, counters, label: str, expect, moe_mod, smi: str,
               **kw) -> tuple[dict, dict, object]:
-    """Phase 4's prompts (4 slots x 1024, prefill_budget 64, 12 greedy
-    requests of 5-700 prompt tokens, ``SERVE_NEW`` new tokens) on a new
+    """8 of phase 4's prompts (``RIDS8``: 4 slots x 1024, prefill_budget 64,
+    greedy requests of 5-300 prompt tokens, ``SERVE_NEW`` new tokens) on a new
     engine; counts set to 0 just before and read just after (``expect`` must have
     launched); the kept share of (token, k) entries per route; every request
     finished and teacher-forced; a decode step profiled with the expert
@@ -3322,8 +3344,9 @@ def moe_serve(dev, model, params, counters, label: str, expect, moe_mod, smi: st
     eng = ServeEngine(model, params, batch_slots=4, max_len=S_MAX, prefill_budget=64, **kw)
     eng.prewarm()
     setup_s = time.perf_counter() - t0
-    reqs = [Request(rid=i, prompt=p_, params=SamplingParams(max_new=max_new))
-            for i, p_ in enumerate(phase4_prompts(cfg))]
+    prompts = phase4_prompts(cfg)
+    reqs = [Request(rid=i, prompt=prompts[i], params=SamplingParams(max_new=max_new))
+            for i in RIDS8]
     kept = moe_kept(moe_mod)
     kept.wrap(eng)
     torch.cuda.reset_peak_memory_stats()
@@ -3359,7 +3382,8 @@ def moe_serve(dev, model, params, counters, label: str, expect, moe_mod, smi: st
 
     m = cfg.moe
     nodrop = LM(replace(cfg, moe=replace(m, capacity_factor=m.n_routed / m.top_k)), device=dev)
-    seq = np.concatenate([reqs[5].prompt, np.asarray(reqs[5].generated, np.int32)])
+    r5 = reqs[RIDS8.index(5)]
+    seq = np.concatenate([r5.prompt, np.asarray(r5.generated, np.int32)])
     whole = moe_kept(moe_mod)
     with whole, torch.no_grad():
         model.prefill(eng.params, {"tokens": torch.from_numpy(seq[None]).to(dev)}, len(seq))
@@ -3367,7 +3391,7 @@ def moe_serve(dev, model, params, counters, label: str, expect, moe_mod, smi: st
     print(f"  {label} LM.prefill of request 5's {len(seq)} tokens in one call at capacity factor "
           f"{m.capacity_factor} keeps {k}/{n} entries ({share:.4f}); the teacher below keeps all")
     out["prefill_kept"] = share
-    out["agreement"] = teacher_forced(nodrop, eng.params, reqs[5], dev, label)
+    out["agreement"] = teacher_forced(nodrop, eng.params, r5, dev, label)
     out["bytes"] = pytree_bytes(eng.params)
     out["floor_ms"] = out["bytes"] / HBM_BYTES_PER_S * 1e3
     out["decode_step"] = decode_step_profile(eng, cfg, dev, f"{label} decode step",
@@ -3507,8 +3531,8 @@ def full_width_moe(dev, counters, smi: str) -> tuple[dict, dict]:
 
 def ssm_serve(dev, model, params, counters, label: str, expect, smi: str,
               floor_bytes: int) -> tuple[dict, dict]:
-    """Phase 4's traffic (4 slots x 1024, prefill_budget 64, 12 greedy
-    requests of 5-700 prompt tokens, ``SERVE_NEW`` new tokens) on a new engine at the
+    """8 of phase 4's prompts (``RIDS8``: 4 slots x 1024, prefill_budget 64,
+    greedy requests of 5-300 prompt tokens, ``SERVE_NEW`` new tokens) on a new engine at the
     family's default tier; counts set to 0 just before and read just after
     (``expect`` must have launched); every request finished and
     teacher-forced; a decode step profiled against the weight-read floor of
@@ -3525,8 +3549,9 @@ def ssm_serve(dev, model, params, counters, label: str, expect, smi: str,
     eng = ServeEngine(model, params, batch_slots=4, max_len=S_MAX, prefill_budget=64)
     eng.prewarm()
     setup_s = time.perf_counter() - t0
-    reqs = [Request(rid=i, prompt=p_, params=SamplingParams(max_new=max_new))
-            for i, p_ in enumerate(phase4_prompts(cfg))]
+    prompts = phase4_prompts(cfg)
+    reqs = [Request(rid=i, prompt=prompts[i], params=SamplingParams(max_new=max_new))
+            for i in RIDS8]
     torch.cuda.reset_peak_memory_stats()
     reset_counts(counters)
     for r in reqs:
@@ -3545,7 +3570,7 @@ def ssm_serve(dev, model, params, counters, label: str, expect, smi: str,
                ttft_p99_ms=stats.ttft_p99 * 1e3, tpot_p50_ms=stats.tpot_p50 * 1e3,
                peak_gib=peak / 2**30, cache_bytes=state, unified=eng.unified,
                bytes=pytree_bytes(eng.params), floor_ms=floor_ms)
-    out["agreement"] = teacher_forced(model, eng.params, reqs[5], dev, label)
+    out["agreement"] = teacher_forced(model, eng.params, reqs[RIDS8.index(5)], dev, label)
     out["decode_step"] = decode_step_profile(eng, cfg, dev, f"{label} decode step",
                                              floor_ms=floor_ms)
     del eng
@@ -4127,6 +4152,396 @@ def full_fabric(dev, counters, smi: str) -> tuple[dict, dict]:
     out["switch"] = fabric_switch(dev, smi)
     out["ring"] = fabric_ring(dev, smi)
     return out, launches
+
+
+# ---------------------------------------------------------------- phase 16
+
+# (a): codeqwen1.5-7b at full width, 4 of its 32 layers, bf16, remat per
+# block, chunked attention at 512; batch 2 x 2048 from the corpus, the same
+# batch every step (the loss must fall on it); 2 warm steps, 6 timed at
+# grad_accum 1, 2 at grad_accum 2
+TRAIN_LAYERS = 4
+TRAIN_B, TRAIN_S = 2, 2048
+TRAIN_WARM, TRAIN_TIMED, TRAIN_ACCUM_STEPS = 2, 6, 2
+# (b), (e): one f32 step (three for (e)) of a reduced config on the card
+# against the CPU from the same params. Loss, aux and the learning rate: f32
+# sums in other orders, 1e-5 relative. grad_norm: 1e-4 relative (the same
+# sums, squared and added over every leaf). Params: ``params_close``.
+TRAIN_REL_TOL = 1e-5
+TRAIN_NORM_TOL = 1e-4
+TRAIN_LR = 1e-3
+
+
+def kernel_launch_counts() -> dict:
+    """Every launch counter of every hand-written kernel's wrapper: a
+    training run must leave them all at 0."""
+    from repro_torch.kernels import (axpy, conv2d, decode_attention, dotp, fft,
+                                     flash_attention, matmul, mla_attention,
+                                     paged_attention, ragged_attention, rmsnorm, softmax)
+
+    mods = (axpy, conv2d, decode_attention, dotp, fft, flash_attention, matmul, mla_attention,
+            paged_attention, ragged_attention, rmsnorm, softmax)
+    return {f"{m.__name__.split('.')[-1]}.{a}": (m, a) for m in mods for a in dir(m)
+            if a.startswith("launches") and isinstance(getattr(m, a), int)}
+
+
+def params_close(got, want, lr: float, steps: int, label: str) -> dict:
+    """Params after ``steps`` AdamW steps on the card against the CPU's.
+    Each element moves about lr a step; an element whose gradient is
+    rounding noise (the two devices sum in other orders) may take its step
+    with either sign, so a difference up to 2 · lr · steps is possible
+    there. Elements within 1e-6 of their leaf's scale hold; the rest must
+    be under 2% of all and within 2 · lr · steps."""
+    from repro_torch.common.tree import leaves
+
+    n_off = n = 0
+    worst = 0.0
+    for a, b in zip(leaves(got), leaves(want), strict=True):
+        d = (a.detach().float().cpu() - b.detach().float().cpu()).abs()
+        n_off += int((d > 1e-6 * max(float(b.abs().max()), 1.0)).sum())
+        n += d.numel()
+        worst = max(worst, float(d.max()))
+    res = dict(max_abs=worst, off_share=n_off / n)
+    if worst > 2 * lr * steps or n_off > 0.02 * n:
+        raise AssertionError(f"{label}: params off the CPU's: {res}")
+    return res
+
+
+def metrics_close(got: dict, want: dict, label: str, norm_tol: float = TRAIN_NORM_TOL) -> None:
+    for k in ("loss", "aux", "lr", "grad_norm"):
+        a, b = float(got[k]), float(want[k])
+        tol = norm_tol if k == "grad_norm" else TRAIN_REL_TOL
+        if abs(a - b) > tol * abs(b) + 1e-7:
+            raise AssertionError(f"{label}: {k} {a} on the card, {b} on the CPU")
+
+
+def train_step_profile(step_fn, state, batch, wall_ms: float, label: str) -> dict:
+    """One train step under the profiler: the device's busy time (kernel
+    time) against ``wall_ms`` (the timed steps' median)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        state[0], state[1], _ = step_fn(state[0], state[1], batch)
+        torch.cuda.synchronize()
+    kernels = [(e.self_device_time_total, e.count, e.key) for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    if not kernels:
+        raise AssertionError(f"{label}: the profiler recorded no device event")
+    busy_ms = sum(r[0] for r in kernels) / 1e3
+    n = sum(r[1] for r in kernels)
+    # kernel time by kind, from the kernels' names
+    kinds = {"gemm": 0.0, "elementwise": 0.0, "reduce": 0.0, "other": 0.0}
+    for us, _, key in kernels:
+        k = key.lower()
+        kind = ("gemm" if any(w in k for w in ("gemm", "nvjet", "xmma", "cutlass", "cublas"))
+                else "elementwise" if "elementwise" in k else "reduce" if "reduce" in k
+                else "other")
+        kinds[kind] += us / 1e3
+    print(f"  {label}: device busy {busy_ms:.1f} ms of a {wall_ms:.1f} ms step (idle share "
+          f"{1 - busy_ms / wall_ms:.3f}), {n} kernels; by kind (ms) "
+          f"{ {k: round(v, 1) for k, v in kinds.items()} }")
+    for us, cnt, key in sorted(kernels, reverse=True)[:8]:
+        print(f"    {us / 1e3:8.2f} ms  {cnt:5d} calls  {key[:80]}")
+    return dict(busy_ms=busy_ms, idle_share=1 - busy_ms / wall_ms, kernels=n, kinds_ms=kinds,
+                top=[(key[:60], us / 1e3) for us, _, key in sorted(kernels, reverse=True)[:5]])
+
+
+def train_full_width(dev, smi: str) -> dict:
+    """(a) full-width codeqwen1.5-7b at 4 layers: step wall, tokens/s, peak
+    memory, idle share and model TFLOP/s, the loss falling on one batch."""
+    import torch
+
+    from repro_torch.configs import TrainConfig, get_arch
+    from repro_torch.data import DataConfig, SyntheticCorpus
+    from repro_torch.models import LM
+    from repro_torch.train import (adamw_init, adamw_update, make_loss_fn, make_train_step,
+                                   value_and_grad, warmup_cosine)
+
+    cfg = replace(get_arch("codeqwen1.5-7b"), n_layers=TRAIN_LAYERS)
+    t0 = time.perf_counter()
+    model = LM(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    opt = adamw_init(params)
+    corpus = SyntheticCorpus(DataConfig(cfg.vocab_size, TRAIN_S, TRAIN_B, seed=0))
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in corpus.batch(0).items()}
+    torch.cuda.synchronize()
+    n_params = cfg.num_params()
+    tokens = TRAIN_B * TRAIN_S
+    # 6·N·tokens over the matmul params (the input table is a gather), plus
+    # attention's QK^T and PV at every score (the chunked path masks, it
+    # does not skip): 3 x 4·B·S²·H·hd a layer
+    n_mm = n_params - cfg.vocab_size * cfg.d_model
+    flops = 6 * n_mm * tokens + 12 * cfg.n_layers * TRAIN_B * TRAIN_S ** 2 * cfg.n_heads \
+        * cfg.head_dim
+    print(f"  {cfg.name} at {cfg.n_layers} of 32 layers: {n_params / 1e9:.3f}B params, "
+          f"{cfg.dtype}, remat {cfg.remat}, {cfg.attn_impl} attention at {cfg.attn_chunk}, "
+          f"batch {TRAIN_B} x {TRAIN_S}; init {time.perf_counter() - t0:.1f} s; "
+          f"{flops / 1e12:.2f} TFLOP a step (model)")
+    tcfg = TrainConfig(lr=3e-4, warmup_steps=TRAIN_WARM, total_steps=100)
+    step = make_train_step(model, tcfg)
+    state = [params, opt]
+
+    def run(fn, label):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state[0], state[1], m = fn(state[0], state[1], batch)
+        loss = float(m["loss"])  # waits for the step
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        print(f"  {label}: {ms:8.1f} ms, {tokens / ms * 1e3:9.0f} tok/s, "
+              f"{flops / ms / 1e9:6.1f} TFLOP/s, loss {loss:.4f} gnorm "
+              f"{float(m['grad_norm']):.3f} lr {float(m['lr']):.2e}", flush=True)
+        return ms, loss
+
+    for i in range(TRAIN_WARM):
+        run(step, f"warm step {i + 1}")
+    torch.cuda.reset_peak_memory_stats(dev)
+    timed = [run(step, f"step {TRAIN_WARM + i + 1}") for i in range(TRAIN_TIMED)]
+    peak1 = torch.cuda.max_memory_allocated(dev)
+    losses = [loss for _, loss in timed]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"phase 16 (a): the loss did not fall on one batch: {losses}")
+    walls = sorted(ms for ms, _ in timed)
+    wall = walls[len(walls) // 2]
+    prof = train_step_profile(step, state, batch, wall, "one step at grad_accum 1")
+    # the step's two parts on the device's clock: forward + backward, the update
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ev[0].record()
+    _, grads = value_and_grad(make_loss_fn(model), state[0], batch)
+    ev[1].record()
+    adamw_update(grads, state[1], state[0], tcfg, warmup_cosine(tcfg))
+    ev[2].record()
+    torch.cuda.synchronize()
+    del grads
+    parts = dict(fwd_bwd_ms=ev[0].elapsed_time(ev[1]), update_ms=ev[1].elapsed_time(ev[2]))
+    print(f"  forward + backward {parts['fwd_bwd_ms']:.1f} ms, AdamW update "
+          f"{parts['update_ms']:.1f} ms (CUDA events)")
+    step2 = make_train_step(model, replace(tcfg, grad_accum=2))
+    torch.cuda.reset_peak_memory_stats(dev)
+    accum = [run(step2, f"grad_accum 2 step {i + 1}") for i in range(TRAIN_ACCUM_STEPS)]
+    peak2 = torch.cuda.max_memory_allocated(dev)
+    wall2 = min(ms for ms, _ in accum)
+    out = dict(model=cfg.name, layers=cfg.n_layers, params=n_params, batch=TRAIN_B,
+               seq=TRAIN_S, dtype=cfg.dtype, flops_per_step=flops, step_ms=[ms for ms, _ in timed],
+               median_ms=wall, tok_s=tokens / wall * 1e3, tflops=flops / wall / 1e9,
+               peak_gb=peak1 / 1e9, losses=losses, idle_share=prof["idle_share"],
+               busy_ms=prof["busy_ms"], kernels_per_step=prof["kernels"], top=prof["top"],
+               kinds_ms=prof["kinds_ms"], **parts,
+               accum2_ms=[ms for ms, _ in accum], accum2_tok_s=tokens / wall2 * 1e3,
+               accum2_peak_gb=peak2 / 1e9, card=smi)
+    print(f"  ({smi}) median step {wall:.1f} ms: {out['tok_s']:.0f} tok/s, "
+          f"{out['tflops']:.1f} model TFLOP/s, peak {out['peak_gb']:.2f} GB (grad_accum 2: "
+          f"{wall2:.1f} ms, peak {out['accum2_peak_gb']:.2f} GB); idle share "
+          f"{prof['idle_share']:.3f}; losses {[round(x, 4) for x in losses]}")
+    del state, params, opt, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def tree_to(tree, dev):
+    from repro_torch.common.tree import tree_map
+
+    return tree_map(lambda t: t.to(dev, copy=True), tree)
+
+
+def _reduced_pair(name: str, dev):
+    """(model on the card, model on the CPU, params on each: one init)."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import LM
+
+    cfg = get_arch(name).reduced()
+    cpu = LM(cfg, device="cpu")
+    p_cpu = cpu.init(torch.Generator().manual_seed(1))
+    return LM(cfg, device=dev), cpu, tree_to(p_cpu, dev), p_cpu
+
+
+def train_parity(dev) -> dict:
+    """(b) one f32 train step of reduced codeqwen1.5-7b and reduced
+    deepseek-v2-lite-16b (MoE aux) on the card against the CPU."""
+    import torch
+
+    from repro_torch.configs import TrainConfig
+    from repro_torch.data import DataConfig, SyntheticCorpus
+    from repro_torch.train import adamw_init, make_train_step
+
+    out = {}
+    tcfg = TrainConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=10)
+    for name in ("codeqwen1.5-7b", "deepseek-v2-lite-16b"):
+        m_dev, m_cpu, p_dev, p_cpu = _reduced_pair(name, dev)
+        batch = SyntheticCorpus(DataConfig(m_cpu.cfg.vocab_size, 64, 4, seed=3)).batch(0)
+        res = []
+        for model, p, d in ((m_dev, p_dev, dev), (m_cpu, p_cpu, "cpu")):
+            b = {k: torch.from_numpy(v).to(d) for k, v in batch.items()}
+            p, _, m = make_train_step(model, tcfg)(p, adamw_init(p), b)
+            res.append((p, m))
+        (pd, md), (pc, mc) = res
+        metrics_close(md, mc, f"phase 16 (b) {name}")
+        close = params_close(pd, pc, TRAIN_LR, 1, f"phase 16 (b) {name}")
+        out[name] = dict(loss=float(md["loss"]), loss_cpu=float(mc["loss"]),
+                         aux=float(md["aux"]), aux_cpu=float(mc["aux"]),
+                         grad_norm=float(md["grad_norm"]), grad_norm_cpu=float(mc["grad_norm"]),
+                         **close)
+        print(f"  {name} reduced f32, one step, card vs CPU: {out[name]}")
+    return out
+
+
+def train_checkpoint(dev) -> dict:
+    """(c) an async save at step 3 while step 4 runs, a restore into fresh
+    state, and the resumed losses against the straight run's."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.ckpt import Checkpointer
+    from repro_torch.configs import TrainConfig
+    from repro_torch.data import DataConfig, SyntheticCorpus
+    from repro_torch.train import adamw_init, make_train_step
+
+    model, _, params, p_cpu = _reduced_pair("codeqwen1.5-7b", dev)
+    corpus = SyntheticCorpus(DataConfig(model.cfg.vocab_size, 64, 4, seed=4))
+    batch = lambda i: {k: torch.from_numpy(v).to(dev) for k, v in corpus.batch(i).items()}
+    step = make_train_step(model, TrainConfig(lr=TRAIN_LR, warmup_steps=2, total_steps=6))
+    d = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        ck = Checkpointer(d)
+        opt = adamw_init(params)
+        straight, handle, writing = [], None, None
+        for i in range(6):
+            params, opt, m = step(params, opt, batch(i))
+            straight.append(float(m["loss"]))
+            if i == 2:
+                handle = ck.save(3, (params, opt))  # snapshot taken; written while step 4 runs
+            elif i == 3:
+                writing = handle.thread.is_alive()
+        handle.wait()
+        fresh = p_cpu  # any state of the right structure
+        (params, opt), at = ck.restore((tree_to(fresh, dev), adamw_init(tree_to(fresh, dev))))
+        resumed = []
+        for i in range(at, 6):
+            params, opt, m = step(params, opt, batch(i))
+            resumed.append(float(m["loss"]))
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    worst = max(abs(a - b) / abs(b) for a, b in zip(resumed, straight[3:]))
+    print(f"  straight {straight}; resumed from step {at}: {resumed} (max rel diff "
+          f"{worst:.2e}; the writer still busy when step 4 ended: {writing})")
+    if at != 3 or worst > TRAIN_REL_TOL:
+        raise AssertionError(f"phase 16 (c): resumed {resumed} vs straight {straight[3:]}")
+    return dict(straight=straight, resumed=resumed, max_rel=worst, writer_overlapped=writing)
+
+
+def train_launcher() -> dict:
+    """(d) ``python -m repro_torch.launch.train`` on the card, then
+    ``--resume`` to 16 steps: both exit 0, the second resumes at 12."""
+    import os
+    import shutil
+    import tempfile
+
+    d = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    base = [sys.executable, "-m", "repro_torch.launch.train", "--arch", "codeqwen1.5-7b",
+            "--reduced", "--batch", "4", "--seq", "64", "--ckpt-dir", d, "--log-every", "4"]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = {}
+    try:
+        for label, extra in (("run", ["--steps", "12"]), ("resume", ["--steps", "16", "--resume"])):
+            t = time.perf_counter()
+            r = subprocess.run(base + extra, env=env, capture_output=True, text=True, timeout=300)
+            secs = time.perf_counter() - t
+            print(f"  launch.train {label} (exit {r.returncode}, {secs:.1f} s):")
+            for line in r.stdout.strip().splitlines():
+                print(f"    {line}")
+            if r.returncode != 0:
+                raise AssertionError(f"phase 16 (d): launch.train {label} failed:\n{r.stderr[-3000:]}")
+            out[label] = dict(seconds=secs, last=r.stdout.strip().splitlines()[-2])
+        if "resumed from step 12" not in r.stdout:
+            raise AssertionError("phase 16 (d): the second run did not resume at step 12")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    return out
+
+
+def train_compressed_dp(dev) -> dict:
+    """(e) three compressed-DP steps over the lanes [cuda:0, cuda:0] against
+    the same over two CPU lanes, reduced codeqwen1.5-7b, f32."""
+    import torch
+
+    from repro_torch.common.tree import leaves, tree_map
+    from repro_torch.configs import TrainConfig
+    from repro_torch.data import DataConfig, SyntheticCorpus
+    from repro_torch.dist.sharding import Mesh, NamedSharding, P, device_put, gather, lanes_for
+    from repro_torch.train import AdamWState, adamw_init, make_compressed_dp_train_step
+
+    m_dev, m_cpu, _, p_cpu = _reduced_pair("codeqwen1.5-7b", dev)
+    corpus = SyntheticCorpus(DataConfig(m_cpu.cfg.vocab_size, 64, 4, seed=6))
+    tcfg = TrainConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=10)
+    runs = {}
+    for label, model, devices in (("card", m_dev, [dev, dev]), ("cpu", m_cpu, ["cpu", "cpu"])):
+        mesh = Mesh(lanes_for(devices), ("data",))
+        rep = NamedSharding(mesh, P())
+        o = adamw_init(p_cpu)
+        params = device_put(p_cpu, rep)
+        opt = AdamWState(device_put(o.step, rep), device_put(o.mu, rep), device_put(o.nu, rep))
+        ef = device_put(o.mu, rep)
+        step = make_compressed_dp_train_step(model, tcfg, mesh)
+        ms = []
+        for i in range(3):
+            params, opt, ef, m = step(params, opt, ef, corpus.batch(i))
+            ms.append({k: float(v) for k, v in m.items()})
+        lanes_equal = all(torch.equal(leaf.shards[0], leaf.shards[1]) for leaf in leaves(params))
+        runs[label] = (tree_map(gather, params), ms, lanes_equal)
+    (pd, md, eq_d), (pc, mc, _) = runs["card"], runs["cpu"]
+    if not eq_d:
+        raise AssertionError("phase 16 (e): the two lanes' params differ")
+    for a, b in zip(md, mc):  # the int8 ring: grad_norm to the quantum's share
+        metrics_close(a, b, "phase 16 (e)", norm_tol=1e-3)
+    close = params_close(pd, pc, TRAIN_LR, 3, "phase 16 (e)")
+    print(f"  3 steps over [cuda:0, cuda:0] vs two CPU lanes: losses {[m['loss'] for m in md]} "
+          f"vs {[m['loss'] for m in mc]}; params {close}")
+    return dict(losses=[m["loss"] for m in md], losses_cpu=[m["loss"] for m in mc], **close)
+
+
+def full_training(dev, smi: str) -> dict:
+    """Phase 16: training on the card, (a)-(e). No hand-written kernel may
+    launch in the process while it runs (the launcher runs in its own)."""
+    counts = kernel_launch_counts()
+    reset_counts(counts)
+    out = {}
+    for key, label, fn in (("full_width", "(a) full width", lambda: train_full_width(dev, smi)),
+                           ("parity", "(b) card vs CPU", lambda: train_parity(dev)),
+                           ("checkpoint", "(c) checkpoint", lambda: train_checkpoint(dev)),
+                           ("launcher", "(d) launch.train", train_launcher),
+                           ("compressed_dp", "(e) compressed DP over lanes",
+                            lambda: train_compressed_dp(dev))):
+        t = time.perf_counter()
+        print(f"  -- {label}", flush=True)
+        out[key] = fn()
+        out[key + "_seconds"] = time.perf_counter() - t
+    launched = {k: getattr(m, a) for k, (m, a) in counts.items() if getattr(m, a)}
+    print(f"  kernel launches during phase 16: {launched or 'none'}")
+    if launched:
+        raise AssertionError(f"phase 16: the training path launched kernels: {launched}")
+    return out
+
+
+def train_alone() -> int:
+    """Phase 16 alone, after the card check (no kernel build: the training
+    path launches none); prints the ``{"train": ...}`` line.
+
+        python3 -c "import sys, chip_smoke; sys.exit(chip_smoke.train_alone())"
+    """
+    setup = card_setup()
+    if setup is None:
+        return 1
+    dev, smi = setup
+    phase("16 training on the card")
+    print(json.dumps({"train": full_training(dev, smi)}, default=float))
+    phase("done")
+    return 0
 
 
 # ----------------------------------------------------------------- phase 7
@@ -4971,6 +5386,9 @@ def main() -> int:
     phase("15 the split/merge fabric over lanes of one card")
     fabric, fabric_launches = full_fabric(dev, fabric_counters(), smi)
     print(json.dumps({"fabric": fabric}, default=float))
+
+    phase("16 training on the card")
+    print(json.dumps({"train": full_training(dev, smi)}, default=float))
 
     phase("11 the kernel table")
     # the pl.pallas_call line of each TPU kernel, as in PERF.md's kernel table

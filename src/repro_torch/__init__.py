@@ -1,13 +1,16 @@
-"""PyTorch/CUDA port of the serving stack, beside the JAX package ``repro``.
+"""PyTorch/CUDA port of the serving stack and of training, beside the JAX
+package ``repro``.
 
 The module layout mirrors ``repro`` (``configs``, ``kernels``, ``models``,
-``serve``) so each counterpart is easy to find. The port imports ``torch``,
-``numpy`` and the standard library only — never JAX, never ``repro``.
+``serve``, ``train``, ``data``, ``ckpt``, ...) so each counterpart is easy
+to find. The port imports ``torch``, ``numpy`` and the standard library
+only — never JAX, never ``repro``.
 
-Entry points (``LM``, ``ServeEngine``, ``params_from_jax``) run on the CUDA
-device unless the caller passes ``device="cpu"``; without a CUDA device they
-raise instead of falling back. On the CPU every kernel call routes to its
-plain PyTorch version in :mod:`repro_torch.kernels.ref`.
+Entry points (``LM``, ``ServeEngine``, ``params_from_jax``, the data loader,
+the launchers) run on the CUDA device unless the caller passes
+``device="cpu"``; without a CUDA device they raise instead of falling back.
+On the CPU every kernel call routes to its plain PyTorch version in
+:mod:`repro_torch.kernels.ref`.
 """
 
 from __future__ import annotations

@@ -8,8 +8,11 @@ latent attention (``mla``), ssm (a Mamba1 stack) and hybrid (a Mamba2 stack
 with one weight-tied attention + MLP block every ``shared_attn_every``
 layers). ``reduced()``, ``num_params()`` and ``num_active_params()`` keep
 the JAX package's rules, which is what lets the tests hand the same reduced
-config to both packages. The JAX package's input shapes and training
-hyperparameters are not carried.
+config to both packages. The runtime knobs ``attn_impl``, ``attn_chunk`` and
+``remat`` are the JAX package's too (the training forward reads them); so
+are the input-shape cells (:class:`ShapeConfig` in :data:`SHAPES`, with
+``applicable`` and ``all_cells``) and the training hyperparameters
+(:class:`TrainConfig`).
 """
 
 from __future__ import annotations
@@ -56,6 +59,22 @@ class SSMConfig:
 
 
 @dataclass(frozen=True)
+class ShapeConfig:
+    """One input-shape cell: a sequence length, a global batch and a kind."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # 'train' | 'prefill' | 'decode'
+
+    @property
+    def tokens_per_step(self) -> int:
+        if self.kind == "decode":
+            return self.global_batch  # one new token per sequence
+        return self.seq_len * self.global_batch
+
+
+@dataclass(frozen=True)
 class ArchConfig:
     name: str
     family: str  # 'dense' | 'moe' | 'ssm' | 'hybrid'
@@ -83,13 +102,23 @@ class ArchConfig:
     mla: Optional[MLAConfig] = None
     ssm: Optional[SSMConfig] = None
 
+    # runtime knobs (not architecture identity)
     dtype: str = "bfloat16"  # weights and KV cache
+    attn_impl: str = "chunked"  # training forward: 'dense' | 'chunked' (online softmax)
+    attn_chunk: int = 512  # KV block of chunked attention
+    remat: str = "block"  # 'none' | 'block' (recompute each block in backward)
 
     @property
     def head_dim(self) -> int:
         if self.d_head:
             return self.d_head
         return self.d_model // max(self.n_heads, 1)
+
+    @property
+    def sub_quadratic(self) -> bool:
+        """True if long-context decode (long_500k) is in this arch's regime."""
+        return self.family in ("ssm", "hybrid") or (
+            self.sliding_window > 0 and self.family in ("dense", "moe"))
 
     def _mamba_params(self) -> int:
         """One Mamba block's parameters, its pre-norm included."""
@@ -178,6 +207,7 @@ class ArchConfig:
             kw["n_layers"] = 4
             kw["shared_attn_every"] = 2
         kw["dtype"] = "float32"
+        kw["attn_chunk"] = 64
         kw["name"] = self.name + "-reduced"
         return replace(self, **kw)
 
@@ -198,3 +228,54 @@ def get_arch(name: str) -> ArchConfig:
     if name not in ARCHS:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(ARCHS)}")
     return ARCHS[name]
+
+
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", seq_len=4096, global_batch=256, kind="train"),
+    "prefill_32k": ShapeConfig("prefill_32k", seq_len=32768, global_batch=32, kind="prefill"),
+    "decode_32k": ShapeConfig("decode_32k", seq_len=32768, global_batch=128, kind="decode"),
+    "long_500k": ShapeConfig("long_500k", seq_len=524288, global_batch=1, kind="decode"),
+}
+
+
+def get_shape(name: str) -> ShapeConfig:
+    if name not in SHAPES:
+        raise KeyError(f"unknown shape {name!r}; known: {sorted(SHAPES)}")
+    return SHAPES[name]
+
+
+def applicable(arch: ArchConfig, shape: ShapeConfig) -> bool:
+    """long_500k only for sub-quadratic archs; every arch runs the others."""
+    if shape.name == "long_500k":
+        return arch.sub_quadratic
+    return True
+
+
+def all_cells() -> list[tuple[str, str]]:
+    """Every live (arch, shape) cell under ``applicable``."""
+    import repro_torch.configs  # noqa: F401  (populates the registry)
+
+    return [(aname, sname) for aname in sorted(ARCHS)
+            for sname in ("train_4k", "prefill_32k", "decode_32k", "long_500k")
+            if applicable(ARCHS[aname], SHAPES[sname])]
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Training hyperparameters (runtime, not architecture identity)."""
+
+    lr: float = 3e-4
+    min_lr_ratio: float = 0.1
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    betas: tuple = (0.9, 0.95)
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    grad_accum: int = 1  # microbatch count
+    compress_grads: bool = False  # int8 + error-feedback all-reduce
+    seed: int = 0
+    log_every: int = 10
+    ckpt_every: int = 200
+    ckpt_dir: str = ""  # '' => the launcher's --ckpt-dir
+    ckpt_keep: int = 3

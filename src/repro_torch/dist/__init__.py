@@ -1,11 +1,12 @@
 """Distribution layer of the port: lane meshes, rule-based shardings, ring
-collective matmuls, and the row quantizer of the quantized KV cache.
+collective matmuls, the int8 gradient ring (``compression.ring_allreduce_q8``
+over lanes) and the row quantizer of the quantized KV cache.
 
 This is the substrate the split/merge fabric is built on:
 :class:`repro_torch.dist.sharding.MeshInfo` is the per-mode view object that
 ``SpatzformerCluster.merge_info()`` / ``split_infos()`` hand out, and
 reshard-on-mode-switch is :func:`~repro_torch.dist.sharding.device_put` onto
-shardings produced by the rules here. ``ring_allreduce_q8`` is not ported.
+shardings produced by the rules here.
 """
 
 from repro_torch.dist import collectives, compression, sharding

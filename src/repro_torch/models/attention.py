@@ -1,6 +1,12 @@
-"""Attention for the dense decoder: prefill with K/V capture, one decode step
-against the KV cache, and the packed ragged step (counterparts of
-``repro/models/attention.py``).
+"""Attention for the dense decoder: the training forward, prefill with K/V
+capture, one decode step against the KV cache, and the packed ragged step
+(counterparts of ``repro/models/attention.py``).
+
+The training forward (:func:`attention_apply` without ``return_kv``) attends
+through :func:`dense_attention` or :func:`chunked_attention` (``cfg.attn_impl``)
+in plain torch, as the JAX package keeps its training forward on XLA: a
+hand-written kernel has no backward. Prefill (``return_kv=True``) goes through
+``ops.gqa_flash_attention``.
 
 All three are GQA-native: K/V stay at ``n_kv_heads`` and the kernels group
 query heads ``[.., KV, G, hd]`` without repeating K/V. Weight layouts are
@@ -39,11 +45,14 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.dist import collectives
 from repro_torch.dist.compression import quantize_rows
 from repro_torch.kernels import ops
+from repro_torch.kernels.ref import NEG_INF
 from repro_torch.models.layers import Params, apply_rope, rms_norm
 from repro_torch.models.quant import qmatmul
 
@@ -67,32 +76,141 @@ def _out_proj(params: Params, o: torch.Tensor) -> torch.Tensor:
     return qmatmul(o.reshape(*o.shape[:-2], -1), params["wo"])
 
 
+def _group_q(q: torch.Tensor, kv_heads: int) -> torch.Tensor:
+    """[B, Sq, H, hd] -> [B, Sq, KV, G, hd]: query head h belongs to KV head
+    h // G."""
+    b, sq, h, hd = q.shape
+    return q.reshape(b, sq, kv_heads, h // kv_heads, hd)
+
+
+def _mask(sq: int, kpos: torch.Tensor, *, causal: bool, q_offset, window: int,
+          sk: Optional[int] = None) -> torch.Tensor:
+    """[Sq, len(kpos)] bool: key kpos[j] visible to query i (at absolute
+    position i + q_offset) under ``causal`` and ``window``, and below ``sk``
+    (the keys past it are padding)."""
+    qpos = (torch.arange(sq, device=kpos.device) + q_offset)[:, None]
+    mask = torch.ones((sq, kpos.shape[0]), dtype=torch.bool, device=kpos.device)
+    if causal:
+        mask &= kpos[None, :] <= qpos
+    if window:
+        mask &= kpos[None, :] > qpos - window
+    if sk is not None:
+        mask &= (kpos < sk)[None, :]
+    return mask
+
+
+def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
+                    q_offset=0, window: int = 0) -> torch.Tensor:
+    """Attention over the full score matrix. q: [B, Sq, H, hd], k/v: [B, Sk,
+    KV, hd] with H % KV == 0; the group dim lives inside the einsums (no K/V
+    repeat). ``q_offset`` is q[0]'s absolute position. Scores and softmax in
+    f32, the probabilities cast to v's dtype for P.V, as the JAX function."""
+    b, sq, h, hd = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    scale = hd ** -0.5
+    if kvh == h:  # MHA: flat 4-D einsums
+        scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
+    else:
+        scores = torch.einsum("bqkgd,bskd->bkgqs", _group_q(q, kvh), k).float() * scale
+    mask = _mask(sq, torch.arange(sk, device=q.device), causal=causal, q_offset=q_offset,
+                 window=window)
+    probs = torch.softmax(torch.where(mask, scores, NEG_INF), dim=-1).to(v.dtype)
+    if kvh == h:
+        return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+    return torch.einsum("bkgqs,bskd->bqkgd", probs, v).reshape(b, sq, h, hd)
+
+
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
+                      chunk: int = 512, q_offset=0, window: int = 0) -> torch.Tensor:
+    """Online-softmax attention over KV chunks: never the [Sq, Sk] matrix,
+    one [B, heads..., Sq, chunk] block at a time, carrying the running (max,
+    sum, acc) in f32. Shapes as :func:`dense_attention`; K/V are zero-padded
+    to a whole number of chunks and the padding masked, as the JAX scan
+    does. Under autograd each chunk's body is recomputed in backward
+    (``checkpoint``), so its probability block is not kept, as the JAX body
+    is ``jax.checkpoint``'ed."""
+    b, sq, h, hd = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    pad = -sk % chunk
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+    scale = hd ** -0.5
+    if kvh != h:  # GQA: the group dim inside the einsums
+        qf = _group_q(q, kvh).float()  # [B, Sq, KV, G, hd]
+        qk, pv = "bqkgd,bckd->bkgqc", "bkgqc,bckd->bkgqd"
+        head_shape = (b, kvh, h // kvh)
+    else:  # MHA: flat 4-D einsums
+        qf = q.float()
+        qk, pv = "bqhd,bchd->bhqc", "bhqc,bchd->bhqd"
+        head_shape = (b, h)
+
+    def body(m, l, acc, kci, vci, start: int):
+        scores = torch.einsum(qk, qf, kci.float()) * scale
+        kpos = torch.arange(start, start + chunk, device=q.device)
+        mask = _mask(sq, kpos, causal=causal, q_offset=q_offset, window=window,
+                     sk=sk if pad else None)
+        scores = torch.where(mask, scores, NEG_INF)
+        m_new = torch.maximum(m, scores.amax(dim=-1))
+        p = torch.exp(scores - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l_new = l * corr + p.sum(dim=-1)
+        acc_new = acc * corr[..., None] + torch.einsum(pv, p, vci.float())
+        return m_new, l_new, acc_new
+
+    grad = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
+    m = torch.full((*head_shape, sq), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((*head_shape, sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((*head_shape, sq, hd), dtype=torch.float32, device=q.device)
+    for start in range(0, k.shape[1], chunk):
+        kci, vci = k[:, start:start + chunk], v[:, start:start + chunk]
+        if grad:
+            m, l, acc = checkpoint(body, m, l, acc, kci, vci, start, use_reentrant=False)
+        else:
+            m, l, acc = body(m, l, acc, kci, vci, start)
+    out = acc / torch.clamp_min(l, 1e-30)[..., None]  # [*head, Sq, hd]
+    if kvh != h:
+        out = out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd)
+    else:
+        out = out.transpose(1, 2)
+    return out.to(q.dtype)
+
+
 def attention_apply(
     params: Params, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor,
-    *, return_kv: bool = False,
+    *, impl: Optional[str] = None, return_kv: bool = False,
 ):
-    """Causal self-attention over a full sequence (prefill).
+    """Causal self-attention over a full sequence (training forward and
+    prefill).
 
-    x: [B, S, d]; positions: [S] or [B, S]. With ``return_kv`` also returns
-    the post-RoPE (k, v) [B, S, KV, hd] — the decode cache layout. Attention
-    runs through ``ops.gqa_flash_attention``: the CUDA flash kernel on the
-    card, its plain version on the CPU. A sliding window is not ported (the
-    JAX flash kernel has none either)."""
-    if cfg.sliding_window:
+    x: [B, S, d]; positions: [S] or [B, S]. Without ``return_kv`` (the
+    training forward) attention is :func:`chunked_attention` or
+    :func:`dense_attention` by ``impl`` (default ``cfg.attn_impl``), sliding
+    window included, in plain torch: no kernel, so autograd reaches every
+    op. With ``return_kv`` (prefill) it also returns the post-RoPE (k, v)
+    [B, S, KV, hd] — the decode cache layout — and attention runs through
+    ``ops.gqa_flash_attention``: the CUDA flash kernel on the card, its
+    plain version on the CPU. A sliding window is not ported there (the JAX
+    flash kernel has none either)."""
+    if return_kv and cfg.sliding_window:
         raise NotImplementedError("sliding-window prefill is not ported")
     q, k, v = _project(params, cfg, x)
     if positions.ndim == 1:
         positions = positions[None]
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
+    if not return_kv:
+        if (impl or cfg.attn_impl) == "dense":
+            o = dense_attention(q, k, v, causal=True, window=cfg.sliding_window)
+        else:
+            o = chunked_attention(q, k, v, causal=True, chunk=cfg.attn_chunk,
+                                  window=cfg.sliding_window)
+        return _out_proj(params, o)
     # [B,S,H,hd] -> [B,H,S,hd] / [B,KV,S,hd] for the GQA kernel, and back
     o = ops.gqa_flash_attention(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=True
     ).transpose(1, 2)
-    out = _out_proj(params, o)
-    if return_kv:
-        return out, (k, v)
-    return out
+    return _out_proj(params, o), (k, v)
 
 
 def _scatter_step(cache: torch.Tensor, new: torch.Tensor, cur_len: torch.Tensor) -> torch.Tensor:

@@ -17,9 +17,9 @@ leaves them to XLA. Caches are updated IN PLACE and returned.
 
 Where the work runs: the packed step's attention through
 ``ops.mla_ragged_attention`` (the CUDA latent-MQA kernel on the card, its
-plain version on the CPU); the prefill's expanded attention (qk width nope +
-rope) and the decode step's absorbed attention in plain torch, in f32, as
-the JAX package computes them outside Pallas. ``packed_calls`` counts
+plain version on the CPU); the training forward's and the prefill's expanded
+attention (qk width nope + rope) and the decode step's absorbed attention in
+plain torch, as the JAX package computes them outside Pallas. ``packed_calls`` counts
 :func:`mla_packed`'s calls, so a run can hold the kernel's launches against
 them.
 """
@@ -29,10 +29,12 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import NEG_INF
+from repro_torch.models import attention as attn_mod
 from repro_torch.models.attention import _scatter_pack, _scatter_step
 from repro_torch.models.layers import Params, apply_rope, dense_init, rms_norm
 
@@ -111,11 +113,14 @@ def mla_apply(
     params: Params, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor,
     *, return_kv: bool = False,
 ):
-    """Full-sequence MLA (prefill), expanded form. x: [B, S, d]; positions
-    [S] or [B, S]. With ``return_kv`` also returns (c_kv [B, S, kv_lora],
-    k_rope [B, S, rope]) — the latent cache layout. The causal attention
-    over qk width nope + rope runs in f32 (the JAX package's chunked
-    attention) and is cast back to x's dtype."""
+    """Full-sequence MLA (training forward and prefill), expanded form. x:
+    [B, S, d]; positions [S] or [B, S]. Without ``return_kv`` (the training
+    forward) the causal attention over qk width nope + rope is the JAX
+    function's: ``attention.chunked_attention`` or ``dense_attention`` by
+    ``cfg.attn_impl``, v zero-padded to the qk width and sliced back. With
+    ``return_kv`` (prefill) it runs in f32 over the full score matrix, cast
+    back to x's dtype, and also returns (c_kv [B, S, kv_lora], k_rope [B, S,
+    rope]) — the latent cache layout."""
     m = cfg.mla
     H = cfg.n_heads
     if positions.ndim == 1:
@@ -125,18 +130,22 @@ def mla_apply(
     kv = (c_kv @ params["wkv_b"].reshape(m.kv_lora_rank, -1)).reshape(
         *c_kv.shape[:-1], H, m.nope_head_dim + m.v_head_dim)
     k_nope, v = kv.split([m.nope_head_dim, m.v_head_dim], dim=-1)
-    q = torch.cat([q_nope, q_rope], dim=-1).float()  # [B, S, H, qk]
+    q = torch.cat([q_nope, q_rope], dim=-1)  # [B, S, H, qk]
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(*k_nope.shape[:-1], m.rope_head_dim)],
-                  dim=-1).float()
+                  dim=-1)
+    if not return_kv:
+        v_p = F.pad(v, (0, q.shape[-1] - m.v_head_dim))
+        if cfg.attn_impl == "dense":
+            o = attn_mod.dense_attention(q, k, v_p, causal=True)
+        else:
+            o = attn_mod.chunked_attention(q, k, v_p, causal=True, chunk=cfg.attn_chunk)
+        return _out_proj(params, o[..., :m.v_head_dim])
     s = x.shape[1]
-    scores = torch.einsum("bqhd,bkhd->bhqk", q, k) * _scale(cfg)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * _scale(cfg)
     causal = torch.ones(s, s, dtype=torch.bool, device=x.device).tril()
     probs = torch.softmax(scores.masked_fill(~causal, NEG_INF), dim=-1)
     o = torch.einsum("bhqk,bkhd->bqhd", probs, v.float()).to(x.dtype)
-    out = _out_proj(params, o)
-    if return_kv:
-        return out, (c_kv, k_rope)
-    return out
+    return _out_proj(params, o), (c_kv, k_rope)
 
 
 def mla_packed(

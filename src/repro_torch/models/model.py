@@ -15,7 +15,8 @@ then final norm and unembed. Layer params are stacked on a leading ``L``
 axis as in the JAX package (``params["blocks"]``; an MoE model's
 ``params["dense_blocks"]`` then ``params["moe_blocks"]``; an int8 weight's
 ``{"q8", "scale"}`` sub-dict slices per layer like any leaf), and a Python
-loop over layers replaces ``lax.scan``. It serves prefill
+loop over layers replaces ``lax.scan``. It trains (:meth:`LM.forward`, the
+differentiable full-sequence forward, every family) and serves prefill
 (:meth:`LM.prefill`), one decode step for every slot
 (:meth:`LM.decode_step`) and the packed ragged step of the unified engine
 (:meth:`LM.packed_step`; every family but hybrid).
@@ -51,6 +52,7 @@ from dataclasses import replace
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
@@ -364,6 +366,95 @@ class LM:
 
     def _logits(self, params: Params, x: torch.Tensor) -> torch.Tensor:
         return unembed(params["embed"], rms_norm(x, params["final_norm"], self.cfg.norm_eps))
+
+    # --------------------------------------------------------------- training
+
+    def forward(self, params: Params, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
+        """Full-sequence training forward, every family, differentiable end to
+        end: attention through ``attention_apply`` / ``mla_apply`` without
+        ``return_kv`` (chunked or dense by ``cfg.attn_impl``, plain torch) and
+        no hand-written kernel on the way, as the JAX package keeps its
+        training forward off Pallas.
+
+        batch: {'tokens': [B, S] int} or {'embeds': [B, S, d]} (an audio or
+        vision front end's frames). Returns (logits [B, S, V], aux: the MoE
+        load-balance losses summed over the MoE layers, f32; 0 elsewhere).
+        With ``cfg.remat == 'block'`` each block (a hybrid: each group of
+        ``shared_attn_every`` Mamba2 layers and the shared block after it, as
+        the JAX scan body) is recomputed in backward
+        (``torch.utils.checkpoint``), so only its input is kept. JAX's
+        sequence-parallel and vocab-sharded logits constraints are no-ops on
+        one lane and have no counterpart here."""
+        cfg = self.cfg
+        if self.merged:
+            raise NotImplementedError(
+                f"{cfg.name}: the training forward over lanes (tensor-parallel training) "
+                "is not ported (ROADMAP Queue 1 item 10)")
+        if "embeds" in batch:
+            x = batch["embeds"].to(self.dtype)
+        else:
+            x = embed_tokens(params["embed"], batch["tokens"])
+        positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+        auxs = []
+        if cfg.family in ("dense", "moe"):
+            for name in ("blocks", "dense_blocks", "moe_blocks"):
+                for i in range(_depth(params[name]) if name in params else 0):
+                    blk = _index(params[name], i)
+                    if "moe" in blk:
+                        x, aux = self._remat(self._moe_block, blk, x, positions)
+                        auxs.append(aux)
+                    else:
+                        x = self._remat(self._dense_block, blk, x, positions)
+        elif cfg.family == "ssm":
+            for i in range(cfg.n_layers):
+                x = self._remat(self._mamba_block, _index(params["blocks"], i), x)
+        else:  # hybrid
+            every = cfg.shared_attn_every
+            for g in range(cfg.n_layers // every):
+                group = [_index(params["blocks"], i) for i in range(g * every, (g + 1) * every)]
+                x = self._remat(self._hybrid_group, group, params["shared"], x, positions)
+        aux = (torch.stack(auxs).sum() if auxs
+               else torch.zeros((), dtype=torch.float32, device=x.device))
+        return self._logits(params, x), aux
+
+    def _remat(self, fn, *args):
+        """``fn(*args)``, recomputed in backward under ``cfg.remat == 'block'``
+        (nothing of the block's inside is kept across blocks)."""
+        if self.cfg.remat == "block" and torch.is_grad_enabled():
+            return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+        return fn(*args)
+
+    def _train_attn(self, blk: Params, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+        """x + the block's attention (GQA or MLA) over its pre-norm."""
+        cfg = self.cfg
+        h = rms_norm(x, blk["norm1"], cfg.norm_eps)
+        if cfg.mla is not None:
+            return x + mla_mod.mla_apply(blk["attn"], cfg, h, positions)
+        return x + attn_mod.attention_apply(blk["attn"], cfg, h, positions)
+
+    def _dense_block(self, blk: Params, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+        x = self._train_attn(blk, x, positions)
+        return x + mlp_apply(blk["mlp"], rms_norm(x, blk["norm2"], self.cfg.norm_eps))
+
+    def _moe_block(self, blk: Params, x: torch.Tensor, positions: torch.Tensor
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+        """The attention, then the MoE block over every token of the call
+        (capacity from B·S) with its aux loss."""
+        x = self._train_attn(blk, x, positions)
+        out, aux = moe_mod.moe_apply(blk["moe"], self.cfg,
+                                     rms_norm(x, blk["norm2"], self.cfg.norm_eps), aux=True)
+        return x + out, aux
+
+    def _mamba_block(self, blk: Params, x: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        apply = ssm_mod.block_fns(cfg).apply
+        return x + apply(blk["mamba"], cfg, rms_norm(x, blk["norm"], cfg.norm_eps))
+
+    def _hybrid_group(self, group: list, shared: Params, x: torch.Tensor,
+                      positions: torch.Tensor) -> torch.Tensor:
+        for blk in group:
+            x = self._mamba_block(blk, x)
+        return self._dense_block(shared, x, positions)
 
     # ---------------------------------------------------------------- prefill
 
