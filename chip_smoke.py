@@ -160,8 +160,8 @@ Phases (each raises on failure, so the script exits non-zero):
    cuDNN, the FFT's radix-pass body at its three shapes and the four-step
    rows beside cuFFT.
 9. full width, multi-head latent attention — minicpm3-4b, 62 layers, bf16,
-   random weights from a seed (phase 4's weights freed), 8 of phase 4's
-   prompts (``RIDS8``) on its dense latent cache (4 slots x 1024 positions); the latent-MQA
+   random weights from a seed (phase 4's weights freed), phase 4's traffic
+   on its dense latent cache (4 slots x 1024 positions); the latent-MQA
    kernel's launches between the counts' reset and read, and those of its
    wgmma body, must be > 0 and equal the MLA packed-attention calls, every
    request must finish, and the stream agree with ``LM.prefill``
@@ -202,8 +202,8 @@ Phases (each raises on failure, so the script exits non-zero):
    collectives' device ms); bytes placed and switch seconds printed; then
    the merged weights behind a paged pool with prefix reuse serve 4 of the
    prompts, the paged kernel on both lanes, (c) ``run_controlled`` under
-   ``ReconfigController.for_cluster`` over 2 prompts of 600-700 tokens then
-   6 of 5-40 (decisions printed, not gated; it may commit MERGE over the
+   ``ReconfigController.for_cluster`` over 4 prompts of 600-700 tokens then
+   12 of 5-40 (decisions printed, not gated; it may commit MERGE over the
    two lanes), (d) two replicas with replica
    1's controller stalled 14 s under a 10 s dead_after: exactly one must be
    declared dead and every request finish; each replica's longest iteration
@@ -212,8 +212,8 @@ Phases (each raises on failure, so the script exits non-zero):
    ``LM.prefill`` teacher-forced (greedy: its argmax; seeded: the same
    draw); greedy streams are compared with phase 4's (printed). Prints tok/s,
    TTFT, TPOT and the NVML idle share of each run, and each switch's cost.
-13. (run after phase 9) full width, the mixture-of-experts family on 8 of
-   phase 4's prompts, each model freed before the next: (a) deepseek-v2-lite-16b
+13. (run after phase 9) full width, the mixture-of-experts family on phase
+   4's traffic, each model freed before the next: (a) deepseek-v2-lite-16b
    whole (27 layers, the first dense at ff 10944, 64 routed experts top-6 +
    2 shared at ff 1408, MLA 512 + 64 x 16 heads, bf16, ~31.4 GB of random
    weights from a seed), every pack on the latent-MQA kernel (launches ==
@@ -232,7 +232,7 @@ Phases (each raises on failure, so the script exits non-zero):
    identical runs of (a) and of (b) (4 requests x 16 tokens) must give
    equal streams.
 14. (run after phase 13) full width, the state-space families whole on
-   8 of phase 4's prompts, each model freed before the next: (a)
+   phase 4's traffic, each model freed before the next: (a)
    falcon-mamba-7b (64 Mamba1 layers, d 4096, d_inner 8192, N 16, ~14 GB
    bf16 of random weights from a seed) on the unified engine, packs one slot
    wide, every admission on the pack tier: no attention kernel may launch;
@@ -277,8 +277,10 @@ Phases (each raises on failure, so the script exits non-zero):
    grad_accum 2; the loss must be finite and fall; (b) one f32 step of
    reduced codeqwen1.5-7b and deepseek-v2-lite-16b (MoE aux) on the card
    against the CPU from one init (loss, aux, lr, grad_norm, params:
-   ``params_close``); (c) an async save at step 3 while step 4 runs, a
-   restore into fresh state, the resumed losses against the straight run's;
+   ``params_close``); (c) an async save at step 3 while step 4 runs (reduced
+   codeqwen1.5-7b widened to ~180 MB of state; fails unless the writer is
+   still busy when step 4 ends), a restore into fresh state, the resumed
+   losses against the straight run's;
    (d) ``python -m repro_torch.launch.train --reduced`` for 12 steps, then
    ``--resume`` to 16, each exiting 0; (e) three compressed-DP steps over
    [cuda:0, cuda:0] against two CPU lanes. No hand-written kernel may launch
@@ -349,10 +351,6 @@ AGREE_FLOOR = 0.5
 # new tokens a request in phases 4, 5, 6, 9, 13 and 14, cut to keep the
 # whole script inside its time
 SERVE_NEW = 16
-# the prompts phases 9, 12, 13 and 14 serve: 8 of phase 4's 12 (its 700-,
-# 513-, 65- and 90-token prompts left out), under their phase-4 rids; cut to
-# keep the whole script inside its time
-RIDS8 = (0, 2, 3, 4, 5, 6, 9, 10)
 # decode steps a profile of decode_step_profile spans (its wall: a chunk of
 # 8 steps); the profiler's parse of each step's ~2,500-7,100 launches takes
 # host time the whole script has to spare
@@ -2821,7 +2819,7 @@ def replica_step_profile(engines, dev, steps: int = 8) -> dict:
 
 # phase 12's traffic: 8 of phase 4's prompts (the 700- and 513-token ones and
 # two others left out), 16 new tokens each
-CLUSTER_RIDS = RIDS8
+CLUSTER_RIDS = (0, 2, 3, 4, 5, 6, 9, 10)
 CLUSTER_NEW = 16
 
 
@@ -2999,7 +2997,7 @@ def full_width_cluster(dev, model, params, phase4: dict, counters, max_len: int 
     two streams, one copy of the weights), (b) a cluster over [cuda:0]
     switching SPLIT -> MERGE once half the requests have arrived and
     switching back warm, (c) ``run_controlled`` under
-    ``ReconfigController.for_cluster`` over 2 long prompts then 6 short
+    ``ReconfigController.for_cluster`` over 4 long prompts then 12 short
     ones (its decisions printed, not gated), (d) two replicas with an
     injected controller stall: exactly one must be declared dead and every
     request finish. In each run the decode, ragged and flash kernels must launch and
@@ -3106,14 +3104,14 @@ def full_width_cluster(dev, model, params, phase4: dict, counters, max_len: int 
     out["merged_paged"] = merged_paged(merged, model, params, dev, counters, reqs[:4])
     del cl, merged
 
-    # (c) the closed control loop over 2 long prompts, then 6 short ones
+    # (c) the closed control loop over 4 long prompts, then 12 short ones
     rng = np.random.default_rng(12)
-    lens = [int(x) for x in rng.integers(600, 701, size=2)] + \
-        [int(x) for x in rng.integers(5, 41, size=6)]
+    lens = [int(x) for x in rng.integers(600, 701, size=4)] + \
+        [int(x) for x in rng.integers(5, 41, size=12)]
     reqs = [Request(rid=100 + i, prompt=rng.integers(0, cfg.vocab_size, size=n).astype(np.int32),
                     tenant="ab"[i % 2], params=SamplingParams(max_new=16))
             for i, n in enumerate(lens)]
-    arrivals = [(0.05 * i if i < 2 else 2.0 + 0.1 * (i - 2), r) for i, r in enumerate(reqs)]
+    arrivals = [(0.05 * i if i < 4 else 2.0 + 0.1 * (i - 4), r) for i, r in enumerate(reqs)]
     cl = ServeCluster(model, params, devices=[dev, dev], **kw)
     cl.prewarm()
     inner = ReconfigController.for_cluster(cl, interval_s=0.5)
@@ -3206,7 +3204,7 @@ def full_width_cluster(dev, model, params, phase4: dict, counters, max_len: int 
 def full_width_mla(dev, counters):
     """Phase 9: minicpm3-4b (multi-head latent attention: latent 256 + rope
     32, 40 heads) at full width and depth, bf16, random weights from a seed,
-    serving 8 of phase 4's prompts on its dense latent cache (4 slots x 1024):
+    serving phase 4's traffic on its dense latent cache (4 slots x 1024):
     fused admissions (the expanded prefill in plain torch), ragged packs (the
     latent-MQA kernel) and decode chunks (the absorbed decode in plain
     torch). The kernel's launches between the counts' reset and read, and
@@ -3231,9 +3229,8 @@ def full_width_mla(dev, counters):
     eng = ServeEngine(model, params, batch_slots=4, max_len=1024, prefill_budget=64)
     eng.prewarm()
     max_new = SERVE_NEW
-    prompts = phase4_prompts(cfg)
-    reqs = [Request(rid=i, prompt=prompts[i], params=SamplingParams(max_new=max_new))
-            for i in RIDS8]
+    reqs = [Request(rid=i, prompt=p_, params=SamplingParams(max_new=max_new))
+            for i, p_ in enumerate(phase4_prompts(cfg))]
     torch.cuda.reset_peak_memory_stats()
     reset_counts(counters)
     mla_mod.packed_calls = 0
@@ -3253,7 +3250,7 @@ def full_width_mla(dev, counters):
     peak = torch.cuda.max_memory_allocated()
     print_stats(stats, f"; peak memory {peak / 2**30:.2f} GiB; KV (latent) "
                 f"{eng.kv_bytes_resident() / 2**20:.1f} MiB")
-    teacher_forced(model, params, reqs[RIDS8.index(5)], dev, "minicpm3-4b dense bf16")
+    teacher_forced(model, params, reqs[5], dev, "minicpm3-4b dense bf16")
     decode_step_profile(eng, cfg, dev, label="minicpm3-4b decode step")
     return launches
 
@@ -3324,8 +3321,8 @@ def pack_vs_plain(model, params, cache, dev, label: str, moe_mod) -> dict:
 
 def moe_serve(dev, model, params, counters, label: str, expect, moe_mod, smi: str,
               **kw) -> tuple[dict, dict, object]:
-    """8 of phase 4's prompts (``RIDS8``: 4 slots x 1024, prefill_budget 64,
-    greedy requests of 5-300 prompt tokens, ``SERVE_NEW`` new tokens) on a new
+    """Phase 4's prompts (4 slots x 1024, prefill_budget 64, 12 greedy
+    requests of 5-700 prompt tokens, ``SERVE_NEW`` new tokens) on a new
     engine; counts set to 0 just before and read just after (``expect`` must have
     launched); the kept share of (token, k) entries per route; every request
     finished and teacher-forced; a decode step profiled with the expert
@@ -3344,9 +3341,8 @@ def moe_serve(dev, model, params, counters, label: str, expect, moe_mod, smi: st
     eng = ServeEngine(model, params, batch_slots=4, max_len=S_MAX, prefill_budget=64, **kw)
     eng.prewarm()
     setup_s = time.perf_counter() - t0
-    prompts = phase4_prompts(cfg)
-    reqs = [Request(rid=i, prompt=prompts[i], params=SamplingParams(max_new=max_new))
-            for i in RIDS8]
+    reqs = [Request(rid=i, prompt=p_, params=SamplingParams(max_new=max_new))
+            for i, p_ in enumerate(phase4_prompts(cfg))]
     kept = moe_kept(moe_mod)
     kept.wrap(eng)
     torch.cuda.reset_peak_memory_stats()
@@ -3382,8 +3378,7 @@ def moe_serve(dev, model, params, counters, label: str, expect, moe_mod, smi: st
 
     m = cfg.moe
     nodrop = LM(replace(cfg, moe=replace(m, capacity_factor=m.n_routed / m.top_k)), device=dev)
-    r5 = reqs[RIDS8.index(5)]
-    seq = np.concatenate([r5.prompt, np.asarray(r5.generated, np.int32)])
+    seq = np.concatenate([reqs[5].prompt, np.asarray(reqs[5].generated, np.int32)])
     whole = moe_kept(moe_mod)
     with whole, torch.no_grad():
         model.prefill(eng.params, {"tokens": torch.from_numpy(seq[None]).to(dev)}, len(seq))
@@ -3391,7 +3386,7 @@ def moe_serve(dev, model, params, counters, label: str, expect, moe_mod, smi: st
     print(f"  {label} LM.prefill of request 5's {len(seq)} tokens in one call at capacity factor "
           f"{m.capacity_factor} keeps {k}/{n} entries ({share:.4f}); the teacher below keeps all")
     out["prefill_kept"] = share
-    out["agreement"] = teacher_forced(nodrop, eng.params, r5, dev, label)
+    out["agreement"] = teacher_forced(nodrop, eng.params, reqs[5], dev, label)
     out["bytes"] = pytree_bytes(eng.params)
     out["floor_ms"] = out["bytes"] / HBM_BYTES_PER_S * 1e3
     out["decode_step"] = decode_step_profile(eng, cfg, dev, f"{label} decode step",
@@ -3531,8 +3526,8 @@ def full_width_moe(dev, counters, smi: str) -> tuple[dict, dict]:
 
 def ssm_serve(dev, model, params, counters, label: str, expect, smi: str,
               floor_bytes: int) -> tuple[dict, dict]:
-    """8 of phase 4's prompts (``RIDS8``: 4 slots x 1024, prefill_budget 64,
-    greedy requests of 5-300 prompt tokens, ``SERVE_NEW`` new tokens) on a new engine at the
+    """Phase 4's traffic (4 slots x 1024, prefill_budget 64, 12 greedy
+    requests of 5-700 prompt tokens, ``SERVE_NEW`` new tokens) on a new engine at the
     family's default tier; counts set to 0 just before and read just after
     (``expect`` must have launched); every request finished and
     teacher-forced; a decode step profiled against the weight-read floor of
@@ -3549,9 +3544,8 @@ def ssm_serve(dev, model, params, counters, label: str, expect, smi: str,
     eng = ServeEngine(model, params, batch_slots=4, max_len=S_MAX, prefill_budget=64)
     eng.prewarm()
     setup_s = time.perf_counter() - t0
-    prompts = phase4_prompts(cfg)
-    reqs = [Request(rid=i, prompt=prompts[i], params=SamplingParams(max_new=max_new))
-            for i in RIDS8]
+    reqs = [Request(rid=i, prompt=p_, params=SamplingParams(max_new=max_new))
+            for i, p_ in enumerate(phase4_prompts(cfg))]
     torch.cuda.reset_peak_memory_stats()
     reset_counts(counters)
     for r in reqs:
@@ -3570,7 +3564,7 @@ def ssm_serve(dev, model, params, counters, label: str, expect, smi: str,
                ttft_p99_ms=stats.ttft_p99 * 1e3, tpot_p50_ms=stats.tpot_p50 * 1e3,
                peak_gib=peak / 2**30, cache_bytes=state, unified=eng.unified,
                bytes=pytree_bytes(eng.params), floor_ms=floor_ms)
-    out["agreement"] = teacher_forced(model, eng.params, reqs[RIDS8.index(5)], dev, label)
+    out["agreement"] = teacher_forced(model, eng.params, reqs[5], dev, label)
     out["decode_step"] = decode_step_profile(eng, cfg, dev, f"{label} decode step",
                                              floor_ms=floor_ms)
     del eng
@@ -4170,6 +4164,10 @@ TRAIN_WARM, TRAIN_TIMED, TRAIN_ACCUM_STEPS = 2, 6, 2
 TRAIN_REL_TOL = 1e-5
 TRAIN_NORM_TOL = 1e-4
 TRAIN_LR = 1e-3
+# (c): reduced codeqwen1.5-7b at these widths, f32: 15 M params, ~180 MB
+# of params and moments for the async writer, whose write outlasts a step
+CKPT_WIDTHS = dict(d_model=512, d_ff=1408, vocab_size=8192, n_heads=8, n_kv_heads=8,
+                   d_head=64)
 
 
 def kernel_launch_counts() -> dict:
@@ -4391,18 +4389,25 @@ def train_parity(dev) -> dict:
 
 def train_checkpoint(dev) -> dict:
     """(c) an async save at step 3 while step 4 runs, a restore into fresh
-    state, and the resumed losses against the straight run's."""
+    state, and the resumed losses against the straight run's. The model is
+    reduced codeqwen1.5-7b widened to ``CKPT_WIDTHS`` (f32), so that the
+    writer has ~180 MB to put on disk while step 4 takes milliseconds: the
+    phase fails unless the writer is still alive when step 4 has ended."""
     import shutil
     import tempfile
 
     import torch
 
     from repro_torch.ckpt import Checkpointer
-    from repro_torch.configs import TrainConfig
+    from repro_torch.common import pytree_bytes
+    from repro_torch.configs import TrainConfig, get_arch
     from repro_torch.data import DataConfig, SyntheticCorpus
+    from repro_torch.models import LM
     from repro_torch.train import adamw_init, make_train_step
 
-    model, _, params, p_cpu = _reduced_pair("codeqwen1.5-7b", dev)
+    model = LM(replace(get_arch("codeqwen1.5-7b").reduced(), **CKPT_WIDTHS), device=dev)
+    init = lambda seed: model.init(torch.Generator(device=dev).manual_seed(seed))
+    params = init(1)
     corpus = SyntheticCorpus(DataConfig(model.cfg.vocab_size, 64, 4, seed=4))
     batch = lambda i: {k: torch.from_numpy(v).to(dev) for k, v in corpus.batch(i).items()}
     step = make_train_step(model, TrainConfig(lr=TRAIN_LR, warmup_steps=2, total_steps=6))
@@ -4410,17 +4415,18 @@ def train_checkpoint(dev) -> dict:
     try:
         ck = Checkpointer(d)
         opt = adamw_init(params)
+        nbytes = pytree_bytes((params, opt))
         straight, handle, writing = [], None, None
         for i in range(6):
             params, opt, m = step(params, opt, batch(i))
-            straight.append(float(m["loss"]))
+            straight.append(float(m["loss"]))  # float() waits for the step's end
             if i == 2:
                 handle = ck.save(3, (params, opt))  # snapshot taken; written while step 4 runs
             elif i == 3:
                 writing = handle.thread.is_alive()
         handle.wait()
-        fresh = p_cpu  # any state of the right structure
-        (params, opt), at = ck.restore((tree_to(fresh, dev), adamw_init(tree_to(fresh, dev))))
+        fresh = init(2)  # any state of the right structure
+        (params, opt), at = ck.restore((fresh, adamw_init(fresh)))
         resumed = []
         for i in range(at, 6):
             params, opt, m = step(params, opt, batch(i))
@@ -4428,11 +4434,15 @@ def train_checkpoint(dev) -> dict:
     finally:
         shutil.rmtree(d, ignore_errors=True)
     worst = max(abs(a - b) / abs(b) for a, b in zip(resumed, straight[3:]))
-    print(f"  straight {straight}; resumed from step {at}: {resumed} (max rel diff "
-          f"{worst:.2e}; the writer still busy when step 4 ended: {writing})")
+    print(f"  {nbytes} bytes of state; straight {straight}; resumed from step {at}: {resumed} "
+          f"(max rel diff {worst:.2e}; the writer still busy when step 4 ended: {writing})")
+    if not writing:
+        raise AssertionError("phase 16 (c): the save at step 3 was written before step 4 "
+                             "ended, so it did not overlap step 4")
     if at != 3 or worst > TRAIN_REL_TOL:
         raise AssertionError(f"phase 16 (c): resumed {resumed} vs straight {straight[3:]}")
-    return dict(straight=straight, resumed=resumed, max_rel=worst, writer_overlapped=writing)
+    return dict(state_bytes=nbytes, straight=straight, resumed=resumed, max_rel=worst,
+                writer_overlapped=writing)
 
 
 def train_launcher() -> dict:
@@ -4474,7 +4484,7 @@ def train_compressed_dp(dev) -> dict:
     from repro_torch.configs import TrainConfig
     from repro_torch.data import DataConfig, SyntheticCorpus
     from repro_torch.dist.sharding import Mesh, NamedSharding, P, device_put, gather, lanes_for
-    from repro_torch.train import AdamWState, adamw_init, make_compressed_dp_train_step
+    from repro_torch.train import adamw_init, make_compressed_dp_train_step
 
     m_dev, m_cpu, _, p_cpu = _reduced_pair("codeqwen1.5-7b", dev)
     corpus = SyntheticCorpus(DataConfig(m_cpu.cfg.vocab_size, 64, 4, seed=6))
@@ -4485,7 +4495,7 @@ def train_compressed_dp(dev) -> dict:
         rep = NamedSharding(mesh, P())
         o = adamw_init(p_cpu)
         params = device_put(p_cpu, rep)
-        opt = AdamWState(device_put(o.step, rep), device_put(o.mu, rep), device_put(o.nu, rep))
+        opt = device_put(o, rep)
         ef = device_put(o.mu, rep)
         step = make_compressed_dp_train_step(model, tcfg, mesh)
         ms = []

@@ -37,8 +37,6 @@ from repro_torch.configs import (  # noqa: F401
     zamba2_2p7b,
 )
 
-ARCH_NAMES = tuple(sorted(ARCHS))
-
-__all__ = ["ARCHS", "ARCH_NAMES", "SHAPES", "ArchConfig", "MLAConfig", "MoEConfig",
+__all__ = ["ARCHS", "SHAPES", "ArchConfig", "MLAConfig", "MoEConfig",
            "ShapeConfig", "SSMConfig", "TrainConfig", "all_cells", "applicable", "get_arch",
            "get_shape", "register_arch"]

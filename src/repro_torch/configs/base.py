@@ -273,9 +273,3 @@ class TrainConfig:
     weight_decay: float = 0.1
     grad_clip: float = 1.0
     grad_accum: int = 1  # microbatch count
-    compress_grads: bool = False  # int8 + error-feedback all-reduce
-    seed: int = 0
-    log_every: int = 10
-    ckpt_every: int = 200
-    ckpt_dir: str = ""  # '' => the launcher's --ckpt-dir
-    ckpt_keep: int = 3

@@ -44,6 +44,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.common.tree import keystr, tree_map, tree_map_with_path
 
 MODEL_AXIS = "model"
 
@@ -382,42 +383,14 @@ def gather(x: ShardedTensor, device=None) -> torch.Tensor:
 # =============================================================================
 
 
-def tree_map_with_path(fn, tree: Any, path: tuple = ()) -> Any:
-    """``fn(path, leaf)`` over a nested dict / list / tuple, keeping its
-    structure; ``path`` is the tuple of dict keys and sequence indices."""
-    if isinstance(tree, dict):
-        return {k: tree_map_with_path(fn, v, path + (k,)) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map_with_path(fn, v, path + (i,)) for i, v in enumerate(tree))
-    if tree is None:
-        return None
-    return fn(path, tree)
-
-
-def keystr(path: tuple) -> str:
-    """``jax.tree_util.keystr`` of a dict-and-sequence path:
-    ``"['blocks']['attn']['wk']"``, ``"[0]"``."""
-    return "".join(f"[{k!r}]" for k in path)
-
-
-def _map2(fn, tree: Any, other: Any) -> Any:
-    if isinstance(tree, dict):
-        return {k: _map2(fn, v, other[k]) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_map2(fn, v, o) for v, o in zip(tree, other, strict=True))
-    if tree is None:
-        return None
-    return fn(tree, other)
-
-
 def device_put(tree: Any, shardings: Any) -> Any:
     """Place every leaf of ``tree`` (tensors, numpy arrays or sharded values)
     onto its sharding: ``shardings`` is one :class:`NamedSharding` for every
     leaf or a tree of them of ``tree``'s structure. Returns a tree of
     :class:`ShardedTensor`."""
     if isinstance(shardings, NamedSharding):
-        return tree_map_with_path(lambda _, x: _place(x, shardings), tree)
-    return _map2(_place, tree, shardings)
+        return tree_map(lambda x: _place(x, shardings), tree)
+    return tree_map(_place, tree, shardings)
 
 
 # =============================================================================

@@ -54,8 +54,9 @@ def run_elastic(
     """Generic elastic loop. ``step_fn_factory(info)`` returns ``(state,
     batch, step) -> state`` for the view ``info``; ``make_state(info)``
     builds the starting state on it (called once). The state is a tree of
-    dicts and lists whose leaves have shapes; after a failure it comes back
-    as sharded values on the survivors' view."""
+    dicts, lists and NamedTuples (a training state ``(params, AdamWState)``)
+    whose leaves have shapes; after a failure it comes back as sharded
+    values on the survivors' view."""
     fail_at = dict(fail_at or {})
     info = cluster.merge_info()
     state = make_state(info)

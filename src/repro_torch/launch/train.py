@@ -15,10 +15,10 @@ Usage:
 
 It trains on one lane, ``--device`` (default: the current CUDA device):
 the JAX launcher's single-device path (``build_mesh_info`` over one
-device), where ``--mode`` and ``--pods`` change nothing. ``--devices`` with
-more than one lane asks for a merged training fabric over lanes, which
-raises ``NotImplementedError``. Params are ``LM.init`` of a generator on the
-device seeded by ``--seed``.
+device). ``--devices`` with more than one lane, ``--mode`` and ``--pods``
+ask for a training fabric over lanes and pods, which raises
+``NotImplementedError``. Params are ``LM.init`` of a generator on the device
+seeded by ``--seed``.
 """
 
 from __future__ import annotations
@@ -39,7 +39,7 @@ from repro_torch.ft import Watchdog
 from repro_torch.models import LM
 from repro_torch.train import adamw_init, make_train_step
 
-_MERGED_REFUSED = ("training over {n} lanes (a merged, tensor-parallel training fabric) is "
+_MERGED_REFUSED = ("training over {what} (a merged, tensor-parallel training fabric) is "
                    "not ported (ROADMAP Queue 1 item 10); train on one lane with --device")
 
 
@@ -53,8 +53,10 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--grad-accum", type=int, default=1)
-    ap.add_argument("--mode", default="merge", choices=["merge", "split"])
-    ap.add_argument("--pods", type=int, default=2)
+    ap.add_argument("--mode", default=None, choices=["merge", "split"],
+                    help="the pod fabric's mode: refused, training runs on one lane")
+    ap.add_argument("--pods", type=int, default=None,
+                    help="pods of lanes: refused, training runs on one lane")
     ap.add_argument("--ckpt-dir", default=os.path.join(tempfile.gettempdir(), "repro_torch_ckpt"))
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--resume", action="store_true")
@@ -68,15 +70,17 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
 
     lanes = args.devices.split(",") if args.devices else [args.device]
     if len(lanes) > 1:
-        raise NotImplementedError(_MERGED_REFUSED.format(n=len(lanes)))
+        raise NotImplementedError(_MERGED_REFUSED.format(what=f"{len(lanes)} lanes"))
+    if args.mode is not None or args.pods is not None:
+        raise NotImplementedError(_MERGED_REFUSED.format(
+            what=f"pods (--mode {args.mode}, --pods {args.pods})"))
     dev = resolve_device(lanes[0])
 
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
     tcfg = TrainConfig(lr=args.lr, total_steps=args.steps,
-                       warmup_steps=max(args.steps // 20, 5), grad_accum=args.grad_accum,
-                       seed=args.seed)
+                       warmup_steps=max(args.steps // 20, 5), grad_accum=args.grad_accum)
     model = LM(cfg, device=dev)
     print(f"arch={cfg.name} params={cfg.num_params():,} devices=1")
 

@@ -55,6 +55,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
+from repro_torch.common.tree import tree_map_with_path
 from repro_torch.configs.base import ArchConfig
 from repro_torch.dist import collectives
 from repro_torch.dist.sharding import (
@@ -65,7 +66,6 @@ from repro_torch.dist.sharding import (
     lane_blocks,
     serve_cache_shardings,
     stream_scope,
-    tree_map_with_path,
 )
 from repro_torch.kernels import ref as _ref
 from repro_torch.models import attention as attn_mod

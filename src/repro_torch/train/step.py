@@ -141,9 +141,8 @@ def make_compressed_dp_train_step(model: LM, tcfg: TrainConfig, mesh: Mesh,
                 for e, c, r in zip(leaves(_lane(ef_residual, j)), leaves(corrected[j]),
                                    leaves(reduced[j])):
                     e.copy_(c - r)
-                opt_j = AdamWState(opt_state.step.shards[j], _lane(opt_state.mu, j),
-                                   _lane(opt_state.nu, j))
-                _, _, om = adamw_update(reduced[j], opt_j, _lane(params, j), tcfg, schedule)
+                _, _, om = adamw_update(reduced[j], _lane(opt_state, j), _lane(params, j),
+                                        tcfg, schedule)
                 metrics[j].update(om)
         root = lanes[0]
         out = {}

@@ -254,5 +254,6 @@ def test_launcher_trains_resumes_and_refuses_lanes(tmp_path, capsys):
     assert again["start_step"] == 4 and again["losses"] == straight["losses"][4:]
     assert "resumed from step 4" in out and "arch=codeqwen1.5-7b-reduced" in out
     assert [s for s in Checkpointer(str(tmp_path / "b")).list_steps()] == [4, 6, 8]
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 10"):
-        launch_train.main(args + ["--devices", "cpu,cpu", "--ckpt-dir", str(tmp_path / "c")])
+    for extra in (["--devices", "cpu,cpu"], ["--mode", "split"], ["--pods", "4"]):
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 10"):
+            launch_train.main(args + extra + ["--ckpt-dir", str(tmp_path / "c")])

@@ -27,14 +27,20 @@ The params are the port's ``LM.init`` from a seed, handed to JAX as numpy
   into a full step of either sign, so such elements are counted and bounded,
   not held); accumulation over 2 microbatches against one batch (JAX's
   ``test_grad_accum_equivalence``);
-- ``SyntheticCorpus`` bitwise, a ``PrefetchLoader`` restart;
+- ``SyntheticCorpus`` bitwise, a ``PrefetchLoader`` restart, and
+  ``loader_for`` at the ``train_4k`` cell bitwise against JAX's;
+- the shape cells (``SHAPES``, ``get_shape``, ``applicable`` through
+  ``all_cells``, ``ArchConfig.sub_quadratic``): equal to JAX's;
 - ``quantize`` against JAX's: bitwise; ``ring_allreduce_q8`` over 2 and 4
   lanes against JAX's ``shard_map``: within 2 f32 ulps of the largest mean
   (the same dequantized terms, summed in the ring's order; XLA fuses the
   adds its own way);
 - the compressed-DP step over 2 lanes against JAX's over 2 devices;
 - ``run_elastic``'s report and state against JAX's (a failure after a
-  checkpoint, and one before the first);
+  checkpoint, and one before the first); and ``run_elastic`` on a training
+  state ``(params, AdamWState)`` placed by ``param_shardings``, whose three
+  steps (one on the survivors) match JAX's three straight steps within
+  ``_param_tol``;
 - the training forward reaches no kernel: every ``ops`` entry raises, and
   ``attention_apply`` without ``return_kv`` goes through
   ``chunked_attention`` (or ``dense_attention``).
@@ -53,9 +59,9 @@ import torch
 
 from repro_torch.ckpt import Checkpointer
 from repro_torch.common.tree import leaves, tree_map
-from repro_torch.configs import TrainConfig, get_arch
+from repro_torch.configs import ARCHS, SHAPES, TrainConfig, all_cells, get_arch, get_shape
 from repro_torch.core import SpatzformerCluster
-from repro_torch.data import DataConfig, PrefetchLoader, SyntheticCorpus
+from repro_torch.data import DataConfig, PrefetchLoader, SyntheticCorpus, loader_for
 from repro_torch.dist.compression import dequantize, quantize, ring_allreduce_q8
 from repro_torch.dist.sharding import (
     Mesh,
@@ -65,6 +71,7 @@ from repro_torch.dist.sharding import (
     device_put,
     gather,
     lanes_for,
+    param_shardings,
 )
 from repro_torch.ft import run_elastic
 from repro_torch.kernels import ops
@@ -443,6 +450,42 @@ def test_corpus_bitwise_and_loader_restart(jx):
         assert torch.equal(a, b) and np.array_equal(a.numpy(), j)
 
 
+def test_loader_for_bitwise_equal_jax():
+    """``loader_for`` at the train_4k cell (reduced codeqwen's vocabulary):
+    the first two batches bitwise JAX's, as int32 tensors on the CPU."""
+    jcfg = pytest.importorskip("repro.configs")
+    jdata = pytest.importorskip("repro.data")
+    name = "codeqwen1.5-7b"
+    got = loader_for(get_arch(name).reduced(), get_shape("train_4k"), seed=4, device="cpu")
+    want = jdata.loader_for(jcfg.get_arch(name).reduced(), jcfg.get_shape("train_4k"), seed=4)
+    try:
+        for _ in range(2):
+            a, b = next(got), next(want)
+            assert sorted(a) == sorted(b)
+            for k in a:
+                assert a[k].dtype == torch.int32 and a[k].shape == (256, 4096)
+                assert np.array_equal(a[k].numpy(), b[k])
+    finally:
+        got.close()
+        want.close()
+
+
+def test_shape_cells_equal_jax():
+    """``SHAPES`` / ``get_shape``, ``sub_quadratic`` of every arch and the
+    cells ``all_cells`` keeps under ``applicable``: JAX's, exactly."""
+    jcfg = pytest.importorskip("repro.configs")
+    assert sorted(SHAPES) == sorted(jcfg.SHAPES)
+    for name in SHAPES:
+        a, b = get_shape(name), jcfg.get_shape(name)
+        assert ((a.name, a.seq_len, a.global_batch, a.kind, a.tokens_per_step)
+                == (b.name, b.seq_len, b.global_batch, b.kind, b.tokens_per_step))
+    assert {n: ARCHS[n].sub_quadratic for n in ARCHS} == {
+        n: jcfg.get_arch(n).sub_quadratic for n in ARCHS}
+    assert all_cells() == jcfg.all_cells()
+    with pytest.raises(KeyError, match="unknown shape"):
+        get_shape("train_8k")
+
+
 # ------------------------------------------------------------------ int8 ring
 
 
@@ -475,7 +518,7 @@ def test_compressed_dp_step_equal_jax(jx):
     p0 = _params(jx, name)
     params = device_put(p0, rep)
     o = adamw_init(p0)
-    opt = AdamWState(device_put(o.step, rep), device_put(o.mu, rep), device_put(o.nu, rep))
+    opt = device_put(o, rep)
     ef = device_put({k: v for k, v in o.mu.items()}, rep)
     step = make_compressed_dp_train_step(_model(name), TrainConfig(**TCFG), mesh)
     for i, (want_m, want_p, want_ef) in enumerate(jx["dp"]):
@@ -528,3 +571,43 @@ def test_run_elastic_report_equal_jax(jx, tmp_path, fail_at):
     for k in ("w", "n"):
         assert isinstance(state[k], ShardedTensor) and state[k].sharding.mesh.size == 2
         assert np.array_equal(gather(state[k]).numpy(), want_state[k])
+
+
+@pytest.mark.parametrize("ckpt_every", [1, 5], ids=["restore", "reshard"])
+def test_run_elastic_on_train_state_equal_jax(jx, tmp_path, ckpt_every):
+    """A real training state ``(params, adamw_init(params))`` goes through
+    ``device_put`` / ``param_shardings`` on the merged view of 4 lanes, a
+    pod is lost at step 2 (after the checkpoint of step 2, or before the
+    first), and the survivors take step 3: the params equal JAX's three
+    straight steps within ``_param_tol``, the optimizer's step is 3."""
+    name = "codeqwen1.5-7b"
+    train = make_train_step(_model(name), TrainConfig(**TCFG))
+    cluster = SpatzformerCluster(n_pods=2, devices=["cpu"] * 4)
+    seen = []
+
+    def make_state(info):
+        p = _params(jx, name)
+        state = (p, adamw_init(p))
+        return device_put(state, param_shardings(state, info))
+
+    def factory(info):
+        seen.append(info.n_devices)
+
+        def step(state, batch, i):
+            assert isinstance(state[1], AdamWState)
+            params, opt, _ = train(*tree_map(gather, state), batch)
+            return device_put((params, opt), param_shardings((params, opt), info))
+
+        return step
+
+    state, rep = run_elastic(cluster, make_state, factory, lambda i: _t(jx["corpus"][i]),
+                             Checkpointer(str(tmp_path), keep=3), total_steps=STEPS,
+                             ckpt_every=ckpt_every, fail_at={2: 1})
+    assert (rep.steps_done, rep.failures, rep.restarts) == (STEPS, 1, [(2, 2)])
+    assert seen == [4, 2]
+    params, opt = state
+    assert isinstance(opt, AdamWState)
+    assert all(isinstance(x, ShardedTensor) and x.sharding.mesh.size == 2
+               for x in leaves(state))
+    assert int(gather(opt.step)) == STEPS
+    _param_tol(tree_map(gather, params), jx["steps"][1][-1][1], TCFG["lr"], STEPS)
