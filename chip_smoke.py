@@ -283,8 +283,25 @@ Phases (each raises on failure, so the script exits non-zero):
    losses against the straight run's;
    (d) ``python -m repro_torch.launch.train --reduced`` for 12 steps, then
    ``--resume`` to 16, each exiting 0; (e) three compressed-DP steps over
-   [cuda:0, cuda:0] against two CPU lanes. No hand-written kernel may launch
-   in phase 16 (every wrapper's counts stay 0).
+   [cuda:0, cuda:0] against two CPU lanes; (f) (a)'s model, params and
+   batch over four lanes of cuda:0 (``SpatzformerCluster(n_pods=1,
+   devices=[cuda:0] * 4).pod_info(0)``: data 2 x model 2): the first
+   step's loss against one lane's forward loss on the same params and batch
+   (bf16, ``TRAIN_LANES_LOSS_TOL``) and its grad norm against one lane's
+   (``TRAIN_LANES_GNORM_TOL``), 1 warm step and 5 timed (median wall,
+   tok/s), peak memory (of the warm step, which places the one-lane state,
+   and of the timed steps), one step profiled (busy time as the union of kernel
+   intervals over the lanes' streams, idle share, kernels a step, the lane
+   collectives' device ms: forward spans, their autograd backward and the
+   grad reduction), the loss finite and falling over the 6 steps, every
+   replica of every block bitwise equal; (g) reduced codeqwen1.5-7b widened
+   to ``CKPT_WIDTHS`` (f32, every matmul leaf sharded) over the same four
+   lanes against one lane for 3 steps at grad_accum 1 and 2 (metrics,
+   ``params_close``, replicas equal), ``launch.train`` over four lanes of
+   the card in-process and ``--resume``, then each ``examples/torch_*.py``'s
+   ``main(argv)`` at a tiny size on the card. No hand-written kernel may
+   launch in (a)-(g)'s training (every wrapper's counts stay 0); the
+   examples serve, and their launches are printed.
 11. a ``{"kernels": [...], "to_port": []}`` JSON line (every row of PERF.md's
    kernel table; the decode, ragged, paged, matmul and matmul_q8 rows name the body
    their timed case ran and its launches; paged packs and matmul_q8 at M = 16
@@ -4168,6 +4185,16 @@ TRAIN_LR = 1e-3
 # of params and moments for the async writer, whose write outlasts a step
 CKPT_WIDTHS = dict(d_model=512, d_ff=1408, vocab_size=8192, n_heads=8, n_kv_heads=8,
                    d_head=64)
+# (f): (a) over four lanes of the card, (data 2, model 2); 1 warm step, 5
+# timed. The first step's loss and grad norm against one lane's on the same
+# params and batch: the lanes sum each layer's attention and MLP partial
+# products (each rounded to bf16) where one lane rounds one product. The
+# loss: 1e-4 relative (3.1e-6 measured on an H100, PERF.md); the grad norm,
+# a sum over bf16 grads taken in other orders: one bf16 rounding, 2^-9
+TRAIN_LANES = 4
+TRAIN_LANES_TIMED = 5
+TRAIN_LANES_LOSS_TOL = 1e-4
+TRAIN_LANES_GNORM_TOL = 2.0 ** -9
 
 
 def kernel_launch_counts() -> dict:
@@ -4515,9 +4542,294 @@ def train_compressed_dp(dev) -> dict:
     return dict(losses=[m["loss"] for m in md], losses_cpu=[m["loss"] for m in mc], **close)
 
 
+def _replicas_equal(tree, label: str) -> int:
+    """Raise unless every lane that holds a block of a leaf holds the same
+    bits; returns how many leaves have a block on two or more lanes."""
+    import torch
+
+    from repro_torch.common.tree import leaves
+
+    n = 0
+    for x in leaves(tree):
+        groups: dict = {}
+        for t, block in zip(x.shards, x.sharding.blocks(x.shape)):
+            groups.setdefault(block, []).append(t)
+        for ts in groups.values():
+            if not all(torch.equal(ts[0], t) for t in ts[1:]):
+                raise AssertionError(f"{label}: replicas of a {tuple(x.shape)} leaf differ")
+        n += any(len(ts) > 1 for ts in groups.values())
+    return n
+
+
+def lane_step_profile(step_fn, state, batch, wall_ms: float, label: str) -> dict:
+    """One lane train step under the profiler: the card's busy time as the
+    union of kernel intervals over the lanes' streams, the idle share
+    against ``wall_ms``, kernels a step, and the lane collectives' device
+    time: the ops inside each collective's span in the forward, inside its
+    autograd backward (``_BroadcastBackward`` etc.) and inside the step's
+    grad reduction and grad norm (``train.step.reduce_grads`` /
+    ``lane_grad_norm``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.dist import collectives
+    from repro_torch.train import step as step_mod
+
+    saved = {}
+
+    def span(mod, name, tag):
+        fn = saved[(mod, name)] = getattr(mod, name)
+
+        def spanned(*a, **kw):
+            with torch.profiler.record_function(tag):
+                return fn(*a, **kw)
+
+        setattr(mod, name, spanned)
+
+    for name in ("lane_reduce", "lane_gather", "lane_broadcast"):
+        span(collectives, name, f"lane.{name}")
+    span(step_mod, "reduce_grads", "lane.reduce_grads")
+    span(step_mod, "lane_grad_norm", "lane.grad_norm")
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            state[0], state[1], _ = step_fn(state[0], state[1], batch)
+            torch.cuda.synchronize()
+    finally:
+        for (mod, name), fn in saved.items():
+            setattr(mod, name, fn)
+    events = prof.events()
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    if not spans:
+        raise AssertionError(f"{label}: the profiler recorded no device event")
+    busy, end = 0.0, -1.0
+    for a, b in spans:  # the union of the kernels' intervals (us)
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    busy_ms = busy / 1e3
+    per: dict = {}
+    for e in events:  # each op directly inside a span or a backward node, once
+        up = e.cpu_parent
+        if (up is None or e.device_type == torch.autograd.DeviceType.CUDA
+                or e.name.startswith("lane.")):
+            continue
+        key = (up.name if up.name.startswith("lane.") else
+               next((f"backward.{k}" for k in ("_Broadcast", "_Reduce", "_Gather")
+                     if up.name.startswith("autograd::engine::evaluate_function")
+                     and f"{k}Backward" in up.name), None))
+        if key is not None:
+            ms, n = per.get(key, (0.0, 0))
+            per[key] = (ms + e.device_time_total / 1e3, n + 1)
+    coll = {k: round(v[0], 3) for k, v in per.items()}
+    out = dict(busy_ms=busy_ms, idle_share=1 - busy_ms / wall_ms, kernels=len(spans),
+               collectives_ms=coll, collectives_total_ms=sum(v[0] for v in per.values()),
+               collective_ops={k: v[1] for k, v in per.items()})
+    print(f"  {label}: device busy {busy_ms:.1f} ms (union over the lanes' streams) of a "
+          f"{wall_ms:.1f} ms step (idle share {out['idle_share']:.3f}), {len(spans)} kernels; "
+          f"the lane collectives {out['collectives_total_ms']:.2f} ms of device time {coll} "
+          f"in {out['collective_ops']} ops")
+    return out
+
+
+def train_lanes_full_width(dev, smi: str) -> dict:
+    """(f) (a)'s model, params and batch over four lanes of the card, (data
+    2, model 2): the first loss against one lane's, timing, memory, a
+    profile, the loss falling, the replicas equal."""
+    import torch
+
+    from repro_torch.configs import TrainConfig, get_arch
+    from repro_torch.core import SpatzformerCluster
+    from repro_torch.data import DataConfig, SyntheticCorpus
+    from repro_torch.models import LM
+    from repro_torch.train import (adamw_init, global_norm, make_loss_fn, make_train_step,
+                                   value_and_grad)
+
+    cfg = replace(get_arch("codeqwen1.5-7b"), n_layers=TRAIN_LAYERS)
+    info = SpatzformerCluster(n_pods=1, devices=[dev] * TRAIN_LANES).pod_info(0)
+    one = LM(cfg, device=dev)
+    params = one.init(torch.Generator(device=dev).manual_seed(0))
+    corpus = SyntheticCorpus(DataConfig(cfg.vocab_size, TRAIN_S, TRAIN_B, seed=0))
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in corpus.batch(0).items()}
+    (ref_loss, _), grads = value_and_grad(make_loss_fn(one), params, batch)
+    ref_loss, ref_gnorm = float(ref_loss), float(global_norm(grads))
+    del grads
+    torch.cuda.empty_cache()
+    # the step places the one-lane state on the lanes at its first call
+    state = [params, adamw_init(params)]
+    del params
+    step = make_train_step(one, TrainConfig(lr=3e-4, warmup_steps=TRAIN_WARM, total_steps=100),
+                           mesh_info=info)
+    tokens = TRAIN_B * TRAIN_S
+    print(f"  {cfg.name} at {cfg.n_layers} layers, {cfg.dtype}, over {info.mesh.shape} lanes "
+          f"of {dev}; one lane's loss and grad norm on these params and batch {ref_loss:.5f}, "
+          f"{ref_gnorm:.5f}", flush=True)
+    runs, gnorm0 = [], None
+    torch.cuda.reset_peak_memory_stats(dev)
+    for i in range(1 + TRAIN_LANES_TIMED):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state[0], state[1], m = step(state[0], state[1], batch)
+        loss = float(m["loss"])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        runs.append((ms, loss))
+        gnorm0 = float(m["grad_norm"]) if i == 0 else gnorm0
+        print(f"  {'warm' if i == 0 else 'timed'} step {i + 1}: {ms:8.1f} ms, "
+              f"{tokens / ms * 1e3:9.0f} tok/s, loss {loss:.5f} gnorm "
+              f"{float(m['grad_norm']):.4f} lr {float(m['lr']):.2e}", flush=True)
+        if i == 0:  # the warm step also held the one-lane state it placed
+            peak_warm = torch.cuda.max_memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+    peak = torch.cuda.max_memory_allocated(dev)
+    losses = [loss for _, loss in runs]
+    rel = abs(losses[0] - ref_loss) / abs(ref_loss)
+    rel_g = abs(gnorm0 - ref_gnorm) / abs(ref_gnorm)
+    if rel > TRAIN_LANES_LOSS_TOL or rel_g > TRAIN_LANES_GNORM_TOL:
+        raise AssertionError(f"phase 16 (f): first loss / grad norm {losses[0]}, {gnorm0} over "
+                             f"the lanes, {ref_loss}, {ref_gnorm} on one lane (rel {rel:.2e} / "
+                             f"{rel_g:.2e} > {TRAIN_LANES_LOSS_TOL} / {TRAIN_LANES_GNORM_TOL})")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"phase 16 (f): the loss did not fall on one batch: {losses}")
+    walls = sorted(ms for ms, _ in runs[1:])
+    wall = walls[len(walls) // 2]
+    prof = lane_step_profile(step, state, batch, wall, "one step over four lanes")
+    replicated = _replicas_equal(tuple(state), "phase 16 (f)")
+    out = dict(model=cfg.name, layers=cfg.n_layers, lanes=dict(info.mesh.shape), batch=TRAIN_B,
+               seq=TRAIN_S, step_ms=[ms for ms, _ in runs], median_ms=wall,
+               tok_s=tokens / wall * 1e3, peak_gb=peak / 1e9, peak_warm_gb=peak_warm / 1e9,
+               losses=losses, one_lane_loss=ref_loss, first_loss_rel=rel,
+               first_grad_norm=gnorm0, one_lane_grad_norm=ref_gnorm, first_grad_norm_rel=rel_g,
+               leaves_with_replicas=replicated, card=smi, **prof)
+    print(f"  ({smi}) median step {wall:.1f} ms over {TRAIN_LANES} lanes: {out['tok_s']:.0f} "
+          f"tok/s, peak {out['peak_gb']:.2f} GB (the warm step, placing the state: "
+          f"{out['peak_warm_gb']:.2f} GB); first loss {losses[0]:.5f} vs one lane "
+          f"{ref_loss:.5f} (rel {rel:.2e}), grad norm {gnorm0:.5f} vs {ref_gnorm:.5f} (rel "
+          f"{rel_g:.2e}); {replicated} leaves with replicas, all equal")
+    del state, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_lanes_parity(dev) -> dict:
+    """(g) part 1: the widened reduced codeqwen (f32, every matmul leaf
+    sharded) over four lanes of the card against one lane of the card, 3
+    steps at grad_accum 1 and 2."""
+    import torch
+
+    from repro_torch.common.tree import tree_map
+    from repro_torch.configs import TrainConfig, get_arch
+    from repro_torch.core import SpatzformerCluster
+    from repro_torch.data import DataConfig, SyntheticCorpus
+    from repro_torch.dist.sharding import gather
+    from repro_torch.models import LM
+    from repro_torch.train import adamw_init, make_train_step
+
+    cfg = replace(get_arch("codeqwen1.5-7b").reduced(), **CKPT_WIDTHS)
+    info = SpatzformerCluster(n_pods=1, devices=[dev] * TRAIN_LANES).pod_info(0)
+    init = LM(cfg, device=dev).init(torch.Generator(device=dev).manual_seed(5))
+    corpus = SyntheticCorpus(DataConfig(cfg.vocab_size, 64, 8, seed=7))
+    out = {}
+    for accum in (1, 2):
+        tcfg = TrainConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=10, grad_accum=accum)
+        res = []
+        for view in (info, None):
+            p = tree_map(lambda t: t.clone(), init)
+            o = adamw_init(p)
+            step = make_train_step(LM(cfg, device=dev), tcfg, mesh_info=view)
+            ms = []
+            for i in range(3):
+                b = {k: torch.from_numpy(v).to(dev) for k, v in corpus.batch(i).items()}
+                p, o, m = step(p, o, b)
+                ms.append({k: float(v) for k, v in m.items()})
+            res.append((p, o, ms))
+        (pl, ol, ml), (p1, _, m1) = res
+        for a, b in zip(ml, m1):
+            metrics_close(a, b, f"phase 16 (g) accum {accum}")
+        replicated = _replicas_equal((pl, ol), f"phase 16 (g) accum {accum}")
+        close = params_close(tree_map(gather, pl), p1, TRAIN_LR, 3,
+                             f"phase 16 (g) accum {accum}")
+        out[f"accum{accum}"] = dict(losses=[m["loss"] for m in ml],
+                                    losses_one_lane=[m["loss"] for m in m1],
+                                    grad_norms=[m["grad_norm"] for m in ml],
+                                    grad_norms_one_lane=[m["grad_norm"] for m in m1],
+                                    leaves_with_replicas=replicated, **close)
+        print(f"  widened f32 over (data 2, model 2) vs one lane, grad_accum {accum}: "
+              f"{out[f'accum{accum}']}", flush=True)
+    return out
+
+
+def train_lanes_launcher(dev) -> dict:
+    """(g) part 2: ``launch.train`` over four lanes of the card, in-process:
+    8 steps, then ``--resume`` to 12 onto the same placement."""
+    import shutil
+    import tempfile
+
+    from repro_torch.launch import train as launch_train
+
+    d = tempfile.mkdtemp(prefix="chip_smoke_train_lanes_")
+    base = ["--arch", "codeqwen1.5-7b", "--reduced", "--batch", "8", "--seq", "64",
+            "--ckpt-dir", d, "--log-every", "4", "--ckpt-every", "4", "--pods", "1",
+            "--devices", ",".join([str(dev)] * TRAIN_LANES)]
+    try:
+        first = launch_train.main(base + ["--steps", "8"])
+        again = launch_train.main(base + ["--steps", "12", "--resume"])
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    if again["start_step"] != 8 or not all(np.isfinite(first["losses"] + again["losses"])):
+        raise AssertionError(f"phase 16 (g): launch.train over lanes: {first} then {again}")
+    return dict(losses=first["losses"], resumed_at=again["start_step"],
+                resumed_losses=again["losses"])
+
+
+EXAMPLES = {
+    "torch_quickstart": ["--seq", "16"],
+    "torch_train_lm": ["--steps", "12", "--batch", "4", "--seq", "32"],
+    "torch_serve_batch": ["--requests", "5", "--max-new", "6"],
+    "torch_mixed_workload_demo": ["--rows", "256", "--cols", "128", "--fft", "256"],
+    "torch_elastic_restart": [],
+    "torch_dual_tenant": ["--steps", "2", "--max-new", "4"],
+}
+
+
+def run_examples(dev) -> dict:
+    """(g) part 3: each ``examples/torch_*.py``'s ``main(argv)`` on the card at
+    a tiny size, over two lanes of it (quickstart, train_lm, serve_batch
+    also on one)."""
+    import importlib.util
+    import tempfile
+
+    two = ["--devices", f"{dev},{dev}"]
+    out = {}
+    for name, args in EXAMPLES.items():
+        spec = importlib.util.spec_from_file_location(name, ROOT / "examples" / f"{name}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        extra = ["--ckpt-dir", tempfile.mkdtemp(prefix="chip_smoke_ex_")] \
+            if name == "torch_train_lm" else []
+        for lanes in ((["--device", str(dev)], two) if name in (
+                "torch_quickstart", "torch_train_lm", "torch_serve_batch") else (two,)):
+            t = time.perf_counter()
+            res = mod.main(args + extra + lanes)
+            label = f"{name} {' '.join(lanes)}"
+            out[label] = dict(seconds=time.perf_counter() - t)
+            print(f"  {label}: {time.perf_counter() - t:.1f} s", flush=True)
+            if name == "torch_quickstart" and not res["finite"]:
+                raise AssertionError(f"phase 16 (g): {label}: a non-finite forward")
+            if name == "torch_train_lm" and not res["final_loss"] < res["first_loss"]:
+                raise AssertionError(f"phase 16 (g): {label}: the loss did not fall: {res}")
+            if name == "torch_mixed_workload_demo" and not res.get("fft_agree"):
+                raise AssertionError(f"phase 16 (g): {label}: the staged FFT disagrees")
+            if name == "torch_elastic_restart" and res["steps"] != 25:
+                raise AssertionError(f"phase 16 (g): {label}: {res}")
+            extra = []
+    return out
+
+
 def full_training(dev, smi: str) -> dict:
-    """Phase 16: training on the card, (a)-(e). No hand-written kernel may
-    launch in the process while it runs (the launcher runs in its own)."""
+    """Phase 16: training on the card, (a)-(g). No hand-written kernel may
+    launch in the process while (a)-(g) train (the launcher of (d) runs in
+    its own); the examples of (g), which serve, come after that check."""
     counts = kernel_launch_counts()
     reset_counts(counts)
     out = {}
@@ -4526,21 +4838,34 @@ def full_training(dev, smi: str) -> dict:
                            ("checkpoint", "(c) checkpoint", lambda: train_checkpoint(dev)),
                            ("launcher", "(d) launch.train", train_launcher),
                            ("compressed_dp", "(e) compressed DP over lanes",
-                            lambda: train_compressed_dp(dev))):
+                            lambda: train_compressed_dp(dev)),
+                           ("lanes_full_width", "(f) full width over four lanes",
+                            lambda: train_lanes_full_width(dev, smi)),
+                           ("lanes_parity", "(g) f32 over four lanes vs one",
+                            lambda: train_lanes_parity(dev)),
+                           ("lanes_launcher", "(g) launch.train over four lanes",
+                            lambda: train_lanes_launcher(dev))):
         t = time.perf_counter()
         print(f"  -- {label}", flush=True)
         out[key] = fn()
         out[key + "_seconds"] = time.perf_counter() - t
     launched = {k: getattr(m, a) for k, (m, a) in counts.items() if getattr(m, a)}
-    print(f"  kernel launches during phase 16: {launched or 'none'}")
+    print(f"  kernel launches during phase 16's training: {launched or 'none'}")
     if launched:
         raise AssertionError(f"phase 16: the training path launched kernels: {launched}")
+    t = time.perf_counter()
+    print("  -- (g) the examples", flush=True)
+    out["examples"] = run_examples(dev)
+    out["examples_seconds"] = time.perf_counter() - t
+    launched = {k: getattr(m, a) for k, (m, a) in counts.items() if getattr(m, a)}
+    print(f"  kernel launches by the examples: {launched}")
     return out
 
 
 def train_alone() -> int:
-    """Phase 16 alone, after the card check (no kernel build: the training
-    path launches none); prints the ``{"train": ...}`` line.
+    """Phase 16 alone, after the card check (no kernel build up front: the
+    training path launches none; the examples of (g), which serve, build
+    the kernels at their first launch); prints the ``{"train": ...}`` line.
 
         python3 -c "import sys, chip_smoke; sys.exit(chip_smoke.train_alone())"
     """

@@ -31,6 +31,15 @@ on another device gets a copy.
 * ``lane_gather`` / ``lane_all_gather`` — the lanes' blocks concatenated
   along one axis, in lane order;
 * ``lane_broadcast`` — the root's tensor on every lane.
+
+Under autograd (a grad-requiring input, grad mode on) each of the three is
+a ``torch.autograd.Function`` whose backward is its transpose, queued on the
+lane streams with the forward's event ordering: broadcast's backward is the
+reduce of the grads onto the root in lane order, reduce's the broadcast of
+the root's grad, gather's the split of the grad along ``dim`` with each
+block handed back to its lane (a copy, ordered by its own events, where the
+lane lies on another device). The all-variants compose from these. This is
+what the merged training forward differentiates through.
 """
 
 from __future__ import annotations
@@ -90,11 +99,7 @@ def _to_root(t: torch.Tensor, src, root) -> torch.Tensor:
     return t
 
 
-def lane_broadcast(t: torch.Tensor, lanes) -> list[torch.Tensor]:
-    """``t`` (made on ``lanes[0]``, the root) on every lane: the tensor itself
-    where a lane shares the root's device (its stream waits for the root's
-    work so far), a copy on the lane's stream elsewhere. A list, one entry a
-    lane."""
+def _broadcast(t: torch.Tensor, lanes) -> list[torch.Tensor]:
     root = lanes[0]
     out = [t]
     for lane in lanes[1:]:
@@ -107,16 +112,107 @@ def lane_broadcast(t: torch.Tensor, lanes) -> list[torch.Tensor]:
     return out
 
 
-def lane_reduce(parts, lanes) -> torch.Tensor:
-    """The sum of ``parts`` (one a lane, each made on its lane's stream) on
-    the root ``lanes[0]``, added in lane order: ``((p0 + p1) + p2) + ...``.
-    The root's stream waits for each lane's work; the host never does."""
+def _reduce(parts, lanes) -> torch.Tensor:
     root = lanes[0]
     acc = parts[0]
     with root.use():
         for t, lane in zip(parts[1:], lanes[1:]):
             acc = acc + _to_root(t, lane, root)
     return acc
+
+
+def _gather(parts, lanes, dim: int) -> torch.Tensor:
+    root = lanes[0]
+    with root.use():
+        return torch.cat([_to_root(t, lane, root) for t, lane in zip(parts, lanes)], dim=dim)
+
+
+def _from_root(t: torch.Tensor, root, lane) -> torch.Tensor:
+    """``t``, made on ``root``, readable on ``lane``'s stream (the transpose
+    of :func:`_to_root`)."""
+    if lane is root:
+        return t
+    if lane.device != root.device:
+        return _hop(t, root, lane)
+    lane.wait_for(root)
+    lane.keep(t)
+    return t
+
+
+def _alias(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """An output of an autograd Function that hands ``like`` on unchanged:
+    a new view where ``t`` is ``like`` itself (a Function's outputs are
+    tensors of their own)."""
+    return t.view_as(t) if t is like else t
+
+
+class _Broadcast(torch.autograd.Function):
+    """``lane_broadcast``; backward sums the lanes' grads onto the root in
+    lane order (``lane_reduce``)."""
+
+    @staticmethod
+    def forward(ctx, lanes, t):
+        ctx.lanes = lanes
+        return tuple(_alias(o, t) for o in _broadcast(t, lanes))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return None, _reduce(grads, ctx.lanes)
+
+
+class _Reduce(torch.autograd.Function):
+    """``lane_reduce``; backward hands the root's grad to every lane
+    (``lane_broadcast``)."""
+
+    @staticmethod
+    def forward(ctx, lanes, *parts):
+        ctx.lanes = lanes
+        return _alias(_reduce(parts, lanes), parts[0])
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (None, *_broadcast(grad, ctx.lanes))
+
+
+class _Gather(torch.autograd.Function):
+    """``lane_gather``; backward splits the root's grad along ``dim`` and
+    hands each block back to its lane."""
+
+    @staticmethod
+    def forward(ctx, lanes, dim, *parts):
+        ctx.lanes, ctx.dim = lanes, dim
+        ctx.sizes = [p.shape[dim] for p in parts]
+        return _gather(parts, lanes, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        root = ctx.lanes[0]
+        blocks = torch.split(grad, ctx.sizes, dim=ctx.dim)
+        return (None, None, *[_from_root(b, root, lane) for b, lane in zip(blocks, ctx.lanes)])
+
+
+def _differentiable(parts) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in parts)
+
+
+def lane_broadcast(t: torch.Tensor, lanes) -> list[torch.Tensor]:
+    """``t`` (made on ``lanes[0]``, the root) on every lane: the tensor itself
+    where a lane shares the root's device (its stream waits for the root's
+    work so far), a copy on the lane's stream elsewhere. A list, one entry a
+    lane. Under autograd its backward is ``lane_reduce`` of the grads."""
+    if _differentiable([t]):
+        return list(_Broadcast.apply(lanes, t))
+    return _broadcast(t, lanes)
+
+
+def lane_reduce(parts, lanes) -> torch.Tensor:
+    """The sum of ``parts`` (one a lane, each made on its lane's stream) on
+    the root ``lanes[0]``, added in lane order: ``((p0 + p1) + p2) + ...``.
+    The root's stream waits for each lane's work; the host never does.
+    Under autograd its backward is ``lane_broadcast`` of the grad."""
+    if _differentiable(parts):
+        return _Reduce.apply(lanes, *parts)
+    return _reduce(parts, lanes)
 
 
 def lane_all_reduce(parts, lanes) -> list[torch.Tensor]:
@@ -127,10 +223,11 @@ def lane_all_reduce(parts, lanes) -> list[torch.Tensor]:
 
 def lane_gather(parts, lanes, dim: int) -> torch.Tensor:
     """The lanes' blocks concatenated along ``dim`` in lane order, on the root
-    ``lanes[0]``."""
-    root = lanes[0]
-    with root.use():
-        return torch.cat([_to_root(t, lane, root) for t, lane in zip(parts, lanes)], dim=dim)
+    ``lanes[0]``. Under autograd its backward splits the grad along ``dim``
+    and hands each lane its block."""
+    if _differentiable(parts):
+        return _Gather.apply(lanes, dim, *parts)
+    return _gather(parts, lanes, dim)
 
 
 def lane_all_gather(parts, lanes, dim: int) -> list[torch.Tensor]:

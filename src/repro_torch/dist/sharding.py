@@ -342,11 +342,13 @@ def _reshard(x: ShardedTensor, sharding: NamedSharding) -> ShardedTensor:
     return ShardedTensor(x.shape, x.dtype, sharding, shards)
 
 
-def lane_blocks(x: ShardedTensor, spec: PartitionSpec) -> list[torch.Tensor]:
+def lane_blocks(x: ShardedTensor, spec: PartitionSpec, strict: bool = False
+                ) -> list[torch.Tensor]:
     """Each lane's block of ``x`` under ``spec`` (over ``x``'s mesh), in the
     mesh's flat order: a view of the lane's own shard where that shard holds
     the block (a sharded leaf at ``spec``, or a replicated one), else a copy
-    assembled from the lanes that hold it (``_reshard``)."""
+    assembled from the lanes that hold it (``_reshard``). ``strict`` raises
+    instead of copying: a view is differentiable, the copy is not."""
     target = NamedSharding(x.sharding.mesh, spec)
     have, want = x.sharding.blocks(x.shape), target.blocks(x.shape)
     out: list = []
@@ -354,6 +356,9 @@ def lane_blocks(x: ShardedTensor, spec: PartitionSpec) -> list[torch.Tensor]:
         inside = all(h0 <= w0 and w1 <= h1 for (h0, h1), (w0, w1) in zip(h, w))
         out.append(t[_relative(w, h)] if inside else None)
     if any(t is None for t in out):
+        if strict:
+            raise ValueError(f"a leaf placed at {x.sharding.spec} does not hold each lane's "
+                             f"block at {spec}: place it by serve_param_shardings")
         moved = _reshard(x, target).shards
         out = [m if t is None else t for t, m in zip(out, moved)]
     return out
@@ -559,13 +564,20 @@ def param_shardings(
 
 
 def serve_param_shardings(tree: Any, info: MeshInfo) -> Any:
-    """Merged serving's parameter placement: ``param_shardings``, except that
+    """The merged view's placement, for serving and for training: ``param_shardings``,
+    except that
     an attention output projection ``wo`` [L, H, hd, d] it shards places its
     heads (dim 1) on the ``model`` axis where they divide. The attention
     rule tries dims 2 and 3, written for wq/wk/wv's [L, d, heads, hd], and
     so splits wo's head_dim; GSPMD reshards that silently, while each lane
     of the port multiplies its own heads' outputs by its own rows of wo, a
-    partial product that stays on the lane. The bytes placed are the same."""
+    partial product that stays on the lane. The bytes placed are the same.
+
+    The rules key on a leaf's last path entry and its shape, so one call
+    places a training state ``(params, AdamWState)`` whole: each moment
+    (``.mu[...]``, ``.nu[...]``) on its parameter's block, the step
+    replicated. (``opt_shardings``, JAX's rule, would put wo's moments on
+    head_dim blocks beside a parameter placed by heads.)"""
     model_size = info.model_size
 
     def one(path, leaf):

@@ -1,8 +1,13 @@
-"""Training launcher: real steps on one lane (counterpart of
-``repro/launch/train.py``, with its flags and its printed lines).
+"""Training launcher: real steps on one lane or over a lane mesh
+(counterpart of ``repro/launch/train.py``, with its flags and its printed
+lines).
 
-Wired here: AdamW over the one-lane train step (``--grad-accum``
-microbatches), the async ``Checkpointer`` with ``--resume``, the
+Wired here: the ``SpatzformerCluster`` views (``--mode merge``, the
+default, trains over every pod's lanes as one (pod, data, model) mesh with
+the batch over (pod, data); ``--mode split`` on pod 0's lanes; ``--pods``
+that do not divide the lanes fall back to one pod, as in JAX), AdamW over
+the train step (``--grad-accum`` microbatches), the async ``Checkpointer``
+with ``--resume`` (restored onto the first lane; the step places it), the
 ``PrefetchLoader`` thread (the scalar task MERGE parks on the freed
 controller), and ``Watchdog`` heartbeats.
 
@@ -10,15 +15,23 @@ Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch codeqwen1.5-7b \
       --reduced --steps 100 --batch 8 --seq 128 --ckpt-dir ck
 
-  # the plain PyTorch path on the CPU
+  # the plain PyTorch path on the CPU, one lane
   ... -m repro_torch.launch.train --arch codeqwen1.5-7b --reduced --device cpu
 
-It trains on one lane, ``--device`` (default: the current CUDA device):
-the JAX launcher's single-device path (``build_mesh_info`` over one
-device). ``--devices`` with more than one lane, ``--mode`` and ``--pods``
-ask for a training fabric over lanes and pods, which raises
-``NotImplementedError``. Params are ``LM.init`` of a generator on the device
-seeded by ``--seed``.
+  # 8 CPU lanes in 2 pods: (pod 2, data 2, model 2), DP 4 x TP 2
+  ... --devices cpu,cpu,cpu,cpu,cpu,cpu,cpu,cpu --mode merge --pods 2
+
+  # four lanes of one card: (data 2, model 2)
+  ... --devices cuda:0,cuda:0,cuda:0,cuda:0 --pods 1
+
+``--devices`` names one lane an entry (a card may repeat: each entry is a
+stream of its own); without it, ``--device`` is the one lane (default: the
+current CUDA device). One lane is the single-device path. Over more, the
+train step runs over the view (``make_train_step(..., mesh_info=view)``)
+and places params and moments itself; tensor parallelism (a ``model`` axis
+over 1) takes the dense family without MLA, and any other family raises
+``NotImplementedError`` naming ROADMAP Queue 1 item 10. Params are
+``LM.init`` of a generator on the first lane's device seeded by ``--seed``.
 """
 
 from __future__ import annotations
@@ -34,13 +47,26 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.ckpt import Checkpointer
 from repro_torch.configs import TrainConfig, get_arch
+from repro_torch.core import SpatzformerCluster
 from repro_torch.data import DataConfig, PrefetchLoader, SyntheticCorpus
+from repro_torch.dist.sharding import MeshInfo, lanes_for
 from repro_torch.ft import Watchdog
 from repro_torch.models import LM
 from repro_torch.train import adamw_init, make_train_step
 
-_MERGED_REFUSED = ("training over {what} (a merged, tensor-parallel training fabric) is "
-                   "not ported (ROADMAP Queue 1 item 10); train on one lane with --device")
+
+def build_mesh_info(mode: str, pods: int, lanes: Sequence) -> Optional[MeshInfo]:
+    """JAX's ``build_mesh_info`` over ``lanes``: None for one lane (the
+    single-device path), else the cluster's merge view over ``pods`` pods
+    (one pod where they do not divide the lanes), or pod 0's view in split
+    mode or with one pod."""
+    if len(lanes) == 1:
+        return None
+    cluster = SpatzformerCluster(n_pods=pods if len(lanes) % pods == 0 else 1,
+                                 devices=lanes_for(lanes))
+    if mode == "merge" and cluster.n_pods > 1:
+        return cluster.merge_info()
+    return cluster.pod_info(0)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:
@@ -53,10 +79,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--grad-accum", type=int, default=1)
-    ap.add_argument("--mode", default=None, choices=["merge", "split"],
-                    help="the pod fabric's mode: refused, training runs on one lane")
-    ap.add_argument("--pods", type=int, default=None,
-                    help="pods of lanes: refused, training runs on one lane")
+    ap.add_argument("--mode", default="merge", choices=["merge", "split"])
+    ap.add_argument("--pods", type=int, default=2)
     ap.add_argument("--ckpt-dir", default=os.path.join(tempfile.gettempdir(), "repro_torch_ckpt"))
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--resume", action="store_true")
@@ -65,24 +89,22 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     ap.add_argument("--device", default=None,
                     help="the lane to train on (default: the current CUDA device)")
     ap.add_argument("--devices", default=None,
-                    help="comma-separated lanes; more than one is refused")
+                    help="comma-separated lanes, one an entry (a device may repeat)")
     args = ap.parse_args(argv)
-
-    lanes = args.devices.split(",") if args.devices else [args.device]
-    if len(lanes) > 1:
-        raise NotImplementedError(_MERGED_REFUSED.format(what=f"{len(lanes)} lanes"))
-    if args.mode is not None or args.pods is not None:
-        raise NotImplementedError(_MERGED_REFUSED.format(
-            what=f"pods (--mode {args.mode}, --pods {args.pods})"))
-    dev = resolve_device(lanes[0])
 
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    lanes = [resolve_device(d) for d in (args.devices.split(",") if args.devices
+                                         else [args.device])]
+    info = build_mesh_info(args.mode, args.pods, lanes)
+    dev = lanes[0]
     tcfg = TrainConfig(lr=args.lr, total_steps=args.steps,
                        warmup_steps=max(args.steps // 20, 5), grad_accum=args.grad_accum)
     model = LM(cfg, device=dev)
-    print(f"arch={cfg.name} params={cfg.num_params():,} devices=1")
+    step_fn = make_train_step(model, tcfg, mesh_info=info)
+    print(f"arch={cfg.name} params={cfg.num_params():,} "
+          f"devices={1 if info is None else info.n_devices}")
 
     # ---- state
     params = model.init(torch.Generator(dev).manual_seed(args.seed))
@@ -97,7 +119,6 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     corpus = SyntheticCorpus(DataConfig(cfg.vocab_size, args.seq, args.batch, seed=args.seed))
     loader = PrefetchLoader(corpus, start_step=start_step, device=dev)
 
-    step_fn = make_train_step(model, tcfg)
     wd = Watchdog(straggler_after=60.0, dead_after=600.0).start()
     wd.register("trainer")
 

@@ -10,7 +10,9 @@ The ``*_lanes`` functions are the merged (tensor-parallel) forms, the
 counterparts of what GSPMD makes of the same functions over a ``model``
 axis: each takes one weight block and one input a lane (a list in lane
 order) and runs each lane's part on the lane's stream; the result lands on
-the first lane, the controller's (``dist.collectives``).
+the first lane, the controller's (``dist.collectives``). Under autograd they
+differentiate through the lane collectives' backward (the merged training
+forward).
 """
 
 from __future__ import annotations

@@ -30,7 +30,11 @@ its part, its own kernels over its own cache shard, on its own stream, and
 the partial sums meet on the first lane, the controller's, which holds the
 residual stream and the logits. One thread issues every lane's work. It
 takes the dense family, GQA or MHA, at any head grouping whose KV heads
-divide over the lanes (:func:`check_tensor_parallel`).
+divide over the lanes (:func:`check_tensor_parallel`). Its :meth:`LM.forward`
+trains, differentiable through the lane collectives. A view with several
+data rows trains through ``train.make_train_step(model, tcfg,
+mesh_info=view)``, which runs each row on one lane (:meth:`LM.forward_rows`,
+every family) or on a merged view of its own (the dense family).
 
 Caches are updated in place (the JAX package donates them instead). An
 attention cache is dense (:meth:`LM.init_cache`) or a block-paged pool
@@ -48,6 +52,7 @@ of the shared block. Neither pages nor quantizes.
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import replace
 from typing import Optional
 
@@ -87,27 +92,29 @@ from repro_torch.models.layers import (
 from repro_torch.models.quant import layer_matmul_views
 
 _TP_REFUSED = "under MERGE is not ported (ROADMAP Queue 1 item 7)"
+_TP_TRAIN_REFUSED = "in tensor-parallel training is not ported (ROADMAP Queue 1 item 10)"
 
 
-def check_tensor_parallel(cfg: ArchConfig, model_size: int) -> None:
+def check_tensor_parallel(cfg: ArchConfig, model_size: int, training: bool = False) -> None:
     """Raise ``NotImplementedError`` (naming ROADMAP) unless ``cfg`` serves
-    head-sharded over ``model_size`` lanes: the dense family with plain
-    attention, whose KV heads, MLP width and vocabulary divide over the
-    lanes. A latent (MLA) cache shards on its rank, MoE would take JAX's
-    expert-parallel ``shard_map``, and KV heads that do not divide take
-    JAX's head_dim fallback, where GSPMD reduces the scores: a per-lane
-    kernel cannot."""
+    (or, ``training``, trains) head-sharded over ``model_size`` lanes: the
+    dense family with plain attention, whose KV heads, MLP width and
+    vocabulary divide over the lanes. A latent (MLA) cache shards on its
+    rank, MoE would take JAX's expert-parallel ``shard_map``, and KV heads
+    that do not divide take JAX's head_dim fallback, where GSPMD reduces the
+    scores: a per-lane kernel cannot."""
     if model_size <= 1:
         return
+    why = _TP_TRAIN_REFUSED if training else _TP_REFUSED
     if cfg.family != "dense":
-        raise NotImplementedError(f"{cfg.name}: the {cfg.family} family {_TP_REFUSED}")
+        raise NotImplementedError(f"{cfg.name}: the {cfg.family} family {why}")
     if cfg.mla is not None:
-        raise NotImplementedError(f"{cfg.name}: multi-head latent attention {_TP_REFUSED}")
+        raise NotImplementedError(f"{cfg.name}: multi-head latent attention {why}")
     for what, n in (("KV heads", cfg.n_kv_heads), ("d_ff", cfg.d_ff),
                     ("vocab_size", cfg.vocab_size)):
         if n % model_size:
             raise NotImplementedError(f"{cfg.name}: {what} {n} over {model_size} lanes "
-                                      f"(JAX's head_dim / uneven fallback) {_TP_REFUSED}")
+                                      f"(JAX's head_dim / uneven fallback) {why}")
 
 
 def _lane_spec(path: tuple) -> P:
@@ -155,7 +162,8 @@ class LM:
         if mesh_info is not None:
             if mesh_info.data_size != 1:
                 raise ValueError(f"a merged LM is one (data=1, model=N) view, got "
-                                 f"{mesh_info.mesh.shape}")
+                                 f"{mesh_info.mesh.shape} (a view of several data rows "
+                                 "trains through train.make_train_step(..., mesh_info=))")
             check_tensor_parallel(cfg, mesh_info.model_size)
             root = mesh_info.mesh.lanes[0].device
             if device is not None and resolve_device(device) != root:
@@ -384,38 +392,96 @@ class LM:
         the JAX scan body) is recomputed in backward
         (``torch.utils.checkpoint``), so only its input is kept. JAX's
         sequence-parallel and vocab-sharded logits constraints are no-ops on
-        one lane and have no counterpart here."""
-        cfg = self.cfg
+        one lane and have no counterpart here.
+
+        On the merged view (the dense family over a (data=1, model=N) view,
+        params placed by ``serve_param_shardings``) each lane runs its heads,
+        its MLP columns and its vocabulary rows on its stream, differentiable
+        through the lane collectives; the logits land whole on the first
+        lane."""
         if self.merged:
-            raise NotImplementedError(
-                f"{cfg.name}: the training forward over lanes (tensor-parallel training) "
-                "is not ported (ROADMAP Queue 1 item 10)")
-        if "embeds" in batch:
-            x = batch["embeds"].to(self.dtype)
-        else:
-            x = embed_tokens(params["embed"], batch["tokens"])
-        positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
-        auxs = []
+            return self._merged_forward(params, batch)
+        return self.forward_rows([params], [batch])[0]
+
+    def forward_rows(self, params: list, batches: list, lanes: Optional[list] = None,
+                     whole: bool = False) -> list[tuple[torch.Tensor, torch.Tensor]]:
+        """:meth:`forward` for data rows run side by side, block by block:
+        row r's params (plain tensors) and batch on ``lanes[r]``, its work on
+        that lane's stream. Rows are independent, except that an MoE layer
+        routes every row's tokens as one batch (``moe.share_routes``: the
+        capacity and the aux loss's fractions of the whole, as JAX routes a
+        data-parallel batch), so the MoE blocks of a row split in two under
+        remat (the attention, then the routed block); ``whole`` (every row
+        holds the whole batch: it did not divide over the rows) routes each
+        row alone. One (logits, aux) a row; one row is the one-lane
+        forward."""
+        cfg = self.cfg
+        n = len(params)
+        lanes = [None] * n if lanes is None else lanes
+
+        def on(r):
+            return contextlib.nullcontext() if lanes[r] is None else lanes[r].use()
+
+        xs, pos, auxs = [], [], [[] for _ in range(n)]
+        for r in range(n):
+            with on(r):
+                if "embeds" in batches[r]:
+                    x = batches[r]["embeds"].to(self.dtype)
+                else:
+                    x = embed_tokens(params[r]["embed"], batches[r]["tokens"])
+                xs.append(x)
+                pos.append(torch.arange(x.shape[1], dtype=torch.int32, device=x.device))
         if cfg.family in ("dense", "moe"):
             for name in ("blocks", "dense_blocks", "moe_blocks"):
-                for i in range(_depth(params[name]) if name in params else 0):
-                    blk = _index(params[name], i)
-                    if "moe" in blk:
-                        x, aux = self._remat(self._moe_block, blk, x, positions)
-                        auxs.append(aux)
-                    else:
-                        x = self._remat(self._dense_block, blk, x, positions)
+                for i in range(_depth(params[0][name]) if name in params[0] else 0):
+                    blks = [_index(p[name], i) for p in params]
+                    if "moe" not in blks[0]:
+                        for r in range(n):
+                            with on(r):
+                                xs[r] = self._remat(self._dense_block, blks[r], xs[r], pos[r])
+                        continue
+                    if n == 1 or whole:
+                        for r in range(n):
+                            with on(r):
+                                xs[r], aux = self._remat(self._moe_block, blks[r], xs[r],
+                                                         pos[r])
+                            auxs[r].append(aux)
+                        continue
+                    for r in range(n):
+                        with on(r):
+                            xs[r] = self._remat(self._train_attn, blks[r], xs[r], pos[r])
+                    hs = []
+                    for r in range(n):
+                        with on(r), torch.no_grad():
+                            hs.append(rms_norm(xs[r], blks[r]["norm2"], cfg.norm_eps))
+                    shares = moe_mod.share_routes([b["moe"]["router"] for b in blks], hs, cfg,
+                                                  lanes)
+                    for r in range(n):
+                        with on(r):
+                            xs[r], aux = self._remat(self._moe_part, blks[r], xs[r], shares[r])
+                        auxs[r].append(aux)
         elif cfg.family == "ssm":
             for i in range(cfg.n_layers):
-                x = self._remat(self._mamba_block, _index(params["blocks"], i), x)
+                for r in range(n):
+                    with on(r):
+                        xs[r] = self._remat(self._mamba_block, _index(params[r]["blocks"], i),
+                                            xs[r])
         else:  # hybrid
             every = cfg.shared_attn_every
             for g in range(cfg.n_layers // every):
-                group = [_index(params["blocks"], i) for i in range(g * every, (g + 1) * every)]
-                x = self._remat(self._hybrid_group, group, params["shared"], x, positions)
-        aux = (torch.stack(auxs).sum() if auxs
-               else torch.zeros((), dtype=torch.float32, device=x.device))
-        return self._logits(params, x), aux
+                for r in range(n):
+                    group = [_index(params[r]["blocks"], i)
+                             for i in range(g * every, (g + 1) * every)]
+                    with on(r):
+                        xs[r] = self._remat(self._hybrid_group, group, params[r]["shared"],
+                                            xs[r], pos[r])
+        out = []
+        for r in range(n):
+            with on(r):
+                aux = (torch.stack(auxs[r]).sum() if auxs[r]
+                       else torch.zeros((), dtype=torch.float32, device=xs[r].device))
+                out.append((self._logits(params[r], xs[r]), aux))
+        return out
 
     def _remat(self, fn, *args):
         """``fn(*args)``, recomputed in backward under ``cfg.remat == 'block'``
@@ -440,9 +506,16 @@ class LM:
                    ) -> tuple[torch.Tensor, torch.Tensor]:
         """The attention, then the MoE block over every token of the call
         (capacity from B·S) with its aux loss."""
-        x = self._train_attn(blk, x, positions)
+        return self._moe_part(blk, self._train_attn(blk, x, positions))
+
+    def _moe_part(self, blk: Params, x: torch.Tensor,
+                  share: Optional[moe_mod.RouteShare] = None
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+        """x + the MoE block over its pre-norm, with its aux loss (``share``:
+        routed as one row of a batch)."""
         out, aux = moe_mod.moe_apply(blk["moe"], self.cfg,
-                                     rms_norm(x, blk["norm2"], self.cfg.norm_eps), aux=True)
+                                     rms_norm(x, blk["norm2"], self.cfg.norm_eps), aux=True,
+                                     share=share)
         return x + out, aux
 
     def _mamba_block(self, blk: Params, x: torch.Tensor) -> torch.Tensor:
@@ -730,24 +803,30 @@ class LM:
             out[name] = ShardedTensor(shape, self.dtype, sharding, shards)
         return out
 
-    def _lane_params(self, params: Params) -> tuple[list[Params], list[list[Params]]]:
+    def _lane_params(self, params: Params, train: bool = False
+                     ) -> tuple[list[Params], list[list[Params]]]:
         """(each lane's top-level params, each lane's per-layer views) of the
-        placed params, rebuilt only for new params: every leaf's block of
-        ``_lane_spec`` on each lane — a view of the lane's shard, or a
+        placed params: every leaf's block of ``_lane_spec`` on each lane. To
+        serve, rebuilt only for new params: a view of the lane's shard, or a
         contiguous copy made once where the placement replicated the leaf
-        (every leaf under ``MIN_SHARD_ELEMS``) or split another dim."""
+        (every leaf under ``MIN_SHARD_ELEMS``) or split another dim. To train
+        (``train``), views only, built anew under autograd: each lane's block
+        of its own shard, so a replicated leaf's grad lands on every replica
+        in parts (each lane's block; the norms on the first lane's), which
+        the train step sums; a placement that does not hold the block
+        raises."""
         got = self._lane_views_of
-        if got[0] is params:
+        if not train and got[0] is params:
             return got[1], got[2]
         lanes = self._lanes
 
         def blocks(path, leaf):
             if not isinstance(leaf, ShardedTensor):
                 raise TypeError("a merged LM reads params placed over its lanes "
-                                "(ShardedBackend.put_params)")
+                                "(ShardedBackend.put_params, serve_param_shardings)")
             out = []
-            for lane, t in zip(lanes, lane_blocks(leaf, _lane_spec(path))):
-                if not t.is_contiguous():
+            for lane, t in zip(lanes, lane_blocks(leaf, _lane_spec(path), strict=train)):
+                if not train and not t.is_contiguous():
                     with lane.use():
                         t = t.contiguous()
                 out.append(t)
@@ -756,7 +835,8 @@ class LM:
         per = tree_map_with_path(blocks, params)
         tops = [_pick(per, j) for j in range(len(lanes))]
         layers = [[_index(top["blocks"], i) for i in range(self.cfg.n_layers)] for top in tops]
-        self._lane_views_of = (params, tops, layers)
+        if not train:
+            self._lane_views_of = (params, tops, layers)
         return tops, layers
 
     def _scope(self):
@@ -779,16 +859,50 @@ class LM:
         return self._bcast(rms_norm(x, w, self.cfg.norm_eps))
 
     def _merged_layers(self, layers, x, attend) -> torch.Tensor:
-        """Every layer over the lanes: ``attend(li, hs)`` the summed
-        attention output of layer ``li`` for the lanes' inputs ``hs``, then
-        the MLP. Runs on the controller lane's stream, where the residual
-        stays."""
-        lanes = self._lanes
+        """Every layer over the lanes (:meth:`_merged_layer`)."""
         for li in range(self.cfg.n_layers):
+            x = self._merged_layer(layers, li, x, attend)
+        return x
+
+    def _merged_layer(self, layers, li: int, x: torch.Tensor, attend) -> torch.Tensor:
+        """Layer ``li`` over the lanes: ``attend(li, hs)`` the summed
+        attention output for the lanes' inputs ``hs``, then the MLP. Runs on
+        the controller lane's stream, where the residual stays (also when
+        backward recomputes it)."""
+        with self._lanes[0].use():
             x = x + attend(li, self._norm(x, layers[0][li]["norm1"]))
             hs = self._norm(x, layers[0][li]["norm2"])
-            x = x + mlp_apply_lanes([lay[li]["mlp"] for lay in layers], hs, lanes)
-        return x
+            return x + mlp_apply_lanes([lay[li]["mlp"] for lay in layers], hs, self._lanes)
+
+    def _merged_forward(self, params, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
+        """``forward`` over the lanes: each lane's heads through
+        ``attention_apply`` at its share of the heads (``_lcfg``), its MLP
+        partial sums and its vocabulary rows' logits, gathered on the first
+        lane; ``remat == 'block'`` recomputes a layer across the lanes, on
+        the same streams."""
+        tops, layers = self._lane_params(params, train=True)
+        lanes = self._lanes
+        n = len(lanes)
+
+        def apply(*args):  # attention_lanes sums the first entry of a lane's result
+            return (attn_mod.attention_apply(*args),)
+
+        def attend(li, hs):
+            return attn_mod.attention_lanes(
+                apply, lanes,
+                [(layers[j][li]["attn"], self._lcfg, hs[j], pos[j]) for j in range(n)],
+                [{}] * n)[0]
+
+        with self._scope():
+            if "embeds" in batch:
+                x = batch["embeds"].to(device=self.device, dtype=self.dtype)
+            else:
+                x = self._merged_embed(tops, batch["tokens"])
+            pos = self._bcast(torch.arange(x.shape[1], dtype=torch.int32, device=self.device))
+            for li in range(self.cfg.n_layers):
+                x = self._remat(self._merged_layer, layers, li, x, attend)
+            logits = self._merged_logits(tops, x)
+            return logits, torch.zeros((), dtype=torch.float32, device=self.device)
 
     def _merged_logits(self, tops, x: torch.Tensor) -> torch.Tensor:
         hs = self._norm(x, tops[0]["final_norm"])

@@ -33,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.dist import collectives
 from repro_torch.models.layers import Params, dense_init, mlp_apply
 from repro_torch.models.quant import qweight
 
@@ -95,6 +96,44 @@ def _route(x_flat: torch.Tensor, router: torch.Tensor, k: int):
     return probs, top_p, top_e
 
 
+class RouteShare(NamedTuple):
+    """A data row's part in one routing over several rows' tokens (JAX routes
+    a data-parallel batch whole): ``offset`` [E] int64, the entries the rows
+    before this one routed to each expert; ``frac`` [E] f32, every row's
+    entries to each expert over all rows' T·k; ``capacity``, the C of all
+    the rows' tokens together. An entry's slot is its row's offset plus its
+    place in the row, so a row keeps exactly the entries the whole batch
+    would keep; the aux loss with the shared ``frac`` averages over the rows
+    to the whole batch's (rows of equal size)."""
+
+    offset: torch.Tensor
+    frac: torch.Tensor
+    capacity: int
+
+
+@torch.no_grad()
+def share_routes(routers, xs, cfg: ArchConfig, lanes) -> list[RouteShare]:
+    """One :class:`RouteShare` a data row: ``xs`` the rows' router inputs
+    [..., d] in batch order, each on its lane with its ``routers`` copy. The
+    counts meet on the first lane and go back to every lane; the host never
+    waits."""
+    m = cfg.moe
+    counts, tokens = [], 0
+    for router, x, lane in zip(routers, xs, lanes):
+        with lane.use():
+            top_e = _route(x.reshape(-1, x.shape[-1]), router, m.top_k)[2]
+            counts.append(torch.bincount(top_e.reshape(-1), minlength=m.n_routed)[None])
+        tokens += x.numel() // x.shape[-1]
+    every = collectives.lane_gather(counts, lanes, dim=0)  # [rows, E] on the first lane
+    with lanes[0].use():
+        offsets = every.cumsum(0) - every
+        frac = every.sum(0).float() / (tokens * m.top_k)
+    capacity = _capacity(tokens, cfg)
+    return [RouteShare(o[r], f, capacity) for r, (o, f) in
+            enumerate(zip(collectives.lane_broadcast(offsets, lanes),
+                          collectives.lane_broadcast(frac, lanes)))]
+
+
 class Dispatch(NamedTuple):
     """One call's routing. ``slot_tok`` [E, C] int64 (0 in an empty slot),
     ``slot_w`` [E, C] f32 (the entry's top-k weight, 0 in an empty slot),
@@ -111,7 +150,7 @@ class Dispatch(NamedTuple):
 
 
 def moe_dispatch(router: torch.Tensor, cfg: ArchConfig, x_flat: torch.Tensor,
-                 aux: bool = True) -> Dispatch:
+                 aux: bool = True, share: Optional[RouteShare] = None) -> Dispatch:
     """Route the [T, d] tokens of one call to their experts' slots.
 
     Capacity depends on the T of the call (``_capacity``), so every token
@@ -120,22 +159,27 @@ def moe_dispatch(router: torch.Tensor, cfg: ArchConfig, x_flat: torch.Tensor,
     slot of a decode step, a pack's whole T bucket, a verify pack's B·(K+1)
     rows) and never trims padding first. Entries take slots in token-major
     order, so padding placed after the live tokens (as the engine's packs
-    and buckets place it) can only take slots the live tokens left over."""
+    and buckets place it) can only take slots the live tokens left over.
+    With ``share`` the tokens are one data row of a batch routed whole: the
+    batch's capacity, the row's offsets and the batch's fractions
+    (:func:`share_routes`)."""
     m = cfg.moe
     T = x_flat.shape[0]
     E, k = m.n_routed, m.top_k
-    C = _capacity(T, cfg)
+    C = _capacity(T, cfg) if share is None else share.capacity
     probs, top_p, top_e = _route(x_flat, router, k)
     loss = None
     if aux:  # the serving paths drop it, as XLA drops the JAX package's dead aux
-        frac = torch.bincount(top_e.reshape(-1), minlength=E).float() / (T * k)
+        frac = (torch.bincount(top_e.reshape(-1), minlength=E).float() / (T * k)
+                if share is None else share.frac)
         loss = E * torch.sum(frac * probs.mean(dim=0))
 
     flat_e = top_e.reshape(-1)  # [T*k], token-major
     onehot = F.one_hot(flat_e, E)  # [T*k, E]
     pos = onehot.cumsum(0) - onehot  # exclusive
     slot = (pos * onehot).sum(-1)
-    keep = slot < C
+    # the slot in the whole batch decides; the row's tables take its own slots
+    keep = (slot if share is None else slot + share.offset[flat_e]) < C
     # kept entries fill distinct cells of the [E * C] tables; dropped ones go
     # to a trash cell at E * C that is cut off
     idx = torch.where(keep, flat_e * C + slot, E * C)
@@ -172,10 +216,12 @@ def _experts(x_flat: torch.Tensor, w_in, w_gate, w_out, disp: Dispatch) -> torch
 
 
 def moe_apply(params: Params, cfg: ArchConfig, x: torch.Tensor, *,
-              aux: bool = True) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
+              aux: bool = True, share: Optional[RouteShare] = None
+              ) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Routed experts (+ shared experts) over an activation tensor [..., d]:
-    every token of it is routed in one call. Returns (out [..., d] in x's
-    dtype, the aux loss, or None with ``aux=False``)."""
+    every token of it is routed in one call (with ``share``, as one data row
+    of a batch routed whole). Returns (out [..., d] in x's dtype, the aux
+    loss, or None with ``aux=False``)."""
     d = x.shape[-1]
     x_flat = x.reshape(-1, d)
     # int8 expert stacks widen at entry (a per-layer transient); dense
@@ -183,7 +229,8 @@ def moe_apply(params: Params, cfg: ArchConfig, x: torch.Tensor, *,
     w_in = qweight(params["w_in"], x.dtype)
     w_gate = qweight(params["w_gate"], x.dtype)
     w_out = qweight(params["w_out"], x.dtype)
-    disp = moe_dispatch(params["router"], cfg, x_flat, aux=aux)
+    kw = {} if share is None else {"share": share}  # a data row of a batch routed whole
+    disp = moe_dispatch(params["router"], cfg, x_flat, aux=aux, **kw)
     out = _experts(x_flat, w_in, w_gate, w_out, disp).to(x.dtype).reshape(x.shape)
     if "shared" in params:
         out = out + mlp_apply(params["shared"], x)

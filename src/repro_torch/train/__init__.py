@@ -1,6 +1,7 @@
 """Training (counterpart of ``repro.train``): next-token loss, AdamW with a
-warmup + cosine schedule, the one-lane train step with microbatch
-accumulation, and the compressed data-parallel step over lanes."""
+warmup + cosine schedule, the train step with microbatch accumulation (on
+one lane or over a lane mesh), and the compressed data-parallel step over
+lanes."""
 
 from repro_torch.train.loss import next_token_loss
 from repro_torch.train.optimizer import (

@@ -13,12 +13,13 @@ temporaries are one leaf's.
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, NamedTuple
+from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
 from repro_torch.common.tree import leaves, tree_map
 from repro_torch.configs.base import TrainConfig
+from repro_torch.dist.sharding import NamedSharding, P, ShardedTensor
 
 
 class AdamWState(NamedTuple):
@@ -29,14 +30,28 @@ class AdamWState(NamedTuple):
 
 def adamw_init(params: Any) -> AdamWState:
     """Zero moments in f32 beside each param leaf, step 0 on the first
-    leaf's device."""
+    leaf's device. Params placed over lanes (sharded values) get moments
+    on their blocks, each lane's made on its stream, and a step on every
+    lane of the first leaf's mesh."""
     first = leaves(params)[0]
 
-    def zeros(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    def zeros(p, dtype=torch.float32, sharding=None):
+        if not isinstance(p, ShardedTensor):
+            return torch.zeros(p.shape, dtype=dtype, device=p.device)
+        sharding = sharding or p.sharding
+        shards = []
+        for lane, block in zip(p.lanes, sharding.blocks(p.shape)):
+            with lane.use():
+                shards.append(torch.zeros([b - a for a, b in block], dtype=dtype,
+                                          device=lane.device))
+        return ShardedTensor(p.shape, dtype, sharding, shards)
 
-    return AdamWState(step=torch.zeros((), dtype=torch.int32, device=first.device),
-                      mu=tree_map(zeros, params), nu=tree_map(zeros, params))
+    if isinstance(first, ShardedTensor):
+        step = zeros(ShardedTensor((), first.dtype, first.sharding, first.shards),
+                     torch.int32, NamedSharding(first.sharding.mesh, P()))
+    else:
+        step = torch.zeros((), dtype=torch.int32, device=first.device)
+    return AdamWState(step=step, mu=tree_map(zeros, params), nu=tree_map(zeros, params))
 
 
 def warmup_cosine(cfg: TrainConfig) -> Callable[[torch.Tensor], torch.Tensor]:
@@ -67,10 +82,12 @@ def global_norm(tree: Any) -> torch.Tensor:
 
 
 @torch.no_grad()
-def clip_by_global_norm(grads: Any, max_norm: float) -> tuple[Any, torch.Tensor]:
+def clip_by_global_norm(grads: Any, max_norm: float, norm: Optional[torch.Tensor] = None
+                        ) -> tuple[Any, torch.Tensor]:
     """(grads scaled by min(1, max_norm / norm) in f32 and rounded back to
-    each leaf's dtype, the norm before clipping)."""
-    norm = global_norm(grads)
+    each leaf's dtype, the norm before clipping). ``norm`` given: the norm
+    of a whole of which ``grads`` is a part (one lane's shards)."""
+    norm = global_norm(grads) if norm is None else norm
     scale = torch.clamp(max_norm / torch.clamp_min(norm, 1e-12), max=1.0)
     return tree_map(lambda g: (g.float() * scale).to(g.dtype), grads), norm
 
@@ -82,14 +99,17 @@ def adamw_update(
     params: Any,
     cfg: TrainConfig,
     schedule: Callable[[torch.Tensor], torch.Tensor],
+    gnorm: Optional[torch.Tensor] = None,
 ) -> tuple[Any, AdamWState, dict]:
     """One AdamW step: clip by the global norm, update the moments, then the
     params with bias correction and decoupled weight decay. Params, moments
     and step are updated in place; returns (params, state, {"grad_norm",
-    "lr"}), the metrics as f32 tensors."""
+    "lr"}), the metrics as f32 tensors. ``gnorm``: the norm of the whole
+    gradient where ``grads`` is one lane's shards of it (the lane train
+    step), else the norm of ``grads``."""
     b1, b2 = cfg.betas
     state.step.add_(1)
-    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip, gnorm)
     lr = schedule(state.step)
     stepf = state.step.to(torch.float32)
     bc1 = 1 - torch.pow(torch.tensor(b1, dtype=torch.float32, device=stepf.device), stepf)

@@ -1,9 +1,10 @@
 """Train-step factories (counterpart of ``repro/train/step.py``): the
-one-lane step with microbatch gradient accumulation, and the compressed
-data-parallel step over lanes.
+step with microbatch gradient accumulation, on one lane or over a lane
+mesh, and the compressed data-parallel step over lanes.
 
-``make_train_step(model, tcfg)`` returns ``(params, opt_state, batch) ->
-(params, opt_state, metrics)``. Gradients come from ``torch.autograd`` over
+``make_train_step(model, tcfg, mesh_info=None)`` returns ``(params,
+opt_state, batch) -> (params, opt_state, metrics)``; over a view of two or
+more lanes it is :func:`make_lane_train_step`. Gradients come from ``torch.autograd`` over
 ``LM.forward``; params and the optimizer state are updated in place (the
 JAX step donates them) and returned. With ``grad_accum > 1`` the global
 batch is split along its first dim into microbatches, each one's grads
@@ -21,16 +22,27 @@ an exact all-reduce; then every lane applies AdamW to its own copy.
 
 from __future__ import annotations
 
-from typing import Any, Callable
+from typing import Any, Callable, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.common.tree import leaves, tree_map, unflatten
 from repro_torch.configs.base import TrainConfig
 from repro_torch.dist import collectives
 from repro_torch.dist import compression as comp
-from repro_torch.dist.sharding import Mesh, NamedSharding, P, device_put
-from repro_torch.models.model import LM
+from repro_torch.dist.sharding import (
+    MODEL_AXIS,
+    Mesh,
+    MeshInfo,
+    NamedSharding,
+    P,
+    ShardedTensor,
+    device_put,
+    serve_param_shardings,
+    serving_mesh_info,
+)
+from repro_torch.models.model import LM, check_tensor_parallel
 from repro_torch.train.loss import next_token_loss
 from repro_torch.train.optimizer import AdamWState, adamw_update, warmup_cosine
 
@@ -63,10 +75,16 @@ def value_and_grad(loss_fn: Callable, params: Any, batch: dict) -> tuple[tuple, 
     return (loss.detach(), metrics), unflatten(params, grads)
 
 
-def make_train_step(model: LM, tcfg: TrainConfig) -> Callable:
-    """The one-lane train step, with microbatch accumulation when
-    ``tcfg.grad_accum > 1``. Metrics: loss, aux, grad_norm, lr (0-d f32
-    tensors on the params' device)."""
+def make_train_step(model: LM, tcfg: TrainConfig,
+                    mesh_info: Optional[MeshInfo] = None) -> Callable:
+    """The train step, with microbatch accumulation when ``tcfg.grad_accum >
+    1``: on one lane, or over the lanes of ``mesh_info`` (default: the
+    model's own view) where it has two or more (:func:`make_lane_train_step`).
+    Metrics: loss, aux, grad_norm, lr (0-d f32 tensors on the params'
+    device, the first lane's)."""
+    info = model.mesh_info if mesh_info is None else mesh_info
+    if info is not None and info.n_devices > 1:
+        return make_lane_train_step(model, tcfg, info)
     loss_fn = make_loss_fn(model)
     schedule = warmup_cosine(tcfg)
     n_micro = max(tcfg.grad_accum, 1)
@@ -95,6 +113,243 @@ def make_train_step(model: LM, tcfg: TrainConfig) -> Callable:
         return params, opt_state, dict(metrics, **opt_metrics)
 
     return train_step
+
+
+# ---------------------------------------------------------------------------
+# the step over a lane mesh: what JAX's jit of make_train_step computes with
+# param, opt and batch shardings over a (batch axes..., model) mesh
+# ---------------------------------------------------------------------------
+
+
+def _holders(x: ShardedTensor) -> list[list[int]]:
+    """The lanes (flat indices, in order) that hold each distinct block of
+    ``x``, blocks in the order of their first holder."""
+    groups: dict = {}
+    for i, block in enumerate(x.sharding.blocks(x.shape)):
+        groups.setdefault(block, []).append(i)
+    return list(groups.values())
+
+
+def _row_batches(batch: dict, n_micro: int, n_rows: int) -> list[tuple[list[dict], bool]]:
+    """The global batch as ([row] dicts, whole) a microbatch: microbatch i is rows
+    i·B/n .. (i+1)·B/n of the batch, as JAX's reshape takes them, and row r
+    of it its r-th block, as a batch sharding over the batch axes places
+    it; a microbatch that does not divide over the rows goes whole to each
+    row (JAX then replicates the batch), and ``whole`` says so."""
+    b = next(iter(batch.values())).shape[0]
+    if b % n_micro:
+        raise ValueError(f"global batch {b} does not split into {n_micro} microbatches")
+    out = []
+    for i in range(n_micro):
+        mb = {k: v.reshape(n_micro, b // n_micro, *v.shape[1:])[i] for k, v in batch.items()}
+        m = b // n_micro
+        if m % n_rows:
+            out.append(([mb] * n_rows, True))
+        else:
+            out.append(([{k: v.reshape(n_rows, m // n_rows, *v.shape[1:])[r]
+                          for k, v in mb.items()} for r in range(n_rows)], False))
+    return out
+
+
+def lane_rows(info: MeshInfo) -> list[list]:
+    """The lanes of a (batch axes..., model) view as data rows, in the batch
+    spec's order (the row index is the batch axes' coordinates, major
+    first), each row's lanes in ``model`` order."""
+    mesh = info.mesh
+    rest = tuple(a for a in mesh.axis_names if a != MODEL_AXIS)
+    if rest != tuple(info.batch_axes):
+        raise ValueError(f"a training view's axes other than {MODEL_AXIS!r} must be its batch "
+                         f"axes in order: {mesh.axis_names} against {info.batch_axes}")
+    grid = mesh.devices
+    if info.model_axis is not None:
+        grid = np.moveaxis(grid, mesh.axis_names.index(MODEL_AXIS), -1)
+    return [list(r) for r in grid.reshape(-1, info.model_size)]
+
+
+def make_lane_train_step(model: LM, tcfg: TrainConfig, info: MeshInfo) -> Callable:
+    """``(params, opt_state, batch) -> (params, opt_state, metrics)`` over the
+    lanes of ``info``, a (batch axes..., model) view such as
+    ``SpatzformerCluster.merge_info()`` or ``pod_info(p)``: JAX's
+    ``jax.jit(make_train_step(...), in_shardings=(p, o, b),
+    out_shardings=(p, o, m))`` on the same mesh. ``model`` gives the config
+    (a one-lane ``LM`` will do); a ``model`` axis over 1 takes the dense
+    family without MLA, and any other raises ``NotImplementedError``
+    naming ROADMAP Queue 1 item 10.
+
+    The step owns the placement: ``params`` and ``opt_state`` come in on any
+    placement (plain tensors on one device, a restored checkpoint's) and are
+    placed by ``serve_param_shardings``, params and moments together, unless
+    they are the state this step returned last, which is updated in place
+    and returned. ``batch`` is a dict of global tensors (the loader's) on
+    any device. Each data row of the view (:func:`lane_rows`) takes its
+    block of each microbatch: one lane a row runs :meth:`LM.forward_rows`
+    side by side (an MoE layer routes the rows' tokens as one batch), a row
+    of several lanes runs :meth:`LM.forward` on a merged view of its own
+    (tensor-parallel). Backward gives each lane the grad of its own shards.
+    Then, for each block of each leaf, the grads of the lanes that hold it
+    (every row's, and every lane of a row for a leaf the placement
+    replicated) are added in f32 in flat lane order on the first holder,
+    divided by the rows (the mean over the global batch, as JAX takes it)
+    and handed to each holder: the same bits on every replica. The grad
+    norm counts each distinct block once, leaf by leaf in JAX's order, on
+    the first lane, and every lane clips by it and runs AdamW on its
+    shards, so the replicas stay equal bit for bit. The metrics are the
+    rows' means on the first lane; the caller's stream waits for every
+    lane."""
+    check_tensor_parallel(model.cfg, info.model_size, training=True)
+    lanes = info.mesh.lanes
+    index = {id(lane): i for i, lane in enumerate(lanes)}
+    row_lanes = lane_rows(info)
+    rows = [[index[id(lane)] for lane in row] for row in row_lanes]
+    n_rows = len(rows)
+    roots = [lanes[row[0]] for row in rows]
+    row_models = ([LM(model.cfg, mesh_info=serving_mesh_info(r)) for r in row_lanes]
+                  if info.model_size > 1 else [])
+    root = lanes[0]
+    schedule = warmup_cosine(tcfg)
+    n_micro = max(tcfg.grad_accum, 1)
+    coef = model.cfg.moe.aux_loss_coef if model.cfg.moe is not None else None
+    last: list = [None, None]  # the state this step returned last
+
+    def row_forward(params, src, batches, whole):
+        """Each row's (logits, aux), reading the lanes' shards ``src``
+        (``whole``: every row holds the whole microbatch)."""
+        flat = leaves(params)
+        if row_models:
+            out = []
+            for rm, row, mb in zip(row_models, rows, batches):
+                rmesh = rm.mesh_info.mesh
+                rp = unflatten(params, [
+                    ShardedTensor(x.shape, x.dtype, NamedSharding(rmesh, x.sharding.spec),
+                                  [s[i] for i in row]) for x, s in zip(flat, src)])
+                out.append(rm.forward(rp, mb))
+            return out
+        return model.forward_rows([unflatten(params, [s[row[0]] for s in src]) for row in rows],
+                                  batches, roots, whole=whole)
+
+    def micro_grads(params, batches, whole):
+        """(each row's loss and aux, detached; each leaf's grads, one a
+        lane) of one microbatch."""
+        flat = leaves(params)
+        src = [[t.detach().requires_grad_(True) for t in x.shards] for x in flat]
+        batches = [{k: v.to(lane.device, non_blocking=True) for k, v in mb.items()}
+                   for mb, lane in zip(batches, roots)]
+        _lanes_wait_for_caller(lanes)  # the copies above ran on the caller's streams
+        losses, ms = [], []
+        with torch.enable_grad():
+            for (logits, aux), mb, lane in zip(row_forward(params, src, batches, whole), batches,
+                                               roots):
+                with lane.use():
+                    loss = next_token_loss(logits, mb["labels"])
+                    if coef is not None:
+                        loss = loss + coef * aux
+                losses.append(loss)
+                ms.append((loss.detach(), aux.detach()))
+            ones = []
+            for loss, lane in zip(losses, roots):
+                with lane.use():
+                    ones.append(torch.ones_like(loss))
+            grads = torch.autograd.grad(losses, [t for s in src for t in s], ones,
+                                        allow_unused=True, materialize_grads=True)
+        _lanes_wait_for_caller(lanes)
+        it = iter(grads)
+        return ms, [[next(it) for _ in s] for s in src]
+
+    def train_step(params, opt_state: AdamWState, batch: dict):
+        if params is not last[0] or opt_state is not last[1]:
+            state = (params, opt_state)
+            params, opt_state = device_put(state, serve_param_shardings(state, info))
+        _lanes_wait_for_caller(lanes)
+        flat = leaves(params)
+        acc, ms = None, []
+        for batches, whole in _row_batches(batch, n_micro, n_rows):
+            m, g = micro_grads(params, batches, whole)
+            ms.append(m)
+            if n_micro == 1:
+                acc = g
+                continue
+            if acc is None:
+                acc = [[None] * len(gl) for gl in g]
+            for al, gl in zip(acc, g):
+                for i, lane in enumerate(lanes):
+                    with lane.use():
+                        part = gl[i].float() / n_micro
+                        al[i] = part if al[i] is None else al[i] + part
+        reduce_grads(flat, acc, lanes, n_rows)
+        gnorm = lane_grad_norm(flat, acc, lanes)
+        norms = collectives.lane_broadcast(gnorm, lanes)
+        opt_metrics = None
+        for i, lane in enumerate(lanes):
+            with lane.use():
+                om = adamw_update(
+                    unflatten(params, [gl[i] for gl in acc]),
+                    AdamWState(opt_state.step.shards[i],
+                               *(unflatten(t, [x.shards[i] for x in leaves(t)])
+                                 for t in (opt_state.mu, opt_state.nu))),
+                    unflatten(params, [x.shards[i] for x in flat]),
+                    tcfg, schedule, gnorm=norms[i])[2]
+            opt_metrics = om if opt_metrics is None else opt_metrics
+        metrics = {}
+        for j, k in enumerate(("loss", "aux")):
+            per_row = []
+            for r, lane in enumerate(roots):
+                with lane.use():
+                    per_row.append(torch.stack([m[r][j] for m in ms]).mean())
+            total = collectives.lane_reduce(per_row, roots)
+            with root.use():
+                metrics[k] = total / n_rows
+        metrics.update(opt_metrics)
+        for lane in lanes:  # the caller's stream after every lane's work
+            if lane.stream is not None:
+                torch.cuda.current_stream(lane.device).wait_stream(lane.stream)
+        last[:] = params, opt_state
+        return params, opt_state, metrics
+
+    return train_step
+
+
+def reduce_grads(flat: list, grads: list, lanes, n_rows: int) -> None:
+    """In place: for each block of each leaf of ``flat`` (sharded values),
+    the grads of the lanes that hold it (``grads[leaf][lane]``) added in f32
+    in flat lane order on the first holder, divided by ``n_rows`` (the mean
+    over the data rows) and handed to every holder: one tensor, the same
+    bits on each replica."""
+    for x, gl in zip(flat, grads):
+        for held in _holders(x):
+            first = lanes[held[0]]
+            with first.use():
+                total = gl[held[0]].float()
+                for i in held[1:]:
+                    total = total + collectives._to_root(gl[i], lanes[i], first)
+                if n_rows > 1:
+                    total = total / n_rows
+            for i, t in zip(held, collectives.lane_broadcast(total, [lanes[i] for i in held])):
+                gl[i] = t
+
+
+def lane_grad_norm(flat: list, grads: list, lanes) -> torch.Tensor:
+    """The global norm of reduced grads on the first lane: each distinct
+    block once, leaves in JAX's order, each block's sum of squares on its
+    first holder."""
+    root = lanes[0]
+    total = 0
+    for x, gl in zip(flat, grads):
+        for held in _holders(x):
+            with lanes[held[0]].use():
+                sq = gl[held[0]].float().square().sum()
+            sq = collectives._to_root(sq, lanes[held[0]], root)
+            with root.use():
+                total = total + sq
+    with root.use():
+        return torch.sqrt(total)
+
+
+def _lanes_wait_for_caller(lanes) -> None:
+    """Order each lane's later work after what the caller's stream has queued
+    (the batch's copy, autograd's leaf grads)."""
+    for lane in lanes:
+        if lane.stream is not None:
+            lane.stream.wait_stream(torch.cuda.current_stream(lane.device))
 
 
 # ---------------------------------------------------------------------------

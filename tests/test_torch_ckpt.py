@@ -242,7 +242,9 @@ def test_resume_is_bitwise_a_straight_run(tmp_path):
 def test_launcher_trains_resumes_and_refuses_lanes(tmp_path, capsys):
     """``launch.train`` on the CPU: 4 steps and a save, then ``--resume`` to
     8; the resumed losses are a straight 8-step run's (the warmup is 5
-    steps, so the first 4 steps' learning rates do not depend on --steps)."""
+    steps, so the first 4 steps' learning rates do not depend on --steps).
+    Over two CPU lanes it trains data-parallel; tensor parallelism of a
+    family the merged view refuses raises, naming the ROADMAP item."""
     args = ["--arch", "codeqwen1.5-7b", "--reduced", "--batch", "2", "--seq", "32",
             "--device", "cpu", "--log-every", "2", "--ckpt-every", "2"]
     straight = launch_train.main(args + ["--steps", "8", "--ckpt-dir", str(tmp_path / "a")])
@@ -254,6 +256,11 @@ def test_launcher_trains_resumes_and_refuses_lanes(tmp_path, capsys):
     assert again["start_step"] == 4 and again["losses"] == straight["losses"][4:]
     assert "resumed from step 4" in out and "arch=codeqwen1.5-7b-reduced" in out
     assert [s for s in Checkpointer(str(tmp_path / "b")).list_steps()] == [4, 6, 8]
-    for extra in (["--devices", "cpu,cpu"], ["--mode", "split"], ["--pods", "4"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 10"):
-            launch_train.main(args + extra + ["--ckpt-dir", str(tmp_path / "c")])
+    # over lanes: two CPU lanes are (data 2, model 1), the straight run's
+    # losses; tensor parallelism of a family the merged view refuses raises
+    two = launch_train.main(args + ["--steps", "2", "--devices", "cpu,cpu",
+                                    "--ckpt-dir", str(tmp_path / "c")])
+    assert two["losses"] == pytest.approx(straight["losses"][:2], rel=1e-5)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 10"):
+        launch_train.main(["--arch", "falcon-mamba-7b", "--reduced", "--devices",
+                           "cpu,cpu,cpu,cpu", "--pods", "1", "--ckpt-dir", str(tmp_path / "d")])
