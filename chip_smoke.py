@@ -302,6 +302,28 @@ Phases (each raises on failure, so the script exits non-zero):
    ``main(argv)`` at a tiny size on the card. No hand-written kernel may
    launch in (a)-(g)'s training (every wrapper's counts stay 0); the
    examples serve, and their launches are printed.
+17. (run after phase 16) embeds, the windowed prefill and the dry run:
+   (a) musicgen-large whole (48 layers, d 2048, bf16) on one lane: a
+   prefill of 512 positions and 16 decode steps on the embedding rows of a
+   token stream, bitwise the token path's (the flash and decode kernels'
+   launches read between the counts' reset and read), the same over
+   [cuda:0, cuda:0] on the merged view within ``MERGED_REL_TOL`` of one
+   lane, and seeded random embeds through the prefill against
+   ``LM.forward``; (b) codeqwen1.5-7b at 4 layers with a sliding window of
+   1024, S 4096: the prefill's logits and cache bitwise ``LM.forward``'s and
+   each layer's projected (k, v), no flash launch; (c) the dry run on the
+   production 16 x 16 mesh of placeholder lanes: codeqwen1.5-7b
+   ``prefill_32k`` / ``decode_32k`` and musicgen-large ``decode_32k`` ok,
+   qwen3-32b ``decode_32k`` refused naming ROADMAP Queue 1 item 7, each
+   record printed; (d) the dry run on one placeholder lane against the card
+   for phase 16 (a)'s train step and a forward of 1 x 8192 (codeqwen1.5-7b
+   at 4 layers): argument bytes equal, counted FLOPs equal to
+   ``FlopCounterMode`` on the card, the peak within ``DRYRUN_PEAK_TOL`` of
+   ``max_memory_allocated``; (e) ZeRO-1 and ZeRO-3 over four lanes of the
+   card (TP off) against the replicated step, codeqwen1.5-7b at
+   ``ZERO_LAYERS`` layer, 2 steps, and ZeRO-3 again with the root lane's
+   stream held back before each lane reduce (``root_held_back``): losses
+   and params bitwise, ms a step.
 11. a ``{"kernels": [...], "to_port": []}`` JSON line (every row of PERF.md's
    kernel table; the decode, ragged, paged, matmul and matmul_q8 rows name the body
    their timed case ran and its launches; paged packs and matmul_q8 at M = 16
@@ -314,7 +336,8 @@ Phases (each raises on failure, so the script exits non-zero):
    matmul, softmax, axpy, dotp, fft and conv2d rows phase 15 (c)'s
    launches as ``launches_fabric``; the decode, ragged, flash and paged rows
    phase 12 (b)'s merged launches on each lane as ``launches_merged`` and
-   their phase 2 readings at a lane's shard as ``lane_shape``), then the
+   their phase 2 readings at a lane's shard as ``lane_shape``; the decode
+   and flash rows phase 17 (a)'s launches as ``launches_embeds``), then the
    result line.
 
 Imports nothing of JAX and nothing of the JAX package.
@@ -322,6 +345,7 @@ Imports nothing of JAX and nothing of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -4879,6 +4903,412 @@ def train_alone() -> int:
     return 0
 
 
+# ---------------------------------------------------------------- phase 17
+
+# (a) musicgen-large whole (48 layers, d 2048, bf16): a prefill of EMBED_S
+# positions, then EMBED_STEPS decode steps. Its seeded random embeds through
+# the prefill (the flash kernel) against LM.forward (chunked plain attention)
+# on the same embeds: bf16 sums in two orders, held at the merged engine's
+# tolerance (MERGED_REL_TOL of the largest logit)
+EMBED_S, EMBED_STEPS = 512, 16
+# (b) codeqwen1.5-7b at 4 layers with a sliding window
+WINDOW, WINDOW_S = 1024, 4096
+# (d) the dry run on one placeholder lane against the card: its peak within
+# this share of the card's (the caching allocator rounds each block up)
+DRYRUN_PEAK_TOL = 0.10
+# (e) ZeRO over four lanes of the card against the replicated step:
+# codeqwen1.5-7b at ZERO_LAYERS of its 32 layers, widths full (the
+# replicated step holds four copies of params and f32 moments: at 4 layers
+# ~82 GB), batch ZERO_B x ZERO_S, 2 steps each
+ZERO_LAYERS, ZERO_B, ZERO_S, ZERO_STEPS = 1, 4, 512, 2
+# (e) ZeRO-3 once more with the root lane's stream held back by this many
+# cycles (~20 ms at the H100's 1.98 GHz) before each lane reduce: a
+# consumer that does not wait for the root's sum then reads it unwritten
+ZERO_HOLD_CYCLES = 4 * 10**7
+# (c) the production cells run on meta, and what each must record
+DRYRUN_CELLS = (("codeqwen1.5-7b", "prefill_32k", True), ("codeqwen1.5-7b", "decode_32k", True),
+                ("musicgen-large", "decode_32k", True), ("qwen3-32b", "decode_32k", False))
+
+
+def _layer(params, i: int):
+    from repro_torch.common.tree import tree_map
+
+    return tree_map(lambda t: t[i], params["blocks"])
+
+
+def embeds_serving(dev, counters) -> dict:
+    """(a) musicgen-large whole, one lane: prefill + decode steps on the
+    embedding rows of a token stream bitwise equal to the token path; the
+    same on the merged view over [cuda:0, cuda:0] within MERGED_REL_TOL;
+    seeded random embeds through prefill against LM.forward."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.dist.sharding import device_put, serve_param_shardings, serving_mesh_info
+    from repro_torch.models import LM
+
+    cfg = get_arch("musicgen-large")
+    model = LM(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(17))
+    tab = params["embed"]["tok"]
+    rng = np.random.default_rng(17)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, EMBED_S + EMBED_STEPS))
+                            .astype(np.int32)).to(dev)
+
+    def batch(t, embeds: bool) -> dict:
+        return {"embeds": tab[t.long()]} if embeds else {"tokens": t}
+
+    def run(m, p, embeds: bool):
+        with torch.no_grad():
+            logits, cache = m.prefill(p, batch(toks[:, :EMBED_S], embeds), EMBED_S + EMBED_STEPS)
+            out = [logits[:, -1].float()]
+            for t in range(EMBED_STEPS):
+                cur = torch.full((1,), EMBED_S + t, dtype=torch.int32, device=dev)
+                step, cache = m.decode_step(p, cache, batch(toks[:, EMBED_S + t:EMBED_S + t + 1],
+                                                            embeds), cur)
+                out.append(step[:, 0].float())
+        return torch.stack(out)
+
+    reset_counts(counters)
+    want = run(model, params, False)
+    got = run(model, params, True)
+    torch.cuda.synchronize()
+    launches = read_counts(counters, "phase 17 (a): prefill + decode, tokens then embeds")
+    if not torch.equal(got, want):
+        raise AssertionError(f"phase 17 (a): embeds off the token path by "
+                             f"{(got - want).abs().max().item()}")
+    info = serving_mesh_info([dev, dev])
+    merged_p = device_put(params, serve_param_shardings(params, info))
+    merged = run(LM(cfg, mesh_info=info), merged_p, True)
+    del merged_p
+    merged_rel = ((merged - got).abs().max() / got.abs().max()).item()
+    e = torch.randn((1, EMBED_S, cfg.d_model), generator=torch.Generator().manual_seed(17)).to(
+        dev, torch.bfloat16)
+    with torch.no_grad():
+        pre = model.prefill(params, {"embeds": e}, EMBED_S)[0].float()
+        fwd = model.forward(params, {"embeds": e})[0].float()
+    fwd_rel = ((pre - fwd).abs().max() / fwd.abs().max()).item()
+    res = dict(bitwise=True, steps=EMBED_STEPS, prefill=EMBED_S, merged_rel=merged_rel,
+               forward_rel=fwd_rel, launches=launches)
+    print(f"  (a) {cfg.name} whole ({cfg.num_params() / 1e9:.2f}B, bf16): prefill {EMBED_S} + "
+          f"{EMBED_STEPS} decode steps on embeds bitwise the token path's; merged over "
+          f"[{dev}, {dev}] max |diff| / max |logit| {merged_rel:.4f}; random embeds, prefill vs "
+          f"forward {fwd_rel:.4f} (tolerance {MERGED_REL_TOL})", flush=True)
+    if not max(merged_rel, fwd_rel) <= MERGED_REL_TOL:
+        raise AssertionError(f"phase 17 (a): {res}")
+    del params, tab
+    torch.cuda.empty_cache()
+    return res
+
+
+def windowed_prefill(dev, fk) -> dict:
+    """(b) codeqwen1.5-7b at 4 layers with a sliding window: the prefill's
+    logits against LM.forward's and its cache against each layer's
+    projected (k, v) along forward's residual; no flash launch."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import LM
+    from repro_torch.models import attention as attn
+    from repro_torch.models.layers import apply_rope, rms_norm
+
+    cfg = replace(get_arch("codeqwen1.5-7b"), n_layers=4, sliding_window=WINDOW)
+    model = LM(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(18))
+    toks = torch.from_numpy(np.random.default_rng(18).integers(0, cfg.vocab_size, (1, WINDOW_S))
+                            .astype(np.int32)).to(dev)
+    flash0 = fk.launches
+    with torch.no_grad():
+        logits, cache = model.prefill(params, {"tokens": toks}, WINDOW_S)
+        fwd = model.forward(params, {"tokens": toks})[0]
+        torch.cuda.synchronize()
+        if fk.launches != flash0:
+            raise AssertionError("phase 17 (b): a windowed prefill launched the flash kernel")
+        pos = torch.arange(WINDOW_S, dtype=torch.int32, device=dev)
+        x = params["embed"]["tok"][toks.long()]
+        kv_diff = 0.0
+        for li in range(cfg.n_layers):
+            blk = _layer(params, li)
+            _, k, v = attn._project(blk["attn"], cfg, rms_norm(x, blk["norm1"], cfg.norm_eps))
+            k = apply_rope(k, pos[None], cfg.rope_theta)
+            kv_diff = max(kv_diff, (cache["k"][li] - k).abs().max().item(),
+                          (cache["v"][li] - v).abs().max().item())
+            x = model._dense_block(blk, x, pos)
+    logit_diff = (logits.float() - fwd.float()).abs().max().item()
+    res = dict(window=WINDOW, seq=WINDOW_S, logits_max_abs_diff=logit_diff,
+               kv_max_abs_diff=kv_diff, bitwise=logit_diff == 0 and kv_diff == 0)
+    print(f"  (b) {cfg.name} at 4 layers, window {WINDOW}, S {WINDOW_S}: prefill vs forward "
+          f"logits max |diff| {logit_diff}, cache vs projected (k, v) {kv_diff} (both chunked, "
+          f"no flash launch)", flush=True)
+    if not res["bitwise"]:
+        raise AssertionError(f"phase 17 (b): the windowed prefill is off forward's: {res}")
+    del params, cache
+    torch.cuda.empty_cache()
+    return res
+
+
+def dryrun_production() -> dict:
+    """(c) the dry run's cells on the production 16 x 16 mesh of placeholder
+    lanes: each record printed, ok where the port runs the cell, else
+    ``ok: false`` naming ROADMAP Queue 1 item 7."""
+    from repro_torch.launch import dryrun
+
+    out = {}
+    for arch, shape, ok in DRYRUN_CELLS:
+        try:
+            rec = dryrun.lower_cell(arch, shape, False)
+            rec.pop("lane_mem")
+        except NotImplementedError as e:
+            rec = dryrun.failed(arch, shape, "16x16", e)
+        print("  " + json.dumps(rec), flush=True)
+        if rec["ok"] != ok or (not ok and "ROADMAP Queue 1 item 7" not in rec["error"]):
+            raise AssertionError(f"phase 17 (c): {arch}/{shape}: {rec}")
+        out[f"{arch}/{shape}"] = rec
+    return out
+
+
+def dryrun_vs_card(dev, smi: str) -> dict:
+    """(d) codeqwen1.5-7b at 4 layers on one placeholder lane against the
+    card: phase 16 (a)'s train step (B 2, S 2048, bf16) and a forward of B 1,
+    S 8192 — argument bytes equal to the state placed on the card, counted
+    FLOPs equal to FlopCounterMode's on the card, the peak within
+    DRYRUN_PEAK_TOL of max_memory_allocated over the step."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.common.tree import leaves
+    from repro_torch.configs import TrainConfig, get_arch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import DataConfig, SyntheticCorpus
+    from repro_torch.dist.sharding import Mesh, lane_grid, lanes_for
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import mesh_info_for
+    from repro_torch.models import LM
+    from repro_torch.train import adamw_init, make_train_step
+
+    cfg = replace(get_arch("codeqwen1.5-7b"), n_layers=TRAIN_LAYERS)
+    mesh = Mesh(lane_grid(lanes_for(["meta"]), (1, 1)), ("data", "model"))
+    plan = dryrun.Plan(cfg, mesh_info_for(mesh))  # phase 16 (a)'s step: TP, grad_accum 1
+    shapes = {"train": ShapeConfig("train_2k", TRAIN_S, TRAIN_B, "train"),
+              "forward": ShapeConfig("forward_8k", 8192, 1, "prefill")}
+    model = LM(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    out = {}
+    for key, shape in shapes.items():
+        rec = dryrun.run_cell(cfg, shape, mesh, plan=plan)
+        rec.pop("lane_mem")
+        if key == "train":
+            opt = adamw_init(params)
+            batch = {k: torch.from_numpy(v).to(dev) for k, v in
+                     SyntheticCorpus(DataConfig(cfg.vocab_size, TRAIN_S, TRAIN_B, seed=0))
+                     .batch(0).items()}
+            step = make_train_step(model, TrainConfig())
+            state = [params, opt]
+            args = leaves((params, opt, batch))
+
+            def run():
+                state[0], state[1], m = step(state[0], state[1], batch)
+                return m
+            run()  # warm: the first checkpointed backward's one-time work
+        else:
+            batch = {"tokens": torch.zeros((1, 8192), dtype=torch.int32, device=dev)}
+            args = leaves((params, batch))
+
+            def run():
+                with torch.no_grad():
+                    return model.forward(params, batch)
+        arg_bytes = sum(t.numel() * t.element_size() for t in args)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        res = run()
+        torch.cuda.synchronize()
+        card_temp = torch.cuda.max_memory_allocated(dev) - before
+        del res
+        with FlopCounterMode(display=False) as fc:
+            res = run()
+            torch.cuda.synchronize()
+        del res
+        card_peak = arg_bytes + card_temp
+        dry = rec["mem"]
+        row = dict(record=rec, card_argument_bytes=arg_bytes, card_temp_bytes=card_temp,
+                   card_peak_bytes=card_peak, card_flops=fc.get_total_flops(),
+                   flops_diff=rec["counted_flops"] - fc.get_total_flops(),
+                   peak_rel=dry["peak_bytes"] / card_peak - 1)
+        print(f"  (d) {key} ({shape.global_batch} x {shape.seq_len}, {cfg.n_layers} layers, "
+              f"bf16; {smi}): argument bytes {dry['argument_bytes']} dry run / {arg_bytes} card; "
+              f"counted FLOPs {rec['counted_flops']} / {fc.get_total_flops()} (difference "
+              f"{row['flops_diff']}: no hand-written kernel on this path); peak "
+              f"{dry['peak_bytes'] / 1e9:.3f} / {card_peak / 1e9:.3f} GB ({row['peak_rel']:+.3%}; "
+              f"temp {dry['temp_bytes'] / 1e9:.3f} / {card_temp / 1e9:.3f}); trace "
+              f"{rec['trace_s']} s", flush=True)
+        if (dry["argument_bytes"] != arg_bytes or row["flops_diff"] != 0
+                or abs(row["peak_rel"]) > DRYRUN_PEAK_TOL or dry["unclaimed_bytes"]):
+            raise AssertionError(f"phase 17 (d) {key}: {row}")
+        out[key] = row
+        if key == "train":
+            del state, opt, step
+        del batch, args
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def zero_lanes_in_a_fresh_process() -> dict:
+    """(e) in a new process, with cuBLAS's workspace fixed
+    (``CUBLAS_WORKSPACE_CONFIG=:4096:8``, so no product's algorithm depends
+    on the workspace it finds free) and the replicated state's ~50 GB
+    kept out of this process's allocator."""
+    import os
+
+    out = subprocess.run(
+        [sys.executable, "-c",
+         "import json, chip_smoke; print(json.dumps(chip_smoke.zero_lanes()))"],
+        cwd=ROOT, capture_output=True, text=True, timeout=600,
+        env=dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8"))
+    print(out.stdout.rsplit("\n", 2)[0], flush=True)
+    if out.returncode != 0:
+        raise AssertionError(f"phase 17 (e) failed:\n{out.stderr[-4000:]}")
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+@contextlib.contextmanager
+def root_held_back(cycles: int):
+    """Every lane reduce (``dist.collectives._reduce``: a broadcast's
+    backward, the step's metrics) first queues ``cycles`` of sleep on its
+    root lane's stream, so work that reads the sum without waiting for that
+    stream reads it unwritten."""
+    import torch
+
+    from repro_torch.dist import collectives
+
+    plain = collectives._reduce
+
+    def held(parts, lanes):
+        if lanes[0].stream is not None:
+            with torch.cuda.stream(lanes[0].stream):
+                torch.cuda._sleep(cycles)
+        return plain(parts, lanes)
+
+    collectives._reduce = held
+    try:
+        yield
+    finally:
+        collectives._reduce = plain
+
+
+def zero_lanes(dev="cuda") -> dict:
+    """(e) ZeRO-1 and ZeRO-3 over four lanes of the card (TP off: one lane a
+    row) against the replicated step on the same lanes, and ZeRO-3 again
+    with the root lane held back (:func:`root_held_back`): losses and params
+    bitwise equal over ZERO_STEPS steps; ms a step. Raises after every run,
+    naming each that differs."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    from repro_torch.common.tree import leaves, tree_map
+    from repro_torch.configs import TrainConfig, get_arch
+    from repro_torch.data import DataConfig, SyntheticCorpus
+    from repro_torch.dist.sharding import Mesh, MeshInfo, gather, lane_grid, lanes_for
+    from repro_torch.models import LM
+    from repro_torch.train import adamw_init, make_train_step
+
+    cfg = replace(get_arch("codeqwen1.5-7b"), n_layers=ZERO_LAYERS)
+    init = LM(cfg, device=dev).init(torch.Generator(device=dev).manual_seed(19))
+    corpus = SyntheticCorpus(DataConfig(cfg.vocab_size, ZERO_S, ZERO_B, seed=19))
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in corpus.batch(i).items()}
+               for i in range(ZERO_STEPS)]
+    out, ref, off = {}, None, []
+    for key, zero, hold in (("none", "none", 0), ("zero1", "zero1", 0), ("zero3", "zero3", 0),
+                            ("zero3_held", "zero3", ZERO_HOLD_CYCLES)):
+        info = MeshInfo(Mesh(lane_grid(lanes_for([dev] * 4), (2, 2)), ("data", "model")),
+                        batch_axes=("data", "model"), tp_enabled=False, zero=zero)
+        p = tree_map(lambda t: t.clone(), init)
+        o = adamw_init(p)
+        step = make_train_step(LM(cfg, device=dev), TrainConfig(lr=3e-4, warmup_steps=2,
+                                                                total_steps=100), mesh_info=info)
+        losses, ms = [], []
+        with root_held_back(hold) if hold else contextlib.nullcontext():
+            for b in batches:
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                p, o, m = step(p, o, b)
+                losses.append(float(m["loss"]))
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t) * 1e3)
+        whole = [gather(x) for x in leaves(p)]
+        del p, o, step
+        torch.cuda.empty_cache()
+        if ref is None:
+            ref = (losses, whole)
+            equal, diff, n_off = True, 0.0, 0
+        else:
+            same = [torch.equal(a, b) for a, b in zip(whole, ref[1])]
+            equal = losses == ref[0] and all(same)
+            diff = max((a.float() - b.float()).abs().max().item() for a, b in zip(whole, ref[1]))
+            n_off = same.count(False)
+        out[key] = dict(losses=losses, step_ms=ms, bitwise=equal, max_abs_diff=diff,
+                        leaves_off=n_off, hold_cycles=hold)
+        held = f"; the root held back {hold} cycles a reduce" if hold else ""
+        print(f"  (e) {key}: losses {losses}, ms a step {[round(x, 1) for x in ms]} (the first "
+              f"places the state{held}), params and losses bitwise the replicated step's: "
+              f"{equal} (max |diff| {diff}, {n_off} of {len(whole)} leaves off)", flush=True)
+        if not equal:
+            off.append(key)
+        del whole
+    del init, ref
+    torch.cuda.empty_cache()
+    if off:
+        raise AssertionError(f"phase 17 (e): {off} off the replicated step")
+    return out
+
+
+def full_dryrun(dev, smi: str, counters, fk) -> dict:
+    """Phase 17: embeds on the serving calls, the windowed prefill, the dry
+    run and ZeRO over lanes, (a)-(e)."""
+    out = {}
+    for key, label, fn in (("embeds", "(a) embeds on prefill / decode_step",
+                            lambda: embeds_serving(dev, counters)),
+                           ("window", "(b) windowed prefill", lambda: windowed_prefill(dev, fk)),
+                           ("production", "(c) the dry run on the 16 x 16 mesh", dryrun_production),
+                           ("vs_card", "(d) the dry run against the card",
+                            lambda: dryrun_vs_card(dev, smi)),
+                           ("zero", "(e) ZeRO-1 / ZeRO-3 over four lanes",
+                            zero_lanes_in_a_fresh_process)):
+        t = time.perf_counter()
+        print(f"  -- {label}", flush=True)
+        out[key] = fn()
+        out[key + "_seconds"] = time.perf_counter() - t
+    return out
+
+
+def dryrun_alone() -> int:
+    """Phase 17 alone, after the card check and the kernels' build; prints
+    the ``{"dryrun": ...}`` line.
+
+        python3 -c "import sys, chip_smoke; sys.exit(chip_smoke.dryrun_alone())"
+    """
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import decode_attention as dk
+    from repro_torch.kernels import flash_attention as fk
+
+    setup = card_setup()
+    if setup is None:
+        return 1
+    dev, smi = setup
+    t = time.perf_counter()
+    _build.load()
+    print(f"  built in {time.perf_counter() - t:.1f} s", flush=True)
+    phase("17 embeds, windowed prefill and the dry run")
+    t = time.perf_counter()
+    counters = {"gqa_flash_attention": (fk, "launches"), "decode_attention": (dk, "launches")}
+    print(json.dumps({"dryrun": full_dryrun(dev, smi, counters, fk)}, default=float))
+    print(f"  phase 17: {time.perf_counter() - t:.1f} s")
+    phase("done")
+    return 0
+
+
 # ----------------------------------------------------------------- phase 7
 
 # the kernel API's main shapes (codeqwen1.5-7b, bf16): one prompt's 32 heads
@@ -5725,6 +6155,13 @@ def main() -> int:
     phase("16 training on the card")
     print(json.dumps({"train": full_training(dev, smi)}, default=float))
 
+    phase("17 embeds, windowed prefill and the dry run")
+    t17 = time.perf_counter()
+    counters17 = {"gqa_flash_attention": (fk, "launches"), "decode_attention": (dk, "launches")}
+    dry = full_dryrun(dev, smi, counters17, fk)
+    print(json.dumps({"dryrun": dry}, default=float))
+    print(f"  phase 17: {time.perf_counter() - t17:.1f} s", flush=True)
+
     phase("11 the kernel table")
     # the pl.pallas_call line of each TPU kernel, as in PERF.md's kernel table
     sources = {
@@ -5833,6 +6270,8 @@ def main() -> int:
         # phase 14 (b)'s launches (zamba2-2.7b's shared attention block: its
         # admissions on flash, every decode launch on the split body), and
         # each row timed at zamba2's shapes in phase 2
+        if name in dry["embeds"]["launches"]:  # phase 17 (a): musicgen-large on embeds
+            kernels[-1]["launches_embeds"] = dry["embeds"]["launches"][name]
         if name in fabric_launches:  # phase 15 (c): the mixed scheduler's vector queue
             kernels[-1]["launches_fabric"] = fabric_launches[name]
         if name in hybrid_shapes:

@@ -107,6 +107,7 @@ class ArchConfig:
     attn_impl: str = "chunked"  # training forward: 'dense' | 'chunked' (online softmax)
     attn_chunk: int = 512  # KV block of chunked attention
     remat: str = "block"  # 'none' | 'block' (recompute each block in backward)
+    kv_cache_dtype: str = ""  # '' => dtype; 'float8_e4m3fn' halves KV memory (unscaled rows)
 
     @property
     def head_dim(self) -> int:

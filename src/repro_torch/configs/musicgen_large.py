@@ -4,8 +4,8 @@
 48L d_model=2048 32H (GQA kv=32) d_ff=8192 vocab=2048
 
 Audio modality: in the JAX package the EnCodec frontend is a stub and the
-model takes precomputed frame embeddings (B, S, d_model) as ``batch["embeds"]``.
-The port registers the config; its ``LM`` takes token ids only.
+model takes precomputed frame embeddings (B, S, d_model) as ``batch["embeds"]``,
+and so does the port's ``LM`` (``forward``, ``prefill``, ``decode_step``).
 """
 
 from repro_torch.configs.base import ArchConfig, register_arch

@@ -32,6 +32,17 @@ on another device gets a copy.
   along one axis, in lane order;
 * ``lane_broadcast`` — the root's tensor on every lane.
 
+Inside :func:`counting` (the production dry run; off everywhere else) each
+collective adds the bytes of its result on each lane that receives one,
+under the kind names of JAX's HLO: a reduce's sum on the root is
+``all-reduce``, a gather's whole on the root ``all-gather``, a broadcast's
+copy on every other lane, a ring hop's on its receiver and the block a
+gather's backward hands back to each lane ``collective-permute``. The
+all-variants are a reduce or a gather and then a broadcast, and an autograd
+Function's backward counts as the collective it runs. Eager runs each
+collective as often as it executes, so these totals are what JAX's
+``roofline/hlo_loops.py`` rebuilds from a loop body's trip counts.
+
 Under autograd (a grad-requiring input, grad mode on) each of the three is
 a ``torch.autograd.Function`` whose backward is its transpose, queued on the
 lane streams with the forward's event ordering: broadcast's backward is the
@@ -40,9 +51,19 @@ the root's grad, gather's the split of the grad along ``dim`` with each
 block handed back to its lane (a copy, ordered by its own events, where the
 lane lies on another device). The all-variants compose from these. This is
 what the merged training forward differentiates through.
+
+A backward keeps autograd's stream contract: the engine hands it its grads
+ready on the current stream and takes what it returns as made there (the
+next node reads it with no wait of its own: a select's backward on the
+caller's stream, say). So every lane waits for the current stream before
+the backward's work, the current stream waits for every lane after it, and
+each returned tensor is kept for that stream (:func:`_backward_streams`).
 """
 
 from __future__ import annotations
+
+import contextlib
+from typing import Optional
 
 import numpy as np
 import torch
@@ -54,6 +75,30 @@ from repro_torch.dist.sharding import (
     copy_between,
     spec_axes,
 )
+
+
+_COUNTS: Optional[dict] = None  # {lane: {kind: bytes}} inside counting()
+
+
+@contextlib.contextmanager
+def counting():
+    """Count the lane collectives run inside: yields ``{lane: {kind:
+    bytes}}``, the bytes of each collective's result that land on each
+    lane, filled as they run (the backward's too, from any thread)."""
+    global _COUNTS
+    prev, _COUNTS = _COUNTS, {}
+    try:
+        yield _COUNTS
+    finally:
+        _COUNTS = prev
+
+
+def count(kind: str, lane, t: torch.Tensor) -> None:
+    """Add ``t``'s bytes, received by ``lane``, under ``kind`` (inside
+    :func:`counting` only)."""
+    if _COUNTS is not None:
+        per = _COUNTS.setdefault(lane, {})
+        per[kind] = per.get(kind, 0) + t.numel() * t.element_size()
 
 
 def _spec(x: ShardedTensor, ndim: int = 2) -> tuple:
@@ -92,7 +137,7 @@ def _to_root(t: torch.Tensor, src, root) -> torch.Tensor:
     two lie on different devices."""
     if src is root:
         return t
-    if src.device != root.device:
+    if not root.shares_memory(src):
         return _hop(t, src, root)
     root.wait_for(src)
     root.keep(t)
@@ -103,7 +148,8 @@ def _broadcast(t: torch.Tensor, lanes) -> list[torch.Tensor]:
     root = lanes[0]
     out = [t]
     for lane in lanes[1:]:
-        if lane.device == root.device:
+        count("collective-permute", lane, t)
+        if lane.shares_memory(root):
             lane.wait_for(root)
             lane.keep(t)
             out.append(t)
@@ -118,13 +164,18 @@ def _reduce(parts, lanes) -> torch.Tensor:
     with root.use():
         for t, lane in zip(parts[1:], lanes[1:]):
             acc = acc + _to_root(t, lane, root)
+    if len(parts) > 1:
+        count("all-reduce", root, acc)
     return acc
 
 
 def _gather(parts, lanes, dim: int) -> torch.Tensor:
     root = lanes[0]
     with root.use():
-        return torch.cat([_to_root(t, lane, root) for t, lane in zip(parts, lanes)], dim=dim)
+        out = torch.cat([_to_root(t, lane, root) for t, lane in zip(parts, lanes)], dim=dim)
+    if len(parts) > 1:
+        count("all-gather", root, out)
+    return out
 
 
 def _from_root(t: torch.Tensor, root, lane) -> torch.Tensor:
@@ -132,7 +183,7 @@ def _from_root(t: torch.Tensor, root, lane) -> torch.Tensor:
     of :func:`_to_root`)."""
     if lane is root:
         return t
-    if lane.device != root.device:
+    if not lane.shares_memory(root):
         return _hop(t, root, lane)
     lane.wait_for(root)
     lane.keep(t)
@@ -146,6 +197,28 @@ def _alias(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return t.view_as(t) if t is like else t
 
 
+@contextlib.contextmanager
+def _backward_streams(lanes):
+    """Run a backward's lane work under autograd's stream contract: the
+    lanes wait for the current stream of their device on entry; on exit
+    that stream waits for every lane, and each tensor appended to the
+    yielded list is kept for it (the caching allocator must not hand its
+    memory to a lane's next tensor while the engine still reads it)."""
+    ambient = {lane.device: torch.cuda.current_stream(lane.device)
+               for lane in lanes if lane.stream is not None}
+    for lane in lanes:
+        if lane.stream is not None:
+            lane.stream.wait_stream(ambient[lane.device])
+    outs: list = []
+    yield outs
+    for lane in lanes:
+        if lane.stream is not None:
+            ambient[lane.device].wait_stream(lane.stream)
+    for t in outs:
+        if t is not None and t.device in ambient:
+            t.record_stream(ambient[t.device])
+
+
 class _Broadcast(torch.autograd.Function):
     """``lane_broadcast``; backward sums the lanes' grads onto the root in
     lane order (``lane_reduce``)."""
@@ -157,7 +230,9 @@ class _Broadcast(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, *grads):
-        return None, _reduce(grads, ctx.lanes)
+        with _backward_streams(ctx.lanes) as outs:
+            outs.append(_reduce(grads, ctx.lanes))
+        return None, outs[0]
 
 
 class _Reduce(torch.autograd.Function):
@@ -171,7 +246,9 @@ class _Reduce(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
-        return (None, *_broadcast(grad, ctx.lanes))
+        with _backward_streams(ctx.lanes) as outs:
+            outs.extend(_broadcast(grad, ctx.lanes))
+        return (None, *outs)
 
 
 class _Gather(torch.autograd.Function):
@@ -188,7 +265,11 @@ class _Gather(torch.autograd.Function):
     def backward(ctx, grad):
         root = ctx.lanes[0]
         blocks = torch.split(grad, ctx.sizes, dim=ctx.dim)
-        return (None, None, *[_from_root(b, root, lane) for b, lane in zip(blocks, ctx.lanes)])
+        for b, lane in zip(blocks[1:], ctx.lanes[1:]):
+            count("collective-permute", lane, b)
+        with _backward_streams(ctx.lanes) as outs:
+            outs.extend(_from_root(b, root, lane) for b, lane in zip(blocks, ctx.lanes))
+        return (None, None, *outs)
 
 
 def _differentiable(parts) -> bool:
@@ -266,6 +347,7 @@ def ring_rs_matmul(x: ShardedTensor, w: ShardedTensor, axis_name: str) -> Sharde
             moved = [_hop(acc[(j + 1) % p], lanes[ring[(j + 1) % p]], lanes[ring[j]])
                      for j in range(p)]
             for j in range(p):
+                count("collective-permute", lanes[ring[j]], moved[j])
                 with lanes[ring[j]].use():
                     moved[j].add_(chunks[j][(j + 1 + t) % p])
             acc = moved
@@ -306,6 +388,8 @@ def ring_ag_matmul(x: ShardedTensor, w: ShardedTensor, axis_name: str) -> Sharde
             if t < p - 1:
                 buf = [_hop(buf[(j - 1) % p], lanes[ring[(j - 1) % p]], lanes[ring[j]])
                        for j in range(p)]
+                for j in range(p):
+                    count("collective-permute", lanes[ring[j]], buf[j])
         for j, i in enumerate(ring):
             out[i] = res[j]
     return ShardedTensor((x.shape[0], w.shape[1]), out[0].dtype,

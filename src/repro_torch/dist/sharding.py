@@ -35,6 +35,7 @@ Two layers, as in the JAX package:
 from __future__ import annotations
 
 import contextlib
+import contextvars
 import itertools
 import math
 from dataclasses import dataclass
@@ -55,6 +56,7 @@ MIN_SHARD_ELEMS = 2**16
 DEFAULT_FSDP_THRESHOLD = 2**24
 
 _LANE_IDS = itertools.count()
+_CURRENT_LANE: contextvars.ContextVar = contextvars.ContextVar("repro_torch_lane", default=None)
 
 
 # =============================================================================
@@ -62,10 +64,35 @@ _LANE_IDS = itertools.count()
 # =============================================================================
 
 
+def current_lane() -> Optional["Lane"]:
+    """The lane whose :meth:`Lane.use` encloses the caller (None outside
+    any): the production dry run charges each tensor made there to it."""
+    return _CURRENT_LANE.get()
+
+
+@contextlib.contextmanager
+def lane_scope(lane: Optional["Lane"]):
+    """``lane`` as :func:`current_lane` inside, and nothing else (no
+    stream)."""
+    token = _CURRENT_LANE.set(lane)
+    try:
+        yield
+    finally:
+        _CURRENT_LANE.reset(token)
+
+
+def recompute_in_lane():
+    """``context_fn`` of ``torch.utils.checkpoint``: the recompute in
+    backward runs with the forward's :func:`current_lane` (autograd picks
+    its stream, as before)."""
+    return contextlib.nullcontext(), lane_scope(current_lane())
+
+
 class Lane:
     """One entry of a mesh: a device and, on a CUDA device, a stream of its
     own. Lanes compare by identity, so two lanes on one card are two mesh
-    entries whose work queues apart."""
+    entries whose work queues apart. A lane on ``meta`` is a placeholder of
+    the dry run: no stream, no data, a card of its own."""
 
     def __init__(self, device=None) -> None:
         self.device = resolve_device(device)
@@ -74,13 +101,25 @@ class Lane:
         self.stream: Optional[torch.cuda.Stream] = (
             torch.cuda.Stream(self.device) if self.device.type == "cuda" else None)
 
+    @contextlib.contextmanager
     def use(self):
         """Queue the enclosed work on the lane's stream (the current stream
-        is thread-local). No wait edge to the caller's stream, unlike
-        ``DeviceBackend.scope``: lanes run apart, and data that crosses
-        lanes is ordered by :meth:`wait_for`."""
-        s = self.stream
-        return contextlib.nullcontext() if s is None else torch.cuda.stream(s)
+        is thread-local), with this lane as :func:`current_lane`. No wait
+        edge to the caller's stream, unlike ``DeviceBackend.scope``: lanes
+        run apart, and data that crosses lanes is ordered by
+        :meth:`wait_for`."""
+        with lane_scope(self):
+            if self.stream is None:
+                yield
+            else:
+                with torch.cuda.stream(self.stream):
+                    yield
+
+    def shares_memory(self, other: "Lane") -> bool:
+        """Whether a tensor made on ``other`` is read here in place: one
+        device that is not ``meta`` (each placeholder lane of the dry run
+        stands for a card of its own, so data crossing to it is a copy)."""
+        return other is self or (other.device == self.device and self.device.type != "meta")
 
     def wait_for(self, other: "Lane") -> None:
         """Order this lane's later work after what is queued on ``other`` so
@@ -403,13 +442,27 @@ def device_put(tree: Any, shardings: Any) -> Any:
 # =============================================================================
 
 
+ZERO_STRATEGIES = ("none", "zero1", "zero3")
+
+
 @dataclass(frozen=True)
 class MeshInfo:
-    """A lane mesh annotated with which axes carry the batch; the ``model``
-    axis, where the mesh has one, carries tensor parallelism."""
+    """A lane mesh annotated with which axes carry the batch and whether
+    tensor parallelism over the ``model`` axis is on. ``tp_enabled=False``
+    demotes the ``model`` axis to a batch axis (list it in ``batch_axes``):
+    ``model_axis`` is then None and ``model_size`` 1, as JAX's. ``zero``
+    names the training state's placement over the batch axes, as JAX's dry
+    run picks it (``launch/dryrun.py``): ``"zero1"`` shards the AdamW
+    moments, ``"zero3"`` the params too (``train.step.state_shardings``)."""
 
     mesh: Mesh
     batch_axes: tuple[str, ...] = ("data",)
+    tp_enabled: bool = True
+    zero: str = "none"
+
+    def __post_init__(self) -> None:
+        if self.zero not in ZERO_STRATEGIES:
+            raise ValueError(f"zero={self.zero!r}: one of {ZERO_STRATEGIES}")
 
     @property
     def n_devices(self) -> int:
@@ -423,8 +476,12 @@ class MeshInfo:
 
     @property
     def model_axis(self) -> Optional[str]:
-        """The tensor-parallel axis name, or None without one."""
-        return MODEL_AXIS if MODEL_AXIS in self.mesh.axis_names else None
+        """The tensor-parallel axis name, or None when TP is off."""
+        if not self.tp_enabled:
+            return None
+        if MODEL_AXIS not in self.mesh.axis_names or MODEL_AXIS in self.batch_axes:
+            return None
+        return MODEL_AXIS
 
     @property
     def model_size(self) -> int:

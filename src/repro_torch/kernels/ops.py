@@ -3,7 +3,9 @@
 The device of the tensors decides, as ``ops._resolve`` decides by backend
 in the JAX package, but with no mode that could pick the plain version on
 the card: a CPU tensor runs the plain PyTorch version in :mod:`ref`, a CUDA
-tensor runs the hand-written CUDA kernel, anything else raises. The
+tensor runs the hand-written CUDA kernel, anything else raises, except that
+the ops a model step calls trace their plain version on ``meta`` (the
+production dry run, :mod:`repro_torch.launch.dryrun`). The
 quantized store rides the same ops: ``k_scale``/``v_scale`` (f32, one per
 (position, head) row) mark an int8/fp8 cache, widened inside the kernel or
 the plain version, never as a dequantized cache copy. The paged ops take a
@@ -92,6 +94,12 @@ def _on_cuda(t: torch.Tensor) -> bool:
     raise ValueError(f"no kernel path for device {t.device}")
 
 
+def _step_on_cuda(t: torch.Tensor) -> bool:
+    """``_on_cuda`` for the ops a model step calls: on ``meta`` (the dry run's
+    placeholder lanes) they trace their plain version."""
+    return t.device.type != "meta" and _on_cuda(t)
+
+
 def matmul(a, b, *, split_k: Optional[int] = None, block_m: Optional[int] = None,
            block_n: Optional[int] = None):
     """[M, K] @ [K, N] with f32 accumulation, in a's dtype (f32 or bf16; b
@@ -111,7 +119,7 @@ def matmul_q8(a, b_q8, b_scale):
     """[M, K] @ int8 [K, N] times per-output-column f32 scales [N], f32
     accumulation, in a's dtype: the weight stays int8 in memory and is
     widened inside the kernel."""
-    if _on_cuda(a):
+    if _step_on_cuda(a):
         return _matmul_k.matmul_q8(a.contiguous(), b_q8.contiguous(), b_scale.contiguous())
     return ref.matmul_q8(a, b_q8, b_scale)
 
@@ -234,7 +242,7 @@ def gqa_flash_attention(q, k, v, *, causal: bool = True):
     qg = q.reshape(b * kvh, h // kvh, sq, d)
     kf = k.reshape(b * kvh, k.shape[2], d)
     vf = v.reshape(b * kvh, v.shape[2], d)
-    if _on_cuda(q):
+    if _step_on_cuda(q):
         out = _flash_k.gqa_flash_attention(
             qg.contiguous(), kf.contiguous(), vf.contiguous(), causal=causal
         )
@@ -253,7 +261,7 @@ def decode_attention(q, k, v, cur_len, *, window: int = 0, k_scale=None, v_scale
     if h % kvh:
         raise ValueError(f"heads {h} not a multiple of kv heads {kvh}")
     qg = q.reshape(b, kvh, h // kvh, d)
-    if _on_cuda(q):
+    if _step_on_cuda(q):
         out = _decode_k.decode_attention(
             qg.contiguous(), k, v, cur_len, window=window, k_scale=k_scale, v_scale=v_scale
         )
@@ -279,7 +287,7 @@ def ragged_attention(
     if h % kvh:
         raise ValueError(f"heads {h} not a multiple of kv heads {kvh}")
     qg = q.reshape(t, kvh, h // kvh, d)
-    if _on_cuda(q):
+    if _step_on_cuda(q):
         out = _ragged_k.ragged_attention(
             qg.contiguous(), k, v, tok_slot, tok_pos, window=window,
             k_scale=k_scale, v_scale=v_scale,
@@ -303,7 +311,7 @@ def mla_ragged_attention(
     absorbed softmax scale ((nope + rope)**-0.5). ``valid`` optionally passes
     a precomputed ``ref.ragged_valid_mask`` to the plain version. Returns
     [T, H, r]."""
-    if _on_cuda(q_eff):
+    if _step_on_cuda(q_eff):
         return _mla_k.mla_attention(
             q_eff.contiguous(), q_rope.contiguous(), ckv, krope, tok_slot, tok_pos, scale=scale,
         )
@@ -332,7 +340,7 @@ def paged_ragged_attention(
     if h % kvh:
         raise ValueError(f"heads {h} not a multiple of kv heads {kvh}")
     qg = q.reshape(t, kvh, h // kvh, d)
-    if _on_cuda(q):
+    if _step_on_cuda(q):
         out = _paged_k.paged_attention(
             qg.contiguous(), k, v, tok_seq, tok_pos, block_tables, window=window,
             k_scale=k_scale, v_scale=v_scale,
@@ -359,7 +367,7 @@ def paged_decode_attention(
     kvh = k.shape[2]
     if h % kvh:
         raise ValueError(f"heads {h} not a multiple of kv heads {kvh}")
-    if not _on_cuda(q):
+    if not _step_on_cuda(q):
         out = ref.paged_decode_attention(
             q.reshape(b, kvh, h // kvh, d), k, v, cur_len, block_tables, window=window,
             k_scale=k_scale, v_scale=v_scale,

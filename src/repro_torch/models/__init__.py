@@ -5,7 +5,7 @@ hybrid: a Mamba2 stack with a shared attention block) and the bridge from
 JAX params."""
 
 from repro_torch.models.bridge import params_from_jax
-from repro_torch.models.model import LM
+from repro_torch.models.model import LM, input_specs, pad_seq_axis
 from repro_torch.models.quant import quantize_params
 
-__all__ = ["LM", "params_from_jax", "quantize_params"]
+__all__ = ["LM", "input_specs", "pad_seq_axis", "params_from_jax", "quantize_params"]

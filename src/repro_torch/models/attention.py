@@ -51,6 +51,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ArchConfig
 from repro_torch.dist import collectives
 from repro_torch.dist.compression import quantize_rows
+from repro_torch.dist.sharding import recompute_in_lane
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import NEG_INF
 from repro_torch.models.layers import Params, apply_rope, rms_norm
@@ -165,7 +166,8 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, caus
     for start in range(0, k.shape[1], chunk):
         kci, vci = k[:, start:start + chunk], v[:, start:start + chunk]
         if grad:
-            m, l, acc = checkpoint(body, m, l, acc, kci, vci, start, use_reentrant=False)
+            m, l, acc = checkpoint(body, m, l, acc, kci, vci, start, use_reentrant=False,
+                                   context_fn=recompute_in_lane)
         else:
             m, l, acc = body(m, l, acc, kci, vci, start)
     out = acc / torch.clamp_min(l, 1e-30)[..., None]  # [*head, Sq, hd]
@@ -190,22 +192,22 @@ def attention_apply(
     op. With ``return_kv`` (prefill) it also returns the post-RoPE (k, v)
     [B, S, KV, hd] — the decode cache layout — and attention runs through
     ``ops.gqa_flash_attention``: the CUDA flash kernel on the card, its
-    plain version on the CPU. A sliding window is not ported there (the JAX
-    flash kernel has none either)."""
-    if return_kv and cfg.sliding_window:
-        raise NotImplementedError("sliding-window prefill is not ported")
+    plain version on the CPU. A windowed prefill takes the training route
+    (the flash kernels, JAX's and the port's, have no window), as JAX's
+    ``attention_apply`` does."""
     q, k, v = _project(params, cfg, x)
     if positions.ndim == 1:
         positions = positions[None]
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    if not return_kv:
+    if not return_kv or cfg.sliding_window:
         if (impl or cfg.attn_impl) == "dense":
             o = dense_attention(q, k, v, causal=True, window=cfg.sliding_window)
         else:
             o = chunked_attention(q, k, v, causal=True, chunk=cfg.attn_chunk,
                                   window=cfg.sliding_window)
-        return _out_proj(params, o)
+        out = _out_proj(params, o)
+        return (out, (k, v)) if return_kv else out
     # [B,S,H,hd] -> [B,H,S,hd] / [B,KV,S,hd] for the GQA kernel, and back
     o = ops.gqa_flash_attention(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=True

@@ -54,21 +54,24 @@ from __future__ import annotations
 
 import contextlib
 from dataclasses import replace
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.common.tree import tree_map_with_path
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.dist import collectives
 from repro_torch.dist.sharding import (
     MODEL_AXIS,
     MeshInfo,
+    NamedSharding,
     P,
     ShardedTensor,
     lane_blocks,
+    recompute_in_lane,
     serve_cache_shardings,
     stream_scope,
 )
@@ -171,6 +174,8 @@ class LM:
             device = root
         self.device = resolve_device(device)
         self.dtype = getattr(torch, cfg.dtype)
+        # the KV / latent cache's storage (JAX's cache_dtype); SSM states keep theirs
+        self.cache_dtype = getattr(torch, cfg.kv_cache_dtype or cfg.dtype)
         self._views: tuple = (None, [])
         if self.merged:
             n = mesh_info.model_size
@@ -188,9 +193,16 @@ class LM:
 
     # ------------------------------------------------------------------ init
 
-    def init(self, generator: torch.Generator) -> Params:
+    def param_specs(self) -> Params:
+        """The tree :meth:`init` builds, its shapes and dtypes, as empty
+        ``meta`` tensors: nothing is drawn or allocated (JAX's
+        ``param_specs``, the dry run's stand-ins)."""
+        return LM(self.cfg, device="meta").init(None)
+
+    def init(self, generator: Optional[torch.Generator]) -> Params:
         """Random params from ``generator`` (which must live on the model's
-        device), in the JAX package's layout with stacked [L, ...] blocks:
+        device; None on ``meta``, where nothing is drawn), in the JAX
+        package's layout with stacked [L, ...] blocks:
         ``blocks`` (an ssm or hybrid model's ``{"mamba", "norm"}``; a
         hybrid's one ``shared`` attention + MLP block beside them, no L
         axis), or an MoE model's ``dense_blocks`` (the first
@@ -287,7 +299,7 @@ class LM:
         ``kv_dtype`` with all-ones f32 scale leaves [L, *lead, KV]."""
         cfg = self.cfg
         shape = (cfg.n_layers, *lead, cfg.n_kv_heads, cfg.head_dim)
-        dt = self.dtype if kv_dtype is None else kv_dtype
+        dt = self.cache_dtype if kv_dtype is None else kv_dtype
         leaves = {
             "k": torch.zeros(shape, dtype=dt, device=self.device),
             "v": torch.zeros(shape, dtype=dt, device=self.device),
@@ -321,14 +333,14 @@ class LM:
             shape = (cfg.n_layers // cfg.shared_attn_every, batch, max_len, cfg.n_kv_heads,
                      cfg.head_dim)
             return {"mamba": state,
-                    "attn_k": torch.zeros(shape, dtype=self.dtype, device=self.device),
-                    "attn_v": torch.zeros(shape, dtype=self.dtype, device=self.device)}
+                    "attn_k": torch.zeros(shape, dtype=self.cache_dtype, device=self.device),
+                    "attn_v": torch.zeros(shape, dtype=self.cache_dtype, device=self.device)}
         if self.cfg.mla is not None:
             m, L = self.cfg.mla, self.cfg.n_layers
             return {
-                "ckv": torch.zeros((L, batch, max_len, m.kv_lora_rank), dtype=self.dtype,
+                "ckv": torch.zeros((L, batch, max_len, m.kv_lora_rank), dtype=self.cache_dtype,
                                    device=self.device),
-                "krope": torch.zeros((L, batch, max_len, m.rope_head_dim), dtype=self.dtype,
+                "krope": torch.zeros((L, batch, max_len, m.rope_head_dim), dtype=self.cache_dtype,
                                      device=self.device),
             }
         return self._kv_leaves((batch, max_len), kv_dtype)
@@ -404,7 +416,8 @@ class LM:
         return self.forward_rows([params], [batch])[0]
 
     def forward_rows(self, params: list, batches: list, lanes: Optional[list] = None,
-                     whole: bool = False) -> list[tuple[torch.Tensor, torch.Tensor]]:
+                     whole: bool = False, gather: Optional[Callable] = None
+                     ) -> list[tuple[torch.Tensor, torch.Tensor]]:
         """:meth:`forward` for data rows run side by side, block by block:
         row r's params (plain tensors) and batch on ``lanes[r]``, its work on
         that lane's stream. Rows are independent, except that an MoE layer
@@ -414,21 +427,49 @@ class LM:
         remat (the attention, then the routed block); ``whole`` (every row
         holds the whole batch: it did not divide over the rows) routes each
         row alone. One (logits, aux) a row; one row is the one-lane
-        forward."""
+        forward.
+
+        ``gather`` (ZeRO-3, every family but moe: each row holds a block of
+        some leaves) is ``gather(name, blks) -> blks``: each row's entry
+        ``name`` of the params (a layer of the stack ``name``, or ``""`` for
+        the top-level entries) with those leaves made whole on the row's
+        lane. The embedding, final norm and a hybrid's shared block (each
+        read more than once or outside the layers, as JAX's scan closes over
+        them) are gathered once; each layer (a hybrid: each group of Mamba
+        layers) is one rematerialised block over every row that gathers its
+        params inside, so they are whole only while the block runs (again in
+        the recompute), and the gather's backward hands the grads back."""
         cfg = self.cfg
         n = len(params)
         lanes = [None] * n if lanes is None else lanes
 
         def on(r):
-            return contextlib.nullcontext() if lanes[r] is None else lanes[r].use()
+            return _in_lane(lanes[r])
+
+        if gather is not None:
+            if cfg.family == "moe":
+                raise NotImplementedError(f"{cfg.name}: ZeRO-3 of the moe family is not "
+                                          "ported (ROADMAP Queue 1 item 12)")
+            top = [k for k in ("embed", "final_norm", "shared") if k in params[0]]
+            tops = gather("", [{k: p[k] for k in top} for p in params])
+            params = [dict(p, **t) for p, t in zip(params, tops)]
+
+        def blocks(fn, name, i, *extra):
+            """Block ``i`` of the stack ``name``, ``fn(blk, x, *extra)``, for
+            every row on its lane."""
+            blks = [_index(p[name], i) for p in params]
+            if gather is None:
+                for r in range(n):
+                    with on(r):
+                        xs[r] = self._remat(fn, blks[r], xs[r], *[e[r] for e in extra])
+            else:
+                xs[:] = self._remat(self._gathered_rows, fn, gather, name, blks, list(xs),
+                                    lanes, *extra)
 
         xs, pos, auxs = [], [], [[] for _ in range(n)]
         for r in range(n):
             with on(r):
-                if "embeds" in batches[r]:
-                    x = batches[r]["embeds"].to(self.dtype)
-                else:
-                    x = embed_tokens(params[r]["embed"], batches[r]["tokens"])
+                x = self._embed(params[r], batches[r])
                 xs.append(x)
                 pos.append(torch.arange(x.shape[1], dtype=torch.int32, device=x.device))
         if cfg.family in ("dense", "moe"):
@@ -436,9 +477,7 @@ class LM:
                 for i in range(_depth(params[0][name]) if name in params[0] else 0):
                     blks = [_index(p[name], i) for p in params]
                     if "moe" not in blks[0]:
-                        for r in range(n):
-                            with on(r):
-                                xs[r] = self._remat(self._dense_block, blks[r], xs[r], pos[r])
+                        blocks(self._dense_block, name, i, pos)
                         continue
                     if n == 1 or whole:
                         for r in range(n):
@@ -462,13 +501,16 @@ class LM:
                         auxs[r].append(aux)
         elif cfg.family == "ssm":
             for i in range(cfg.n_layers):
-                for r in range(n):
-                    with on(r):
-                        xs[r] = self._remat(self._mamba_block, _index(params[r]["blocks"], i),
-                                            xs[r])
+                blocks(self._mamba_block, "blocks", i)
         else:  # hybrid
             every = cfg.shared_attn_every
             for g in range(cfg.n_layers // every):
+                if gather is not None:
+                    groups = [[_index(p["blocks"], i) for i in range(g * every, (g + 1) * every)]
+                              for p in params]
+                    xs[:] = self._remat(self._gathered_group, gather, groups,
+                                        [p["shared"] for p in params], list(xs), lanes, pos)
+                    continue
                 for r in range(n):
                     group = [_index(params[r]["blocks"], i)
                              for i in range(g * every, (g + 1) * every)]
@@ -483,11 +525,42 @@ class LM:
                 out.append((self._logits(params[r], xs[r]), aux))
         return out
 
+    @staticmethod
+    def _gathered_rows(fn, gather, name: str, blks: list, xs: list, lanes: list, *extra
+                       ) -> tuple:
+        """ZeRO-3's block over every row (rematerialised as one): the rows'
+        params of ``name`` gathered whole, then ``fn`` on each row's lane."""
+        out = []
+        for r, (blk, x) in enumerate(zip(gather(name, blks), xs)):
+            with _in_lane(lanes[r]):
+                out.append(fn(blk, x, *[e[r] for e in extra]))
+        return tuple(out)
+
+    def _gathered_group(self, gather, groups: list, shared: list, xs: list, lanes: list,
+                        pos: list) -> tuple:
+        """ZeRO-3's hybrid group over every row: each layer's params gathered
+        whole, then the group and the (gathered) shared block on each row's
+        lane."""
+        layers = [gather("blocks", [grp[k] for grp in groups]) for k in range(len(groups[0]))]
+        out = []
+        for r, x in enumerate(xs):
+            with _in_lane(lanes[r]):
+                out.append(self._hybrid_group([lay[r] for lay in layers], shared[r], x, pos[r]))
+        return tuple(out)
+
+    def _embed(self, params: Params, batch: dict) -> torch.Tensor:
+        """x [B, S, d]: ``batch["embeds"]`` in the model dtype (an audio or
+        vision front end's frames), else the token embedding."""
+        if "embeds" in batch:
+            return batch["embeds"].to(self.dtype)
+        return embed_tokens(params["embed"], batch["tokens"])
+
     def _remat(self, fn, *args):
         """``fn(*args)``, recomputed in backward under ``cfg.remat == 'block'``
         (nothing of the block's inside is kept across blocks)."""
         if self.cfg.remat == "block" and torch.is_grad_enabled():
-            return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+            return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False,
+                              context_fn=recompute_in_lane)
         return fn(*args)
 
     def _train_attn(self, blk: Params, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
@@ -537,17 +610,18 @@ class LM:
     ) -> tuple[torch.Tensor, Params]:
         """Full-sequence forward that also fills the decode cache.
 
-        batch: {'tokens': [B, S] int}. Returns (logits [B, S, V], cache). With
-        ``cache=None`` a zero cache [L, B, max_len, ...] is allocated, as in
-        the JAX package; otherwise rows 0..S-1 of slots slot..slot+B-1 of
-        ``cache`` are written in place (the engine's fused admission)."""
+        batch: {'tokens': [B, S] int} or {'embeds': [B, S, d]}. Returns
+        (logits [B, S, V], cache). With ``cache=None`` a zero cache [L, B,
+        max_len, ...] is allocated, as in the JAX package; otherwise rows
+        0..S-1 of slots slot..slot+B-1 of ``cache`` are written in place (the
+        engine's fused admission)."""
         cfg = self.cfg
         if cache is not None and "k_scale" in cache:
             raise ValueError("prefill writes an unquantized cache; a quantized cache is "
                              "filled through packed_step")
         if self.merged:
-            return self._merged_prefill(params, batch["tokens"], max_len, cache, slot)
-        x = embed_tokens(params["embed"], batch["tokens"])
+            return self._merged_prefill(params, batch, max_len, cache, slot)
+        x = self._embed(params, batch)
         b, s = x.shape[:2]
         if s > max_len:
             raise ValueError(f"sequence {s} longer than max_len {max_len}")
@@ -629,18 +703,19 @@ class LM:
         self, params: Params, cache: Params, batch: dict, cur_len: torch.Tensor,
         block_tables: Optional[torch.Tensor] = None, active: Optional[torch.Tensor] = None,
     ) -> tuple[torch.Tensor, Params]:
-        """One token for every slot. batch: {'tokens': [B, 1]}; cur_len: [B]
-        int32 tokens already cached. With ``block_tables`` ([B, max_blocks]
-        int32) ``cache`` is a paged pool. ``active`` ([B], ssm and hybrid)
-        names the slots whose recurrent state the step advances; the others
-        keep theirs (None: every slot). Returns (logits [B, 1, V], cache)."""
+        """One token for every slot. batch: {'tokens': [B, 1]} or {'embeds':
+        [B, 1, d]}; cur_len: [B] int32 tokens already cached. With
+        ``block_tables`` ([B, max_blocks] int32) ``cache`` is a paged pool.
+        ``active`` ([B], ssm and hybrid) names the slots whose recurrent
+        state the step advances; the others keep theirs (None: every slot).
+        Returns (logits [B, 1, V], cache)."""
         cfg = self.cfg
         if block_tables is not None and cfg.family in ("ssm", "hybrid"):
             raise ValueError(f"family {self.family_tag!r} has no paged path")
         if self.merged:
-            return self._merged_step(params, cache, batch["tokens"], block_tables,
+            return self._merged_step(params, cache, batch, block_tables,
                                      attn_mod.attention_decode, (cur_len,))
-        x = embed_tokens(params["embed"], batch["tokens"])
+        x = self._embed(params, batch)
         if cfg.family in ("ssm", "hybrid"):
             return self._logits(params, self._recurrent_decode(params, cache, x, cur_len,
                                                                active)), cache
@@ -742,7 +817,7 @@ class LM:
             raise ValueError(f"family {self.family_tag!r} has no packed path")
         if self.merged:
             valid = self._valid_mask(cache, tok_slot, tok_pos, pack_slots, block_tables)
-            return self._merged_step(params, cache, tokens, block_tables,
+            return self._merged_step(params, cache, {"tokens": tokens}, block_tables,
                                      attn_mod.attention_packed,
                                      (tok_slot, tok_pos, valid, pack_slots), out_rows)
         x = embed_tokens(params["embed"], tokens)
@@ -798,9 +873,9 @@ class LM:
             shards = []
             for lane, block in zip(self._lanes, sharding.blocks(shape)):
                 with lane.use():
-                    shards.append(torch.zeros([b - a for a, b in block], dtype=self.dtype,
+                    shards.append(torch.zeros([b - a for a, b in block], dtype=self.cache_dtype,
                                               device=lane.device))
-            out[name] = ShardedTensor(shape, self.dtype, sharding, shards)
+            out[name] = ShardedTensor(shape, self.cache_dtype, sharding, shards)
         return out
 
     def _lane_params(self, params: Params, train: bool = False
@@ -813,7 +888,14 @@ class LM:
         (``train``), views only, built anew under autograd: each lane's block
         of its own shard, so a replicated leaf's grad lands on every replica
         in parts (each lane's block; the norms on the first lane's), which
-        the train step sums; a placement that does not hold the block
+        the train step sums. A leaf the placement split over the ``model``
+        axis on another dim than its block's (a stacked [L, d] norm of
+        ``MIN_SHARD_ELEMS`` or more, which the controller lane applies whole;
+        a head [d, V] split on d where d >= V) is gathered, as GSPMD
+        reshards it: onto the controller lane for a whole leaf
+        (``lane_gather``), onto every lane, each then taking its block,
+        otherwise (``lane_all_gather``); their backward hands each lane its
+        block's grad. Another placement that does not hold the block
         raises."""
         got = self._lane_views_of
         if not train and got[0] is params:
@@ -824,6 +906,15 @@ class LM:
             if not isinstance(leaf, ShardedTensor):
                 raise TypeError("a merged LM reads params placed over its lanes "
                                 "(ShardedBackend.put_params, serve_param_shardings)")
+            want = _lane_spec(path)
+            split = [d for d, e in enumerate(leaf.sharding.spec) if e is not None]
+            if train and len(split) == 1 and tuple(leaf.sharding.spec) != tuple(
+                    want) + (None,) * (len(leaf.sharding.spec) - len(want)):
+                if want == P():
+                    return [collectives.lane_gather(leaf.shards, lanes, split[0])] * len(lanes)
+                whole = collectives.lane_all_gather(leaf.shards, lanes, split[0])
+                blocks = NamedSharding(self.mesh_info.mesh, want).blocks(leaf.shape)
+                return [w[tuple(slice(a, b) for a, b in blk)] for w, blk in zip(whole, blocks)]
             out = []
             for lane, t in zip(lanes, lane_blocks(leaf, _lane_spec(path), strict=train)):
                 if not train and not t.is_contiguous():
@@ -839,13 +930,16 @@ class LM:
             self._lane_views_of = (params, tops, layers)
         return tops, layers
 
+    @contextlib.contextmanager
     def _scope(self):
         """A merged call's work, queued on the controller lane's stream after
         the caller's (where the inputs were made; nothing to wait for under
         ``ShardedBackend.scope``, whose stream it is), the caller's stream
-        waiting for it on the way out."""
+        waiting for it on the way out; the controller lane is the current
+        lane."""
         root = self._lanes[0]
-        return stream_scope(root.stream, root.device)
+        with stream_scope(root.stream, root.device), root.use():
+            yield
 
     def _bcast(self, t: Optional[torch.Tensor]) -> list:
         """A controller-lane tensor on every lane (``lane_broadcast``)."""
@@ -894,10 +988,7 @@ class LM:
                 [{}] * n)[0]
 
         with self._scope():
-            if "embeds" in batch:
-                x = batch["embeds"].to(device=self.device, dtype=self.dtype)
-            else:
-                x = self._merged_embed(tops, batch["tokens"])
+            x = self._merged_input(tops, batch)
             pos = self._bcast(torch.arange(x.shape[1], dtype=torch.int32, device=self.device))
             for li in range(self.cfg.n_layers):
                 x = self._remat(self._merged_layer, layers, li, x, attend)
@@ -908,15 +999,21 @@ class LM:
         hs = self._norm(x, tops[0]["final_norm"])
         return unembed_lanes([top["embed"] for top in tops], hs, self._lanes)
 
-    def _merged_embed(self, tops, tokens: torch.Tensor) -> torch.Tensor:
-        return embed_tokens_lanes([top["embed"]["tok"] for top in tops], self._bcast(tokens),
-                                  self._lanes)
+    def _merged_input(self, tops, batch: dict) -> torch.Tensor:
+        """x on the controller lane: ``batch["embeds"]`` in the model dtype,
+        else the tokens' rows of each lane's vocabulary block, summed."""
+        if "embeds" in batch:
+            with self._lanes[0].use():
+                return batch["embeds"].to(device=self.device, dtype=self.dtype)
+        return embed_tokens_lanes([top["embed"]["tok"] for top in tops],
+                                  self._bcast(batch["tokens"]), self._lanes)
 
-    def _merged_prefill(self, params, tokens, max_len, cache, slot):
+    def _merged_prefill(self, params, batch, max_len, cache, slot):
         """``prefill`` over the lanes: each lane's flash attention over its
         heads writes its K/V rows into its cache shard."""
         tops, layers = self._lane_params(params)
-        b, s = tokens.shape
+        lead = next(iter(batch.values())).shape
+        b, s = lead[0], lead[1]
         if s > max_len:
             raise ValueError(f"sequence {s} longer than max_len {max_len}")
         if cache is None:
@@ -938,10 +1035,10 @@ class LM:
 
         with self._scope():
             pos = self._bcast(torch.arange(s, dtype=torch.int32, device=self.device))
-            x = self._merged_layers(layers, self._merged_embed(tops, tokens), attend)
+            x = self._merged_layers(layers, self._merged_input(tops, batch), attend)
             return self._merged_logits(tops, x), cache
 
-    def _merged_step(self, params, cache, tokens, block_tables, fn, args: tuple,
+    def _merged_step(self, params, cache, batch: dict, block_tables, fn, args: tuple,
                      out_rows: Optional[torch.Tensor] = None):
         """``decode_step`` (``fn`` = attention_decode, ``args`` = (cur_len,))
         or ``packed_step`` (attention_packed over (tok_slot, tok_pos, valid,
@@ -961,10 +1058,15 @@ class LM:
         with self._scope():
             lane_args = list(zip(*[self._bcast(t) for t in args]))
             tables = self._bcast(block_tables)
-            x = self._merged_layers(layers, self._merged_embed(tops, tokens), attend)
+            x = self._merged_layers(layers, self._merged_input(tops, batch), attend)
             if out_rows is not None:
                 x = x[out_rows.long()]
             return self._merged_logits(tops, x), cache
+
+
+def _in_lane(lane):
+    """``lane.use()``, or nothing for no lane (one-lane calls)."""
+    return contextlib.nullcontext() if lane is None else lane.use()
 
 
 def _index(tree: Params, i: int) -> Params:
@@ -977,3 +1079,40 @@ def _depth(tree: Params) -> int:
     """The stacked L of a block stack (its norm1, or a Mamba stack's norm,
     leaf's leading axis)."""
     return tree["norm1" if "norm1" in tree else "norm"].shape[0]
+
+
+def pad_seq_axis(t: torch.Tensor, axis: int, max_len: int) -> torch.Tensor:
+    """Pad axis ``axis`` (the cache sequence axis) up to ``max_len`` with
+    zeros."""
+    cur = t.shape[axis]
+    if cur == max_len:
+        return t
+    return F.pad(t, [0, 0] * (t.ndim - 1 - axis) + [0, max_len - cur])
+
+
+def input_specs(cfg: ArchConfig, shape: ShapeConfig) -> dict:
+    """Model inputs for one (arch x shape) cell as empty ``meta`` tensors
+    (the dry run's stand-ins; nothing is allocated), JAX's shapes and dtypes:
+
+    * train:   {'tokens': (B, S), 'labels': (B, S)}  (int32)
+    * prefill: {'tokens': (B, S)}
+    * decode:  {'tokens': (B, 1)}  (the cache and cur_len are the caller's)
+
+    Audio archs take precomputed frame embeddings (B, S, d_model) in
+    ``cfg.dtype`` in place of 'tokens'; labels stay int32 codes."""
+    b, s = shape.global_batch, shape.seq_len
+
+    def tok_or_embed(n: int) -> dict:
+        if cfg.modality == "audio":
+            return {"embeds": torch.empty((b, n, cfg.d_model), dtype=getattr(torch, cfg.dtype),
+                                          device="meta")}
+        return {"tokens": torch.empty((b, n), dtype=torch.int32, device="meta")}
+
+    if shape.kind == "train":
+        return dict(tok_or_embed(s), labels=torch.empty((b, s), dtype=torch.int32,
+                                                        device="meta"))
+    if shape.kind == "prefill":
+        return tok_or_embed(s)
+    if shape.kind == "decode":
+        return tok_or_embed(1)
+    raise ValueError(shape.kind)

@@ -27,11 +27,12 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
-from repro_torch.common.tree import leaves, tree_map, unflatten
+from repro_torch.common.tree import flatten_with_path, keystr, leaves, tree_map, unflatten
 from repro_torch.configs.base import TrainConfig
 from repro_torch.dist import collectives
 from repro_torch.dist import compression as comp
 from repro_torch.dist.sharding import (
+    DEFAULT_FSDP_THRESHOLD,
     MODEL_AXIS,
     Mesh,
     MeshInfo,
@@ -39,6 +40,7 @@ from repro_torch.dist.sharding import (
     P,
     ShardedTensor,
     device_put,
+    param_shardings,
     serve_param_shardings,
     serving_mesh_info,
 )
@@ -134,8 +136,13 @@ def _row_batches(batch: dict, n_micro: int, n_rows: int) -> list[tuple[list[dict
     """The global batch as ([row] dicts, whole) a microbatch: microbatch i is rows
     i·B/n .. (i+1)·B/n of the batch, as JAX's reshape takes them, and row r
     of it its r-th block, as a batch sharding over the batch axes places
-    it; a microbatch that does not divide over the rows goes whole to each
-    row (JAX then replicates the batch), and ``whole`` says so."""
+    it. A microbatch of m sequences over a multiple of m rows gives row r its
+    sequence r % m (each sequence on n_rows / m rows, as GSPMD lays a
+    batch sharded one a device out over a reshape into microbatches), any
+    other that does not divide goes whole to each row (JAX then replicates
+    the batch); either way every row weighs the same in the mean, and
+    ``whole`` says that a row does not hold its own part (an MoE layer then
+    routes each row alone)."""
     b = next(iter(batch.values())).shape[0]
     if b % n_micro:
         raise ValueError(f"global batch {b} does not split into {n_micro} microbatches")
@@ -143,7 +150,10 @@ def _row_batches(batch: dict, n_micro: int, n_rows: int) -> list[tuple[list[dict
     for i in range(n_micro):
         mb = {k: v.reshape(n_micro, b // n_micro, *v.shape[1:])[i] for k, v in batch.items()}
         m = b // n_micro
-        if m % n_rows:
+        if m < n_rows and n_rows % m == 0:
+            out.append(([{k: v[r % m:r % m + 1] for k, v in mb.items()} for r in range(n_rows)],
+                        True))
+        elif m % n_rows:
             out.append(([mb] * n_rows, True))
         else:
             out.append(([{k: v.reshape(n_rows, m // n_rows, *v.shape[1:])[r]
@@ -154,9 +164,10 @@ def _row_batches(batch: dict, n_micro: int, n_rows: int) -> list[tuple[list[dict
 def lane_rows(info: MeshInfo) -> list[list]:
     """The lanes of a (batch axes..., model) view as data rows, in the batch
     spec's order (the row index is the batch axes' coordinates, major
-    first), each row's lanes in ``model`` order."""
+    first), each row's lanes in ``model`` order; with TP off (``model`` a
+    batch axis) one lane a row."""
     mesh = info.mesh
-    rest = tuple(a for a in mesh.axis_names if a != MODEL_AXIS)
+    rest = tuple(a for a in mesh.axis_names if a != info.model_axis)
     if rest != tuple(info.batch_axes):
         raise ValueError(f"a training view's axes other than {MODEL_AXIS!r} must be its batch "
                          f"axes in order: {mesh.axis_names} against {info.batch_axes}")
@@ -164,6 +175,71 @@ def lane_rows(info: MeshInfo) -> list[list]:
     if info.model_axis is not None:
         grid = np.moveaxis(grid, mesh.axis_names.index(MODEL_AXIS), -1)
     return [list(r) for r in grid.reshape(-1, info.model_size)]
+
+
+# ZeRO over the batch axes (``MeshInfo.zero``, TP off): the element counts
+# from which a leaf's params (zero3) and its AdamW moments (zero1, zero3)
+# are sharded, JAX's dry-run values (``param_shardings(fsdp=True)``)
+ZERO_PARAM_THRESHOLD = DEFAULT_FSDP_THRESHOLD
+ZERO_OPT_THRESHOLD = 2**22
+ZERO_TP_REFUSED = "with tensor parallelism is not ported (ROADMAP Queue 1 item 12)"
+
+
+def state_shardings(state: tuple, info: MeshInfo) -> tuple:
+    """The lane train step's placement of a training state ``(params,
+    AdamWState)`` over ``info``, by the view's strategy (``info.zero``):
+
+    * ``"none"``: ``serve_param_shardings`` over the whole state (moments on
+      their parameter's blocks);
+    * ``"zero1"``: params replicated, each moment leaf of
+      ``ZERO_OPT_THRESHOLD`` elements or more sharded over the batch axes
+      (JAX's ``param_shardings(opt, fsdp=True, fsdp_threshold=2**22)``);
+    * ``"zero3"``: also each param leaf of ``ZERO_PARAM_THRESHOLD`` or more
+      (``param_shardings(params, fsdp=True)``).
+
+    ZeRO with a ``model`` axis over two or more lanes raises
+    ``NotImplementedError`` naming ROADMAP Queue 1 item 12."""
+    if info.zero == "none":
+        return serve_param_shardings(state, info)
+    if info.model_size > 1:
+        raise NotImplementedError(f"{info.zero} over {info.model_size} model lanes "
+                                  f"{ZERO_TP_REFUSED}")
+    params, opt = state
+    p = (param_shardings(params, info, fsdp=True, fsdp_threshold=ZERO_PARAM_THRESHOLD)
+         if info.zero == "zero3" else serve_param_shardings(params, info))
+    return p, param_shardings(opt, info, fsdp=True, fsdp_threshold=ZERO_OPT_THRESHOLD)
+
+
+def _sharded_dim(x: ShardedTensor) -> Optional[int]:
+    """The dim a leaf placed at ZeRO's one sharded dim splits, else None."""
+    return next((d for d, e in enumerate(x.sharding.spec) if e is not None), None)
+
+
+def _gatherer(flat_paths: list, flat: list, lanes) -> tuple[dict, Optional[Callable]]:
+    """(ZeRO-3's sharded leaves: ``keystr`` path -> (dim, dtype); the
+    ``gather`` of ``LM.forward_rows``, None without such a leaf). A sharded
+    leaf's blocks, one a lane in flat order, meet on every lane through
+    ``lane_all_gather`` and are cast to the param's dtype there: the blocks
+    autograd sees are f32, so the gather's backward sums the rows' grads in
+    f32 in lane order, as the replicated step's ``reduce_grads`` does."""
+    dims = {path: (_sharded_dim(x), x.dtype) for path, x in zip(flat_paths, flat)
+            if _sharded_dim(x) is not None}
+
+    def gather(name: str, blks: list) -> list:
+        prefix, stacked = (keystr((name,)), 1) if name else ("", 0)  # a layer of [L, ...]
+        rows = [leaves(b) for b in blks]
+        out = [list(r) for r in rows]
+        for j, (path, _) in enumerate(flatten_with_path(blks[0])):
+            hit = dims.get(prefix + path)
+            if hit is None:
+                continue
+            full = collectives.lane_all_gather([r[j] for r in rows], lanes, hit[0] - stacked)
+            for r, lane in enumerate(lanes):
+                with lane.use():
+                    out[r][j] = full[r].to(hit[1])
+        return [unflatten(b, o) for b, o in zip(blks, out)]
+
+    return dims, (gather if dims else None)
 
 
 def make_lane_train_step(model: LM, tcfg: TrainConfig, info: MeshInfo) -> Callable:
@@ -178,9 +254,9 @@ def make_lane_train_step(model: LM, tcfg: TrainConfig, info: MeshInfo) -> Callab
 
     The step owns the placement: ``params`` and ``opt_state`` come in on any
     placement (plain tensors on one device, a restored checkpoint's) and are
-    placed by ``serve_param_shardings``, params and moments together, unless
-    they are the state this step returned last, which is updated in place
-    and returned. ``batch`` is a dict of global tensors (the loader's) on
+    placed by :func:`state_shardings` (the view's ``zero`` strategy picks
+    the rule), unless they are the state this step returned last, which is
+    updated in place and returned. ``batch`` is a dict of global tensors (the loader's) on
     any device. Each data row of the view (:func:`lane_rows`) takes its
     block of each microbatch: one lane a row runs :meth:`LM.forward_rows`
     side by side (an MoE layer routes the rows' tokens as one batch), a row
@@ -195,8 +271,21 @@ def make_lane_train_step(model: LM, tcfg: TrainConfig, info: MeshInfo) -> Callab
     the first lane, and every lane clips by it and runs AdamW on its
     shards, so the replicas stay equal bit for bit. The metrics are the
     rows' means on the first lane; the caller's stream waits for every
-    lane."""
+    lane.
+
+    ZeRO (TP off, one lane a row): a lane updates the block of each param
+    that its moment block covers; a param held whole beside a sharded
+    moment (zero1) is then all-gathered over the lanes. A zero3 param leaf
+    is a block a lane: each layer's blocks are gathered whole inside the
+    rows' rematerialised block (``LM.forward_rows(gather=)``), the gather's
+    backward sums the rows' grads onto the blocks in f32 in lane order, and
+    the grad norm takes each such leaf whole on the first lane. So at
+    ``grad_accum`` 1 both give the replicated step's bits; with
+    microbatches zero3 sums the rows before the microbatches."""
     check_tensor_parallel(model.cfg, info.model_size, training=True)
+    if info.zero != "none" and info.model_size > 1:
+        raise NotImplementedError(f"{model.cfg.name}: {info.zero} over {info.model_size} model "
+                                  f"lanes {ZERO_TP_REFUSED}")
     lanes = info.mesh.lanes
     index = {id(lane): i for i, lane in enumerate(lanes)}
     row_lanes = lane_rows(info)
@@ -209,7 +298,11 @@ def make_lane_train_step(model: LM, tcfg: TrainConfig, info: MeshInfo) -> Callab
     schedule = warmup_cosine(tcfg)
     n_micro = max(tcfg.grad_accum, 1)
     coef = model.cfg.moe.aux_loss_coef if model.cfg.moe is not None else None
+
+    def paths_of(params) -> list:
+        return [path for path, _ in flatten_with_path(params)]
     last: list = [None, None]  # the state this step returned last
+    zero3: list = [{}, None]  # the placed params' zero3 leaves and their gather
 
     def row_forward(params, src, batches, whole):
         """Each row's (logits, aux), reading the lanes' shards ``src``
@@ -225,13 +318,19 @@ def make_lane_train_step(model: LM, tcfg: TrainConfig, info: MeshInfo) -> Callab
                 out.append(rm.forward(rp, mb))
             return out
         return model.forward_rows([unflatten(params, [s[row[0]] for s in src]) for row in rows],
-                                  batches, roots, whole=whole)
+                                  batches, roots, whole=whole, gather=zero3[1])
 
     def micro_grads(params, batches, whole):
         """(each row's loss and aux, detached; each leaf's grads, one a
         lane) of one microbatch."""
         flat = leaves(params)
-        src = [[t.detach().requires_grad_(True) for t in x.shards] for x in flat]
+        src = []  # the leaves autograd differentiates: each lane's shard (zero3's in f32)
+        for path, x in zip(paths_of(params), flat):
+            src.append([])
+            for t, lane in zip(x.shards, lanes):
+                with lane.use():
+                    t = t.detach().float() if path in zero3[0] else t.detach()
+                    src[-1].append(t.requires_grad_(True))
         batches = [{k: v.to(lane.device, non_blocking=True) for k, v in mb.items()}
                    for mb, lane in zip(batches, roots)]
         _lanes_wait_for_caller(lanes)  # the copies above ran on the caller's streams
@@ -258,7 +357,9 @@ def make_lane_train_step(model: LM, tcfg: TrainConfig, info: MeshInfo) -> Callab
     def train_step(params, opt_state: AdamWState, batch: dict):
         if params is not last[0] or opt_state is not last[1]:
             state = (params, opt_state)
-            params, opt_state = device_put(state, serve_param_shardings(state, info))
+            params, opt_state = device_put(state, state_shardings(state, info))
+            if info.zero == "zero3":
+                zero3[:] = _gatherer(paths_of(params), leaves(params), lanes)
         _lanes_wait_for_caller(lanes)
         flat = leaves(params)
         acc, ms = None, []
@@ -276,19 +377,33 @@ def make_lane_train_step(model: LM, tcfg: TrainConfig, info: MeshInfo) -> Callab
                         part = gl[i].float() / n_micro
                         al[i] = part if al[i] is None else al[i] + part
         reduce_grads(flat, acc, lanes, n_rows)
-        gnorm = lane_grad_norm(flat, acc, lanes)
+        gathered = {j for j, path in enumerate(paths_of(params)) if path in zero3[0]}
+        gnorm = lane_grad_norm(flat, acc, lanes, gathered)
         norms = collectives.lane_broadcast(gnorm, lanes)
+        mus = leaves(opt_state.mu)
+        # each lane's (param, grad) views over its moment block (the whole
+        # shard unless ZeRO split the moments finer than the params)
+        cover = [[_relative(mb, xb) for mb, xb in zip(m.sharding.blocks(m.shape),
+                                                       x.sharding.blocks(x.shape))]
+                 for x, m in zip(flat, mus)]
         opt_metrics = None
         for i, lane in enumerate(lanes):
             with lane.use():
                 om = adamw_update(
-                    unflatten(params, [gl[i] for gl in acc]),
+                    unflatten(params, [gl[i][c[i]] for gl, c in zip(acc, cover)]),
                     AdamWState(opt_state.step.shards[i],
                                *(unflatten(t, [x.shards[i] for x in leaves(t)])
                                  for t in (opt_state.mu, opt_state.nu))),
-                    unflatten(params, [x.shards[i] for x in flat]),
+                    unflatten(params, [x.shards[i][c[i]] for x, c in zip(flat, cover)]),
                     tcfg, schedule, gnorm=norms[i])[2]
             opt_metrics = om if opt_metrics is None else opt_metrics
+        for x, m, c in zip(flat, mus, cover):  # zero1: every lane's replica made whole
+            d = _sharded_dim(m)
+            if d is not None and _sharded_dim(x) is None:
+                whole_x = collectives.lane_gather([t[ci] for t, ci in zip(x.shards, c)], lanes, d)
+                for lane, t, w in zip(lanes, x.shards, collectives.lane_broadcast(whole_x, lanes)):
+                    with lane.use():
+                        t.copy_(w)
         metrics = {}
         for j, k in enumerate(("loss", "aux")):
             per_row = []
@@ -327,13 +442,23 @@ def reduce_grads(flat: list, grads: list, lanes, n_rows: int) -> None:
                 gl[i] = t
 
 
-def lane_grad_norm(flat: list, grads: list, lanes) -> torch.Tensor:
+def lane_grad_norm(flat: list, grads: list, lanes, whole: frozenset = frozenset()
+                   ) -> torch.Tensor:
     """The global norm of reduced grads on the first lane: each distinct
     block once, leaves in JAX's order, each block's sum of squares on its
-    first holder."""
+    first holder; a leaf indexed in ``whole`` (ZeRO-3's one block a lane)
+    gathered whole on the first lane first, so its sum is the replicated
+    leaf's."""
     root = lanes[0]
     total = 0
-    for x, gl in zip(flat, grads):
+    for j, (x, gl) in enumerate(zip(flat, grads)):
+        if j in whole:
+            held = [h[0] for h in _holders(x)]
+            g = collectives.lane_gather([gl[i] for i in held], [lanes[i] for i in held],
+                                        _sharded_dim(x))
+            with root.use():
+                total = total + g.float().square().sum()
+            continue
         for held in _holders(x):
             with lanes[held[0]].use():
                 sq = gl[held[0]].float().square().sum()
@@ -342,6 +467,11 @@ def lane_grad_norm(flat: list, grads: list, lanes) -> torch.Tensor:
                 total = total + sq
     with root.use():
         return torch.sqrt(total)
+
+
+def _relative(block, origin) -> tuple[slice, ...]:
+    """``block``'s slices inside ``origin``, a block that holds it."""
+    return tuple(slice(a - o, b - o) for (a, b), (o, _) in zip(block, origin))
 
 
 def _lanes_wait_for_caller(lanes) -> None:

@@ -146,10 +146,17 @@ def test_decode_write_past_cache_is_clamped(pair):
 
 
 def test_sliding_window_prefill_refused():
+    """A windowed prefill was refused until the port took JAX's route for it
+    (the chunked attention over the window, ``models/attention.py``): it now
+    runs, its logits ``LM.forward``'s bit for bit and its cache filled
+    (``tests/test_torch_embeds.py`` holds both against JAX's)."""
     from dataclasses import replace
 
     cfg = replace(get_arch("codeqwen1.5-7b").reduced(), sliding_window=8)
     m = LM(cfg, device="cpu")
     p = m.init(torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError):
-        m.prefill(p, {"tokens": torch.zeros(1, 4, dtype=torch.int32)}, 16)
+    toks = torch.arange(12, dtype=torch.int32)[None]
+    logits, cache = m.prefill(p, {"tokens": toks}, 16)
+    with torch.no_grad():
+        assert torch.equal(logits, m.forward(p, {"tokens": toks})[0])
+    assert cache["k"][:, 0, :12].abs().sum() > 0 and cache["k"][:, 0, 12:].abs().sum() == 0
